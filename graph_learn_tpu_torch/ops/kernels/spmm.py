@@ -1,0 +1,115 @@
+"""Kernel 2: segment SpMM ``out[i] = reduce_{c < deg[i]} feats[ids[i, c]]``.
+
+Replaces ``graph_learn_tpu/ops/pallas/spmm.py`` ``segment_spmm:76``
+(``_spmm_kernel:27``) for sum / mean / max / min.  It accumulates in f32,
+divides a mean by ``max(deg, 1)`` and writes 0 for an empty (or
+non-finite) max/min row.  The CUDA source is ``csrc/spmm.cu``; its note
+gives the bound (bytes: sum(deg) rows read, [b, D] written) and the design
+(a lane group per output row, f32 accumulators in registers, vector loads).
+
+``out_dtype`` serves the two callers: ``embedding_agg`` writes the
+features' dtype, as the Pallas kernel does; ``gather_group_agg`` writes
+``conf.compute_dtype``.
+
+The wrapper clips ``ids`` into the table and ``degrees`` into [0, cap]
+(as ``graph_learn_tpu/ops/aggregate.py:107-113`` does before the Pallas
+call); the kernel has no bounds checks.  A CUDA tensor launches the kernel
+(or raises); a CPU tensor takes :func:`segment_spmm_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from graph_learn_tpu_torch.errors import InvalidArgumentError
+from graph_learn_tpu_torch.ops.kernels.build import LaunchCounter, library
+
+LAUNCHES = LaunchCounter("segment_spmm")
+AGGS = ("sum", "mean", "max", "min")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def segment_spmm_plain(feats: torch.Tensor, ids: torch.Tensor,
+                       degrees: torch.Tensor, agg: str,
+                       out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version on in-range ``ids`` / ``degrees``: gather, mask, reduce
+    in f32."""
+    b, cap = ids.shape
+    if cap == 0:
+        return torch.zeros((b, feats.shape[1]), dtype=out_dtype,
+                           device=feats.device)
+    g = feats[ids].float()  # [b, cap, D]
+    pos = torch.arange(cap, device=ids.device)[None, :]
+    mask = (pos < degrees[:, None])[..., None]
+    if agg in ("sum", "mean"):
+        s = torch.where(mask, g, 0.0).sum(dim=1)
+        if agg == "mean":
+            s = s / torch.clamp(degrees, min=1)[:, None].float()
+    else:
+        fill = float("-inf") if agg == "max" else float("inf")
+        g = torch.where(mask, g, fill)
+        s = g.amax(dim=1) if agg == "max" else g.amin(dim=1)
+        s = torch.where(torch.isfinite(s), s, 0.0)
+    return s.to(out_dtype)
+
+
+def _lib():
+    fn = library("spmm").glt_segment_spmm
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
+                 degrees: torch.Tensor, agg: str = "sum",
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """feats [N, D] (f32/bf16), ids [b, cap], degrees [b] -> [b, D]."""
+    if agg not in AGGS:
+        raise InvalidArgumentError("unknown aggregation %r (one of %r)"
+                                   % (agg, AGGS))
+    out_dtype = out_dtype or feats.dtype
+    if feats.dim() != 2 or ids.dim() != 2 or degrees.shape != ids.shape[:1]:
+        raise InvalidArgumentError(
+            "segment_spmm: want feats [N, D], ids [b, cap], degrees [b]; got "
+            "%s, %s, %s" % (tuple(feats.shape), tuple(ids.shape),
+                            tuple(degrees.shape)))
+    cap = ids.shape[1]
+    ids = torch.clamp(ids, 0, max(feats.shape[0] - 1, 0)).to(torch.int32)
+    degrees = torch.clamp(degrees, 0, cap).to(torch.int32)
+    if feats.device.type == "cpu" and ids.device.type == "cpu" \
+            and degrees.device.type == "cpu":
+        return segment_spmm_plain(feats, ids, degrees, agg, out_dtype)
+    if not feats.is_cuda or ids.device != feats.device \
+            or degrees.device != feats.device:
+        raise InvalidArgumentError(
+            "segment_spmm: inputs must be on one CUDA device, got %s, %s, %s"
+            % (feats.device, ids.device, degrees.device))
+    if feats.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise InvalidArgumentError(
+            "segment_spmm: float32/bfloat16 only, got %s -> %s"
+            % (feats.dtype, out_dtype))
+    if not feats.is_contiguous():
+        raise InvalidArgumentError("segment_spmm: feats must be contiguous")
+    ids, degrees = ids.contiguous(), degrees.contiguous()
+    b, d = ids.shape[0], feats.shape[1]
+    out = torch.empty((b, d), dtype=out_dtype, device=feats.device)
+    if b == 0 or d == 0:
+        return out
+    fn = _lib()
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        rc = fn(feats.data_ptr(), ids.data_ptr(), degrees.data_ptr(),
+                out.data_ptr(), b, cap, d, _DTYPE_CODE[feats.dtype],
+                _DTYPE_CODE[out_dtype], AGGS.index(agg), stream)
+    if rc != 0:
+        raise RuntimeError("segment_spmm kernel launch failed: CUDA error %d"
+                           % rc)
+    LAUNCHES.add()
+    return out

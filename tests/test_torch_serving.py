@@ -1,0 +1,172 @@
+"""The port's QueryService on the benchmark's 2-hop query shape: answer
+shapes on both sides of the micro-batch, coalescing of concurrent callers,
+features equal to the table rows, and the seed hop equal to the JAX
+package's answer."""
+
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from graph_learn_tpu.online.serving import QueryService as JaxQueryService
+from graph_learn_tpu_torch import QueryService
+from graph_learn_tpu_torch.errors import InvalidArgumentError, NotFoundError
+from graph_learn_tpu_torch.nn.data import DeferredRows, EgoGraph
+from torch_parity import jax_graph, numpy_graph, torch_graph, two_hop
+
+K1, K2, MB = 15, 10, 64
+
+
+@pytest.fixture(scope="module")
+def graph_arrays():
+    return numpy_graph(n=300, avg_degree=6, d=8, isolated=5, seed=4)
+
+
+@pytest.fixture
+def service(graph_arrays):
+    g, _ = torch_graph(graph_arrays)
+    q = two_hop(g, K1, K2, batch=MB)
+    svc = QueryService(g, device="cpu")
+    qid = svc.install(q, micro_batch=MB)
+    yield svc, qid, q
+    svc.close()
+
+
+def _check_answer(a, ans, ids, table):
+    n = ids.size
+    assert ans["src"].ids.shape == (n,)
+    assert ans["hop1"].ids.shape == (n, K1)
+    assert ans["hop2"].ids.shape == (n, K1, K2)
+    np.testing.assert_array_equal(ans["src"].raw_ids.numpy(), ids)
+    for alias in ("src", "hop1", "hop2"):
+        nodes = ans[alias]
+        # feature rows stay deferred until read, over the whole table
+        assert nodes.float_attrs.table is table
+        assert torch.equal(nodes.float_attrs.idx, nodes.ids)
+        assert torch.equal(nodes.float_attrs.materialize(),
+                           table[nodes.ids.long()])
+        np.testing.assert_array_equal(
+            nodes.raw_ids.numpy(), a["raw_ids"][nodes.ids.numpy()])
+    # every sampled id is an out-neighbour, or the fill of a dead end
+    edges = set(zip(a["src"].tolist(), a["dst"].tolist()))
+    outdeg = np.bincount(a["src"], minlength=a["raw_ids"].size)
+    for parent, child in (("src", "hop1"), ("hop1", "hop2")):
+        p = ans[parent].ids.numpy()
+        c = ans[child].ids.numpy()
+        for pi, row in zip(p.reshape(-1), c.reshape(-1, c.shape[-1])):
+            if outdeg[pi] == 0:
+                assert (row == 0).all()
+            else:
+                assert all((int(pi), int(x)) in edges for x in row)
+    # the hop's parents carry their out-degrees
+    np.testing.assert_array_equal(ans["src"].out_degrees.numpy(),
+                                  outdeg[ans["src"].ids.numpy()])
+
+
+@pytest.mark.parametrize("n", [1, 37, MB, 150])
+def test_answer_shapes_and_payload(service, graph_arrays, n):
+    svc, qid, q = service
+    a = graph_arrays
+    ids = np.random.default_rng(n).choice(a["raw_ids"], n)
+    ans = svc.run(qid, ids)
+    table = q.device_tables()["nodes"]["item"].float_attrs
+    _check_answer(a, ans, ids, table)
+
+
+def test_seed_hop_equals_the_jax_service(service, graph_arrays):
+    svc, qid, _ = service
+    jg, _ = jax_graph(graph_arrays)
+    jsvc = JaxQueryService(jg)
+    try:
+        jqid = jsvc.install(two_hop(jg, K1, K2, batch=MB), micro_batch=MB)
+        ids = graph_arrays["raw_ids"][[5, 17, 299, 140, 5]]
+        jans = jsvc.run(jqid, ids)
+        tans = svc.run(qid, ids)
+    finally:
+        jsvc.close()
+    np.testing.assert_array_equal(tans["src"].float_attrs.materialize(),
+                                  np.asarray(jans["src"].float_attrs))
+    for field in ("ids", "raw_ids", "labels", "out_degrees"):
+        np.testing.assert_array_equal(
+            getattr(tans["src"], field).numpy(),
+            np.asarray(getattr(jans["src"], field)), field)
+    for alias in ("hop1", "hop2"):
+        assert tuple(tans[alias].ids.shape) == jans[alias].ids.shape
+
+
+def test_concurrent_callers_are_coalesced(service, graph_arrays):
+    svc, qid, q = service
+    inst = svc._queries[qid]
+    rounds, entered, gate = [], threading.Event(), threading.Event()
+    execute = inst._execute_batch
+
+    def held(ids):
+        # the first round waits until every other caller has queued
+        if not entered.is_set():
+            entered.set()
+            gate.wait(timeout=30)
+        rounds.append(ids.size)
+        return execute(ids)
+
+    inst._execute_batch = held
+    rng = np.random.default_rng(0)
+    reqs = [rng.choice(graph_arrays["raw_ids"], s) for s in (5, 9, 3, 12, 7)]
+    answers = [None] * len(reqs)
+
+    def client(i):
+        answers[i] = svc.run(qid, reqs[i])
+
+    threads = [threading.Thread(target=client, args=(0,))]
+    threads[0].start()
+    assert entered.wait(timeout=30)  # round 1 holds request 0 alone
+    for i in range(1, len(reqs)):
+        threads.append(threading.Thread(target=client, args=(i,)))
+        threads[-1].start()
+    deadline = time.time() + 30
+    while inst._queue.qsize() < len(reqs) - 1 and time.time() < deadline:
+        time.sleep(0.01)
+    gate.set()
+    for t in threads:
+        t.join(timeout=60)
+    # two rounds: the first caller alone, then the four others together
+    assert rounds == [5, 9 + 3 + 12 + 7]
+    table = q.device_tables()["nodes"]["item"].float_attrs
+    for ids, ans in zip(reqs, answers):
+        _check_answer(graph_arrays, ans, ids, table)
+    st = svc.stats(qid)
+    assert set(st) == {"p50_ms", "p99_ms", "qps"}
+    assert st["p99_ms"] >= st["p50_ms"] > 0 and st["qps"] > 0
+
+
+def test_unknown_id_is_reported_and_serving_goes_on(service, graph_arrays):
+    svc, qid, _ = service
+    with pytest.raises(NotFoundError):
+        svc.run(qid, np.array([4]))  # raw ids are 3 * i + 7
+    ans = svc.run(qid, graph_arrays["raw_ids"][:3])
+    assert ans["hop2"].ids.shape == (3, K1, K2)
+
+
+@pytest.mark.parametrize("defer", [True, False])
+def test_from_query_result_gathers_only_what_the_model_reads(service,
+                                                              graph_arrays,
+                                                              defer):
+    svc, qid, q = service
+    ans = svc.run(qid, graph_arrays["raw_ids"][:9])
+    table = q.device_tables()["nodes"]["item"].float_attrs
+    ego = EgoGraph.from_query_result(ans, "src", ["hop1", "hop2"],
+                                     defer_last_table=table if defer else None)
+    assert ego.nbr_nums == (K1, K2)
+    for nodes in [ego.src] + ego.hops[:1 if defer else 2]:
+        assert torch.equal(nodes.float_attrs, table[nodes.ids.long()])
+    if defer:
+        deep = ego.hops[-1].float_attrs
+        assert isinstance(deep, DeferredRows) and deep.table is table
+        assert torch.equal(deep.idx, ans["hop2"].ids)
+
+
+def test_in_v_is_not_yet_ported(service):
+    _, _, q = service
+    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        q.graph.V("item").batch(4).inV("rel")
