@@ -12,8 +12,9 @@ Phases (any failure exits non-zero before the result line):
    process per source, all at once, and print the build time and the
    ptxas register report;
 3. hold each kernel against its plain PyTorch version on the card, over
-   dtypes, widths, ragged sizes and degrees, and time kernel, plain version
-   and one library call at the serving path's shapes;
+   dtypes, widths, ragged sizes and degrees (the GAT block: forward and
+   every gradient), and time kernel, plain version and, where one PyTorch
+   call computes the same function, that call, at the main paths' shapes;
 4. run the serving path at the benchmark's width: the 200k-node / 3.2M-edge
    synthetic graph with bf16 features, the 2-hop EgoSAGE query installed on
    QueryService(micro_batch=1024), several client threads sending raw-id
@@ -23,7 +24,15 @@ Phases (any failure exits non-zero before the result line):
    and logits are checked, and both kernels' launch counters must have
    moved during this phase;
 5. show where one caller's request goes: the host wall of the request and
-   of the forward, and the device time by kernel (torch.profiler).
+   of the forward, and the device time by kernel (torch.profiler);
+6. run the training path on the same graph through LocalTrainer.train
+   (shuffle source, batch 1024, Adam 1e-3): EgoGraphSAGE([128, 256, 32],
+   "gcn") with the deepest hop pre-aggregated outside the gradient, then
+   EgoGAT([128, 256, 32], num_heads=[8, 1]) with every neighbour block on
+   the GAT kernel, forward and backward.  For each: one step's loss and
+   gradients against the same step on the plain versions, every loss
+   finite, parameters moved, launch counters as expected, edges/s and the
+   device-busy share of a step.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -50,7 +59,10 @@ PEAK_F32_OPS_PER_S = 67e12
 N_NODES, AVG_DEGREE, FEAT_DIM, HIDDEN, CLASSES = 200_000, 16, 128, 256, 32
 FANOUT = (15, 10)
 MICRO_BATCH = 1024
-N_CLIENTS, REQUESTS_PER_CLIENT = 8, 32
+N_CLIENTS, REQUESTS_PER_CLIENT = 8, 16
+# Training: steps per measured run (SAGE: two epochs of 20) and Adam's rate
+SAGE_EPOCHS, SAGE_STEPS, GAT_STEPS, LEARNING_RATE = 2, 20, 10, 1e-3
+GAT_HEADS = (8, 1)
 
 
 class SmokeFailure(Exception):
@@ -202,6 +214,170 @@ def check_spmm(torch, spmm):
         "=1e-5; bf16 out rtol=2^-7, atol=1e-5); max abs err %g" % worst)
 
 
+GAT_INPUTS = ("nbr", "wn", "ar", "el", "bn", "ba")
+# gat_block against its plain version: both sum f32 products, in other
+# orders (the kernel never forms nh, see csrc/gat.cu), and the backward's
+# sums across blocks use atomicAdd.  Errors are held relative to the
+# largest reference value of each tensor: 2e-4 for f32, and 2^-7 for a
+# bf16 d_nbr (one bf16 rounding of the f32 sum on either side).
+GAT_TOL = 2e-4
+GAT_TOL_BF16 = 2 ** -7
+
+
+def gat_inputs(torch, gen, b, e, din, h, w, dtype, bias, drop, grad=True):
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    t = dict(nbr=rand(b, e, din).to(dtype), wn=rand(h, din, w,
+                                                    scale=din ** -0.5),
+             ar=rand(h, w, scale=w ** -0.5), el=rand(h, b),
+             bn=rand(h, w) if bias else None, ba=rand(h) if bias else None)
+    if grad:
+        for v in t.values():
+            if v is not None:
+                v.requires_grad_(True)
+    t["drop"] = None
+    if drop:
+        keep = 0.7
+        t["drop"] = (torch.rand((h, b, e), generator=gen, device="cuda")
+                     < keep).float() / keep
+    return t
+
+
+def gat_compare(torch, gat, t, g):
+    """(worst relative error, its name) of gat_block's output and of every
+    input gradient against gat_block_plain on the same tensors."""
+    args = [t[n] for n in GAT_INPUTS] + [t["drop"]]
+    names = [n for n in GAT_INPUTS
+             if t[n] is not None and t[n].requires_grad]
+    leaves = [t[n] for n in names]
+    out = gat.gat_block(*args)
+    grads = torch.autograd.grad(out, leaves, g)
+    ref = gat.gat_block_plain(*args)
+    ref_grads = torch.autograd.grad(ref, leaves, g)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == torch.float32,
+          "gat_block shape/dtype")
+    worst, abs_err = (0.0, "out"), 0.0
+    pairs = [("out", out, ref)] + [("d_" + n, a, r) for n, a, r
+                                   in zip(names, grads, ref_grads)]
+    for name, got, want in pairs:
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              "gat_block %s shape/dtype" % name)
+        check(bool(torch.isfinite(got).all()), "gat_block %s not finite"
+              % name)
+        if got.numel() == 0:
+            continue
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / max(1.0, want.float().abs().max().item())
+        tol = GAT_TOL_BF16 if got.dtype == torch.bfloat16 else GAT_TOL
+        check(rel <= tol, "gat_block %s: max abs err %g, %g of the largest "
+              "reference value (limit %g)" % (name, err, rel, tol))
+        if rel / tol > worst[0]:
+            worst = (rel / tol, name)
+        if name == "out":
+            abs_err = err
+    return worst, abs_err
+
+
+def check_gat(torch, gat):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # the model's three calls at reduced b, then ragged and odd sizes
+    shapes = [(777, 10, 128, 8, 256), (777, 15, 128, 8, 256),
+              (777, 15, 256, 1, 32), (1, 1, 4, 3, 5), (777, 1, 100, 3, 5),
+              (1, 15, 4, 1, 32), (33, 10, 100, 3, 5), (17, 4, 20, 9, 12),
+              (0, 10, 128, 8, 256)]
+    n, worst = 0, (0.0, "")
+    for b, e, din, h, w in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for bias, drop in ((False, False), (True, True)):
+                t = gat_inputs(torch, gen, b, e, din, h, w, dtype, bias, drop)
+                g = torch.randn((h, b, w), generator=gen, device="cuda")
+                try:
+                    (rel, name), _ = gat_compare(torch, gat, t, g)
+                except SmokeFailure as err:
+                    raise SmokeFailure("%s at (b, e, Din, H, W)=%s %s bias=%s "
+                                       "drop=%s" % (err, (b, e, din, h, w),
+                                                    dtype, bias, drop))
+                if rel > worst[0]:
+                    worst = (rel, "%s at %s %s" % (name, (b, e, din, h, w),
+                                                   dtype))
+                n += 1
+    log("gat_block: forward and every gradient (nbr, wn, ar, el, bn, ba) "
+        "match gat_block_plain in %d cases over f32/bf16 nbr, bias and drop "
+        "on/off, (b, e, Din, H, W) in %s; limits %g (f32) and 2^-7 (bf16 "
+        "d_nbr) of each tensor's largest reference value; worst case %.3f of "
+        "its limit (%s)" % (n, shapes, GAT_TOL, worst[0], worst[1]))
+
+
+def measure_gat(torch, gat):
+    """Time gat_block, forward and backward, and its plain version at the
+    training path's largest call: the first layer's deepest hop,
+    (b, e, Din, H, W) = (15 360, 10, 128, 8, 256), f32 rows, no bias and no
+    dropout, gradients for wn, ar and el (the rows there are features: no
+    d_nbr), as the training phase calls it."""
+    k1, k2 = FANOUT
+    b, e, din, h, w = MICRO_BATCH * k1, k2, FEAT_DIM, GAT_HEADS[0], HIDDEN
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t = gat_inputs(torch, gen, b, e, din, h, w, torch.float32, False, False)
+    t["nbr"].requires_grad_(False)
+    g = torch.randn((h, b, w), generator=gen, device="cuda")
+    (rel, name), err = gat_compare(torch, gat, t, g)
+    args = [t[n] for n in GAT_INPUTS] + [None]
+    leaves = [t["wn"], t["ar"], t["el"]]
+    out = gat.gat_block(*args)
+    plain = gat.gat_block_plain(*args)
+
+    def backward(o):
+        return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+    with torch.no_grad():
+        ms = time_ms(lambda: gat.gat_block(*args), iters=20, hold=True)
+        plain_ms = time_ms(lambda: gat.gat_block_plain(*args), iters=10,
+                           warmup=2, hold=True)
+        x2 = t["nbr"].reshape(b * e, din)
+        proj_ms = time_ms(lambda: torch.einsum("nd,hdw->hnw", x2, t["wn"]),
+                          iters=10, warmup=2, hold=True)
+    bwd_ms = time_ms(backward(out), iters=20, hold=True)
+    plain_bwd_ms = time_ms(backward(plain), iters=10, warmup=2, hold=True)
+    # what the function needs: every input read once, every output written
+    # once; the operations of the restructured block (csrc/gat.cu): the
+    # prep, two K-long dots per neighbour row and head (logit, weighted
+    # sum) and the [b, K] x [K, W] product per head
+    k = din
+    io = 4 * (b * e * din + h * din * w + h * w + h * b)
+    fwd_ops = 2 * h * k * w + 4 * h * b * e * k + 2 * h * b * k * w
+    bound_ms, by = bound(io + 4 * h * b * w, fwd_ops)
+    # backward: the forward's inputs and g read, d_wn, d_ar, d_el written;
+    # the forward's attention again, two more products (d_a, d_wn) and two
+    # more dots per row and head (d_q, d_v)
+    bwd_ops = fwd_ops + 2 * h * b * k * w + 4 * h * b * e * k
+    bwd_bound_ms, bwd_by = bound(io + 4 * (h * b * w + h * din * w + h * w
+                                           + h * b), bwd_ops)
+    literal_ops = 2 * b * e * din * h * w
+    row = dict(
+        name="gat_block", route="cuda",
+        source="graph_learn_tpu_torch/csrc/gat.cu",
+        replaces="examples/segment_softmax_probe.py:36",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=by, library_ms=None, bwd_ms=bwd_ms,
+        plain_bwd_ms=plain_bwd_ms, bwd_bound_ms=bwd_bound_ms,
+        bwd_bound_by=bwd_by)
+    log("gat_block at (b, e, Din, H, W)=%s f32: forward %.4f ms (plain "
+        "%.4f, bound %.4f by %s), backward for wn, ar, el %.4f ms (plain "
+        "%.4f, bound %.4f by %s); max abs err of the output %g, worst "
+        "tensor %s at %.3f of its limit (%g of its largest reference value)"
+        % ((b, e, din, h, w), ms, plain_ms, bound_ms, by, bwd_ms,
+           plain_bwd_ms, bwd_bound_ms, bwd_by, err, name, rel, GAT_TOL))
+    log("gat_block reference points: no single PyTorch call computes it "
+        "(library_ms null); the cuBLAS f32 projection einsum nbr . wn alone "
+        "takes %.4f ms; the block taken literally is %.4g operations (%.4f "
+        "ms at the f32 peak), the kernel's restructured form %.4g forward"
+        % (proj_ms, literal_ops, literal_ops / PEAK_F32_OPS_PER_S * 1e3,
+           fwd_ops))
+    return row
+
+
 def measure_kernels(torch, gather, spmm):
     """Time each kernel, its plain version and one library call at the
     serving path's deepest-hop shapes."""
@@ -275,29 +451,31 @@ def measure_kernels(torch, gather, spmm):
 # ---------------------------------------------------------------------------
 
 
-def serving_path(torch, card, gather, spmm):
+def two_hop_query(g, shuffle=False):
+    k1, k2 = FANOUT
+    src = g.V("item").batch(MICRO_BATCH)
+    if shuffle:
+        src = src.shuffle(traverse=True)
+    return (src.alias("src")
+            .outV("rel").sample(k1).by("random").alias("hop1")
+            .outV("rel").sample(k2).by("random").alias("hop2").values())
+
+
+def serving_path(torch, card, g, dec, gather, spmm):
     import graph_learn_tpu_torch as gl
     from graph_learn_tpu_torch.core.values import DeferredRows
     from graph_learn_tpu_torch.nn.data import EgoGraph
     from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    gl.conf.feature_dtype = "bfloat16"
     k1, k2 = FANOUT
     t0 = time.perf_counter()
-    g, dec = gl.synthetic_graph(N_NODES, AVG_DEGREE, FEAT_DIM, CLASSES,
-                                seed=0, device="cuda")
-    q = (g.V("item").batch(MICRO_BATCH).alias("src")
-         .outV("rel").sample(k1).by("random").alias("hop1")
-         .outV("rel").sample(k2).by("random").alias("hop2").values())
+    q = two_hop_query(g)
     svc = gl.QueryService(g, device="cuda")
     qid = svc.install(q, micro_batch=MICRO_BATCH)
     table = q.device_tables()["nodes"]["item"].float_attrs
     model = EgoGraphSAGE([FEAT_DIM, HIDDEN, CLASSES], dec, agg_type="gcn",
                          device="cuda")
-    model.eval()
-    log("graph (%d nodes, %d edges) built and installed in %.1f s"
+    log("query installed, tables (%d nodes, %d edges) on the card in %.1f s"
         % (N_NODES, N_NODES * AVG_DEGREE, time.perf_counter() - t0))
 
     def forward(ans):
@@ -422,6 +600,16 @@ def serving_path(torch, card, gather, spmm):
     return launches
 
 
+def device_ms_by_kernel(prof):
+    """{kernel name: device ms} summed over a torch.profiler run."""
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
+    return by_kernel
+
+
 def where_the_time_goes(torch, card, svc, qid, forward):
     """One caller, full micro-batches: the host wall of a request and of the
     forward, then the device time by kernel from torch.profiler over the
@@ -448,11 +636,7 @@ def where_the_time_goes(torch, card, svc, qid, forward):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms, _ = host_ms(lambda: forward(svc.run(qid, ids)))
-    by_kernel = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
+    by_kernel = device_ms_by_kernel(prof)
     busy = sum(by_kernel.values()) / n_req
     log("one caller, %d requests of %d seeds, median per request on the "
         "host clock: svc.run %.3f ms, forward %.3f ms, both %.3f ms (%.3f ms "
@@ -467,13 +651,176 @@ def where_the_time_goes(torch, card, svc, qid, forward):
         log("  device %.4f ms per request: %s" % (ms / n_req, name[:90]))
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the training path at the benchmark's width
+# ---------------------------------------------------------------------------
+
+HOPS = ["hop1", "hop2"]
+# One training step on the kernels against the same step on the plain
+# versions (plain indexing for every hop's rows, the conv's own mean or
+# gat_block_plain): f32 throughout, sums in other orders, and the GAT
+# backward's atomicAdd.  The loss within 1e-4 relative; each gradient
+# within 1e-3 of its largest reference value.
+STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-3
+
+
+def training_path(torch, card, g, dec, gather, spmm, gat):
+    """Both model families through LocalTrainer.train; returns the launch
+    counts of the two measured runs."""
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch.nn import data as gdata
+    from graph_learn_tpu_torch.nn.layers import ego as ego_layers
+    from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+    from torch.profiler import ProfilerActivity, profile
+
+    k1, k2 = FANOUT
+    edges_per_step = MICRO_BATCH * (k1 + k1 * k2)
+    q = two_hop_query(g, shuffle=True)
+    table = q.device_tables()["nodes"]["item"].float_attrs
+    dims = [FEAT_DIM, HIDDEN, CLASSES]
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
+                "gat_block": gat.LAUNCHES_FWD,
+                "gat_block_bwd": gat.LAUNCHES_BWD}
+
+    def pre_aggregate(batch, tables):
+        return gdata.pre_aggregate_hop(
+            batch, "hop2", tables["nodes"]["item"].float_attrs, op="mean")
+
+    def loss_of(model, batch):
+        ego = gdata.EgoGraph.from_query_result(batch, "src", HOPS)
+        return supervised_softmax_loss(model(ego, training=True),
+                                       batch["src"].labels)
+
+    def plain_batch(batch):
+        """The same batch with every hop's rows taken by plain indexing."""
+        return {a: v.replace(float_attrs=table[v.ids.long()])
+                for a, v in batch.items()}
+
+    def loss_and_grads(model, batch):
+        loss = loss_of(model, batch)
+        return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+    def one_step_against_plain(name, model, transform):
+        # a batch from the Dataset: queued ahead on its side stream
+        ds = gl.Dataset(q, window=2, transform=transform, device="cuda")
+        batch = ds.next()
+        loss, grads = loss_and_grads(model, batch)
+        kernel_block = ego_layers.gat_block
+        ego_layers.gat_block = gat.gat_block_plain
+        try:
+            ref_loss, ref_grads = loss_and_grads(model, plain_batch(batch))
+        finally:
+            ego_layers.gat_block = kernel_block
+        torch.cuda.synchronize()
+        lerr = abs(loss.item() - ref_loss.item())
+        check(lerr <= STEP_LOSS_RTOL * abs(ref_loss.item()),
+              "%s: loss %g on the kernels, %g on the plain versions"
+              % (name, loss.item(), ref_loss.item()))
+        worst = 0.0
+        for (pname, _), got, want in zip(model.named_parameters(), grads,
+                                         ref_grads):
+            rel = ((got - want).abs().max().item()
+                   / max(want.abs().max().item(), 1e-12))
+            check(rel <= STEP_GRAD_TOL, "%s: gradient of %s off by %g of its "
+                  "largest value" % (name, pname, rel))
+            worst = max(worst, rel)
+        log("%s: one step on the kernels against the plain versions: loss "
+            "%.6f vs %.6f (limit %g relative), worst gradient error %.3g of "
+            "the tensor's largest value (limit %g)"
+            % (name, loss.item(), ref_loss.item(), STEP_LOSS_RTOL, worst,
+               STEP_GRAD_TOL))
+
+    def run(name, model, transform, epochs, steps, expect):
+        losses = []
+
+        def loss_fn(model, batch, generator, training):
+            loss = loss_of(model, batch)
+            losses.append(loss.detach())
+            return loss
+
+        one_step_against_plain(name, model, transform)
+        opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+        tr = LocalTrainer(seed=0, device="cuda")
+
+        def train(n_epochs, n_steps):
+            t0 = time.perf_counter()
+            _, hist = tr.train(q, model, loss_fn, opt, epochs=n_epochs,
+                               steps_per_epoch=n_steps, verbose=False,
+                               batch_transform=transform)
+            torch.cuda.synchronize()
+            return hist, time.perf_counter() - t0
+
+        train(1, 3)  # warm-up, not counted
+        before = [p.detach().clone() for p in model.parameters()]
+        del losses[:]
+        for c in counters.values():
+            c.reset()
+        hist, wall = train(epochs, steps)
+        launches = {k: c.count for k, c in counters.items()}
+        n = epochs * steps
+        check(len(losses) == n and len(hist) == epochs, "%s: %d losses, %d "
+              "epochs" % (name, len(losses), len(hist)))
+        check(bool(torch.isfinite(torch.stack(losses)).all())
+              and all(np.isfinite(hist)), "%s: a loss is not finite" % name)
+        check(all(not torch.equal(a, p.detach()) and
+                  bool(torch.isfinite(p).all())
+                  for a, p in zip(before, model.parameters())),
+              "%s: a parameter did not move or is not finite" % name)
+        want = {k: v * n for k, v in expect.items()}
+        check(launches == want, "%s: launches %s, expected %s"
+              % (name, launches, want))
+        step_ms = wall / n * 1e3
+        # the device's share of a step: device time by kernel under the
+        # profiler over the wall measured without it
+        n_prof = 5
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, prof_wall = train(1, n_prof)
+        by_kernel = device_ms_by_kernel(prof)
+        busy = sum(by_kernel.values()) / n_prof
+        log("%s: %d steps of batch %d through LocalTrainer.train in %.3f s: "
+            "%.3f ms per step on the host clock (%.3f ms under the "
+            "profiler), %.4g edges/s; per-epoch mean loss %s; launches %s; "
+            "device busy %.3f ms per step (%.1f%% of the step; card: %s)"
+            % (name, n, MICRO_BATCH, wall, step_ms, prof_wall / n_prof * 1e3,
+               edges_per_step / step_ms * 1e3,
+               ["%.4f" % x for x in hist], launches, busy,
+               100.0 * busy / step_ms, card))
+        if not by_kernel:
+            log("torch.profiler recorded no device time: busy share not "
+                "measured")
+        for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            log("  device %.4f ms per step: %s" % (ms / n_prof, kname[:90]))
+        return launches
+
+    sage = EgoGraphSAGE(dims, dec, agg_type="gcn", device="cuda")
+    sage_launches = run(
+        "EgoGraphSAGE %s gcn, deepest hop pre-aggregated" % dims, sage,
+        pre_aggregate, SAGE_EPOCHS, SAGE_STEPS,
+        {"gather_rows": 2, "segment_spmm": 1, "gat_block": 0,
+         "gat_block_bwd": 0})
+    gat_model = EgoGAT(dims, dec, num_heads=list(GAT_HEADS), device="cuda")
+    gat_launches = run(
+        "EgoGAT %s heads %s" % (dims, list(GAT_HEADS)), gat_model, None, 1,
+        GAT_STEPS, {"gather_rows": 3, "segment_spmm": 0, "gat_block": 3,
+                    "gat_block_bwd": 3})
+    return sage_launches, gat_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from graph_learn_tpu_torch.ops.kernels import build, gather, spmm
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch.ops.kernels import build, gat, gather, spmm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gl.conf.feature_dtype = "bfloat16"
 
     card = card_line()
     print(card, flush=True)
@@ -490,13 +837,31 @@ def main() -> int:
 
     check_gather(torch, gather)
     check_spmm(torch, spmm)
+    check_gat(torch, gat)
     rows = measure_kernels(torch, gather, spmm)
+    rows["gat_block"] = measure_gat(torch, gat)
 
-    launches = serving_path(torch, card, gather, spmm)
+    t0 = time.perf_counter()
+    g, dec = gl.synthetic_graph(N_NODES, AVG_DEGREE, FEAT_DIM, CLASSES,
+                                seed=0, device="cuda")
+    log("graph (%d nodes, %d edges) built in %.1f s"
+        % (N_NODES, N_NODES * AVG_DEGREE, time.perf_counter() - t0))
+    launches = serving_path(torch, card, g, dec, gather, spmm)
+    sage_launches, gat_launches = training_path(torch, card, g, dec, gather,
+                                                spmm, gat)
+    # `launches`: the serving phase for the serving path's two kernels, the
+    # EgoGAT training run for the GAT block; each phase starts from zero
     kernels = []
     for name in ("gather_rows", "segment_spmm"):
         rows[name]["launches"] = launches[name]
+        rows[name]["train_launches"] = (sage_launches[name]
+                                        + gat_launches[name])
         kernels.append(rows[name])
+    rows["gat_block"]["launches"] = gat_launches["gat_block"]
+    rows["gat_block"]["bwd_launches"] = gat_launches["gat_block_bwd"]
+    check(gat_launches["gat_block"] > 0 and gat_launches["gat_block_bwd"] > 0,
+          "gat_block was never launched by the training path")
+    kernels.append(rows["gat_block"])
 
     print(json.dumps({"kernels": kernels}))
     print(card)

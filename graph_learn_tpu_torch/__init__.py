@@ -1,20 +1,25 @@
 """graph_learn_tpu_torch: the PyTorch/CUDA port of graph_learn_tpu.
 
-The serving path of the 2-hop EgoSAGE pipeline (graph store, GSL sampling,
-feature gathers, deepest-hop group mean, EgoGraphSAGE forward, QueryService)
-on an NVIDIA H100, with hand-written CUDA kernels for the feature gather and
-the segment SpMM (``ops/kernels``, sources in ``csrc/``).  Entry points run
-on the card unless the caller passes ``device="cpu"``.
+The 2-hop ego pipeline (graph store, GSL sampling, feature gathers,
+deepest-hop group mean, EgoGraphSAGE and EgoGAT) served by ``QueryService``
+and trained by ``nn.trainer.LocalTrainer`` over ``Dataset`` / ``Traverser``
+on an NVIDIA H100, with hand-written CUDA kernels for the feature gather,
+the segment SpMM and the fused GAT neighbour block, forward and backward
+(``ops/kernels``, sources in ``csrc/``).  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.core.store import EdgeTable, NodeTable
 from graph_learn_tpu_torch.errors import (DeviceUnavailableError, GLError,
-                                          InvalidArgumentError, NotFoundError)
+                                          InvalidArgumentError, NotFoundError,
+                                          OutOfRangeError)
 from graph_learn_tpu_torch.graph import Graph, synthetic_graph
+from graph_learn_tpu_torch.gsl.dataset import Dataset
 from graph_learn_tpu_torch.online.serving import QueryService
 
 __all__ = ["conf", "Decoder", "EdgeTable", "NodeTable", "Graph",
-           "synthetic_graph", "QueryService", "GLError",
-           "InvalidArgumentError", "NotFoundError", "DeviceUnavailableError"]
+           "synthetic_graph", "QueryService", "Dataset", "GLError",
+           "InvalidArgumentError", "NotFoundError", "OutOfRangeError",
+           "DeviceUnavailableError"]

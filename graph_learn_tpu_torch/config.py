@@ -1,4 +1,4 @@
-"""Global configuration flags read by the ported serving path.
+"""Global configuration flags read by the ported serving and training paths.
 
 A copy of the subset of ``graph_learn_tpu/config.py`` that this package
 reads.  There is no ``use_pallas`` counterpart: on the card the hand-written
@@ -18,11 +18,17 @@ class _Config:
     feature_dtype: str = "float32"
     # dtype that encoders and deepest-hop reductions compute in
     compute_dtype: str = "float32"
-    # seed of the serving tier's sampling generator
+    # default seed of the sampling generators (serving, Dataset, trainer)
     seed: int = 0
     # "full" also builds the reverse (dst -> src) CSR on the device;
     # "minimal" builds only the forward CSR
     storage_profile: str = "full"
+    # batches a Dataset queues ahead of its reader (reference
+    # DatasetCapacity)
+    dataset_capacity: int = 10
+    # where the graph tables live: only "device" is ported; "host" (tables
+    # in host RAM, batches shipped to the card) raises until it is
+    storage_device: str = "device"
 
 
 conf = _Config()

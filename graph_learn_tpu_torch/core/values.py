@@ -43,6 +43,12 @@ class TensorStruct:
         return self.replace(**changes)
 
 
+def map_result(fn: Callable[[torch.Tensor], Any], out: dict) -> dict:
+    """Apply ``fn`` to every batch tensor of a {alias: value} result."""
+    return {a: v.map(fn) if isinstance(v, TensorStruct) else fn(v)
+            for a, v in out.items()}
+
+
 @dataclasses.dataclass
 class Nodes(TensorStruct):
     """A batch of nodes (possibly fanout-shaped)."""

@@ -18,6 +18,7 @@ import torch
 
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.core.store import EdgeTable, GraphStore, NodeTable
+from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -58,6 +59,9 @@ class Graph:
     def V(self, t: str):
         from graph_learn_tpu_torch.gsl.query import v_entry
         return v_entry(self, t)
+
+    def E(self, edge_type: str):
+        raise InvalidArgumentError("E() sources are not yet ported")
 
 
 def synthetic_graph(n_nodes: int, avg_degree: int, feat_dim: int,

@@ -1,7 +1,7 @@
 """GSL query -> eager device plan.
 
 Counterpart of ``graph_learn_tpu/gsl/compile.py`` ``Query:51``,
-``device_tables:77``, ``_execute:156`` and the ``source_v`` and
+``source_space:69``, ``device_tables:77``, ``_execute:156`` and the ``source_v`` and
 ``out_v`` + ``random`` branches of ``_exec_node:172`` / ``_exec_hop:249``.
 PyTorch runs eagerly, so there is no jit: ``_execute`` walks the DAG once
 per call.  Each hop's feature rows stay deferred (ops/lookup.py) until a
@@ -38,13 +38,20 @@ class _Rec:
 class Query:
     """A finished GSL query: runs the plan on the graph's device tables."""
 
-    def __init__(self, dag: Dag):
+    def __init__(self, dag: Dag, post_func=None):
         self.dag = dag
         self.graph = dag.graph
+        self.post_func = post_func
         src = dag.nodes[0]
         if src.kind != "source_v":
             raise InvalidArgumentError("query must start at V()")
         self.source = src
+
+    def source_space(self):
+        """(size, kind) of the seed space; node sources only (``E()`` is
+        not yet ported and raises when the query is built)."""
+        ns = self.graph.store.node_set(self.source.node_type)
+        return ns.indices.size, "node"
 
     def device_tables(self, device: Optional[DeviceLike] = None):
         """The node and edge tables the plan reads, on ``device`` (default:

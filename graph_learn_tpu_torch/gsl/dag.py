@@ -1,8 +1,8 @@
 """GSL query builder: the fluent traversal DAG.
 
 Counterpart of ``graph_learn_tpu/gsl/dag.py`` for the kinds this slice
-runs: ``g.V(t).batch(b).alias('src').outV(e).sample(k).by('random')
-.alias('hop1')...values()``.  Other hops (``inV``, edges, negatives,
+runs: ``g.V(t).batch(b).shuffle().alias('src').outV(e).sample(k)
+.by('random').alias('hop1')...values(func)``.  Other hops (``inV``, edges, negatives,
 walks, subgraphs) and other strategies are not yet ported and raise when
 the query is built.
 """
@@ -70,6 +70,15 @@ class DagNode:
         if self.kind != "source_v":
             raise InvalidArgumentError(".batch() only on V() sources")
         self.dag.batch_size = int(batch_size)
+        self.strategy = "by_order"
+        return self
+
+    def shuffle(self, traverse: bool = False) -> "DagNode":
+        """Seeds in random order: one permutation per epoch with
+        ``traverse``, else uniform with replacement (an endless epoch)."""
+        if self.kind != "source_v":
+            raise InvalidArgumentError(".shuffle() only on V() sources")
+        self.strategy = "shuffle" if traverse else "random"
         return self
 
     def sample(self, count: int) -> "DagNode":
@@ -88,9 +97,11 @@ class DagNode:
         self.strategy = strategy
         return self
 
-    def values(self):
+    def values(self, func=None):
+        """Finish the query; ``func`` post-processes each batch that
+        ``Dataset.next()`` returns."""
         from graph_learn_tpu_torch.gsl.compile import Query
-        return Query(self.dag)
+        return Query(self.dag, post_func=func)
 
     def outV(self, edge_type: str) -> "DagNode":
         return DagNode(self.dag, "out_v", self, edge_type=edge_type)

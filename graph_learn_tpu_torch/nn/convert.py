@@ -1,12 +1,18 @@
-"""Weight carry-over from the JAX package's flax models.
+"""Weight carry-over to and from the JAX package's flax models.
 
 ``load_flax_params(model, params)`` copies the params of a flax
-``EgoGraphSAGE`` (``graph_learn_tpu/nn/models/ego_gnn.py:126``), given as
-the nested dict of numpy arrays that ``model.init`` / training produce,
-into the port's ``EgoGNN``.  The flax tree is
+``EgoGraphSAGE`` or ``EgoGAT`` (``graph_learn_tpu/nn/models/ego_gnn.py:126,
+140``), given as the nested dict of numpy arrays that ``model.init`` /
+training produce, into the port's ``EgoGNN``; ``to_flax_params(model)`` is
+the inverse, so that weights trained in either package can be compared.
+The flax tree is
 
-    params/layers_<i>/convs_0/trans_nodes/{kernel, bias?}
+    params/layers_<i>/convs_0/trans_nodes/{kernel, bias?}       (SAGE)
+    params/layers_<i>/convs_0/{x_<h>, n_<h>, attn_<h>}/{kernel, bias?}
+                                  (GAT; n_<h> only with hetero dims)
     params/encoder/proj/{kernel, bias?}      (only with an output_dim)
+
+Each Dense of a conv is a ``torch.nn.Linear`` child of the same name.
 
 ``EgoLayer`` shares one conv across its hop pairs, so each layer holds a
 single ``convs_0`` whatever its pair count.  A flax ``Dense`` kernel is
@@ -55,27 +61,49 @@ def _load_dense(linear: nn.Linear, tree: Dict, path, used):
             used.add(path + ("bias",))
 
 
-def load_flax_params(model: nn.Module, params: Dict) -> nn.Module:
-    """Copy flax ``EgoGraphSAGE`` params into the port's ``EgoGNN``."""
-    tree = params["params"] if "params" in params else params
-    used: Set[Tuple[str, ...]] = set()
+def _denses(model: nn.Module):
+    """(flax path, Linear) of every Dense the flax tree of ``model`` holds."""
     for i, layer in enumerate(model.layers):
         convs = layer.convs[:1] if layer.share else layer.convs
         for j, conv in enumerate(convs):
-            path = ("layers_%d" % i, "convs_%d" % j, "trans_nodes")
-            sub = tree
-            for key in path:
-                if key not in sub:
-                    raise InvalidArgumentError(
-                        "flax params lack %s" % "/".join(path))
-                sub = sub[key]
-            _load_dense(conv.trans_nodes, sub, path, used)
+            for name, child in conv.named_children():
+                if isinstance(child, nn.Linear):
+                    yield ("layers_%d" % i, "convs_%d" % j, name), child
     proj = getattr(model.encoder, "proj", None)
     if proj is not None:
-        _load_dense(proj, tree["encoder"]["proj"], ("encoder", "proj"), used)
+        yield ("encoder", "proj"), proj
+
+
+def load_flax_params(model: nn.Module, params: Dict) -> nn.Module:
+    """Copy flax ``EgoGraphSAGE`` / ``EgoGAT`` params into the port's
+    ``EgoGNN``."""
+    tree = params["params"] if "params" in params else params
+    used: Set[Tuple[str, ...]] = set()
+    for path, linear in _denses(model):
+        sub = tree
+        for key in path:
+            if key not in sub:
+                raise InvalidArgumentError(
+                    "flax params lack %s" % "/".join(path))
+            sub = sub[key]
+        _load_dense(linear, sub, path, used)
     extra = _leaves(tree) - used
     if extra:
         raise InvalidArgumentError(
             "flax params not carried over: %s"
             % sorted("/".join(p) for p in extra))
     return model
+
+
+def to_flax_params(model: nn.Module) -> Dict:
+    """The port's ``EgoGNN`` weights as the flax tree (numpy arrays), the
+    inverse of :func:`load_flax_params`."""
+    tree: Dict = {}
+    for path, linear in _denses(model):
+        sub = tree
+        for key in path:
+            sub = sub.setdefault(key, {})
+        sub["kernel"] = linear.weight.detach().cpu().numpy().T.copy()
+        if linear.bias is not None:
+            sub["bias"] = linear.bias.detach().cpu().numpy().copy()
+    return {"params": tree}

@@ -1,9 +1,11 @@
-"""EgoGNN: hop-list folding over EgoLayers, and ``EgoGraphSAGE``.
+"""EgoGNN: hop-list folding over EgoLayers, ``EgoGraphSAGE`` and ``EgoGAT``.
 
 Counterpart of ``graph_learn_tpu/nn/models/ego_gnn.py``
-``_encoder_commutes:27``, ``EgoGNN:47`` and ``EgoGraphSAGE:126``.  A
-deepest hop carrying ``DeferredRows`` is reduced straight from the table
-by Kernel 2 (``gather_group_agg``) when the conv and the encoder allow it.
+``_encoder_commutes:27``, ``EgoGNN:47``, ``EgoGraphSAGE:126`` and
+``EgoGAT:140``.  A deepest hop carrying ``DeferredRows`` is reduced
+straight from the table by Kernel 2 (``gather_group_agg``) when the conv
+and the encoder allow it; attention needs every neighbour's row, so under
+an ``EgoGATConv`` the deferred rows are gathered instead (Kernel 1).
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.nn.data import (DeferredRows, EgoGraph,
                                            PreAggregatedRows)
 from graph_learn_tpu_torch.nn.feature_column import FeatureEncoder
-from graph_learn_tpu_torch.nn.layers.ego import (EgoLayer, EgoSAGEConv,
-                                                 init_linear)
+from graph_learn_tpu_torch.nn.layers.ego import (EgoGATConv, EgoLayer,
+                                                 EgoSAGEConv, init_linear)
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -101,18 +103,16 @@ class EgoGNN(nn.Module):
         return torch.where(mask, x / keep, 0.0)
 
 
-def EgoGraphSAGE(dims: Sequence[int], decoder: Decoder,
-                 agg_type: str = "gcn", act: Callable = torch.relu,
-                 dropout: float = 0.0, device: DeviceLike = "cuda",
-                 generator: Optional[torch.Generator] = None) -> EgoGNN:
-    """dims[0] must equal the encoder output dim.  Weights are drawn on the
-    CPU from ``generator`` (default: seeded with 0), then moved to
-    ``device``."""
+def _build(make_conv: Callable[[int], nn.Module], n_layers: int,
+           decoder: Decoder, act: Callable, dropout: float,
+           device: DeviceLike,
+           generator: Optional[torch.Generator]) -> EgoGNN:
+    """One shared conv per layer (``make_conv(i)``) over its hop pairs.
+    Weights are drawn on the CPU from ``generator`` (default: seeded with
+    0), then moved to ``device``."""
     dev = resolve_device(device)
-    layers = []
-    for i in range(len(dims) - 1):
-        conv = EgoSAGEConv(dims[i], dims[i + 1], agg_type=agg_type)
-        layers.append(EgoLayer([conv] * (len(dims) - 1 - i)))
+    layers = [EgoLayer([make_conv(i)] * (n_layers - i))
+              for i in range(n_layers)]
     model = EgoGNN(layers, FeatureEncoder(decoder), act=act, dropout=dropout)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -120,3 +120,28 @@ def EgoGraphSAGE(dims: Sequence[int], decoder: Decoder,
         if isinstance(m, nn.Linear):
             init_linear(m, generator)
     return model.to(dev)
+
+
+def EgoGraphSAGE(dims: Sequence[int], decoder: Decoder,
+                 agg_type: str = "gcn", act: Callable = torch.relu,
+                 dropout: float = 0.0, device: DeviceLike = "cuda",
+                 generator: Optional[torch.Generator] = None) -> EgoGNN:
+    """dims[0] must equal the encoder output dim."""
+    return _build(
+        lambda i: EgoSAGEConv(dims[i], dims[i + 1], agg_type=agg_type),
+        len(dims) - 1, decoder, act, dropout, device, generator)
+
+
+def EgoGAT(dims: Sequence[int], decoder: Decoder,
+           num_heads: Optional[Sequence[int]] = None,
+           attn_dropout: float = 0.0, act: Callable = torch.relu,
+           dropout: float = 0.0, seed_chunk: Optional[int] = None,
+           device: DeviceLike = "cuda",
+           generator: Optional[torch.Generator] = None) -> EgoGNN:
+    """``num_heads[i]`` attention heads in layer i (default 1 each)."""
+    return _build(
+        lambda i: EgoGATConv(dims[i], dims[i + 1],
+                             num_head=num_heads[i] if num_heads else 1,
+                             attn_dropout=attn_dropout,
+                             seed_chunk=seed_chunk),
+        len(dims) - 1, decoder, act, dropout, device, generator)

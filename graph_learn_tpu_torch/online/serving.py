@@ -30,17 +30,11 @@ import numpy as np
 import torch
 
 from graph_learn_tpu_torch.config import conf
-from graph_learn_tpu_torch.core.values import TensorStruct
+from graph_learn_tpu_torch.core.values import TensorStruct, map_result
 from graph_learn_tpu_torch.gsl.compile import Query, _execute
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 _SHUTDOWN = object()
-
-
-def _map_result(fn, out: dict) -> dict:
-    """Apply ``fn`` to every tensor of a {alias: value} result."""
-    return {a: v.map(fn) if isinstance(v, TensorStruct) else fn(v)
-            for a, v in out.items()}
 
 
 class _Pending:
@@ -93,7 +87,7 @@ class InstalledQuery:
             raise p.error
         if self._stream is not None:
             caller = torch.cuda.current_stream(self.device)
-            _map_result(lambda x: x.record_stream(caller), p.result)
+            map_result(lambda x: x.record_stream(caller), p.result)
         return p.result
 
     def _serve_loop(self):
@@ -128,7 +122,7 @@ class InstalledQuery:
             off = 0
             for p in batch:
                 lo, hi = off, off + p.ids.size
-                p.result = _map_result(lambda x: x[lo:hi], out)
+                p.result = map_result(lambda x: x[lo:hi], out)
                 off = hi
             ok = True
         except Exception as e:  # deliver to the callers, keep serving
@@ -158,7 +152,7 @@ class InstalledQuery:
                                  self._generator))
         out = outs[0] if len(outs) == 1 else {
             a: _cat([o[a] for o in outs]) for a in outs[0]}
-        out = _map_result(lambda x: x[:n], out)
+        out = map_result(lambda x: x[:n], out)
         if self._stream is not None:
             self._stream.synchronize()
         return out

@@ -6,7 +6,9 @@ gives the bound (bytes: M rows read at random, M rows written) and the
 design (a lane group per row, 16-byte vector copies, no index padding).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
-:func:`gather_rows_plain`, the same function in plain PyTorch.
+:func:`gather_rows_plain`, the same function in plain PyTorch.  Like the
+Pallas kernel it has no backward, so a table that requires a gradient is
+refused rather than silently cut out of the graph.
 """
 
 from __future__ import annotations
@@ -39,6 +41,10 @@ def _lib():
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table [N, D] (f32 or bf16), idx [M] int32 in [0, N) -> [M, D]."""
+    if table.requires_grad:
+        raise InvalidArgumentError(
+            "gather_rows has no backward (feature tables are not "
+            "parameters): the table must not require a gradient")
     if table.device.type == "cpu" and idx.device.type == "cpu":
         return gather_rows_plain(table, idx)
     if not table.is_cuda or idx.device != table.device:

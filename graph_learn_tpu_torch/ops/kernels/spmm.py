@@ -14,7 +14,9 @@ features' dtype, as the Pallas kernel does; ``gather_group_agg`` writes
 The wrapper clips ``ids`` into the table and ``degrees`` into [0, cap]
 (as ``graph_learn_tpu/ops/aggregate.py:107-113`` does before the Pallas
 call); the kernel has no bounds checks.  A CUDA tensor launches the kernel
-(or raises); a CPU tensor takes :func:`segment_spmm_plain`.
+(or raises); a CPU tensor takes :func:`segment_spmm_plain`.  Like the
+Pallas kernel it has no backward: ``feats`` that require a gradient are
+refused rather than silently cut out of the graph.
 """
 
 from __future__ import annotations
@@ -71,6 +73,10 @@ def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
                  degrees: torch.Tensor, agg: str = "sum",
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """feats [N, D] (f32/bf16), ids [b, cap], degrees [b] -> [b, D]."""
+    if feats.requires_grad:
+        raise InvalidArgumentError(
+            "segment_spmm has no backward (feature tables are not "
+            "parameters): feats must not require a gradient")
     if agg not in AGGS:
         raise InvalidArgumentError("unknown aggregation %r (one of %r)"
                                    % (agg, AGGS))

@@ -13,8 +13,6 @@ from graph_learn_tpu.core.schema import Decoder as JaxDecoder
 from graph_learn_tpu.core.values import Nodes as JaxNodes
 from graph_learn_tpu.nn import data as jdata
 from graph_learn_tpu.nn.models.ego_gnn import EgoGraphSAGE as JaxEgoGraphSAGE
-from graph_learn_tpu.ops.aggregate import \
-    gather_group_agg as jax_gather_group_agg
 from graph_learn_tpu.ops.lookup import lookup_nodes as jax_lookup_nodes
 from graph_learn_tpu_torch import Decoder, QueryService
 from graph_learn_tpu_torch.core.values import Nodes
@@ -22,10 +20,9 @@ from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.nn import data as tdata
 from graph_learn_tpu_torch.nn.convert import load_flax_params
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
-from graph_learn_tpu_torch.ops.aggregate import gather_group_agg
 from graph_learn_tpu_torch.ops.kernels import spmm
-from torch_parity import (both_confs, jax_graph, numpy_graph, torch_graph,
-                          two_hop)
+from torch_parity import (both_confs, ego_pair, jax_graph, numpy_graph,
+                          torch_graph, two_hop)
 
 AGG_TYPES = ("gcn", "mean", "sum", "max")
 # f32 throughout; the two frameworks sum the products and the fanout means
@@ -37,30 +34,10 @@ def _numpy_params(params):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def _ego_pair(d, mode, agg_type, b=6, k1=3, k2=4, seed=3):
+def _ego_pair(d, mode, agg_type):
     """The same 2-hop batch as a JAX EgoGraph and a port EgoGraph; the
     deepest hop materialised, deferred or pre-aggregated."""
-    rng = np.random.default_rng(seed)
-    table = rng.standard_normal((120, d)).astype(np.float32)
-    shapes = ((b,), (b, k1), (b, k1, k2))
-    ids = [rng.integers(0, 120, s).astype(np.int32) for s in shapes]
-    jt, tt = jnp.asarray(table), torch.from_numpy(table)
-    jn = [JaxNodes(ids=jnp.asarray(i), float_attrs=jt[i], type_name="item")
-          for i in ids]
-    tn = [Nodes(ids=torch.from_numpy(i), float_attrs=tt[torch.from_numpy(i)],
-                type_name="item") for i in ids]
-    op = "mean" if agg_type == "gcn" else agg_type
-    if mode == "deferred":
-        jn[2] = jn[2].replace(float_attrs=jdata.DeferredRows(jt, jn[2].ids))
-        tn[2] = tn[2].replace(float_attrs=tdata.DeferredRows(tt, tn[2].ids))
-    elif mode == "preagg":
-        jn[2] = jn[2].replace(float_attrs=jdata.PreAggregatedRows(
-            jax_gather_group_agg(jt, jn[2].ids, op=op), op))
-        tn[2] = tn[2].replace(float_attrs=tdata.PreAggregatedRows(
-            gather_group_agg(tt, tn[2].ids, op=op), op))
-    jego = jdata.EgoGraph(src=jn[0], hops=jn[1:], nbr_nums=(k1, k2))
-    tego = tdata.EgoGraph(src=tn[0], hops=tn[1:], nbr_nums=(k1, k2))
-    return jego, tego
+    return ego_pair(d, mode, "mean" if agg_type == "gcn" else agg_type)[:2]
 
 
 def _models(d, agg_type, dims_tail=(32, 4)):

@@ -13,8 +13,10 @@ import pytest
 import torch
 
 import graph_learn_tpu_torch as glt
-from graph_learn_tpu_torch.errors import DeviceUnavailableError
-from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+from graph_learn_tpu_torch.errors import (DeviceUnavailableError,
+                                          InvalidArgumentError)
+from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
+from graph_learn_tpu_torch.nn.trainer import LocalTrainer
 from graph_learn_tpu_torch.ops.kernels import build
 from torch_parity import numpy_graph, torch_graph, two_hop
 
@@ -67,7 +69,8 @@ def no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["graph", "graph_cuda0", "service", "model",
-                                   "node_table", "edge_table"])
+                                   "node_table", "edge_table", "gat_model",
+                                   "trainer", "dataset"])
 def test_entry_points_raise_without_a_card(no_card, entry):
     a = numpy_graph(n=30, d=4)
     g, dec = torch_graph(a)  # device="cpu" works without a card
@@ -78,6 +81,9 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "model": lambda: EgoGraphSAGE([4, 8, 2], dec),
         "node_table": lambda: g.store.node_table("item").device(),
         "edge_table": lambda: g.store.edge_table("rel").device(),
+        "gat_model": lambda: EgoGAT([4, 8, 2], dec, num_heads=[2, 1]),
+        "trainer": lambda: LocalTrainer(),
+        "dataset": lambda: glt.Dataset(two_hop(g, 2, 2, batch=8)),
     }
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         calls[entry]()
@@ -92,6 +98,29 @@ def test_cpu_service_works_without_a_card(no_card):
     finally:
         svc.close()
     assert ans["hop2"].ids.shape == (2, 2, 2)
+
+
+def test_cpu_trainer_and_dataset_work_without_a_card(no_card):
+    g, dec = torch_graph(numpy_graph(n=30, d=4))
+    q = two_hop(g, 2, 2, batch=8)
+    assert glt.Dataset(q, device="cpu").next()["hop2"].ids.shape == (8, 2, 2)
+    model = EgoGraphSAGE([4, 8, 4], dec, device="cpu")
+    ids = LocalTrainer(device="cpu").evaluate(
+        q, model, lambda m, b: b["src"].ids.float())
+    assert ids == pytest.approx(14.5)  # the mean of 0..29
+
+
+@pytest.mark.parametrize("call", ["train", "evaluate"])
+def test_the_host_tier_is_refused_until_it_is_ported(call):
+    g, dec = torch_graph(numpy_graph(n=30, d=4))
+    q = two_hop(g, 2, 2, batch=8)
+    model = EgoGraphSAGE([4, 8, 4], dec, device="cpu")
+    tr = LocalTrainer(device="cpu")
+    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        if call == "train":
+            tr.train(q, model, None, None, tier="host")
+        else:
+            tr.evaluate(q, model, None, tier="host")
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

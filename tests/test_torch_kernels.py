@@ -154,6 +154,25 @@ def test_wrappers_refuse_non_cpu_tensors_without_a_kernel(call):
     assert (gather.LAUNCHES.count, spmm.LAUNCHES.count) == before
 
 
+@pytest.mark.parametrize("call", ["gather", "feature_gather", "spmm",
+                                  "group_agg"])
+def test_wrappers_refuse_a_table_that_requires_a_gradient(call):
+    # neither kernel has a backward (the Pallas kernels have none): a
+    # table inside the graph must raise, not silently lose its gradient
+    table = torch.zeros((10, 4), requires_grad=True)
+    idx = torch.zeros((3, 2), dtype=torch.int32)
+    deg = torch.ones(3, dtype=torch.int32)
+    calls = {
+        "gather": lambda t: gather.gather_rows(t, idx[:, 0].contiguous()),
+        "feature_gather": lambda t: feature_gather(t, idx),
+        "spmm": lambda t: spmm.segment_spmm(t, idx, deg),
+        "group_agg": lambda t: gather_group_agg(t, idx),
+    }
+    with pytest.raises(InvalidArgumentError, match="gradient"):
+        calls[call](table)
+    calls[call](table.detach())  # the same table outside the graph is fine
+
+
 def test_segment_spmm_rejects_unknown_aggregation():
     feats, ids, deg = _spmm_inputs(8)
     with pytest.raises(InvalidArgumentError):

@@ -96,3 +96,95 @@ def both_confs(**fields):
     finally:
         for c, k, v in old:
             setattr(c, k, v)
+
+
+def degree_one_graph(n: int = 40, d: int = 8, classes: int = 3,
+                     seed: int = 0) -> Dict[str, np.ndarray]:
+    """Arrays of a graph where every node has exactly one out-edge, so that
+    neighbour sampling is deterministic in both packages.  Labels follow
+    the features (argmax of the first ``classes`` columns), so a model can
+    learn them."""
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((n, d), np.float32)
+    return {
+        "raw_ids": np.arange(n, dtype=np.int64) * 3 + 7,
+        "feats": feats,
+        "labels": feats[:, :classes].argmax(axis=1).astype(np.int32),
+        "src": np.arange(n), "dst": rng.permutation(n),
+        "weights": None,
+    }
+
+
+def flax_grad_tree(model) -> Dict:
+    """The gradients of the port's EgoGNN parameters as the flax tree:
+    ``layers.0.convs.0.x_0.weight`` -> params/layers_0/convs_0/x_0/kernel,
+    transposed as a flax Dense kernel is (``nn/convert.py to_flax_params``
+    gives the parameters themselves)."""
+    tree: Dict = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            path = ["layers_" + parts[1], "convs_" + parts[3]] + parts[4:-1]
+        else:
+            path = parts[:-1]
+        sub = tree
+        for key in path:
+            sub = sub.setdefault(key, {})
+        a = p.grad.cpu().numpy()
+        sub["kernel" if parts[-1] == "weight" else "bias"] = (
+            a.T.copy() if parts[-1] == "weight" else a.copy())
+    return {"params": tree}
+
+
+def assert_trees_close(got: Dict, want: Dict, path: str = "", **tol):
+    """Two nested dicts of arrays: same keys, allclose leaves."""
+    assert sorted(got) == sorted(want), (path, sorted(got), sorted(want))
+    for k in want:
+        if isinstance(want[k], dict):
+            assert_trees_close(got[k], want[k], path + "/" + k, **tol)
+        else:
+            np.testing.assert_allclose(
+                np.asarray(got[k]), np.asarray(want[k]),
+                err_msg=path + "/" + k, **tol)
+
+
+def ego_pair(d: int, mode: str = "materialised", op: str = "mean",
+             b: int = 6, k1: int = 3, k2: int = 4, classes: int = 4,
+             seed: int = 3):
+    """The same 2-hop batch as a JAX EgoGraph and a port EgoGraph, plus its
+    int32 labels [b]; the deepest hop ``materialised``, ``deferred``
+    (DeferredRows) or ``preagg`` (PreAggregatedRows reduced with ``op``)."""
+    import jax.numpy as jnp
+    import torch
+
+    from graph_learn_tpu.core.values import Nodes as JaxNodes
+    from graph_learn_tpu.nn import data as jdata
+    from graph_learn_tpu.ops.aggregate import \
+        gather_group_agg as jax_gather_group_agg
+    from graph_learn_tpu_torch.core.values import Nodes
+    from graph_learn_tpu_torch.nn import data as tdata
+    from graph_learn_tpu_torch.ops.aggregate import gather_group_agg
+
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((120, d)).astype(np.float32)
+    ids = [rng.integers(0, 120, s).astype(np.int32)
+           for s in ((b,), (b, k1), (b, k1, k2))]
+    labels = rng.integers(0, classes, b).astype(np.int32)
+    jt, tt = jnp.asarray(table), torch.from_numpy(table)
+    jn = [JaxNodes(ids=jnp.asarray(i), float_attrs=jt[i], type_name="item")
+          for i in ids]
+    tn = [Nodes(ids=torch.from_numpy(i), float_attrs=tt[torch.from_numpy(i)],
+                type_name="item") for i in ids]
+    if mode == "deferred":
+        jn[2] = jn[2].replace(float_attrs=jdata.DeferredRows(jt, jn[2].ids))
+        tn[2] = tn[2].replace(float_attrs=tdata.DeferredRows(tt, tn[2].ids))
+    elif mode == "preagg":
+        jn[2] = jn[2].replace(float_attrs=jdata.PreAggregatedRows(
+            jax_gather_group_agg(jt, jn[2].ids, op=op), op))
+        tn[2] = tn[2].replace(float_attrs=tdata.PreAggregatedRows(
+            gather_group_agg(tt, tn[2].ids, op=op), op))
+    else:
+        assert mode == "materialised", mode
+    return (jdata.EgoGraph(src=jn[0], hops=jn[1:], nbr_nums=(k1, k2)),
+            tdata.EgoGraph(src=tn[0], hops=tn[1:], nbr_nums=(k1, k2)),
+            labels)
