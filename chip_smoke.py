@@ -13,8 +13,9 @@ Phases (any failure exits non-zero before the result line):
    ptxas register report;
 3. hold each kernel against its plain PyTorch version on the card, over
    dtypes, widths, ragged sizes and degrees (the GAT block: forward and
-   every gradient), and time kernel, plain version and, where one PyTorch
-   call computes the same function, that call, at the main paths' shapes;
+   every gradient; the sweep kernel with its prep's invariants), and time
+   kernel, plain version and, where one PyTorch call computes the same
+   function, that call, at the main paths' shapes;
 4. run the serving path at the benchmark's width: the 200k-node / 3.2M-edge
    synthetic graph with bf16 features, the 2-hop EgoSAGE query installed on
    QueryService(micro_batch=1024), several client threads sending raw-id
@@ -32,7 +33,25 @@ Phases (any failure exits non-zero before the result line):
    the GAT kernel, forward and backward.  For each: one step's loss and
    gradients against the same step on the plain versions, every loss
    finite, parameters moved, launch counters as expected, edges/s and the
-   device-busy share of a step.
+   device-busy share of a step;
+7. answer a "full" sampling query (cap 32) on the same graph through
+   QueryService and reduce its SparseNodes with the segment SpMM kernel on
+   ragged degrees; check an edge_weight and a topk query for true
+   neighbours (topk: the heaviest edges first);
+8. run the sweep-aggregate harness (examples/sweep_aggregate.py) at its
+   full shape, 2 457 600 x 128 f32 with 153 600 hits in groups of 10: bar,
+   prep, stream, sweep and total, then the sweep and stream kernels, their
+   plain versions and the library call on the same shape;
+9. run the 62M-edge frontier path (examples/scale_demo.py) at the published
+   sizes, 2 450 000 nodes, 62 000 000 edges, 100 bf16 features, batch 1024,
+   fanout [15, 10], EgoGraphSAGE([100, 256, 47]), steps cut to 30 after 3
+   of warm-up: host build seconds, bytes on the card, one step against the
+   plain versions, step wall, edges/s, device-busy share and launches per
+   step; the same run with conf.sorted_gather on (the deepest hop on the
+   sweep kernel instead of the segment SpMM kernel), its first-step loss
+   held to the unsorted run's, the two routes run in the order unsorted,
+   sorted, sorted, unsorted because the host clock drifts; and the
+   kernels' times at that table.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -41,6 +60,7 @@ just before them.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -87,67 +107,16 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters=50, warmup=5, hold=False) -> float:
-    """Mean time of one call over ``iters`` back-to-back calls, between two
-    CUDA events.  Without ``hold`` the host launches as the card runs, so a
-    call that is quicker on the card than on the host is timed at the
-    host's launch rate.  With ``hold`` the stream first spins while the host
-    queues every call, so the result is the card's time alone.  The spin
-    starts at about 20 ms; when the host took longer than the spin to queue
-    the calls (a slow or busy host), the measurement is taken again with a
-    spin of twice the host's queueing time, and the run fails if three
-    tries never held the card.  Keep ``iters`` times the launches of one
-    call well below the CUDA launch queue's depth (about a thousand), or
-    the host blocks on the full queue whatever the spin."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    spin_cycles = 40_000_000
-    tries = []
-    for _ in range(3 if hold else 1):
-        held = torch.cuda.Event(enable_timing=True)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if hold:
-            held.record()
-            torch.cuda._sleep(spin_cycles)
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        end.record()
-        end.synchronize()
-        if not hold:
-            return start.elapsed_time(end) / iters
-        spin_ms = held.elapsed_time(start)
-        if enqueue_ms < spin_ms:
-            return start.elapsed_time(end) / iters
-        tries.append("%.2f ms to queue, %.2f ms spin" % (enqueue_ms, spin_ms))
-        log("timing: the host took %s; again with a longer spin" % tries[-1])
-        spin_cycles = int(spin_cycles * 2.0 * enqueue_ms / spin_ms)
-    raise SmokeFailure("timing: the host took longer to queue %d calls than "
-                       "the card spun, in every try: %s"
-                       % (iters, "; ".join(tries)))
+    """Mean card time of one call (utils/timing.py time_ms: with ``hold``
+    the stream spins while the host queues the calls)."""
+    from graph_learn_tpu_torch.utils import timing
+    return timing.time_ms(fn, iters=iters, warmup=warmup, hold=hold, log=log)
 
 
 def time_cold_ms(fn, iters=20) -> float:
-    """Median device time of one call after the L2 was flushed (a 256 MiB
-    write, over five times the H100's 50 MB L2); one call per pair of
-    events, so its launch is included."""
-    import torch
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    """Median device time of one call after an L2 flush (utils/timing.py)."""
+    from graph_learn_tpu_torch.utils import timing
+    return timing.time_cold_ms(fn, iters=iters)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -212,6 +181,83 @@ def check_spmm(torch, spmm):
     log("segment_spmm: sum/mean/max/min, bf16/f32 in, f32/in-dtype out, "
         "D in {128, 100}, degrees 0..cap within tolerance (f32 out rtol=atol"
         "=1e-5; bf16 out rtol=2^-7, atol=1e-5); max abs err %g" % worst)
+
+
+def check_sweep(torch, sweep):
+    """Kernel 4 against sweep_aggregate_plain and Kernel 5 against
+    stream_sum_plain and a float64 column sum, with sweep_prep's hit list
+    held to its invariants."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n_rows, k = 20_011, 10  # not a multiple of either slab size
+    worst4 = worst5 = 0.0
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (128, 100, 7):
+            table = torch.randn((n_rows, d), generator=gen, device="cuda",
+                                dtype=torch.float32).to(dtype)
+            for R in (4096, 1024):
+                # all rows; a narrow range (many duplicate rows, most slabs
+                # empty); no hit at all
+                for n, hi in ((15_360, n_rows), (4_000, 300), (0, n_rows)):
+                    flat = torch.randint(0, hi, (n,), generator=gen,
+                                         device="cuda", dtype=torch.int32)
+                    groups = n // k
+                    starts, packed = sweep.sweep_prep(flat, k, n_rows, R)
+                    n_slabs = -(-n_rows // R)
+                    check(starts.shape == (n_slabs + 1,)
+                          and packed.shape == (n,)
+                          and starts.dtype == packed.dtype == torch.int32,
+                          "sweep_prep shapes/dtypes")
+                    check(int(starts[0]) == 0 and int(starts[-1]) == n
+                          and bool((starts[1:] >= starts[:-1]).all()),
+                          "sweep_prep: starts do not run from 0 to N")
+                    rows, grp = sweep.unpack_hits(starts, packed, R)
+                    check(bool((rows[1:] >= rows[:-1]).all())
+                          and torch.equal(rows, flat.long().sort().values),
+                          "sweep_prep: the hits are not the sorted rows")
+                    check(torch.equal(grp.sort().values, torch.arange(
+                        n, device="cuda") // k), "sweep_prep: group ids")
+                    out = sweep.sweep_aggregate(starts, packed, table,
+                                                groups, R)
+                    ref = sweep.sweep_aggregate_plain(starts, packed, table,
+                                                      groups, R)
+                    torch.cuda.synchronize()
+                    check(out.shape == (groups, d)
+                          and out.dtype == torch.float32,
+                          "sweep_aggregate shape/dtype")
+                    err = ((out - ref).abs().max().item() if n else 0.0)
+                    # k f32 terms per group, added in an order that changes
+                    # from run to run (atomics): rtol = atol = 1e-5
+                    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
+                          "sweep_aggregate %s D=%d R=%d N=%d: max err %g"
+                          % (dtype, d, R, n, err))
+                    worst4 = max(worst4, err)
+                    cases += 1
+            for rows_ in (n_rows, 1, 0):
+                t = table[:rows_].contiguous()
+                out = sweep.stream_sum(t)
+                ref = sweep.stream_sum_plain(t)
+                exact = t.sum(0, dtype=torch.float64)
+                limit = 1e-6 * t.abs().sum(0, dtype=torch.float64)
+                torch.cuda.synchronize()
+                check(out.shape == (1, d) and out.dtype == torch.float32,
+                      "stream_sum shape/dtype")
+                err = (out[0].double() - exact).abs()
+                # n_rows f32 terms in another order than any reference:
+                # held to 1e-6 of the column's sum of magnitudes (f64 sum)
+                check(bool((err <= limit).all()) and torch.allclose(
+                    out, ref, rtol=1e-4, atol=1e-6 * float(
+                        t.abs().sum(0).max()) if rows_ else 0.0),
+                    "stream_sum %s D=%d rows=%d: max err %g"
+                    % (dtype, d, rows_, err.max().item() if d else 0.0))
+                worst5 = max(worst5, float(err.max()) if rows_ else 0.0)
+    log("sweep_aggregate: %d cases within rtol=atol=1e-5 of "
+        "sweep_aggregate_plain over bf16/f32, D in {128, 100, 7}, R in "
+        "{4096, 1024}, %d table rows, duplicate rows, empty slabs, N=0 "
+        "(max abs err %g); sweep_prep: starts[0]=0, starts[-1]=N, hits are "
+        "the sorted rows; stream_sum: within 1e-6 of each column's sum of "
+        "magnitudes of a float64 sum, rows in {%d, 1, 0} (max abs err %g)"
+        % (cases, n_rows, worst4, n_rows, worst5))
 
 
 GAT_INPUTS = ("nbr", "wn", "ar", "el", "bn", "ba")
@@ -601,11 +647,15 @@ def serving_path(torch, card, g, dec, gather, spmm):
 
 
 def device_ms_by_kernel(prof):
-    """{kernel name: device ms} summed over a torch.profiler run."""
+    """{kernel name: device ms} summed over a torch.profiler run.  Ranges
+    that user code annotates (``Optimizer.step#Adam.step``) also appear
+    on the device's timeline, where their own time is the idle gaps
+    between their kernels: they are left out."""
     by_kernel = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if dev_us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+        if (dev_us > 0 and not getattr(ev, "is_user_annotation", False)
+                and str(getattr(ev, "device_type", "")).endswith("CUDA")):
             by_kernel[ev.key] = by_kernel.get(ev.key, 0.0) + dev_us / 1e3
     return by_kernel
 
@@ -809,6 +859,395 @@ def training_path(torch, card, g, dec, gather, spmm, gat):
     return sage_launches, gat_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the sweep-aggregate harness and Kernels 4-5 at its full shape
+# ---------------------------------------------------------------------------
+
+
+def sweep_rows(torch, card, sweep):
+    """Run the harness at the frontier shape (2 457 600 x 128 f32, 153 600
+    hits in groups of 10), then time Kernels 4 and 5, their plain versions
+    and the one library call on the same shape; returns the two rows."""
+    from graph_learn_tpu_torch.examples import sweep_aggregate as harness
+
+    sweep.LAUNCHES_SWEEP.reset()
+    sweep.LAUNCHES_STREAM.reset()
+    r = harness.run(small=False, steps=30, slab=4096, device="cuda")
+    harness_launches = {"sweep_aggregate": sweep.LAUNCHES_SWEEP.count,
+                        "stream_sum": sweep.LAUNCHES_STREAM.count}
+    check(all(v > 0 for v in harness_launches.values()),
+          "the harness did not launch both kernels: %s" % harness_launches)
+    log("sweep harness at %d x %d f32, N=%d, k=%d, R=%d (%s): bar %.4f ms "
+        "(plain %.4f), prep %.4f, stream %.4f, sweep %.4f, total prep + "
+        "sweep %.4f ms against the bar's %.4f; sweep / k within 1e-5 of the "
+        "plain mean (max abs err %g), stream sum within 1e-6 of each "
+        "column's sum of magnitudes (max abs err %g); card: %s"
+        % (r["n_rows"], harness.D, r["n_hits"], r["k"], r["slab"],
+           r["timer"], r["bar_ms"], r["bar_plain_ms"], r["prep_ms"],
+           r["stream_ms"], r["sweep_ms"], r["total_ms"], r["bar_ms"],
+           r["sweep_max_abs_err"], r["stream_max_abs_err"], card))
+
+    n_rows, n, k, d, R = r["n_rows"], r["n_hits"], r["k"], harness.D, 4096
+    groups = n // k
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    table = torch.randn((n_rows, d), generator=gen, device="cuda")
+    flat = torch.randint(0, n_rows, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    starts, packed = sweep.sweep_prep(flat, k, n_rows, R)
+    out = sweep.sweep_aggregate(starts, packed, table, groups, R)
+    ref = sweep.sweep_aggregate_plain(starts, packed, table, groups, R)
+    err4 = (out - ref).abs().max().item()
+    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
+          "sweep_aggregate at the harness shape: max err %g" % err4)
+    # what these inputs need: each distinct hit row once, the hit list and
+    # the slab starts, [G, D] f32 written once; one add per hit element
+    distinct = int(torch.unique(flat).numel())
+    bytes4 = (distinct * d * 4 + n * 4 + starts.numel() * 4 + groups * d * 4)
+    b4, by4 = bound(bytes4, n * d)
+    row4 = dict(
+        name="sweep_aggregate", route="cuda",
+        source="graph_learn_tpu_torch/csrc/sweep.cu",
+        replaces="examples/sweep_aggregate.py:39", max_abs_err=err4,
+        ms=time_ms(lambda: sweep.sweep_aggregate(starts, packed, table,
+                                                 groups, R), hold=True),
+        plain_ms=time_ms(lambda: sweep.sweep_aggregate_plain(
+            starts, packed, table, groups, R), iters=20, hold=True),
+        bound_ms=b4, bound_by=by4,
+        # no single PyTorch call sums rows picked by one index into groups
+        # picked by another: index_select + index_add_ are two calls, and
+        # embedding_bag on the sorted ids gives per-bag sums of consecutive
+        # ids, not per-group sums
+        library_ms=None, harness_ms=r["sweep_ms"], prep_ms=r["prep_ms"],
+        harness_launches=harness_launches["sweep_aggregate"])
+
+    s_out = sweep.stream_sum(table)
+    exact = table.sum(0, dtype=torch.float64)
+    s_err = (s_out[0].double() - exact).abs()
+    limit = 1e-6 * table.abs().sum(0, dtype=torch.float64)
+    check(bool((s_err <= limit).all()), "stream_sum at the harness shape: "
+          "max err %g" % s_err.max().item())
+    b5, by5 = bound(n_rows * d * 4 + d * 4, n_rows * d)
+    row5 = dict(
+        name="stream_sum", route="cuda",
+        source="graph_learn_tpu_torch/csrc/sweep.cu",
+        replaces="examples/sweep_aggregate.py:96",
+        max_abs_err=s_err.max().item(),
+        ms=time_ms(lambda: sweep.stream_sum(table), iters=20, hold=True),
+        plain_ms=time_ms(lambda: sweep.stream_sum_plain(table), iters=20,
+                         hold=True),
+        bound_ms=b5, bound_by=by5,
+        library_ms=time_ms(lambda: table.sum(0), iters=20, hold=True),
+        harness_ms=r["stream_ms"], launches=harness_launches["stream_sum"])
+    for row in (row4, row5):
+        log("%s at the harness shape: %.4f ms (in the harness %.4f; plain "
+            "%.4f, library %s, bound %.4f by %s), max abs err %g"
+            % (row["name"], row["ms"], row["harness_ms"], row["plain_ms"],
+               "none" if row["library_ms"] is None
+               else "%.4f" % row["library_ms"], row["bound_ms"],
+               row["bound_by"], row["max_abs_err"]))
+    return row4, row5
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the 62M-edge frontier path (examples/scale_demo.py)
+# ---------------------------------------------------------------------------
+
+SCALE_STEPS, SCALE_WARMUP = 30, 3
+# the first-step loss of the sorted route against the unsorted route's:
+# the same ids and weights, only the order of the deepest hop's f32 sums
+# differs (and changes from run to run under the sweep kernel's atomics)
+SORTED_LOSS_RTOL = 1e-5
+
+
+def scale_path(torch, card, gl, gather, spmm, sweep):
+    """examples.scale_demo.run at the published sizes, unsorted and sorted
+    route; returns ({kernel: launches} of each run, extra row fields)."""
+    import torch.nn.functional as F
+    from graph_learn_tpu_torch.examples import scale_demo
+    from graph_learn_tpu_torch.nn.data import PreAggregatedRows
+    from torch.profiler import ProfilerActivity, profile
+
+    size = scale_demo.PUBLISHED
+    n, d = size["n_nodes"], size["feat_dim"]
+    b, (k1, k2) = size["batch"], size["fanout"]
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
+                "sweep_aggregate": sweep.LAUNCHES_SWEEP}
+    per_run = 1 + SCALE_WARMUP + SCALE_STEPS  # first batch, warm-up, steps
+
+    def run(sorted_on, graph):
+        gl.conf.sorted_gather = sorted_on
+        for c in counters.values():
+            c.reset()
+        try:
+            r = scale_demo.run(steps=SCALE_STEPS, warmup=SCALE_WARMUP,
+                               device="cuda", graph=graph, **size)
+        finally:
+            gl.conf.sorted_gather = False
+        launches = {k: c.count for k, c in counters.items()}
+        deep = "sweep_aggregate" if sorted_on else "segment_spmm"
+        want = {"gather_rows": 2 * per_run, "segment_spmm": 0,
+                "sweep_aggregate": 0, deep: per_run}
+        check(launches == want, "62M path (sorted_gather=%s): launches %s, "
+              "expected %s" % (sorted_on, launches, want))
+        losses = np.asarray(r["losses"])
+        check(losses.shape == (SCALE_WARMUP + SCALE_STEPS,)
+              and bool(np.isfinite(losses).all()),
+              "62M path: a loss is not finite")
+        log("62M path, sorted_gather=%s: %d steps of batch %d, fanout %s on "
+            "%d nodes / %d edges / %d bf16 features: %.3f ms per step on the "
+            "host clock, %.4g edges/s; loss %.4f -> %.4f; launches per step "
+            "%s (card: %s)"
+            % (sorted_on, SCALE_STEPS, b, [k1, k2], n, size["n_edges"], d,
+               r["step_ms"], r["edges_per_s"], losses[0], losses[-1],
+               {k: v // per_run for k, v in launches.items()}, card))
+        return r, launches
+
+    # unsorted, sorted, sorted, unsorted: the two routes are compared on the
+    # host clock, which drifts, so each is run on both sides of the other
+    r1, launches1 = run(False, None)
+    log("62M store: host draw %.1f s, CSR build and tables onto the card "
+        "%.1f s, %.3f GB of tables on the card, %.3f GB allocated by the "
+        "process at the peak of the run (torch.cuda.max_memory_allocated)"
+        % (r1["host_build_s"], r1["tables_s"], r1["tables_bytes"] / 1e9,
+           r1["device_bytes_peak"] / 1e9))
+    r2, launches2 = run(True, r1["graph"])
+    r3, _ = run(True, r1["graph"])
+    r4, _ = run(False, r1["graph"])
+    l1 = r1["losses"][0]
+    for r in (r2, r3, r4):
+        check(abs(l1 - r["losses"][0]) <= SORTED_LOSS_RTOL * abs(l1),
+              "62M path: first-step loss %g, then %g" % (l1, r["losses"][0]))
+    step = {False: (r1["step_ms"], r4["step_ms"]),
+            True: (r2["step_ms"], r3["step_ms"])}
+    q, model = r1["query"], r1["model"]
+    tables = q.device_tables("cuda")
+    table = tables["nodes"]["item"].float_attrs
+    et = tables["edges"]["rel"]
+    check(table.shape == (n, d) and table.dtype == torch.bfloat16
+          and et.out.num_edges == size["n_edges"] and et.inc is None
+          and et.out.cum_in_degrees is None,
+          "62M store is not the minimal profile at the published sizes")
+
+    # one step on the kernels against the same step on the plain versions
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    seeds = torch.randint(0, n, (b,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    batch = scale_demo.sample_batch(q, tables, seeds, gen)
+    plain = {a: v.replace(float_attrs=table[v.ids.long()])
+             for a, v in batch.items()}
+    plain["hop2"] = batch["hop2"].replace(float_attrs=PreAggregatedRows(
+        table[batch["hop2"].ids.long()].float().reshape(-1, k2, d).mean(1),
+        "mean"))
+    params = list(model.parameters())
+    loss = scale_demo.loss_of(model, batch)
+    grads = torch.autograd.grad(loss, params)
+    ref_loss = scale_demo.loss_of(model, plain)
+    ref_grads = torch.autograd.grad(ref_loss, params)
+    torch.cuda.synchronize()
+    check(abs(loss.item() - ref_loss.item())
+          <= STEP_LOSS_RTOL * abs(ref_loss.item()),
+          "62M path: loss %g on the kernels, %g on the plain versions"
+          % (loss.item(), ref_loss.item()))
+    worst = max((g - w).abs().max().item() / max(w.abs().max().item(), 1e-12)
+                for g, w in zip(grads, ref_grads))
+    check(worst <= STEP_GRAD_TOL, "62M path: a gradient is off by %g of its "
+          "largest value" % worst)
+    log("62M path: one step on the kernels against the plain versions: loss "
+        "%.6f vs %.6f (limit %g relative), worst gradient error %.3g of the "
+        "tensor's largest value (limit %g)"
+        % (loss.item(), ref_loss.item(), STEP_LOSS_RTOL, worst,
+           STEP_GRAD_TOL))
+
+    # the device's share of a step, both routes
+    opt = torch.optim.Adam(model.parameters(), lr=scale_demo.LEARNING_RATE)
+    n_prof = 5
+    busy = {}
+    for sorted_on in (False, True):
+        gl.conf.sorted_gather = sorted_on
+        try:
+            scale_demo.train_steps(q, tables, model, opt, 2, n, gen)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                scale_demo.train_steps(q, tables, model, opt, n_prof, n, gen)
+                torch.cuda.synchronize()
+        finally:
+            gl.conf.sorted_gather = False
+        by_kernel = device_ms_by_kernel(prof)
+        busy[sorted_on] = sum(by_kernel.values()) / n_prof
+        log("62M path, sorted_gather=%s: device busy %.3f ms per step under "
+            "torch.profiler (%d steps)%s"
+            % (sorted_on, busy[sorted_on], n_prof,
+               "" if by_kernel else ": no device time recorded, not "
+               "measured"))
+        for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+            log("  device %.4f ms per step: %s" % (ms / n_prof, kname[:90]))
+
+    log("62M path: first-step loss %.7f unsorted, %.7f sorted (limit %g "
+        "relative); step on the host clock, runs in the order unsorted, "
+        "sorted, sorted, unsorted: %.3f, %.3f, %.3f, %.3f ms; device busy "
+        "%.3f ms unsorted (%.1f%% of the mean step), %.3f ms sorted (%.1f%%); "
+        "card: %s"
+        % (l1, r2["losses"][0], SORTED_LOSS_RTOL, r1["step_ms"],
+           r2["step_ms"], r3["step_ms"], r4["step_ms"], busy[False],
+           100.0 * busy[False] / np.mean(step[False]), busy[True],
+           100.0 * busy[True] / np.mean(step[True]), card))
+
+    # Kernels 1, 2 and 4 at this table: 2.45M rows of 200 bytes, ten times
+    # the L2, so the rows come cold from device memory
+    m = b * k1 * k2
+    idx = torch.randint(0, n, (m,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ids = idx.reshape(b * k1, k2)
+    deg = torch.full((ids.shape[0],), k2, dtype=torch.int32, device="cuda")
+    check(torch.equal(gather.gather_rows(table, idx),
+                      gather.gather_rows_plain(table, idx)),
+          "gather_rows at the 62M table differs from table[idx]")
+    es = table.element_size()
+    g_bound, _ = bound(2 * m * d * es + m * 4, 0)
+    extra = {"gather_rows": {
+        "ms_62m": time_ms(lambda: gather.gather_rows(table, idx), hold=True),
+        "plain_ms_62m": time_ms(lambda: gather.gather_rows_plain(table, idx),
+                                iters=20, hold=True),
+        "library_ms_62m": time_ms(lambda: torch.index_select(table, 0, idx),
+                                  hold=True),
+        "bound_ms_62m": g_bound}}
+    out = spmm.segment_spmm(table, ids, deg, "mean", torch.float32)
+    ref = spmm.segment_spmm_plain(table, ids, deg, "mean", torch.float32)
+    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
+          "segment_spmm at the 62M table: max err %g"
+          % (out - ref).abs().max().item())
+    s_bound, _ = bound(m * d * es + m * 4 + deg.numel() * 4
+                       + ids.shape[0] * d * 4, m * d + ids.shape[0] * d)
+    extra["segment_spmm"] = {
+        "ms_62m": time_ms(lambda: spmm.segment_spmm(
+            table, ids, deg, "mean", torch.float32), hold=True),
+        "plain_ms_62m": time_ms(lambda: spmm.segment_spmm_plain(
+            table, ids, deg, "mean", torch.float32), iters=20, hold=True),
+        "library_ms_62m": time_ms(lambda: F.embedding_bag(
+            ids, table, mode="mean"), hold=True),
+        "bound_ms_62m": s_bound}
+    starts, packed = sweep.sweep_prep(idx, k2, n)
+    out4 = sweep.sweep_aggregate(starts, packed, table, ids.shape[0]) / k2
+    check(torch.allclose(out4, ref, rtol=1e-5, atol=1e-5),
+          "sweep_aggregate / k at the 62M table: max err %g"
+          % (out4 - ref).abs().max().item())
+    w_bound, _ = bound(int(torch.unique(idx).numel()) * d * es + m * 4
+                       + starts.numel() * 4 + ids.shape[0] * d * 4, m * d)
+    extra["sweep_aggregate"] = {
+        "ms_62m": time_ms(lambda: sweep.sweep_aggregate(
+            starts, packed, table, ids.shape[0]), hold=True),
+        "prep_ms_62m": time_ms(lambda: sweep.sweep_prep(idx, k2, n),
+                               iters=20, hold=True),
+        "plain_ms_62m": time_ms(lambda: sweep.sweep_aggregate_plain(
+            starts, packed, table, ids.shape[0], 4096), iters=20, hold=True),
+        "library_ms_62m": None, "bound_ms_62m": w_bound}
+    for name, f in extra.items():
+        log("%s at the 62M table (%d x %d bf16, %d cold rows): %.4f ms "
+            "(plain %.4f, library %s, bound %.4f by bytes)%s"
+            % (name, n, d, m, f["ms_62m"], f["plain_ms_62m"],
+               "none" if f["library_ms_62m"] is None
+               else "%.4f" % f["library_ms_62m"], f["bound_ms_62m"],
+               "; sweep_prep %.4f ms" % f["prep_ms_62m"]
+               if "prep_ms_62m" in f else ""))
+    return launches1, launches2, extra
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the samplers that read the full store, through QueryService
+# ---------------------------------------------------------------------------
+
+FULL_CAP, STRATEGY_K = 32, 6
+
+
+def full_store_queries(torch, g, spmm):
+    """A "full" query answered by QueryService, its SparseNodes reduced by
+    Kernel 2 on ragged degrees; an edge_weight and a topk query checked for
+    true neighbours (topk: the heaviest edges first)."""
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch.core.values import SparseNodes
+
+    et = g.store.edge_table("rel")
+    out_deg = et.out_degrees
+    rng = np.random.default_rng(2)
+    raw = rng.integers(0, N_NODES, 1500)
+    svc = gl.QueryService(g, device="cuda")
+    try:
+        def ask(strategy, k):
+            q = (g.V("item").batch(MICRO_BATCH).alias("src").outV("rel")
+                 .sample(k).by(strategy).alias("nbrs").values())
+            return svc.run(svc.install(q, micro_batch=MICRO_BATCH), raw)
+
+        spmm.LAUNCHES.reset()
+        ans = ask("full", FULL_CAP)
+        nb = ans["nbrs"]
+        check(isinstance(nb, SparseNodes) and nb.ids.shape == (raw.size,
+                                                               FULL_CAP),
+              "full query: not SparseNodes [n, cap]")
+        check(np.array_equal(nb.degrees.cpu().numpy(),
+                             np.minimum(out_deg[raw], FULL_CAP)),
+              "full query: degrees are not the out-degrees clipped to cap")
+        table = nb.float_attrs.table
+        worst = 0.0
+        for op in ("mean", "max"):
+            got = nb.embedding_agg(op)
+            ref = spmm.segment_spmm_plain(table, nb.ids, nb.degrees, op,
+                                          table.dtype)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            # bf16 out: the order of the f32 sums may flip one bf16 rounding
+            check(torch.allclose(got.float(), ref.float(), rtol=2 ** -7,
+                                 atol=1e-5),
+                  "SparseNodes.embedding_agg(%s): max err %g" % (op, err))
+            worst = max(worst, err)
+        launches = spmm.LAUNCHES.count
+        check(launches == 2, "embedding_agg on ragged rows launched "
+              "segment_spmm %d times, expected 2" % launches)
+        # every listed neighbour is an out-edge of its seed, in adjacency
+        # order (heaviest first), and the list is the whole row up to cap
+        src64, dst64 = et.src, et.dst
+        order = np.lexsort((-et.weights.astype(np.float64), src64))
+        row_start = np.concatenate([[0], np.cumsum(out_deg)])
+        ids = nb.ids.cpu().numpy()
+        for i in rng.integers(0, raw.size, 200):
+            lo = row_start[raw[i]]
+            want = dst64[order[lo:lo + min(out_deg[raw[i]], FULL_CAP)]]
+            check(np.array_equal(ids[i, :want.size], want),
+                  "full query: row %d is not the seed's adjacency" % i)
+        log("full query through QueryService: %d seeds, cap %d, degrees "
+            "%d..%d (ragged), rows equal the weight-ordered adjacency; "
+            "SparseNodes.embedding_agg mean/max on segment_spmm (%d "
+            "launches) within rtol=2^-7, atol=1e-5 of the plain version "
+            "(max abs err %g)"
+            % (raw.size, FULL_CAP, nb.degrees.min().item(),
+               nb.degrees.max().item(), launches, worst))
+
+        keys = np.unique(src64 * N_NODES + dst64)
+        for strategy in ("edge_weight", "topk"):
+            hop = ask(strategy, STRATEGY_K)["nbrs"].ids.cpu().numpy()
+            check(hop.shape == (raw.size, STRATEGY_K), strategy + ": shape")
+            pair = np.repeat(raw, STRATEGY_K) * N_NODES + hop.reshape(-1)
+            pos = np.clip(np.searchsorted(keys, pair), 0, keys.size - 1)
+            empty = np.repeat(out_deg[raw] == 0, STRATEGY_K)
+            check(bool(np.all(np.where(
+                empty, hop.reshape(-1) == gl.conf.default_neighbor_id,
+                keys[pos] == pair))), strategy + ": a non-neighbour")
+            if strategy == "topk":
+                for i in rng.integers(0, raw.size, 200):
+                    lo, dg = row_start[raw[i]], out_deg[raw[i]]
+                    if dg:
+                        want = dst64[order[lo + np.arange(STRATEGY_K) % dg]]
+                        check(np.array_equal(hop[i], want), "topk: row %d "
+                              "is not the heaviest edges first" % i)
+        log("edge_weight and topk queries through QueryService: every id a "
+            "true neighbour (default fill on zero-degree seeds), topk rows "
+            "the heaviest edges first with circular padding")
+    finally:
+        svc.close()
+    return launches
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -816,7 +1255,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import graph_learn_tpu_torch as gl
-    from graph_learn_tpu_torch.ops.kernels import build, gat, gather, spmm
+    from graph_learn_tpu_torch.ops.kernels import (build, gat, gather, spmm,
+                                                   sweep)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -837,6 +1277,7 @@ def main() -> int:
 
     check_gather(torch, gather)
     check_spmm(torch, spmm)
+    check_sweep(torch, sweep)
     check_gat(torch, gat)
     rows = measure_kernels(torch, gather, spmm)
     rows["gat_block"] = measure_gat(torch, gat)
@@ -849,19 +1290,39 @@ def main() -> int:
     launches = serving_path(torch, card, g, dec, gather, spmm)
     sage_launches, gat_launches = training_path(torch, card, g, dec, gather,
                                                 spmm, gat)
-    # `launches`: the serving phase for the serving path's two kernels, the
-    # EgoGAT training run for the GAT block; each phase starts from zero
+    ragged_launches = full_store_queries(torch, g, spmm)
+    del g, dec
+    gc.collect()  # the 200k graph's tables (Graph, Dag and Query form cycles)
+    rows["sweep_aggregate"], rows["stream_sum"] = sweep_rows(torch, card,
+                                                             sweep)
+    torch.cuda.empty_cache()
+    scale_launches, sorted_launches, extra = scale_path(torch, card, gl,
+                                                        gather, spmm, sweep)
+    # `launches`: each from the run of the path named, which started from
+    # zero: the serving phase for gather_rows and segment_spmm, the EgoGAT
+    # training run for gat_block, the sorted-gather 62M run for
+    # sweep_aggregate, the harness for stream_sum
     kernels = []
     for name in ("gather_rows", "segment_spmm"):
         rows[name]["launches"] = launches[name]
         rows[name]["train_launches"] = (sage_launches[name]
                                         + gat_launches[name])
+        rows[name]["scale_launches"] = (scale_launches[name]
+                                        + sorted_launches[name])
         kernels.append(rows[name])
+    rows["segment_spmm"]["ragged_launches"] = ragged_launches
     rows["gat_block"]["launches"] = gat_launches["gat_block"]
     rows["gat_block"]["bwd_launches"] = gat_launches["gat_block_bwd"]
     check(gat_launches["gat_block"] > 0 and gat_launches["gat_block_bwd"] > 0,
           "gat_block was never launched by the training path")
     kernels.append(rows["gat_block"])
+    rows["sweep_aggregate"]["launches"] = sorted_launches["sweep_aggregate"]
+    for name in ("sweep_aggregate", "stream_sum"):
+        check(rows[name]["launches"] > 0, name + " was never launched by "
+              "its path")
+        kernels.append(rows[name])
+    for name, fields in extra.items():
+        rows[name].update(fields)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

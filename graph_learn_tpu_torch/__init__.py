@@ -4,9 +4,11 @@ The 2-hop ego pipeline (graph store, GSL sampling, feature gathers,
 deepest-hop group mean, EgoGraphSAGE and EgoGAT) served by ``QueryService``
 and trained by ``nn.trainer.LocalTrainer`` over ``Dataset`` / ``Traverser``
 on an NVIDIA H100, with hand-written CUDA kernels for the feature gather,
-the segment SpMM and the fused GAT neighbour block, forward and backward
-(``ops/kernels``, sources in ``csrc/``).  Entry points run on the card
-unless the caller passes ``device="cpu"``.
+the segment SpMM, the fused GAT neighbour block, forward and backward, and
+the sorted-hit sweep aggregation and full-table sum of the 62M-edge
+frontier (``ops/kernels``, sources in ``csrc/``; ``examples/`` holds the
+62M-edge training run and the sweep-aggregate harness).  Entry points run
+on the card unless the caller passes ``device="cpu"``.
 """
 
 from graph_learn_tpu_torch.config import conf

@@ -6,7 +6,11 @@ when weighted, else insertion order), copied rather than imported.  The
 device views differ: flat int32 tensors ``row_offsets [N+1]``,
 ``nbr_ids [E]`` and ``nbr_edge_ids [E]`` replace the TPU's 128-lane tiled
 views and interleaved ``off_pairs``, which only served the TPU's gather
-layout.  A ``bfloat16`` feature table is ``torch.bfloat16``.
+layout.  A ``bfloat16`` feature table is ``torch.bfloat16``.  Under
+``conf.storage_profile = "full"`` each CSR also carries the id-sorted copy
+of its rows and the per-row weight and in-degree CDFs, flat and bit-equal
+to the JAX package's flat views; ``"minimal"`` leaves them (and the reverse
+CSR) off the device, and the samplers that need them raise.
 
 Device views are built lazily per device, on the card unless the caller
 passes ``device="cpu"``.
@@ -51,6 +55,13 @@ class DeviceCSR(TensorStruct):
     nbr_ids: torch.Tensor  # [E] int32, adjacency order
     nbr_edge_ids: torch.Tensor  # [E] int32
     max_degree: int = 0
+    # the same rows ordered by neighbour id (None under "minimal"):
+    nbr_ids_sorted: Optional[torch.Tensor] = None  # [E] int32
+    nbr_edge_ids_sorted: Optional[torch.Tensor] = None  # [E] int32
+    # per-row normalised inclusive cumsums, adjacency order (None under
+    # "minimal"; cum_weights also None for an unweighted edge type):
+    cum_weights: Optional[torch.Tensor] = None  # [E] f32, by edge weight
+    cum_in_degrees: Optional[torch.Tensor] = None  # [E] f32, by nbr degree
 
     @property
     def num_edges(self) -> int:
@@ -160,11 +171,34 @@ class NodeTable:
         return self._device[dev]
 
 
+def _segment_cdf(vals: np.ndarray, row_offsets: np.ndarray,
+                 counts: np.ndarray) -> np.ndarray:
+    """Per-row normalised inclusive cumsum of ``vals`` (adjacency order),
+    f32.  A row whose values sum to zero falls back to uniform."""
+    num_rows, e = counts.size, vals.size
+    v = np.maximum(vals.astype(np.float64), 0.0)
+    row_of = np.repeat(np.arange(num_rows), counts)
+    seg_sum = np.bincount(row_of, weights=v, minlength=num_rows)
+    zero = np.repeat(seg_sum <= 0, counts)
+    v = np.where(zero, 1.0, v)
+    seg_sum = np.bincount(row_of, weights=v, minlength=num_rows)
+    cs = np.cumsum(v)
+    start = np.minimum(row_offsets[:-1], max(e - 1, 0))
+    per_row = cs - np.repeat((cs - v)[start], counts)
+    denom = np.repeat(np.where(seg_sum > 0, seg_sum, 1.0), counts)
+    return (per_row / denom).astype(np.float32)
+
+
 def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
-               sort_key: Optional[np.ndarray],
-               sort_desc: bool) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(row_offsets, nbr, eid) of the CSR, rows sorted stably by row and
-    within a row by ``sort_key`` (the JAX package's ``_build_csr`` order)."""
+               sort_key: Optional[np.ndarray], sort_desc: bool,
+               weights: Optional[np.ndarray] = None,
+               nbr_in_degrees: Optional[np.ndarray] = None,
+               full: bool = False) -> Tuple[Optional[np.ndarray], ...]:
+    """(row_offsets, nbr, eid, nbr_s, eid_s, cumw, cumind) of the CSR, rows
+    sorted stably by row and within a row by ``sort_key`` (the JAX
+    package's ``_build_csr`` order and arithmetic).  The last four (the
+    id-sorted copy, the weight CDF, the CDF over the neighbours' degrees)
+    are only computed when ``full``; else they are None."""
     e = rows.size
     eid = np.arange(e, dtype=np.int64)
     if sort_key is not None:
@@ -178,7 +212,17 @@ def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
     counts = np.bincount(r, minlength=num_rows).astype(np.int64)
     row_offsets = np.zeros(num_rows + 1, dtype=np.int32)
     np.cumsum(counts, out=row_offsets[1:])
-    return row_offsets, nbr, eids
+    if not full:
+        return row_offsets, nbr, eids, None, None, None, None
+    order2 = np.lexsort((cols, rows))
+    nbr_s = cols[order2].astype(np.int32)
+    eid_s = eid[order2].astype(np.int32)
+    cumw = cumind = None
+    if weights is not None and e:
+        cumw = _segment_cdf(weights[order], row_offsets, counts)
+    if nbr_in_degrees is not None and e:
+        cumind = _segment_cdf(nbr_in_degrees[nbr], row_offsets, counts)
+    return row_offsets, nbr, eids, nbr_s, eid_s, cumw, cumind
 
 
 class EdgeTable:
@@ -207,27 +251,39 @@ class EdgeTable:
             self._sort_key, self._sort_desc = None, False
         self.out_degrees = np.bincount(
             self.src, minlength=num_src_nodes).astype(np.int32)
+        self.in_degrees = np.bincount(
+            self.dst, minlength=num_dst_nodes).astype(np.int32)
 
     @property
     def num_edges(self) -> int:
         return self.src.size
 
-    def _csr(self, rows, cols, num_rows, dev) -> DeviceCSR:
-        ro, nbr, eids = _build_csr(rows, cols.astype(np.int32), num_rows,
-                                   self._sort_key, self._sort_desc)
+    def _csr(self, rows, cols, num_rows, nbr_degrees, dev) -> DeviceCSR:
+        """One direction on ``dev``; ``nbr_degrees`` are the degrees the
+        in-degree CDF weighs each neighbour by."""
+        ro, nbr, eids, nbr_s, eid_s, cumw, cumind = _build_csr(
+            rows, cols.astype(np.int32), num_rows, self._sort_key,
+            self._sort_desc, self.weights, nbr_degrees,
+            full=conf.storage_profile != "minimal")
         d = np.diff(ro)
         return DeviceCSR(row_offsets=_put(ro, dev), nbr_ids=_put(nbr, dev),
                          nbr_edge_ids=_put(eids, dev),
-                         max_degree=int(d.max()) if d.size else 0)
+                         max_degree=int(d.max()) if d.size else 0,
+                         nbr_ids_sorted=_put(nbr_s, dev),
+                         nbr_edge_ids_sorted=_put(eid_s, dev),
+                         cum_weights=_put(cumw, dev),
+                         cum_in_degrees=_put(cumind, dev))
 
     def device(self, device: DeviceLike = "cuda") -> DeviceEdgeTable:
         dev = resolve_device(device)
         if dev not in self._device:
             inc = None
             if conf.storage_profile != "minimal":
-                inc = self._csr(self.dst, self.src, self.num_dst_nodes, dev)
+                inc = self._csr(self.dst, self.src, self.num_dst_nodes,
+                                self.out_degrees, dev)
             self._device[dev] = DeviceEdgeTable(
-                out=self._csr(self.src, self.dst, self.num_src_nodes, dev),
+                out=self._csr(self.src, self.dst, self.num_src_nodes,
+                              self.in_degrees, dev),
                 inc=inc,
                 src=_put(self.src.astype(np.int32), dev),
                 dst=_put(self.dst.astype(np.int32), dev),

@@ -69,12 +69,38 @@ class SparseNodes(TensorStruct):
     """Variable-degree nodes as [b, cap] ids plus [b] true degrees."""
 
     ids: torch.Tensor  # [b, cap] int32
-    degrees: torch.Tensor  # [b] int32
+    degrees: torch.Tensor  # [b] int32, clipped to cap
     raw_ids: Optional[torch.Tensor] = None
-    float_attrs: Optional[torch.Tensor] = None
+    float_attrs: Any = None  # DeferredRows from a lookup
     weights: Optional[torch.Tensor] = None
     labels: Optional[torch.Tensor] = None
     type_name: str = ""
+
+    @property
+    def cap(self) -> int:
+        return self.ids.shape[-1]
+
+    def mask(self) -> torch.Tensor:
+        """[b, cap] bool: True where a slot holds a neighbour."""
+        pos = torch.arange(self.cap, dtype=torch.int32,
+                           device=self.ids.device)[None, :]
+        return pos < self.degrees[:, None]
+
+    def offsets(self) -> torch.Tensor:
+        """[b + 1] int32 exclusive prefix sum of the degrees."""
+        zero = torch.zeros(1, dtype=torch.int32, device=self.degrees.device)
+        return torch.cat([zero, torch.cumsum(self.degrees, 0).to(torch.int32)])
+
+    def embedding_agg(self, op: str = "sum") -> torch.Tensor:
+        """One vector per row: the float attrs of its neighbours reduced
+        with ``op``, straight from the table the deferred rows point into
+        (sum / mean / max / min on Kernel 2; prod in plain PyTorch)."""
+        from graph_learn_tpu_torch.ops.aggregate import embedding_agg
+        fa = self.float_attrs
+        if not isinstance(fa, DeferredRows):
+            raise ValueError("these SparseNodes carry no deferred float "
+                             "attrs to reduce")
+        return embedding_agg(fa.table, fa.idx, self.degrees, op)
 
 
 @dataclasses.dataclass

@@ -1,8 +1,10 @@
 """GSL query -> eager device plan.
 
 Counterpart of ``graph_learn_tpu/gsl/compile.py`` ``Query:51``,
-``source_space:69``, ``device_tables:77``, ``_execute:156`` and the ``source_v`` and
-``out_v`` + ``random`` branches of ``_exec_node:172`` / ``_exec_hop:249``.
+``source_space:69``, ``device_tables:77``, ``_execute:156`` and the
+``source_v``, ``out_v`` and ``in_v`` branches of ``_exec_node:172`` /
+``_exec_hop:249`` for every non-temporal, unfiltered strategy (``full``
+returns ``SparseNodes``).
 PyTorch runs eagerly, so there is no jit: ``_execute`` walks the DAG once
 per call.  Each hop's feature rows stay deferred (ops/lookup.py) until a
 reader gathers or reduces them.  Randomness comes from one explicit
@@ -16,17 +18,19 @@ from typing import Dict, Optional
 
 import torch
 
+from graph_learn_tpu_torch.config import conf
+from graph_learn_tpu_torch.core.values import Nodes
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.gsl.dag import Dag, DagNode
-from graph_learn_tpu_torch.ops.lookup import lookup_nodes
-from graph_learn_tpu_torch.ops.sampling import uniform_sample
+from graph_learn_tpu_torch.ops import sampling as samp_ops
+from graph_learn_tpu_torch.ops.lookup import lookup_nodes, lookup_sparse_nodes
 from graph_learn_tpu_torch.ops.segment import row_bounds
 from graph_learn_tpu_torch.utils.platform import DeviceLike
 
 
 class _Rec:
     """Per-node execution record inside the plan: the node's dense ids and
-    its value (``Nodes``)."""
+    its value (``Nodes`` or ``SparseNodes``)."""
 
     __slots__ = ("ids", "value")
 
@@ -94,7 +98,7 @@ def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
         ids = seeds.to(torch.int32)
         val = lookup_nodes(tables["nodes"][base], ids, type_name=node.node_type)
         return _Rec(ids, val)
-    if node.kind == "out_v":
+    if node.kind in ("out_v", "in_v"):
         return _exec_hop(query, tables, node, recs[node.parent.nid],
                          generator)
     raise InvalidArgumentError("dag node kind %r is not yet ported"
@@ -103,21 +107,38 @@ def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
 
 def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, generator):
     et = tables["edges"][node.edge_type]
-    csr = et.out
-    result_type = query.graph.store.topology[node.edge_type][1]
+    s_t, d_t = query.graph.store.topology[node.edge_type]
+    incoming = node.kind == "in_v"
+    csr = et.inc if incoming else et.out
+    if csr is None:
+        raise InvalidArgumentError(
+            "inV(%r) needs the reverse CSR, which conf.storage_profile="
+            "'minimal' leaves off the device" % node.edge_type)
+    result_type = s_t if incoming else d_t
     shape = tuple(parent.ids.shape)
     flat = parent.ids.reshape(-1)
 
     # the parent's degrees w.r.t. the hopped edge type (reference
     # DegreeDagNode): Nodes.out_degrees on dense hops
     pv = parent.value
-    if pv.out_degrees is None:
+    if isinstance(pv, Nodes) and pv.out_degrees is None:
         _, _, deg = row_bounds(csr.row_offsets, flat)
         parent.value = pv.replace(out_degrees=deg.reshape(shape))
 
     k = node.count
-    ids, _ = uniform_sample(csr, flat, k, generator)
+    strategy = node.strategy
+    nt = tables["nodes"][result_type]
+    if strategy == "full":
+        cap = k if k > 0 else conf.default_full_nbr_num
+        ids, _, degs = samp_ops.full_sample(csr, flat, cap)
+        val = lookup_sparse_nodes(nt, ids, degs, type_name=result_type)
+        return _Rec(ids.reshape(shape + (cap,)), val)
+    if strategy in ("edge_weight", "in_degree"):
+        ids, _ = samp_ops.weighted_sample(csr, flat, k, generator,
+                                          by=strategy)
+    elif strategy in samp_ops.STRATEGY_FNS:
+        ids, _ = samp_ops.STRATEGY_FNS[strategy](csr, flat, k, generator)
+    else:
+        raise InvalidArgumentError("unknown strategy %r" % strategy)
     ids = ids.reshape(shape + (k,))
-    val = lookup_nodes(tables["nodes"][result_type], ids,
-                       type_name=result_type)
-    return _Rec(ids, val)
+    return _Rec(ids, lookup_nodes(nt, ids, type_name=result_type))

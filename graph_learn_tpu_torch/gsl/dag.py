@@ -1,10 +1,12 @@
 """GSL query builder: the fluent traversal DAG.
 
-Counterpart of ``graph_learn_tpu/gsl/dag.py`` for the kinds this slice
+Counterpart of ``graph_learn_tpu/gsl/dag.py`` for the kinds the port
 runs: ``g.V(t).batch(b).shuffle().alias('src').outV(e).sample(k)
-.by('random').alias('hop1')...values(func)``.  Other hops (``inV``, edges, negatives,
-walks, subgraphs) and other strategies are not yet ported and raise when
-the query is built.
+.by('random').alias('hop1')...values(func)``, with ``inV`` beside ``outV``
+and the strategies ``random``, ``topk``, ``edge_weight``, ``in_degree``,
+``random_without_replacement`` and ``full``.  Other hops (edges, negatives,
+walks, subgraphs), filters and registered strategies are not yet ported
+and raise when the query is built.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ from typing import Dict, List, Optional
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 
-_PORTED_SAMPLERS = ("random",)
+_PORTED_SAMPLERS = ("random", "topk", "edge_weight", "in_degree",
+                    "random_without_replacement", "full")
+_HOPS = ("out_v", "in_v")
 
 
 class Dag:
@@ -45,7 +49,7 @@ class Dag:
 
 
 class DagNode:
-    """One traversal step (``source_v`` | ``out_v``)."""
+    """One traversal step (``source_v`` | ``out_v`` | ``in_v``)."""
 
     def __init__(self, dag: Dag, kind: str, parent: Optional["DagNode"],
                  edge_type: Optional[str] = None,
@@ -82,13 +86,13 @@ class DagNode:
         return self
 
     def sample(self, count: int) -> "DagNode":
-        if self.kind != "out_v":
+        if self.kind not in _HOPS:
             raise InvalidArgumentError(".sample() only after a hop")
         self.count = int(count)
         return self
 
     def by(self, strategy: str) -> "DagNode":
-        if self.kind != "out_v":
+        if self.kind not in _HOPS:
             raise InvalidArgumentError(".by() only after .sample()")
         if strategy not in _PORTED_SAMPLERS:
             raise InvalidArgumentError(
@@ -107,4 +111,7 @@ class DagNode:
         return DagNode(self.dag, "out_v", self, edge_type=edge_type)
 
     def inV(self, edge_type: str) -> "DagNode":
-        raise InvalidArgumentError("inV() is not yet ported")
+        return DagNode(self.dag, "in_v", self, edge_type=edge_type)
+
+    def filter(self, target: str) -> "DagNode":
+        raise InvalidArgumentError(".filter() is not yet ported")

@@ -27,7 +27,7 @@ from graph_learn_tpu_torch.errors import DeviceUnavailableError
 PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("gather", "spmm", "gat")
+KERNEL_SOURCES = ("gather", "spmm", "gat", "sweep")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,12 +1,12 @@
 """Attribute lookup: node payloads into ``Nodes``.
 
-Counterpart of ``graph_learn_tpu/ops/lookup.py`` ``_g:25`` and
-``lookup_nodes:65`` on a single device.  1-D payloads (raw ids, labels,
-weights) are plain indexing.  Feature rows (2-D tables) are not gathered
-here: ``float_attrs`` is a ``DeferredRows`` over the table, gathered by
-``feature_gather`` (Kernel 1 on the card) where a reader materialises it,
-or reduced by Kernel 2 without a gather (core/values.py).  The sharded
-branches wait for the parallel slice.
+Counterpart of ``graph_learn_tpu/ops/lookup.py`` ``_g:25``,
+``lookup_nodes:65`` and ``lookup_sparse_nodes:84`` on a single device.  1-D
+payloads (raw ids, labels, weights) are plain indexing.  Feature rows (2-D
+tables) are not gathered here: ``float_attrs`` is a ``DeferredRows`` over
+the table, gathered by ``feature_gather`` (Kernel 1 on the card) where a
+reader materialises it, or reduced by Kernel 2 without a gather
+(core/values.py).  The sharded branches wait for the parallel slice.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from typing import Optional
 import torch
 
 from graph_learn_tpu_torch.core.store import DeviceNodeTable
-from graph_learn_tpu_torch.core.values import DeferredRows, Nodes
+from graph_learn_tpu_torch.core.values import (DeferredRows, Nodes,
+                                              SparseNodes)
 
 
 def _g(arr: Optional[torch.Tensor], idx: torch.Tensor):
@@ -40,4 +41,19 @@ def lookup_nodes(table: DeviceNodeTable, ids: torch.Tensor,
         weights=_g(table.weights, ids),
         labels=_g(table.labels, ids),
         out_degrees=out_degrees,
+        type_name=type_name)
+
+
+def lookup_sparse_nodes(table: DeviceNodeTable, ids: torch.Tensor,
+                        degrees: torch.Tensor,
+                        type_name: str = "") -> SparseNodes:
+    """ids [b, cap] + degrees [b] -> SparseNodes with the full payload
+    (feature rows deferred, as for ``Nodes``)."""
+    ids = ids.to(torch.int32)
+    return SparseNodes(
+        ids=ids, degrees=degrees,
+        raw_ids=_g(table.raw_ids, ids),
+        float_attrs=_g(table.float_attrs, ids),
+        weights=_g(table.weights, ids),
+        labels=_g(table.labels, ids),
         type_name=type_name)

@@ -1,11 +1,15 @@
 """Segment primitives over flat CSR rows.
 
-Counterpart of ``graph_learn_tpu/ops/segment.py:173-177``.  The tiled
-gathers of the JAX package (``flat_gather``, ``pair_gather``) exist for
-the TPU's layout only; flat tensors index directly here.
+Counterpart of ``graph_learn_tpu/ops/segment.py`` ``row_bounds:173`` and
+``segmented_searchsorted:82``.  The tiled gathers of the JAX package
+(``flat_gather``, ``pair_gather``) exist for the TPU's layout only; flat
+tensors index directly here.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 
@@ -15,3 +19,37 @@ def row_bounds(row_offsets: torch.Tensor, rows: torch.Tensor):
     start = row_offsets[rows]
     end = row_offsets[rows + 1]
     return start, end, end - start
+
+
+def bisect_iters(n: int) -> int:
+    """Bisection steps that cover a segment of up to ``n`` entries."""
+    return max(1, int(math.ceil(math.log2(max(n, 2)))) + 1)
+
+
+def segmented_searchsorted(vals: torch.Tensor, lo: torch.Tensor,
+                           hi: torch.Tensor, queries: torch.Tensor,
+                           side: str = "left",
+                           iters: Optional[int] = None) -> torch.Tensor:
+    """Per-query binary search within [lo_i, hi_i) of a flat array that is
+    sorted ascending inside each segment.
+
+    Counterpart of ``graph_learn_tpu/ops/segment.py:82`` in its bisection
+    form, the same comparisons in the same order (the window form is TPU
+    layout).  ``lo`` / ``hi`` broadcast to ``queries``; ``iters`` bounds
+    the steps (pass ``bisect_iters(max segment length)``).  Returns global
+    flat insertion positions with lo <= pos <= hi, int32.
+    """
+    e = vals.shape[0]
+    if iters is None:
+        iters = bisect_iters(e)
+    q = queries
+    lo = torch.broadcast_to(lo, q.shape).to(torch.int32)
+    hi = torch.broadcast_to(hi, q.shape).to(torch.int32)
+    for _ in range(iters):
+        mid = (lo + hi) >> 1
+        v = vals[torch.clamp(mid, 0, max(e - 1, 0)).long()]
+        go_right = v < q if side == "left" else v <= q
+        open_ = lo < hi
+        lo, hi = (torch.where(go_right & open_, mid + 1, lo),
+                  torch.where(go_right | ~open_, hi, mid))
+    return lo

@@ -15,6 +15,7 @@ import torch
 import graph_learn_tpu_torch as glt
 from graph_learn_tpu_torch.errors import (DeviceUnavailableError,
                                           InvalidArgumentError)
+from graph_learn_tpu_torch.examples import scale_demo, sweep_aggregate
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
 from graph_learn_tpu_torch.nn.trainer import LocalTrainer
 from graph_learn_tpu_torch.ops.kernels import build
@@ -70,7 +71,8 @@ def no_card(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["graph", "graph_cuda0", "service", "model",
                                    "node_table", "edge_table", "gat_model",
-                                   "trainer", "dataset"])
+                                   "trainer", "dataset", "scale_demo",
+                                   "sweep_harness"])
 def test_entry_points_raise_without_a_card(no_card, entry):
     a = numpy_graph(n=30, d=4)
     g, dec = torch_graph(a)  # device="cpu" works without a card
@@ -84,6 +86,8 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "gat_model": lambda: EgoGAT([4, 8, 2], dec, num_heads=[2, 1]),
         "trainer": lambda: LocalTrainer(),
         "dataset": lambda: glt.Dataset(two_hop(g, 2, 2, batch=8)),
+        "scale_demo": lambda: scale_demo.run(steps=1, **scale_demo.SMALL),
+        "sweep_harness": lambda: sweep_aggregate.run(small=True, steps=1),
     }
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         calls[entry]()
@@ -145,3 +149,27 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_device_busy_leaves_out_annotated_ranges():
+    """chip_smoke.py's device-busy sum counts kernels only: a range that
+    user code annotates shows up on the device's timeline with the idle
+    gaps between its kernels as its own time."""
+    import importlib.util
+    import types
+    spec = importlib.util.spec_from_file_location("chip_smoke_module",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    def ev(key, us, device="DeviceType.CUDA", annotation=False):
+        return types.SimpleNamespace(key=key, self_device_time_total=us,
+                                     device_type=device,
+                                     is_user_annotation=annotation)
+
+    prof = types.SimpleNamespace(key_averages=lambda: [
+        ev("gather_rows_kernel", 30.0), ev("gather_rows_kernel", 20.0),
+        ev("Optimizer.step#Adam.step", 300.0, annotation=True),
+        ev("aten::index", 0.0, device="DeviceType.CPU"),
+        ev("cpu_side_range", 40.0, device="DeviceType.CPU")])
+    assert smoke.device_ms_by_kernel(prof) == {"gather_rows_kernel": 0.05}

@@ -167,6 +167,43 @@ def test_from_query_result_gathers_only_what_the_model_reads(service,
 
 
 def test_in_v_is_not_yet_ported(service):
+    # inV is ported now (tests/test_torch_sampling.py holds it against the
+    # JAX query); what is still refused when a query is built: filters
     _, _, q = service
+    hop = q.graph.V("item").batch(4).inV("rel").sample(2).by("topk")
+    assert hop.kind == "in_v" and hop.strategy == "topk"
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        q.graph.V("item").batch(4).inV("rel")
+        hop.filter("src")
+    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        hop.by("my_registered_sampler")
+
+
+def test_full_query_is_served_as_sparse_nodes(graph_arrays):
+    """A "full" hop through QueryService: requests of other sizes than the
+    micro-batch come back as SparseNodes sliced to the request, and their
+    ragged rows reduce like the JAX package's embedding_agg."""
+    import jax.numpy as jnp
+
+    from graph_learn_tpu.ops.aggregate import \
+        embedding_agg as jax_embedding_agg
+    from graph_learn_tpu_torch.core.values import SparseNodes
+    g, _ = torch_graph(graph_arrays)
+    q = (g.V("item").batch(8).alias("src").outV("rel").sample(5).by("full")
+         .alias("nbrs").values())
+    svc = QueryService(g, device="cpu")
+    try:
+        qid = svc.install(q, micro_batch=8)
+        raw = graph_arrays["raw_ids"][[3, 50, 7, 7, 120, 0, 9, 11, 64, 2, 5]]
+        nb = svc.run(qid, raw)["nbrs"]
+    finally:
+        svc.close()
+    assert isinstance(nb, SparseNodes) and nb.ids.shape == (11, 5)
+    dense = (raw - 7) // 3  # torch_parity.numpy_graph: raw = 3 * i + 7
+    deg = np.bincount(graph_arrays["src"],
+                      minlength=len(graph_arrays["raw_ids"]))[dense]
+    np.testing.assert_array_equal(nb.degrees.numpy(), np.minimum(deg, 5))
+    want = jax_embedding_agg(jnp.asarray(graph_arrays["feats"]),
+                             jnp.asarray(nb.ids.numpy()),
+                             jnp.asarray(nb.degrees.numpy()), op="mean")
+    np.testing.assert_allclose(nb.embedding_agg("mean").numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-6)

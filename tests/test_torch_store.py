@@ -89,3 +89,63 @@ def test_graph_lookup_nodes_matches_jax():
                                   np.asarray(jn.float_attrs))
     with pytest.raises(NotFoundError):
         tg.lookup_nodes("item", np.array([1]))
+
+
+AUX = ("nbr_ids_sorted", "nbr_edge_ids_sorted", "cum_weights",
+       "cum_in_degrees")
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("direction", ["out", "inc"])
+def test_full_profile_arrays_bitwise_equal_the_jax_flat_views(weighted,
+                                                              direction):
+    a = numpy_graph(n=250, avg_degree=5, weighted=weighted, isolated=7)
+    if weighted:
+        # an all-zero row falls back to uniform; a negative weight counts 0
+        a["weights"][a["src"] == 3] = 0.0
+        a["weights"][:5] = -1.0
+    jcsr = getattr(jax_graph(a)[0].store.edge_table("rel").device(),
+                   direction)
+    tcsr = getattr(torch_graph(a)[0].store.edge_table("rel").device("cpu"),
+                   direction)
+    for name in AUX:
+        j, t = getattr(jcsr, name), getattr(tcsr, name)
+        if j is None:
+            assert t is None and name == "cum_weights" and not weighted
+            continue
+        want = np.asarray(j)
+        assert t.dim() == 1 and t.numpy().dtype == want.dtype, name
+        np.testing.assert_array_equal(t.numpy(), want, name)
+    if weighted and direction == "out":
+        ro = tcsr.row_offsets.numpy()
+        np.testing.assert_allclose(
+            tcsr.cum_weights.numpy()[ro[3]:ro[4]],
+            np.arange(1, ro[4] - ro[3] + 1) / (ro[4] - ro[3]), rtol=1e-6)
+
+
+def test_minimal_profile_leaves_the_auxiliary_arrays_off_the_device():
+    a = numpy_graph(n=50)
+    with both_confs(storage_profile="minimal"):
+        jout = jax_graph(a)[0].store.edge_table("rel").device().out
+        tout = torch_graph(a)[0].store.edge_table("rel").device("cpu").out
+    for name in AUX:
+        assert getattr(jout, name) is None and getattr(tout, name) is None
+    np.testing.assert_array_equal(tout.nbr_ids.numpy(),
+                                  np.asarray(jout.nbr_ids))
+
+
+def test_in_degrees_match_jax():
+    a = numpy_graph(n=90, isolated=4)
+    jet = jax_graph(a)[0].store.edge_table("rel")
+    tet = torch_graph(a)[0].store.edge_table("rel")
+    assert tet.in_degrees.dtype == np.int32
+    np.testing.assert_array_equal(tet.in_degrees, jet.in_degrees)
+    np.testing.assert_array_equal(tet.out_degrees, jet.out_degrees)
+
+
+def test_empty_edge_table_builds_empty_views():
+    a = numpy_graph(n=10)
+    a.update(src=a["src"][:0], dst=a["dst"][:0], weights=a["weights"][:0])
+    et = torch_graph(a)[0].store.edge_table("rel").device("cpu")
+    assert et.out.num_edges == 0 and et.out.max_degree == 0
+    assert et.out.cum_weights is None and et.out.nbr_ids_sorted.numel() == 0
