@@ -13,9 +13,13 @@ Phases (any failure exits non-zero before the result line):
    ptxas register report;
 3. hold each kernel against its plain PyTorch version on the card, over
    dtypes, widths, ragged sizes and degrees (the GAT block: forward and
-   every gradient; the sweep kernel with its prep's invariants), and time
-   kernel, plain version and, where one PyTorch call computes the same
-   function, that call, at the main paths' shapes;
+   every gradient, at small sizes on both routes of its products, at the
+   training path's full first-layer size and at a deep reduction; the
+   sweep kernel with its prep's invariants), and time kernel, plain
+   version and, where one PyTorch call computes the same function, that
+   call, at the main paths' shapes; the GAT block also part by part
+   (attention passes, each product on the tensor cores and on the f32 FMA
+   route, the forward's also on mma.sync beside wgmma, the tail);
 4. run the serving path at the benchmark's width: the 200k-node / 3.2M-edge
    synthetic graph with bf16 features, the 2-hop EgoSAGE query installed on
    QueryService(micro_batch=1024), several client threads sending raw-id
@@ -30,10 +34,11 @@ Phases (any failure exits non-zero before the result line):
    (shuffle source, batch 1024, Adam 1e-3): EgoGraphSAGE([128, 256, 32],
    "gcn") with the deepest hop pre-aggregated outside the gradient, then
    EgoGAT([128, 256, 32], num_heads=[8, 1]) with every neighbour block on
-   the GAT kernel, forward and backward.  For each: one step's loss and
-   gradients against the same step on the plain versions, every loss
-   finite, parameters moved, launch counters as expected, edges/s and the
-   device-busy share of a step;
+   the GAT kernel, forward and backward, its products on the tensor cores
+   and the first layer's forward products on wgmma (checked).  For each:
+   one step's loss and gradients against the same step on the plain
+   versions, every loss finite, parameters moved, launch counters as
+   expected, edges/s and the device-busy share of a step;
 7. answer a "full" sampling query (cap 32) on the same graph through
    QueryService and reduce its SparseNodes with the segment SpMM kernel on
    ragged degrees; check an edge_weight and a topk query for true
@@ -70,10 +75,12 @@ import time
 
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the f32
-# rate outside the tensor cores, for the kernels' least possible time.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the f32 rate
+# outside the tensor cores and the tensor cores' dense TF32 rate, for the
+# kernels' least possible time.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_TF32_OPS_PER_S = 495e12
 
 # Benchmark configuration of the serving path (bench.py CFG).
 N_NODES, AVG_DEGREE, FEAT_DIM, HIDDEN, CLASSES = 200_000, 16, 128, 256, 32
@@ -119,9 +126,13 @@ def time_cold_ms(fn, iters=20) -> float:
     return timing.time_cold_ms(fn, iters=iters)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
+    """Least ms for the work: bytes over the memory rate, or the f32
+    operations over the CUDA cores' peak plus the matrix-product operations
+    (counted once, whatever passes a kernel makes) over the TF32 peak."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = (n_ops / PEAK_F32_OPS_PER_S
+             + n_tensor_ops / PEAK_TF32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -262,10 +273,12 @@ def check_sweep(torch, sweep):
 
 GAT_INPUTS = ("nbr", "wn", "ar", "el", "bn", "ba")
 # gat_block against its plain version: both sum f32 products, in other
-# orders (the kernel never forms nh, see csrc/gat.cu), and the backward's
-# sums across blocks use atomicAdd.  Errors are held relative to the
-# largest reference value of each tensor: 2e-4 for f32, and 2^-7 for a
-# bf16 d_nbr (one bf16 rounding of the f32 sum on either side).
+# orders (the kernel never forms nh, see csrc/gat.cu; its tensor-core
+# products split every f32 operand into two TF32 numbers and sum three
+# passes in f32), and the backward's sums across blocks use atomics.
+# Errors are held relative to the largest reference value of each tensor:
+# 2e-4 for f32, and 2^-7 for a bf16 d_nbr (one bf16 rounding of the f32 sum
+# on either side).
 GAT_TOL = 2e-4
 GAT_TOL_BF16 = 2 ** -7
 
@@ -326,6 +339,13 @@ def gat_compare(torch, gat, t, g):
     return worst, abs_err
 
 
+# the training path's first-layer call at its full size, and a deep
+# reduction for d_wn (depth b = 20 011, K' = 37 padded to 40): the split
+# TF32 products held where the depth is real; f32 rows, (bias, drop) given
+GAT_DEEP_CASES = (((15_360, 10, 128, 8, 256), False, False),
+                  ((20_011, 2, 36, 2, 40), True, True))
+
+
 def check_gat(torch, gat):
     gen = torch.Generator(device="cuda").manual_seed(4)
     # the model's three calls at reduced b, then ragged and odd sizes
@@ -333,27 +353,58 @@ def check_gat(torch, gat):
               (777, 15, 256, 1, 32), (1, 1, 4, 3, 5), (777, 1, 100, 3, 5),
               (1, 15, 4, 1, 32), (33, 10, 100, 3, 5), (17, 4, 20, 9, 12),
               (0, 10, 128, 8, 256)]
-    n, worst = 0, (0.0, "")
-    for b, e, din, h, w in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            for bias, drop in ((False, False), (True, True)):
-                t = gat_inputs(torch, gen, b, e, din, h, w, dtype, bias, drop)
-                g = torch.randn((h, b, w), generator=gen, device="cuda")
-                try:
-                    (rel, name), _ = gat_compare(torch, gat, t, g)
-                except SmokeFailure as err:
-                    raise SmokeFailure("%s at (b, e, Din, H, W)=%s %s bias=%s "
-                                       "drop=%s" % (err, (b, e, din, h, w),
-                                                    dtype, bias, drop))
-                if rel > worst[0]:
-                    worst = (rel, "%s at %s %s" % (name, (b, e, din, h, w),
-                                                   dtype))
-                n += 1
+    cases = [(shape, dtype, bias, drop) for shape in shapes
+             for dtype in (torch.float32, torch.bfloat16)
+             for bias, drop in ((False, False), (True, True))]
+    cases += [(shape, torch.float32, bias, drop)
+              for shape, bias, drop in GAT_DEEP_CASES]
+    worst = (0.0, "")
+    routes = {"tensor": 0, "fma": 0, "no launch": 0}
+    wgmma_cases = 0
+    for shape, dtype, bias, drop in cases:
+        b, e, din, h, w = shape
+        t = gat_inputs(torch, gen, b, e, din, h, w, dtype, bias, drop)
+        g = torch.randn((h, b, w), generator=gen, device="cuda")
+        before = {r: c.count for r, c in gat.ROUTE_LAUNCHES.items()}
+        wgmma_before = gat.WGMMA_LAUNCHES.count
+        try:
+            (rel, name), _ = gat_compare(torch, gat, t, g)
+        except SmokeFailure as err:
+            raise SmokeFailure("%s at (b, e, Din, H, W)=%s %s bias=%s "
+                               "drop=%s" % (err, shape, dtype, bias, drop))
+        took = {r: c.count - before[r]
+                for r, c in gat.ROUTE_LAUNCHES.items()}
+        # forward and backward of one case take the same route, the one
+        # the shape rule names; b = 0 launches nothing
+        want = gat.product_route(w) if b else "no launch"
+        check(took == {r: 2 * (r == want) for r in took},
+              "gat_block at %s: route launches %s, the shape rule says %s"
+              % (shape, took, want))
+        routes[want] += 1
+        # the forward's product ran on wgmma exactly where the depth rule
+        # says so (K' = Din + 1 with a bias)
+        on_wgmma = bool(b) and gat.forward_product_kernel(
+            din + (1 if bias else 0), w) == "wgmma"
+        check(gat.WGMMA_LAUNCHES.count - wgmma_before == int(on_wgmma),
+              "gat_block at %s bias=%s: %d wgmma launches, the depth rule "
+              "says %d" % (shape, bias, gat.WGMMA_LAUNCHES.count
+                           - wgmma_before, on_wgmma))
+        wgmma_cases += on_wgmma
+        if rel > worst[0]:
+            worst = (rel, "%s at %s %s" % (name, shape, dtype))
+    check(routes["tensor"] > 0 and routes["fma"] > 0
+          and 0 < wgmma_cases < routes["tensor"],
+          "gat_block: a product route or kernel was never taken: %s, %d on "
+          "wgmma" % (routes, wgmma_cases))
     log("gat_block: forward and every gradient (nbr, wn, ar, el, bn, ba) "
-        "match gat_block_plain in %d cases over f32/bf16 nbr, bias and drop "
-        "on/off, (b, e, Din, H, W) in %s; limits %g (f32) and 2^-7 (bf16 "
-        "d_nbr) of each tensor's largest reference value; worst case %.3f of "
-        "its limit (%s)" % (n, shapes, GAT_TOL, worst[0], worst[1]))
+        "match gat_block_plain in %d cases: f32/bf16 nbr, bias and drop "
+        "on/off, (b, e, Din, H, W) in %s, and f32 at %s; limits %g (f32) "
+        "and 2^-7 (bf16 d_nbr) of each tensor's largest reference value; "
+        "worst case %.3f of its limit (%s); product routes by case: %s; "
+        "the forward's product on wgmma in %d of the tensor cases, on "
+        "mma.sync in the rest"
+        % (len(cases), shapes, [c[0] for c in GAT_DEEP_CASES], GAT_TOL,
+           worst[0], worst[1], routes, wgmma_cases))
 
 
 def measure_gat(torch, gat):
@@ -388,40 +439,125 @@ def measure_gat(torch, gat):
     plain_bwd_ms = time_ms(backward(plain), iters=10, warmup=2, hold=True)
     # what the function needs: every input read once, every output written
     # once; the operations of the restructured block (csrc/gat.cu): the
-    # prep, two K-long dots per neighbour row and head (logit, weighted
-    # sum) and the [b, K] x [K, W] product per head
+    # prep and two K-long dots per neighbour row and head (logit, weighted
+    # sum) on the CUDA cores, the [b, K] x [K, W] product per head on the
+    # tensor cores (counted once, whatever passes the kernel makes)
     k = din
     io = 4 * (b * e * din + h * din * w + h * w + h * b)
-    fwd_ops = 2 * h * k * w + 4 * h * b * e * k + 2 * h * b * k * w
-    bound_ms, by = bound(io + 4 * h * b * w, fwd_ops)
+    dots = 2 * h * k * w + 4 * h * b * e * k
+    product = 2 * h * b * k * w
+    bound_ms, by = bound(io + 4 * h * b * w, dots, product)
+    bound_f32_ms, _ = bound(io + 4 * h * b * w, dots + product)
     # backward: the forward's inputs and g read, d_wn, d_ar, d_el written;
-    # the forward's attention again, two more products (d_a, d_wn) and two
-    # more dots per row and head (d_q, d_v)
-    bwd_ops = fwd_ops + 2 * h * b * k * w + 4 * h * b * e * k
-    bwd_bound_ms, bwd_by = bound(io + 4 * (h * b * w + h * din * w + h * w
-                                           + h * b), bwd_ops)
+    # the forward's attention again with two more dots per row and head
+    # (d_q, d_v), and two products (d_a, d_wn)
+    bwd_io = io + 4 * (h * b * w + h * din * w + h * w + h * b)
+    bwd_dots = dots + 4 * h * b * e * k
+    bwd_bound_ms, bwd_by = bound(bwd_io, bwd_dots, 2 * product)
+    bwd_bound_f32_ms, _ = bound(bwd_io, bwd_dots + 2 * product)
+    check(ms >= bound_ms and bwd_ms >= bwd_bound_ms,
+          "gat_block ran under its bound: %g < %g or %g < %g ms"
+          % (ms, bound_ms, bwd_ms, bwd_bound_ms))
     literal_ops = 2 * b * e * din * h * w
     row = dict(
         name="gat_block", route="cuda",
         source="graph_learn_tpu_torch/csrc/gat.cu",
         replaces="examples/segment_softmax_probe.py:36",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=by, library_ms=None, bwd_ms=bwd_ms,
-        plain_bwd_ms=plain_bwd_ms, bwd_bound_ms=bwd_bound_ms,
-        bwd_bound_by=bwd_by)
-    log("gat_block at (b, e, Din, H, W)=%s f32: forward %.4f ms (plain "
-        "%.4f, bound %.4f by %s), backward for wn, ar, el %.4f ms (plain "
-        "%.4f, bound %.4f by %s); max abs err of the output %g, worst "
-        "tensor %s at %.3f of its limit (%g of its largest reference value)"
-        % ((b, e, din, h, w), ms, plain_ms, bound_ms, by, bwd_ms,
-           plain_bwd_ms, bwd_bound_ms, bwd_by, err, name, rel, GAT_TOL))
+        bound_by=by, library_ms=None, bound_f32_ms=bound_f32_ms,
+        bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms, bwd_bound_ms=bwd_bound_ms,
+        bwd_bound_by=bwd_by, bwd_bound_f32_ms=bwd_bound_f32_ms,
+        product_route=gat.product_route(w),
+        forward_product_kernel=gat.forward_product_kernel(k, w))
+    check(row["product_route"] == "tensor"
+          and row["forward_product_kernel"] == "wgmma",
+          "gat_block at the training path's first-layer shape: products on "
+          "the %s route, the forward's on %s"
+          % (row["product_route"], row["forward_product_kernel"]))
+    log("gat_block at (b, e, Din, H, W)=%s f32, products on the %s route "
+        "(the forward's on wgmma, the backward's on mma.sync): "
+        "forward %.4f ms (plain %.4f, bound %.4f by %s, %.1f%% of it; the "
+        "all-f32 operations bound of the FMA route %.4f), backward for wn, "
+        "ar, el %.4f ms (plain %.4f, bound %.4f by %s, %.1f%% of it; all-f32 "
+        "%.4f); max abs err of the output %g, worst tensor %s at %.3f of its "
+        "limit (%g of its largest reference value)"
+        % ((b, e, din, h, w), row["product_route"], ms, plain_ms, bound_ms,
+           by, 100 * bound_ms / ms, bound_f32_ms, bwd_ms, plain_bwd_ms,
+           bwd_bound_ms, bwd_by, 100 * bwd_bound_ms / bwd_ms,
+           bwd_bound_f32_ms, err, name, rel, GAT_TOL))
     log("gat_block reference points: no single PyTorch call computes it "
         "(library_ms null); the cuBLAS f32 projection einsum nbr . wn alone "
         "takes %.4f ms; the block taken literally is %.4g operations (%.4f "
         "ms at the f32 peak), the kernel's restructured form %.4g forward"
         % (proj_ms, literal_ops, literal_ops / PEAK_F32_OPS_PER_S * 1e3,
-           fwd_ops))
+           dots + product))
+    row["parts"] = gat_parts(torch, gat, t, g)
     return row
+
+
+def gat_parts(torch, gat, t, g):
+    """Time each kernel of one gat_block forward and backward at the shape
+    of ``t`` (stream held): the attention passes against the bytes they
+    must move, the three products on both routes against their operations
+    (each first held to the float64 product of its operands), and the
+    small kernels.  Returns {part: ms}."""
+    b, e, din = t["nbr"].shape
+    h, k, w = t["wn"].shape
+    lda = gat.padded_depth(k)
+    parts = gat.GatParts(t["nbr"], t["wn"], t["ar"], t["el"], g)
+    for part in parts.PARTS:  # every scratch tensor written once
+        parts.run(part)
+    torch.cuda.synchronize()
+    # each product on each route against the float64 product of the same
+    # operands (the scratch `a` of the attention pass, g, wn)
+    a64, g64 = parts.t["a"][..., :k].double(), g.double()
+    wn64 = t["wn"].detach().double()
+    exact = {"product_out": ("out", torch.einsum("hbk,hkw->hbw", a64, wn64)),
+             "product_da": ("da", torch.einsum("hbw,hkw->hbk", g64, wn64)),
+             "product_dwn": ("d_wn", torch.einsum("hbk,hbw->hkw", a64, g64))}
+    # "tensor" is the route the shape takes (product_out on wgmma here),
+    # "mma" the same with every product on mma.sync
+    routes = {part: ("tensor", "mma", "fma") if part == "product_out"
+              else ("tensor", "fma") for part in exact}
+    for part, (name, want) in exact.items():
+        for route in routes[part]:
+            parts.t[name].zero_()  # product_dwn adds into d_wn
+            parts.run(part, route)
+            got = parts.t[name][..., :want.shape[-1]].double()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            check(rel <= GAT_TOL, "gat_block %s on the %s route: %g of the "
+                  "largest value off the float64 product (limit %g)"
+                  % (part, route, rel, GAT_TOL))
+            log("gat_block part %s on the %s route: %.3g of the largest "
+                "value off the float64 product of the same operands "
+                "(limit %g)" % (part, route, rel, GAT_TOL))
+    del a64, g64, wn64
+    nbr_bytes = t["nbr"].numel() * t["nbr"].element_size()
+    a_bytes = 4 * h * b * lda
+    traffic = {"attn_fwd": nbr_bytes + a_bytes + 4 * h * b,
+               "attn_bwd": nbr_bytes + 2 * a_bytes + 8 * h * b,
+               "prep": 4 * (h * k * w + h * w + h * k),
+               "tail": 4 * (3 * h * k * w + 2 * h * w + h * k)}
+    ops = 2 * h * b * k * w
+    out = {}
+    for part in parts.PARTS:
+        if part.startswith("product"):
+            for route in routes[part]:
+                ms = time_ms(lambda: parts.run(part, route), iters=20,
+                             hold=True)
+                out["%s_%s" % (part, route)] = ms
+                log("gat_block part %s on the %s route: %.4f ms, %.2f "
+                    "TFLOP/s of its %.4g operations"
+                    % (part, route, ms, ops / ms / 1e9, ops))
+        else:
+            ms = time_ms(lambda: parts.run(part), iters=20, hold=True)
+            out[part] = ms
+            least = traffic[part] / PEAK_BYTES_PER_S * 1e3
+            log("gat_block part %s: %.4f ms, %.3f TB/s of the %.4g bytes it "
+                "must move (%.4f ms at the peak rate, %.1f%%)"
+                % (part, ms, traffic[part] / ms / 1e9, traffic[part], least,
+                   100 * least / ms))
+    return out
 
 
 def measure_kernels(torch, gather, spmm):
@@ -730,6 +866,10 @@ def training_path(torch, card, g, dec, gather, spmm, gat):
     q = two_hop_query(g, shuffle=True)
     table = q.device_tables()["nodes"]["item"].float_attrs
     dims = [FEAT_DIM, HIDDEN, CLASSES]
+    # (depth, width) of the three gat_block calls of an EgoGAT step: layer 1
+    # on both hops, layer 2 (no bias; the heads are averaged)
+    gat_call_shapes = [(FEAT_DIM, HIDDEN), (FEAT_DIM, HIDDEN),
+                       (HIDDEN, CLASSES)]
     counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
                 "gat_block": gat.LAUNCHES_FWD,
                 "gat_block_bwd": gat.LAUNCHES_BWD}
@@ -805,10 +945,13 @@ def training_path(torch, card, g, dec, gather, spmm, gat):
         train(1, 3)  # warm-up, not counted
         before = [p.detach().clone() for p in model.parameters()]
         del losses[:]
-        for c in counters.values():
+        for c in (list(counters.values()) + list(gat.ROUTE_LAUNCHES.values())
+                  + [gat.WGMMA_LAUNCHES]):
             c.reset()
         hist, wall = train(epochs, steps)
         launches = {k: c.count for k, c in counters.items()}
+        routes = {r: c.count for r, c in gat.ROUTE_LAUNCHES.items()}
+        wgmma_launches = gat.WGMMA_LAUNCHES.count
         n = epochs * steps
         check(len(losses) == n and len(hist) == epochs, "%s: %d losses, %d "
               "epochs" % (name, len(losses), len(hist)))
@@ -821,6 +964,19 @@ def training_path(torch, card, g, dec, gather, spmm, gat):
         want = {k: v * n for k, v in expect.items()}
         check(launches == want, "%s: launches %s, expected %s"
               % (name, launches, want))
+        # every gat_block call of the training path, forward and backward,
+        # has its products on the tensor cores
+        check(routes == {"tensor": launches["gat_block"]
+                         + launches["gat_block_bwd"], "fma": 0},
+              "%s: product routes %s for launches %s"
+              % (name, routes, launches))
+        # and the two first-layer forwards of a GAT step (depth 128) have
+        # theirs on wgmma; the second layer's depth (256) takes mma.sync
+        want_wgmma = sum(gat.forward_product_kernel(d, w) == "wgmma"
+                         for d, w in gat_call_shapes) * n
+        check(wgmma_launches == (want_wgmma if launches["gat_block"] else 0),
+              "%s: %d forwards on wgmma, expected %d"
+              % (name, wgmma_launches, want_wgmma))
         step_ms = wall / n * 1e3
         # the device's share of a step: device time by kernel under the
         # profiler over the wall measured without it
@@ -832,12 +988,13 @@ def training_path(torch, card, g, dec, gather, spmm, gat):
         busy = sum(by_kernel.values()) / n_prof
         log("%s: %d steps of batch %d through LocalTrainer.train in %.3f s: "
             "%.3f ms per step on the host clock (%.3f ms under the "
-            "profiler), %.4g edges/s; per-epoch mean loss %s; launches %s; "
+            "profiler), %.4g edges/s; per-epoch mean loss %s; launches %s, "
+            "gat_block product routes %s, %d forwards on wgmma; "
             "device busy %.3f ms per step (%.1f%% of the step; card: %s)"
             % (name, n, MICRO_BATCH, wall, step_ms, prof_wall / n_prof * 1e3,
                edges_per_step / step_ms * 1e3,
-               ["%.4f" % x for x in hist], launches, busy,
-               100.0 * busy / step_ms, card))
+               ["%.4f" % x for x in hist], launches, routes, wgmma_launches,
+               busy, 100.0 * busy / step_ms, card))
         if not by_kernel:
             log("torch.profiler recorded no device time: busy share not "
                 "measured")

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
 ``graph_learn_tpu_torch/_build/`` (listed in ``.gitignore``).  A library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and an unchanged one is reused.  :func:`build` starts one ``nvcc``
+file name carries a hash of its source, of every header ``csrc/*.cuh`` and
+of the flags, so an edited source or header is rebuilt and an unchanged one
+is reused.  :func:`build` starts one ``nvcc``
 per missing library, all at once.
 
 Nothing here runs at import: the CPU tests import every module, and a
@@ -66,9 +67,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (SRC_DIR / (name + ".cu")).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / ("lib%s-%s.so" % (name, digest[:12]))
+    digest = hashlib.sha256((SRC_DIR / (name + ".cu")).read_bytes())
+    # any source may include any header: an edited header rebuilds them all
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("lib%s-%s.so" % (name, digest.hexdigest()[:12]))
 
 
 def build(names: Sequence[str] = KERNEL_SOURCES) -> Dict[str, str]:

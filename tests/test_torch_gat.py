@@ -1,7 +1,8 @@
 """The port's GAT slice on the CPU: ``gat_block_plain`` against the Pallas
 probe kernel (interpret mode) and its unfused formula, ``EgoGATConv`` and
 ``EgoGAT`` against flax with carried weights (forward and gradients), and
-the flax <-> torch weight round trip."""
+the flax <-> torch weight round trip; and the arithmetic and the shape rule
+of the card's tensor-core products, restated in plain torch."""
 
 import os
 import sys
@@ -116,6 +117,127 @@ def test_gat_block_checks_its_arguments():
         gat.gat_block(nbr, wn, ar, el, bn=torch.zeros((2, 5)))
     # the plain version on CPU tensors is no launch
     assert (gat.LAUNCHES_FWD.count, gat.LAUNCHES_BWD.count) == before
+
+
+# --- (a') the tensor-core products' arithmetic and route rule ----------
+
+# chip_smoke.py's limit for gat_block: errors relative to the largest
+# reference value of the tensor
+GAT_TOL = 2e-4
+
+
+def _product_inputs(depth, seed, m=24, n=40):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((m, depth)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((depth, n))
+                          * depth ** -0.5).astype(np.float32))
+    return a, b, a.double() @ b.double()
+
+
+def _rel_err(got, exact):
+    return ((got.double() - exact).abs().max() / exact.abs().max()).item()
+
+
+@pytest.mark.parametrize("rounded", [True, False])
+def test_split_tf32_parts_are_tf32_numbers_and_sum_to_the_input(rounded):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(4096)
+                          * 10.0 ** rng.integers(-6, 6, 4096)
+                          ).astype(np.float32))
+    hi, lo = gat.split_tf32(x, rounded)
+    for part in (hi, lo):  # TF32 numbers: the low 13 mantissa bits are 0
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    # hi within 2^-11 of x when rounded to nearest, 2^-10 when cut
+    assert bool(((x - hi).abs() <= x.abs() * 2.0 ** (-11 if rounded
+                                                    else -10)).all())
+    assert bool(((x - hi - lo).abs() <= x.abs() * 2.0 ** -20).all())
+    # rounding has no preferred side; cutting leaves every |hi| below |x|
+    above = (hi.abs() > x.abs()).float().mean().item()
+    assert (0.4 < above < 0.6) if rounded else above == 0.0, above
+
+
+@pytest.mark.parametrize("rounded", [True, False])
+@pytest.mark.parametrize("depth", [128, 15_360])
+def test_split_tf32_product_holds_the_kernel_tolerance(depth, rounded):
+    # the three-pass product of csrc/gat_mma.cuh, emulated, in both its
+    # grades: far inside the limit the card's kernel is held to, at the
+    # depths of the three products of the training path (K' = 128 and
+    # b = 15 360)
+    a, b, exact = _product_inputs(depth, seed=depth)
+    err = _rel_err(gat.split_tf32_matmul(a, b, rounded=rounded), exact)
+    assert err <= GAT_TOL / 20, err
+    # and about as good as the plain f32 product
+    assert err <= 4 * _rel_err(a @ b, exact) + 1e-7
+
+
+@pytest.mark.parametrize("depth", [128, 15_360])
+def test_a_single_tf32_pass_does_not_hold_the_kernel_tolerance(depth):
+    # why the operands are split: one pass keeps about three digits
+    a, b, exact = _product_inputs(depth, seed=depth)
+    one = _rel_err(gat.split_tf32_matmul(a, b, passes=1), exact)
+    three = _rel_err(gat.split_tf32_matmul(a, b), exact)
+    assert one > GAT_TOL, one
+    assert one > 100 * three
+
+
+@pytest.mark.parametrize("w,route", [(256, "tensor"), (32, "tensor"),
+                                     (12, "tensor"), (4, "tensor"),
+                                     (5, "fma"), (1, "fma"), (130, "fma")])
+def test_product_route_is_decided_by_the_width_alone(w, route):
+    assert gat.product_route(w) == route
+
+
+def test_training_path_shapes_take_the_tensor_core_route():
+    # EgoGAT([128, 256, 32], num_heads=[8, 1]): widths 256, 256 and 32
+    assert {gat.product_route(w) for w in (256, 256, 32)} == {"tensor"}
+
+
+@pytest.mark.parametrize("k,w,kernel", [
+    (128, 256, "wgmma"), (128, 32, "wgmma"), (4, 4, "wgmma"),
+    (125, 12, "wgmma"),          # K' padded to 128: still fits
+    (129, 256, "mma.sync"),      # a bias on Din = 128: padded to 132
+    (256, 32, "mma.sync"), (128, 5, "fma"), (256, 130, "fma")])
+def test_forward_product_kernel_is_decided_by_depth_and_width(k, w, kernel):
+    assert gat.forward_product_kernel(k, w) == kernel
+
+
+def test_training_path_forward_products_take_wgmma_in_the_first_layer():
+    # EgoGAT([128, 256, 32], num_heads=[8, 1]): (depth, width) of a step's
+    # three calls; the second layer's depth does not fit in shared memory
+    kernels = [gat.forward_product_kernel(k, w)
+               for k, w in ((128, 256), (128, 256), (256, 32))]
+    assert kernels == ["wgmma", "wgmma", "mma.sync"]
+    assert gat.WGMMA_MAX_DEPTH == 128  # csrc/gat_wgmma.cuh kMaxDepth
+    from graph_learn_tpu_torch.ops.kernels import build
+    header = (build.SRC_DIR / "gat_wgmma.cuh").read_text()
+    assert "kBK = 32" in header and "kMaxDepth = 4 * kBK" in header
+
+
+@pytest.mark.parametrize("k,lda", [(128, 128), (129, 132), (1, 4), (5, 8),
+                                   (100, 100), (101, 104)])
+def test_padded_depth_rounds_rows_up_to_16_bytes(k, lda):
+    assert gat.padded_depth(k) == lda
+    assert lda % 4 == 0 and 0 <= lda - k < 4
+
+
+def test_scratch_shapes_follow_the_padded_depth():
+    t = gat._scratch(dict(nbr=torch.zeros((7, 3, 5)),
+                          wn=torch.zeros((2, 6, 9))),
+                     ("v", "a", "da", "dv", "bt_hi", "bt_lo", "out", "d_wn",
+                      "d_ar", "d_el", "d_nbr"))
+    shapes = {n: tuple(t[n].shape) for n in t if n not in ("nbr", "wn")}
+    assert shapes == dict(v=(2, 6), dv=(2, 6), a=(2, 7, 8), da=(2, 7, 8),
+                          bt_hi=(2, 9, 8), bt_lo=(2, 9, 8), out=(2, 7, 9),
+                          d_nbr=(7, 3, 5), d_wn=(2, 6, 9), d_ar=(2, 9),
+                          d_el=(2, 7))
+    assert all(t[n].dtype == torch.float32 for n in shapes)
+
+
+def test_gat_parts_refuses_cpu_tensors():
+    with pytest.raises(InvalidArgumentError, match="CUDA"):
+        gat.GatParts(torch.zeros((4, 3, 5)), torch.zeros((2, 5, 8)),
+                     torch.zeros((2, 8)), torch.zeros((2, 4)),
+                     torch.zeros((2, 4, 8)))
 
 
 # --- (b) EgoGATConv against flax -----------------------------------------

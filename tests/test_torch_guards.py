@@ -136,6 +136,41 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         build.build()
 
 
+def test_library_path_changes_with_source_header_and_flags(monkeypatch,
+                                                           tmp_path):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "one.cu").write_text('#include "shared.cuh"\n')
+    (src / "two.cu").write_text("// no include\n")
+    (src / "shared.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "SRC_DIR", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    first = {n: build.library_path(n) for n in ("one", "two")}
+    assert first["one"].name.startswith("libone-")
+    assert first["one"].parent == tmp_path / "_build"
+    assert first == {n: build.library_path(n) for n in first}  # stable
+    # an edited header rebuilds every library (any source may include it)
+    (src / "shared.cuh").write_text("// v2\n")
+    second = {n: build.library_path(n) for n in first}
+    assert all(second[n] != first[n] for n in first)
+    # a new header too, an edited source only its own library, and a flag all
+    (src / "other.cuh").write_text("")
+    third = {n: build.library_path(n) for n in first}
+    assert all(third[n] != second[n] for n in first)
+    (src / "two.cu").write_text("// edited\n")
+    fourth = {n: build.library_path(n) for n in first}
+    assert fourth["one"] == third["one"] and fourth["two"] != third["two"]
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-g",))
+    assert all(build.library_path(n) != fourth[n] for n in first)
+
+
+def test_every_kernel_header_is_hashed_and_the_gat_source_includes_its_own():
+    headers = sorted(p.name for p in build.SRC_DIR.glob("*.cuh"))
+    source = (build.SRC_DIR / "gat.cu").read_text()
+    for name in ("gat_mma.cuh", "gat_wgmma.cuh"):
+        assert name in headers and '#include "%s"' % name in source
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_fails_without_a_card(where, tmp_path):
     script = REPO / "chip_smoke.py"
