@@ -5,24 +5,27 @@ Replaces ``graph_learn_tpu/ops/pallas/spmm.py`` ``segment_spmm:76``
 divides a mean by ``max(deg, 1)`` and writes 0 for an empty (or
 non-finite) max/min row.  The CUDA source is ``csrc/spmm.cu``; its note
 gives the bound (bytes: sum(deg) rows read, [b, D] written) and the design
-(a lane group per output row, f32 accumulators in registers, vector loads).
+(a lane group per output row on a grid of the card's resident blocks,
+ids clipped as they are read, f32 accumulators in registers).
 
 ``out_dtype`` serves the two callers: ``embedding_agg`` writes the
 features' dtype, as the Pallas kernel does; ``gather_group_agg`` writes
 ``conf.compute_dtype``.
 
-The wrapper clips ``ids`` into the table and ``degrees`` into [0, cap]
-(as ``graph_learn_tpu/ops/aggregate.py:107-113`` does before the Pallas
-call); the kernel has no bounds checks.  A CUDA tensor launches the kernel
-(or raises); a CPU tensor takes :func:`segment_spmm_plain`.  Like the
-Pallas kernel it has no backward: ``feats`` that require a gradient are
-refused rather than silently cut out of the graph.
+``ids`` are clipped into the table and ``degrees`` into [0, cap], as
+``graph_learn_tpu/ops/aggregate.py:107-113`` clips them before the Pallas
+call: by the kernel itself on the card, so that one call is one launch
+(:func:`kernel_args` hands it the caller's tensors), and by :func:`clip`
+before :func:`segment_spmm_plain` on the CPU.  A CUDA tensor launches the
+kernel (or raises); a CPU tensor takes :func:`segment_spmm_plain`.  Like
+the Pallas kernel it has no backward: ``feats`` that require a gradient
+are refused rather than silently cut out of the graph.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,10 +64,12 @@ def segment_spmm_plain(feats: torch.Tensor, ids: torch.Tensor,
 def _lib():
     fn = library("spmm").glt_segment_spmm
     if fn.argtypes is None:
+        # feats, ids, deg, out, b, cap, d, n_rows, in/out dtype codes, agg,
+        # stream
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -86,11 +91,9 @@ def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
             "segment_spmm: want feats [N, D], ids [b, cap], degrees [b]; got "
             "%s, %s, %s" % (tuple(feats.shape), tuple(ids.shape),
                             tuple(degrees.shape)))
-    cap = ids.shape[1]
-    ids = torch.clamp(ids, 0, max(feats.shape[0] - 1, 0)).to(torch.int32)
-    degrees = torch.clamp(degrees, 0, cap).to(torch.int32)
     if feats.device.type == "cpu" and ids.device.type == "cpu" \
             and degrees.device.type == "cpu":
+        ids, degrees = clip(ids, degrees, feats.shape[0])
         return segment_spmm_plain(feats, ids, degrees, agg, out_dtype)
     if not feats.is_cuda or ids.device != feats.device \
             or degrees.device != feats.device:
@@ -103,19 +106,46 @@ def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
             % (feats.dtype, out_dtype))
     if not feats.is_contiguous():
         raise InvalidArgumentError("segment_spmm: feats must be contiguous")
-    ids, degrees = ids.contiguous(), degrees.contiguous()
-    b, d = ids.shape[0], feats.shape[1]
-    out = torch.empty((b, d), dtype=out_dtype, device=feats.device)
-    if b == 0 or d == 0:
+    out = torch.empty((ids.shape[0], feats.shape[1]), dtype=out_dtype,
+                      device=feats.device)
+    if out.numel() == 0:
         return out
-    fn = _lib()
+    args = kernel_args(feats, ids, degrees, agg, out)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream
-        rc = fn(feats.data_ptr(), ids.data_ptr(), degrees.data_ptr(),
-                out.data_ptr(), b, cap, d, _DTYPE_CODE[feats.dtype],
-                _DTYPE_CODE[out_dtype], AGGS.index(agg), stream)
+        launch(_lib(), args, stream)
+    LAUNCHES.add()
+    return out
+
+
+def clip(ids: torch.Tensor, degrees: torch.Tensor,
+         n_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ids into [0, n_rows - 1] and degrees into [0, cap], int32, as
+    ``graph_learn_tpu/ops/aggregate.py:107-113`` clips them."""
+    return (torch.clamp(ids, 0, max(n_rows - 1, 0)).to(torch.int32),
+            torch.clamp(degrees, 0, ids.shape[1]).to(torch.int32))
+
+
+def kernel_args(feats: torch.Tensor, ids: torch.Tensor,
+                degrees: torch.Tensor, agg: str, out: torch.Tensor) -> tuple:
+    """The arguments of ``glt_segment_spmm`` before the stream: the kernel
+    clips int32 ``ids`` and ``degrees`` itself, so those are passed as the
+    caller has them (made contiguous); another integer type is clipped and
+    cast here, as the kernel reads int32."""
+    if ids.dtype != torch.int32 or degrees.dtype != torch.int32:
+        clipped = clip(ids, degrees, feats.shape[0])
+        ids = ids if ids.dtype == torch.int32 else clipped[0]
+        degrees = degrees if degrees.dtype == torch.int32 else clipped[1]
+    ids, degrees = ids.contiguous(), degrees.contiguous()
+    (b, cap), (n_rows, d) = ids.shape, feats.shape
+    return (feats.data_ptr(), ids.data_ptr(), degrees.data_ptr(),
+            out.data_ptr(), b, cap, d, n_rows, _DTYPE_CODE[feats.dtype],
+            _DTYPE_CODE[out.dtype], AGGS.index(agg))
+
+
+def launch(fn, args: tuple, stream: int):
+    """Call ``fn`` (``glt_segment_spmm``) on ``args`` and ``stream``."""
+    rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError("segment_spmm kernel launch failed: CUDA error %d"
                            % rc)
-    LAUNCHES.add()
-    return out

@@ -7,9 +7,11 @@ They replace the two Pallas kernels of ``examples/sweep_aggregate.py``:
 no kernel: a stable sort and a searchsorted in plain PyTorch.  The CUDA
 source is ``csrc/sweep.cu``; its note gives the bounds (bytes: the hit
 rows, not the table, for Kernel 4; the whole table for Kernel 5) and the
-designs (a lane group per sorted hit adding into an L2-resident output
-with ``red.global.add``; a grid-stride column sum with one pass of
-atomics across blocks).
+designs (a warp per 32 sorted hits, slabs found once a chunk, lanes
+striding over (hit, column vector) pairs with four row loads in flight,
+adding into an L2-resident output with ``red.global.add`` after a memset
+of it on the stream; a grid-stride column sum with one pass of atomics
+across blocks).
 
 The hit list is the JAX package's format: the flat row ids sorted
 (stably), each hit packed as ``row_in_slab | group << 12`` with
@@ -156,8 +158,9 @@ def sweep_aggregate(starts: torch.Tensor, packed: torch.Tensor,
     _check_cuda_table("sweep_aggregate", table)
     starts, packed = starts.contiguous(), packed.contiguous()
     n, d = packed.shape[0], table.shape[1]
-    out = torch.zeros((n_groups, d), dtype=torch.float32, device=table.device)
-    if n == 0 or d == 0 or n_groups == 0:
+    # the C entry zeroes out with a memset on the stream, then launches
+    out = torch.empty((n_groups, d), dtype=torch.float32, device=table.device)
+    if out.numel() == 0:
         return out
     fn = _fn("glt_sweep_aggregate",
              [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -172,7 +175,8 @@ def sweep_aggregate(starts: torch.Tensor, packed: torch.Tensor,
     if rc != 0:
         raise RuntimeError("sweep_aggregate kernel launch failed: CUDA error "
                            "%d" % rc)
-    LAUNCHES_SWEEP.add()
+    if n and n_slabs:
+        LAUNCHES_SWEEP.add()
     return out
 
 

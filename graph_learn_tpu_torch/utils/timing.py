@@ -64,17 +64,40 @@ def time_ms(fn: Callable[[], object], iters: int = 50, warmup: int = 5,
 
 def time_cold_ms(fn: Callable[[], object], iters: int = 20) -> float:
     """Median device time of one call after the L2 was flushed (a 256 MiB
-    write, over five times the H100's 50 MB L2); one call per pair of
-    events, so its launch is included."""
+    write, over five times the H100's 50 MB L2), one call per pair of
+    events.  The stream spins between the flush and the first event while
+    the host queues the call, so the time is the card's alone and not the
+    host's launch gap; a call the host took longer to queue than the spin
+    is timed again with a spin of twice the host's queueing time, and a
+    RuntimeError is raised if three tries of one call never held the
+    card."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    spin_cycles = 4_000_000
     times = []
     for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        tries = []
+        while True:
+            flush.zero_()
+            held = torch.cuda.Event(enable_timing=True)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            held.record()
+            torch.cuda._sleep(spin_cycles)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            end.synchronize()
+            spin_ms = held.elapsed_time(start)
+            if enqueue_ms < spin_ms:
+                times.append(start.elapsed_time(end))
+                break
+            tries.append("%.2f ms to queue, %.2f ms spin"
+                         % (enqueue_ms, spin_ms))
+            if len(tries) == 3:
+                raise RuntimeError("timing: the host took longer to queue "
+                                   "one call than the card spun, in every "
+                                   "try: %s" % "; ".join(tries))
+            spin_cycles = int(spin_cycles * 2.0 * enqueue_ms / spin_ms)
     return float(statistics.median(times))

@@ -186,16 +186,21 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
 
 
-def test_device_busy_leaves_out_annotated_ranges():
-    """chip_smoke.py's device-busy sum counts kernels only: a range that
-    user code annotates shows up on the device's timeline with the idle
-    gaps between its kernels as its own time."""
+def _chip_smoke_module():
     import importlib.util
-    import types
     spec = importlib.util.spec_from_file_location("chip_smoke_module",
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_device_busy_leaves_out_annotated_ranges():
+    """chip_smoke.py's device-busy sum counts kernels only: a range that
+    user code annotates shows up on the device's timeline with the idle
+    gaps between its kernels as its own time."""
+    import types
+    smoke = _chip_smoke_module()
 
     def ev(key, us, device="DeviceType.CUDA", annotation=False):
         return types.SimpleNamespace(key=key, self_device_time_total=us,
@@ -208,3 +213,64 @@ def test_device_busy_leaves_out_annotated_ranges():
         ev("aten::index", 0.0, device="DeviceType.CPU"),
         ev("cpu_side_range", 40.0, device="DeviceType.CPU")])
     assert smoke.device_ms_by_kernel(prof) == {"gather_rows_kernel": 0.05}
+
+
+K2 = "void segment_spmm_kernel<float, float, 4, 0>(SpmmArgs)"
+
+
+@pytest.mark.parametrize("work,allow_memset,ok", [
+    ({K2: 1.0}, False, True),
+    ({K2: 1.0, "Memset (Device)": 1.0}, True, True),
+    ({K2: 1.0, "Memset (Device)": 1.0}, False, False),  # a fill beside it
+    ({K2: 1.0, "void at::native::clamp_kernel": 2.0}, False, False),
+    ({K2: 1.0, "Memset (Device)": 2.0}, True, False),  # more than one fill
+    ({K2: 2.0}, False, False),
+    ({"Memset (Device)": 1.0}, True, False),  # no kernel at all
+])
+def test_chip_smoke_one_launch_rule(monkeypatch, work, allow_memset, ok):
+    """chip_smoke.py's check that one wrapper call puts exactly one of its
+    kernels on the card (and at most one memset where the call zeroes its
+    output), on profiler counts per call."""
+    smoke = _chip_smoke_module()
+    ms = {n: 0.002 if n.startswith("Memset") else 0.03 for n in work}
+    monkeypatch.setattr(smoke, "device_work_per_call",
+                        lambda torch, fn: (dict(work), ms))
+    if ok:
+        got, got_ms = smoke.check_one_launch(None, "k", None,
+                                             "segment_spmm_kernel",
+                                             allow_memset)
+        assert sum(got.values()) == sum(work.values())
+        assert got_ms["kernel"] == 0.03
+        assert got_ms.get("memset", 0.002) == 0.002
+    else:
+        with pytest.raises(smoke.SmokeFailure):
+            smoke.check_one_launch(None, "k", None, "segment_spmm_kernel",
+                                   allow_memset)
+
+
+def _row(**times):
+    return dict(name="k", bound_ms=0.02, bwd_bound_ms=0.05,
+                bar_bound_ms=0.03, bound_ms_62m=0.01, **times)
+
+
+@pytest.mark.parametrize("row,ok", [
+    (_row(ms=0.025), True),
+    (_row(ms=0.015), False),  # the call under its bound
+    # a warm call whose rows sit in the L2 may read under a bound of
+    # device-memory bytes: it is not held to it
+    (_row(ms=0.025, warm_ms=0.012, ms_62m=0.009), True),
+    (_row(ms=0.025, bwd_ms=0.04), False),
+    (_row(ms=0.025, bar_ms=0.029), False),
+    (_row(ms=0.025, cold_ms_62m=0.011), True),
+    (_row(ms=0.025, cold_ms_62m=0.0099), False),
+    (dict(name="k", ms=0.01), True),  # no bound to hold it to
+])
+def test_chip_smoke_holds_times_to_their_bounds(row, ok):
+    """chip_smoke.py fails when a time on its kernels line reads under the
+    least time it is held to."""
+    smoke = _chip_smoke_module()
+    if ok:
+        smoke.check_bounds([row])
+    else:
+        with pytest.raises(smoke.SmokeFailure, match="under their bound"):
+            smoke.check_bounds([row])

@@ -178,3 +178,95 @@ def test_segment_spmm_rejects_unknown_aggregation():
     with pytest.raises(InvalidArgumentError):
         spmm.segment_spmm(torch.from_numpy(feats), torch.from_numpy(ids),
                           torch.from_numpy(deg), agg="prod")
+
+
+# --- Kernel 2's launch on the card, prepared on CPU tensors ----------------
+
+class _StubKernel:
+    """Stands in for ``glt_segment_spmm``: records its arguments and returns
+    ``rc``."""
+
+    def __init__(self, rc=0):
+        self.rc, self.args = rc, None
+
+    def __call__(self, *args):
+        self.args = args
+        return self.rc
+
+
+def test_segment_spmm_cuda_branch_hands_the_kernel_unclipped_ids():
+    # the kernel clips ids into [0, N - 1] and degrees into [0, cap] as it
+    # reads them, so the CUDA branch passes the caller's int32 tensors as
+    # they are: one launch, no clamp kernels
+    feats, ids, deg = _spmm_inputs(8, seed=7)
+    bad_ids = torch.from_numpy(ids)
+    bad_ids[0, 0], bad_ids[2, 1] = -5, 10_000
+    bad_deg = torch.from_numpy(deg)
+    bad_deg[0], bad_deg[3] = 99, -2
+    out = torch.empty((9, 8))
+    args = spmm.kernel_args(torch.from_numpy(feats), bad_ids, bad_deg, "max",
+                            out)
+    assert args[1] == bad_ids.data_ptr() and args[2] == bad_deg.data_ptr()
+    assert args[4:9] == (9, 6, 8, 60, 0)  # b, cap, d, N, f32 in
+    assert args[10] == spmm.AGGS.index("max")
+    stub = _StubKernel()
+    spmm.launch(stub, args, 1234)
+    assert stub.args[:-1] == args and stub.args[-1] == 1234
+    # the values behind those pointers are still out of range
+    assert int(bad_ids.min()) == -5 and int(bad_ids.max()) == 10_000
+    assert int(bad_deg.min()) == -2 and int(bad_deg.max()) == 99
+
+
+def test_segment_spmm_kernel_args_clip_and_cast_other_integer_types():
+    # the kernel reads int32: int64 ids and degrees are clipped, then cast,
+    # in the wrapper (a cast alone could wrap a large id around)
+    feats, ids, deg = _spmm_inputs(8, seed=8)
+    big = torch.from_numpy(ids).long()
+    big[1, 2] = 2 ** 40
+    long_deg = torch.from_numpy(deg).long()
+    long_deg[4] = -7
+    out = torch.empty((9, 8))
+    args = spmm.kernel_args(torch.from_numpy(feats), big, long_deg, "sum",
+                            out)
+    assert args[1] != big.data_ptr() and args[2] != long_deg.data_ptr()
+    want_ids, want_deg = spmm.clip(big, long_deg, 60)
+    assert want_ids.dtype == want_deg.dtype == torch.int32
+    assert int(want_ids[1, 2]) == 59 and int(want_deg[4]) == 0
+    # a non-contiguous int32 view is made contiguous, not clipped
+    view = torch.from_numpy(np.ascontiguousarray(ids.T)).t()
+    assert not view.is_contiguous()
+    args = spmm.kernel_args(torch.from_numpy(feats), view,
+                            torch.from_numpy(deg), "sum", out)
+    assert args[1] != view.data_ptr()
+
+
+def test_segment_spmm_launch_raises_on_a_failed_launch():
+    feats, ids, deg = _spmm_inputs(8)
+    args = spmm.kernel_args(torch.from_numpy(feats), torch.from_numpy(ids),
+                            torch.from_numpy(deg), "sum", torch.empty((9, 8)))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        spmm.launch(_StubKernel(rc=700), args, 0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        spmm.launch(_StubKernel(rc=-1), args, 0)  # a code it does not take
+
+
+@pytest.mark.parametrize("d,dtype,out_dtype", [
+    (128, torch.bfloat16, torch.float32),  # serving / training table
+    (100, torch.bfloat16, torch.float32),  # the 62M-edge table
+    (128, torch.float32, torch.float32),   # the harness bar
+    (128, torch.bfloat16, torch.bfloat16),  # embedding_agg writes bf16
+    (7, torch.bfloat16, torch.float32),
+])
+def test_kernel_args_at_the_main_path_shapes(d, dtype, out_dtype):
+    # the shapes and dtype codes the C function reads; the vector width is
+    # its own choice, by shape and alignment
+    feats = torch.zeros((50, d), dtype=dtype)
+    ids = torch.zeros((6, 10), dtype=torch.int32)
+    deg = torch.full((6,), 10, dtype=torch.int32)
+    out = torch.empty((6, d), dtype=out_dtype)
+    args = spmm.kernel_args(feats, ids, deg, "mean", out)
+    assert args[0] == feats.data_ptr() and args[3] == out.data_ptr()
+    assert args[4:8] == (6, 10, d, 50)
+    assert args[8:] == ((1 if dtype == torch.bfloat16 else 0),
+                        (1 if out_dtype == torch.bfloat16 else 0),
+                        spmm.AGGS.index("mean"))

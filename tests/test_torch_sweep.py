@@ -251,3 +251,4 @@ def test_embedding_agg_prod_matches_jax():
         aggregate.embedding_agg(torch.from_numpy(feats),
                                 torch.from_numpy(ids),
                                 torch.from_numpy(deg), op="median")
+
