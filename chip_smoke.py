@@ -16,9 +16,13 @@ Phases (any failure exits non-zero before the result line):
    every gradient, at small sizes on both routes of its products, at the
    training path's full first-layer size and at a deep reduction; the
    segment SpMM kernel also on ids and degrees out of range, which it
-   clips itself; the sweep kernel with its prep's invariants), and time
-   kernel, plain version and, where one PyTorch call computes the same
-   function, that call, at the main paths' shapes, checking with
+   clips itself, and with a raw max/min, on which a group max keeps inf,
+   -inf and NaN as the JAX package does; the gather kernel bit for bit on
+   both its routes, even and odd tables and a view; the sweep kernel with
+   its prep's invariants), and time kernel, plain version and, where one
+   PyTorch call computes the same function, that call, at the main paths'
+   shapes (the gather kernel at 1 024, 15 360 and 153 600 rows, the row
+   counts the paths launch, with one kernel a call), checking with
    torch.profiler that one call of the segment SpMM wrapper puts one
    kernel on the card (the sweep wrapper: one kernel and one memset, each
    timed from the profiler's events); the GAT block also part by part
@@ -142,6 +146,28 @@ def bound(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def profiled_work(torch, fn, calls):
+    """[(start, name, us)] of the work on the card (kernels and memsets,
+    whoever launches them) in the second of two windows of ``calls`` calls
+    of ``fn`` under torch.profiler (the first warms the profiler up), in
+    launch order."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return sorted((ev.time_range.start, ev.name,
+                   ev.time_range.end - ev.time_range.start)
+                  for ev in prof.events()
+                  if (str(getattr(ev, "device_type", "")).endswith("CUDA")
+                      and not getattr(ev, "is_user_annotation", False)
+                      and not ev.name.startswith("ProfilerStep")))
+
+
 def device_work_per_call(torch, fn, calls=10, tries=3):
     """({name: count per call}, {name: mean device ms of one launch}) of the
     work ``fn`` puts on the card (kernels and memsets, whoever launches
@@ -151,24 +177,11 @@ def device_work_per_call(torch, fn, calls=10, tries=3):
     multiples of ``calls`` lost records (one window recorded nothing at
     all): it is profiled again, up to ``tries`` times.  Memsets count as
     recorded (the profiler has dropped one in ten)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
         counts, us = {}, {}
-        for ev in prof.events():
-            if (str(getattr(ev, "device_type", "")).endswith("CUDA")
-                    and not getattr(ev, "is_user_annotation", False)
-                    and not ev.name.startswith("ProfilerStep")):
-                counts[ev.name] = counts.get(ev.name, 0) + 1
-                us[ev.name] = us.get(ev.name, 0.0) + (
-                    ev.time_range.end - ev.time_range.start)
+        for _, name, dur in profiled_work(torch, fn, calls):
+            counts[name] = counts.get(name, 0) + 1
+            us[name] = us.get(name, 0.0) + dur
         if counts and all(n % calls == 0 for name, n in counts.items()
                           if not name.startswith("Memset")):
             return ({name: n / calls for name, n in counts.items()},
@@ -203,14 +216,20 @@ def check_one_launch(torch, what, fn, kernel, allow_memset=False):
 
 def check_bounds(rows):
     """No time on the kernels line reads under the least time it is held
-    to: ``ms`` under ``bound_ms``, the backward, the harness bar and the
-    cold call at the 62M table.  The bounds count device-memory bytes, so
-    the times held to them are those of calls whose rows come from device
-    memory: cold where the rows fit the L2 (Kernels 1 and 2 at the 200k
-    table), and the warm figures (``warm_ms``, ``ms_62m``) are not held.
+    to: ``ms`` under ``bound_ms``, the backward, the harness bar, the
+    cold call at the 62M table and Kernel 1's cold calls at the row counts
+    the paths launch (``ms_1024`` under ``bound_ms_1024``,
+    ``cold_ms_62m_15360`` under ``bound_ms_62m_15360``, ...).  The bounds
+    count device-memory bytes, so the times held to them are those of
+    calls whose rows come from device memory: cold where the rows fit the
+    L2 (Kernels 1 and 2 at the 200k table), and the warm figures
+    (``warm_ms``, ``ms_62m``) are not held.
     Raises SmokeFailure naming each time that reads under its bound."""
     pairs = (("ms", "bound_ms"), ("bwd_ms", "bwd_bound_ms"),
              ("bar_ms", "bar_bound_ms"), ("cold_ms_62m", "bound_ms_62m"))
+    pairs += tuple(pair for m in GATHER_PATH_ROWS for pair in (
+        ("ms_%d" % m, "bound_ms_%d" % m),
+        ("cold_ms_62m_%d" % m, "bound_ms_62m_%d" % m)))
     under = ["%s %s %.4f < %.4f" % (r["name"], t, r[t], r[b])
              for r in rows for t, b in pairs
              if t in r and b in r and r[t] < r[b]]
@@ -224,21 +243,119 @@ def check_bounds(rows):
 # ---------------------------------------------------------------------------
 
 
+GATHER_ROWS = (1, 31, 32, 33, 4097, 15_360, 153_600)
+
+
 def check_gather(torch, gather):
+    """Kernel 1 bit for bit against gather_rows_plain on every route it
+    takes: D in {128, 100, 64, 7}, bf16 and f32, ragged row counts, ids 0
+    and N - 1 and repeated ids, on an even table, an odd one (a 200-byte
+    row's 16-byte covering span runs past the last row) and a contiguous
+    view ``base[1:]`` whose base lies one row into its storage (only 8-byte
+    aligned at D = 100 bf16, 2-byte at D = 7 bf16)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = 0
     for dtype in (torch.bfloat16, torch.float32):
-        for d in (128, 100, 7):
-            table = torch.randn((20_000, d), generator=gen, device="cuda",
-                                dtype=torch.float32).to(dtype)
-            for m in (1, 33, 4097, 153_600):
-                idx = torch.randint(0, table.shape[0], (m,), generator=gen,
-                                    device="cuda", dtype=torch.int32)
-                out = gather.gather_rows(table, idx)
-                torch.cuda.synchronize()
-                check(torch.equal(out, gather.gather_rows_plain(table, idx)),
-                      "gather_rows != plain (%s, D=%d, M=%d)" % (dtype, d, m))
-    log("gather_rows: exact on bf16/f32, D in {128, 100, 7}, "
-        "M in {1, 33, 4097, 153600}")
+        for d in (128, 100, 64, 7):
+            base = torch.randn((20_002, d), generator=gen, device="cuda",
+                               dtype=torch.float32).to(dtype)
+            tables = (("even", base[:20_000].clone()),
+                      ("odd", base[:20_001].clone()),
+                      ("view base[1:]", base[1:]))
+            for label, table in tables:
+                n = table.shape[0]
+                for m in GATHER_ROWS:
+                    idx = torch.randint(0, n, (m,), generator=gen,
+                                        device="cuda", dtype=torch.int32)
+                    idx[0] = n - 1
+                    idx[m // 2] = 0
+                    idx[m // 3:m // 3 + min(m, 40) // 4] = n - 1  # repeats
+                    out = gather.gather_rows(table, idx)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, gather.gather_rows_plain(table,
+                                                                    idx)),
+                          "gather_rows != plain (%s, D=%d, M=%d, %s table "
+                          "of %d rows)" % (dtype, d, m, label, n))
+                    cases += 1
+    log("gather_rows: %d cases bit for bit against gather_rows_plain: "
+        "bf16/f32, D in {128, 100, 64, 7}, M in %s, ids 0 and N-1 and "
+        "repeated, even and odd tables and a view base[1:]"
+        % (cases, list(GATHER_ROWS)))
+
+
+# Kernel 1's row counts on the paths besides the 153 600-row GAT hop 2:
+# src (1 024) and hop 1 (15 360) of every serving forward, SAGE step and
+# 62M step
+GATHER_PATH_ROWS = (1_024, 15_360)
+
+
+def gather_kernels(torch, calls, where, tries=3):
+    """The kernel that each of ``calls`` (gather_rows calls) puts on the
+    card, from one torch.profiler session over all of them in turn: each
+    must put exactly one kernel named gather_rows on the card, the same at
+    every repeat.  Its name says the route, ``bulk`` or the lane groups."""
+    n, reps = len(calls), 10
+    for _ in range(tries):
+        names = [name for _, name, _ in profiled_work(
+            torch, lambda: [c() for c in calls], reps)]
+        if len(names) == n * reps:
+            check(all(name == names[i % n] and "gather_rows" in name
+                      for i, name in enumerate(names)),
+                  "gather_rows %s: a call put %s on the card; want one "
+                  "gather_rows kernel a call" % (where, names[:n]))
+            return names[:n]
+        log("torch.profiler recorded %d kernels over %d x %d gather_rows "
+            "calls; profiling again" % (len(names), reps, n))
+    check(False, "gather_rows %s: torch.profiler recorded %s over %d x %d "
+          "calls, in %d windows; want one gather_rows kernel a call"
+          % (where, names[:3 * n], reps, n, tries))
+
+
+def gather_shapes(torch, gather, table, gen, where, rows=GATHER_PATH_ROWS,
+                  warm_rows=(), given=None, yardsticks=()):
+    """Kernel 1 at ``rows`` random rows of ``table`` (the ids in ``given``
+    [m] where it has them): exact against the plain version, one kernel a
+    call (``gather_kernels``; its route, ``bulk`` or ``lanes``), the cold
+    time (L2 flushed, stream held) and its bound (each row read once and
+    written once, plus the ids); warm (50 calls on the same ids) where
+    ``m`` is in ``warm_rows``; the plain version and ``index_select`` cold
+    where it is in ``yardsticks``.  Returns {m: fields}."""
+    n, d = table.shape
+    ids = {}
+    for m in rows:
+        ids[m] = (given or {}).get(m)
+        if ids[m] is None:
+            ids[m] = torch.randint(0, n, (m,), generator=gen, device="cuda",
+                                   dtype=torch.int32)
+        check(torch.equal(gather.gather_rows(table, ids[m]),
+                          gather.gather_rows_plain(table, ids[m])),
+              "gather_rows %s, %d rows, differs from table[idx]" % (where, m))
+    kernels = gather_kernels(torch, [
+        (lambda i=ids[m]: gather.gather_rows(table, i)) for m in rows], where)
+    res = {}
+    for m, name in zip(rows, kernels):
+        def call(i=ids[m]):
+            return gather.gather_rows(table, i)
+        moved = 2 * m * d * table.element_size() + 4 * m
+        f = dict(ms=time_cold_ms(call), bound_ms=bound(moved, 0)[0],
+                 route="bulk" if "bulk" in name else "lanes")
+        if m in warm_rows:
+            f["warm_ms"] = time_ms(call, hold=True)
+        if m in yardsticks:
+            f["plain_ms"] = time_cold_ms(
+                lambda i=ids[m]: gather.gather_rows_plain(table, i))
+            f["library_ms"] = time_cold_ms(
+                lambda i=ids[m]: torch.index_select(table, 0, i))
+        log("gather_rows %s, %d rows (%.3f MB moved): %.4f ms cold%s, bound "
+            "%.4f (%.1f%%), one kernel a call on the %s route (%s)%s"
+            % (where, m, moved / 1e6, f["ms"], ", %.4f warm" % f["warm_ms"]
+               if "warm_ms" in f else "", f["bound_ms"],
+               100 * f["bound_ms"] / f["ms"], f["route"], name[:60],
+               "; plain %.4f, index_select %.4f, both cold"
+               % (f["plain_ms"], f["library_ms"]) if "plain_ms" in f
+               else ""))
+        res[m] = f
+    return res
 
 
 def check_spmm(torch, spmm):
@@ -299,6 +416,78 @@ def check_spmm(torch, spmm):
         "ids and degrees, within tolerance of segment_spmm_plain on the "
         "clipped inputs (f32 out rtol=atol=1e-5; bf16 out rtol=2^-7, "
         "atol=1e-5); max abs err %g" % (cases, worst))
+
+
+def same_values(torch, a, b):
+    """Equal element by element, NaN where the other has NaN."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def check_group_max(torch, gl, spmm):
+    """A group max keeps inf, -inf and NaN (the JAX package's jnp.max and
+    segment_max): gather_group_agg(max) on rows holding them against the
+    plain ``table[idx].amax(1)``, with conf.sorted_gather off and on (each
+    one Kernel 2 launch); then Kernel 2's raw max/min against
+    segment_spmm_plain(raw_extrema=True) on ragged degrees, an empty row
+    among them (-inf / +inf), and its pinned rule (0) beside it."""
+    from graph_learn_tpu_torch.ops.aggregate import gather_group_agg
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n, k, groups = 5_000, 10, 1_537
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (128, 100):
+            table = torch.randn((n, d), generator=gen, device="cuda",
+                                dtype=torch.float32)
+            table[::97, ::7] = float("inf")
+            table[1::89, 3::5] = float("nan")
+            table[2::83, 1::3] = float("-inf")
+            table[7] = float("-inf")
+            table = table.to(dtype)
+            idx = torch.randint(0, n, (groups, k), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            idx[0] = 7  # a group of -inf rows
+            want = table[idx.long()].float().amax(1)
+            check(bool(torch.isinf(want).any() and torch.isnan(want).any()),
+                  "group max: the inputs hold no non-finite result")
+            saved = (gl.conf.sorted_gather, gl.conf.sorted_gather_min_bytes)
+            for sorted_on in (False, True):
+                gl.conf.sorted_gather = sorted_on
+                gl.conf.sorted_gather_min_bytes = 0
+                before = spmm.LAUNCHES.count
+                try:
+                    out = gather_group_agg(table, idx, "max")
+                finally:
+                    gl.conf.sorted_gather, gl.conf.sorted_gather_min_bytes = \
+                        saved
+                torch.cuda.synchronize()
+                check(spmm.LAUNCHES.count == before + 1
+                      and same_values(torch, out, want),
+                      "gather_group_agg(max) on non-finite rows, %s D=%d, "
+                      "sorted_gather=%s: differs from table[idx].amax(1)"
+                      % (dtype, d, sorted_on))
+                cases += 1
+            deg = torch.randint(0, k + 1, (groups,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+            deg[:2] = torch.tensor([0, k], dtype=torch.int32)
+            for agg in ("max", "min"):
+                for raw in (True, False):
+                    out = spmm.segment_spmm(table, idx, deg, agg,
+                                            torch.float32, raw_extrema=raw)
+                    ref = spmm.segment_spmm_plain(table, idx, deg, agg,
+                                                  torch.float32, raw)
+                    torch.cuda.synchronize()
+                    check(same_values(torch, out, ref)
+                          and (raw or bool(torch.isfinite(out).all())),
+                          "segment_spmm %s raw_extrema=%s on non-finite "
+                          "rows, %s D=%d: differs from the plain version"
+                          % (agg, raw, dtype, d))
+                    cases += 1
+    log("group max: %d cases equal (NaN where NaN): gather_group_agg(max) "
+        "on rows holding inf, -inf and NaN against table[idx].amax(1), "
+        "sorted_gather off and on, one segment_spmm launch a call; "
+        "segment_spmm max/min with raw_extrema on and off against the plain "
+        "version on ragged degrees" % cases)
 
 
 def sweep_case(torch, sweep, table, flat, k, R):
@@ -722,23 +911,29 @@ def measure_kernels(torch, gather, spmm):
     g_err = (out.float() - gather.gather_rows_plain(table, idx).float()
              ).abs().max().item()
     check(g_err == 0, "gather_rows at the serving shape: max err %g" % g_err)
-    g_bytes = 2 * m * FEAT_DIM * table.element_size() + m * 4
-    g_bound, g_by = bound(g_bytes, 0)
+    shapes = gather_shapes(torch, gather, table, gen, "at the 200k table",
+                           rows=GATHER_PATH_ROWS + (m,), warm_rows=(m,),
+                           given={m: idx}, yardsticks=GATHER_PATH_ROWS)
     rows = {
         "gather_rows": dict(
             name="gather_rows", route="cuda",
             source="graph_learn_tpu_torch/csrc/gather.cu",
             replaces="graph_learn_tpu/ops/pallas/gather.py:64",
-            max_abs_err=g_err,
-            ms=time_cold_ms(lambda: gather.gather_rows(table, idx)),
+            max_abs_err=g_err, ms=shapes[m]["ms"],
             plain_ms=time_cold_ms(lambda: gather.gather_rows_plain(table,
                                                                    idx)),
-            bound_ms=g_bound, bound_by=g_by,
+            bound_ms=shapes[m]["bound_ms"], bound_by="bytes",
             library_ms=time_cold_ms(lambda: torch.index_select(table, 0,
                                                                idx)),
-            warm_ms=time_ms(lambda: gather.gather_rows(table, idx),
-                            hold=True)),
+            warm_ms=shapes[m]["warm_ms"], kernel_route=shapes[m]["route"]),
     }
+    for rows_m in GATHER_PATH_ROWS:
+        f = shapes[rows_m]
+        rows["gather_rows"].update({
+            "ms_%d" % rows_m: f["ms"], "bound_ms_%d" % rows_m: f["bound_ms"],
+            "plain_ms_%d" % rows_m: f["plain_ms"],
+            "library_ms_%d" % rows_m: f["library_ms"],
+            "kernel_route_%d" % rows_m: f["route"]})
     ids = idx[:MICRO_BATCH * k1 * k2].reshape(MICRO_BATCH * k1, k2)
     deg = torch.full((ids.shape[0],), k2, dtype=torch.int32, device="cuda")
     out = spmm.segment_spmm(table, ids, deg, "mean", torch.float32)
@@ -1442,23 +1637,31 @@ def scale_path(torch, card, gl, gather, spmm, sweep):
                         dtype=torch.int32)
     ids = idx.reshape(b * k1, k2)
     deg = torch.full((ids.shape[0],), k2, dtype=torch.int32, device="cuda")
-    check(torch.equal(gather.gather_rows(table, idx),
-                      gather.gather_rows_plain(table, idx)),
-          "gather_rows at the 62M table differs from table[idx]")
     es = table.element_size()
 
     def warm_cold(fn):
         return {"ms_62m": time_ms(fn, hold=True),
                 "cold_ms_62m": time_cold_ms(fn)}
 
-    g_bound, _ = bound(2 * m * d * es + m * 4, 0)
+    shapes = gather_shapes(torch, gather, table, gen, "at the 62M table",
+                           rows=GATHER_PATH_ROWS + (m,), warm_rows=(m,),
+                           given={m: idx}, yardsticks=GATHER_PATH_ROWS)
     extra = {"gather_rows": dict(
-        warm_cold(lambda: gather.gather_rows(table, idx)),
+        ms_62m=shapes[m]["warm_ms"], cold_ms_62m=shapes[m]["ms"],
         plain_ms_62m=time_ms(lambda: gather.gather_rows_plain(table, idx),
                              iters=20, hold=True),
         library_ms_62m=time_ms(lambda: torch.index_select(table, 0, idx),
                                hold=True),
-        bound_ms_62m=g_bound)}
+        bound_ms_62m=shapes[m]["bound_ms"],
+        kernel_route_62m=shapes[m]["route"])}
+    for rows_m in GATHER_PATH_ROWS:
+        f = shapes[rows_m]
+        extra["gather_rows"].update({
+            "cold_ms_62m_%d" % rows_m: f["ms"],
+            "bound_ms_62m_%d" % rows_m: f["bound_ms"],
+            "plain_cold_ms_62m_%d" % rows_m: f["plain_ms"],
+            "library_cold_ms_62m_%d" % rows_m: f["library_ms"],
+            "kernel_route_62m_%d" % rows_m: f["route"]})
     out = spmm.segment_spmm(table, ids, deg, "mean", torch.float32)
     ref = spmm.segment_spmm_plain(table, ids, deg, "mean", torch.float32)
     check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
@@ -1634,6 +1837,7 @@ def main() -> int:
 
     check_gather(torch, gather)
     check_spmm(torch, spmm)
+    check_group_max(torch, gl, spmm)
     check_sweep(torch, sweep)
     check_gat(torch, gat)
     rows = measure_kernels(torch, gather, spmm)

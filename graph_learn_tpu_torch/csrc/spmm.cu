@@ -5,7 +5,9 @@
 // segment_spmm (_spmm_kernel), which runs one grid step per output row and
 // double-buffers the neighbour-row DMAs into an f32 VMEM accumulator.  Same
 // semantics: accumulation in f32, mean divides by max(deg, 1), an empty
-// max/min row (and any non-finite max/min) is written as 0, ids are clipped
+// max/min row (and any non-finite max/min) is written as 0 unless `raw` asks
+// for the max/min as it is (gather_group_agg, whose groups are never empty,
+// keeps inf, -inf and NaN as the JAX package does), ids are clipped
 // into [0, N - 1] and degrees into [0, cap] as
 // graph_learn_tpu/ops/aggregate.py:107-113 clips them before the Pallas
 // call.  Run with deg == k it is the deepest-hop group mean
@@ -80,6 +82,7 @@ struct SpmmArgs {
   void* out;
   int64_t b, d;
   int cap, last, tpr_log2, agg;  // last: the last row of the table, or -1
+  int raw;  // 1: a non-finite max/min is written as it is, not as 0
 };
 
 // Output row `row`, reduced by the lane `lane` of its group: each lane
@@ -124,7 +127,9 @@ __device__ __forceinline__ void reduce_row(const SpmmArgs& a, int64_t row,
     for (int j = 0; j < VEC; ++j) {
       float r = acc[j];
       if (agg == kMean) r = r / static_cast<float>(n > 1 ? n : 1);
-      if (agg >= kMax && !(fabsf(r) < INFINITY)) r = 0.f;  // also NaN
+      // `raw` is read last, only for a non-finite max/min: read first it
+      // cost 4% at the 62M table (PERF.md)
+      if (agg >= kMax && !(fabsf(r) < INFINITY) && !a.raw) r = 0.f;  // NaN
       y.v[j] = from_f32<O>(r);
     }
     *reinterpret_cast<Vec<O, VEC>*>(static_cast<O*>(a.out) + row * a.d +
@@ -201,14 +206,15 @@ void dispatch_vec(const SpmmArgs& a, cudaStream_t s) {
 
 // feats [n_rows, d] (dtype code 0 = f32, 1 = bf16), ids [b, cap] int32 and
 // deg [b] int32 as the caller has them (clipped here), out [b, d] (dtype
-// code as for feats), agg 0..3 = sum/mean/max/min.  Returns
+// code as for feats), agg 0..3 = sum/mean/max/min, raw 1 to write a
+// non-finite max/min as it is (else 0).  Returns
 // cudaGetLastError() after the launch (0 on success, -1 for an unknown
 // dtype or agg code).
 extern "C" int glt_segment_spmm(const void* feats, const void* ids,
                                 const void* deg, void* out, long long b,
                                 int cap, long long d, long long n_rows,
                                 int in_dtype, int out_dtype, int agg,
-                                void* stream) {
+                                int raw, void* stream) {
   if (agg < kSum || agg > kMin || in_dtype < 0 || in_dtype > 1 ||
       out_dtype < 0 || out_dtype > 1) {
     return -1;
@@ -221,7 +227,7 @@ extern "C" int glt_segment_spmm(const void* feats, const void* ids,
                                                       : INT32_MAX);
   const SpmmArgs a{feats, static_cast<const int32_t*>(ids),
                    static_cast<const int32_t*>(deg), out, b, d, cap, last, 0,
-                   agg};
+                   agg, raw != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0) {
     if (out_dtype == 0) {

@@ -35,25 +35,30 @@ def segment_aggregate(feats: torch.Tensor, segment_ids: torch.Tensor,
     """feats [n, d] grouped by segment_ids [n] -> [num_segments, d].
 
     An empty segment is 0 for sum / mean, 1 for prod and -inf / +inf for
-    max / min, as ``jax.ops.segment_*`` leave it.  Launches no hand-written
+    max / min, and a row whose id lies outside [0, num_segments) is
+    dropped, as ``jax.ops.segment_*`` do.  Launches no hand-written
     kernel."""
     if op not in ("sum", "mean", "max", "min", "prod"):
         raise InvalidArgumentError("unknown aggregation op %r" % op)
     seg = segment_ids.long()
-    shape = (num_segments, feats.shape[1])
+    # rows out of range go to one extra segment, cut off at the end: no
+    # host sync, and no device-side assert on a CUDA tensor
+    seg = torch.where((seg >= 0) & (seg < num_segments), seg, num_segments)
+    shape = (num_segments + 1, feats.shape[1])
     if op in ("sum", "mean"):
         out = torch.zeros(shape, dtype=feats.dtype, device=feats.device)
         out.index_add_(0, seg, feats)
         if op == "mean":
-            cnt = torch.zeros(num_segments, dtype=feats.dtype,
+            cnt = torch.zeros(num_segments + 1, dtype=feats.dtype,
                               device=feats.device)
             cnt.index_add_(0, seg, torch.ones_like(feats[:, 0]))
             out = out / torch.clamp(cnt, min=1.0)[:, None]
-        return out
+        return out[:num_segments]
     init = {"max": float("-inf"), "min": float("inf"), "prod": 1.0}[op]
     out = torch.full(shape, init, dtype=feats.dtype, device=feats.device)
     return out.scatter_reduce(0, seg[:, None].expand_as(feats), feats,
-                              reduce=_SCATTER_REDUCE[op], include_self=True)
+                              reduce=_SCATTER_REDUCE[op],
+                              include_self=True)[:num_segments]
 
 
 def _use_sorted(table: torch.Tensor, n_groups: int, op: str) -> bool:
@@ -72,7 +77,9 @@ def gather_group_agg(table: torch.Tensor, idx: torch.Tensor,
     """Reduce table rows in fixed groups: idx [..., k] -> [n_groups, D].
 
     ``table[idx].reshape(-1, k, D)`` reduced over k, accumulated in f32
-    and returned in ``conf.compute_dtype``.
+    and returned in ``conf.compute_dtype``.  A max keeps inf, -inf and NaN
+    as the JAX package's ``jnp.max`` / ``segment_max`` do (Kernel 2 with
+    ``raw_extrema``: a group is never empty).
     """
     if op not in ("mean", "sum", "max"):
         raise InvalidArgumentError("unknown group aggregation op %r" % op)
@@ -86,7 +93,8 @@ def gather_group_agg(table: torch.Tensor, idx: torch.Tensor,
         return (out / k if op == "mean" else out).to(compute)
     ids = idx.reshape(-1, k)
     deg = torch.full((ids.shape[0],), k, dtype=torch.int32, device=idx.device)
-    return segment_spmm(table, ids, deg, agg=op, out_dtype=compute)
+    return segment_spmm(table, ids, deg, agg=op, out_dtype=compute,
+                        raw_extrema=True)
 
 
 def embedding_agg(float_attrs: torch.Tensor, ids: torch.Tensor,

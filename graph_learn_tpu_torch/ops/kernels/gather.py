@@ -3,7 +3,10 @@
 Replaces ``graph_learn_tpu/ops/pallas/gather.py`` ``gather_rows:64``
 (``_gather_kernel:34``).  The CUDA source is ``csrc/gather.cu``; its note
 gives the bound (bytes: M rows read at random, M rows written) and the
-design (a lane group per row, 16-byte vector copies, no index padding).
+design, which it picks itself by shape and alignment: bulk copies of each
+row's 16-byte covering span into shared memory, a block's 128 rows in
+flight, for 8-byte-granular rows past one wave of threads; else a lane
+group per row with the widest vectors the row and pointers allow.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes
 :func:`gather_rows_plain`, the same function in plain PyTorch.  Like the
@@ -33,8 +36,10 @@ def _lib():
     lib = library("gather")
     fn = lib.glt_gather_rows
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+        # table, n_rows, idx, out, m, row bytes, stream
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -68,8 +73,8 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     fn = _lib()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), m,
-                d * table.element_size(), stream)
+        rc = fn(table.data_ptr(), table.shape[0], idx.data_ptr(),
+                out.data_ptr(), m, d * table.element_size(), stream)
     if rc != 0:
         raise RuntimeError("gather_rows kernel launch failed: CUDA error %d"
                            % rc)

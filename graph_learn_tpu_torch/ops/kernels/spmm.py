@@ -3,7 +3,10 @@
 Replaces ``graph_learn_tpu/ops/pallas/spmm.py`` ``segment_spmm:76``
 (``_spmm_kernel:27``) for sum / mean / max / min.  It accumulates in f32,
 divides a mean by ``max(deg, 1)`` and writes 0 for an empty (or
-non-finite) max/min row.  The CUDA source is ``csrc/spmm.cu``; its note
+non-finite) max/min row, as the Pallas kernel does; with ``raw_extrema``
+it writes the max/min as it is (inf, -inf, NaN), the rule of the JAX
+package's ``gather_group_agg``, whose groups are never empty.  The CUDA
+source is ``csrc/spmm.cu``; its note
 gives the bound (bytes: sum(deg) rows read, [b, D] written) and the design
 (a lane group per output row on a grid of the card's resident blocks,
 ids clipped as they are read, f32 accumulators in registers).
@@ -39,7 +42,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 def segment_spmm_plain(feats: torch.Tensor, ids: torch.Tensor,
                        degrees: torch.Tensor, agg: str,
-                       out_dtype: torch.dtype) -> torch.Tensor:
+                       out_dtype: torch.dtype,
+                       raw_extrema: bool = False) -> torch.Tensor:
     """Plain version on in-range ``ids`` / ``degrees``: gather, mask, reduce
     in f32."""
     b, cap = ids.shape
@@ -57,7 +61,8 @@ def segment_spmm_plain(feats: torch.Tensor, ids: torch.Tensor,
         fill = float("-inf") if agg == "max" else float("inf")
         g = torch.where(mask, g, fill)
         s = g.amax(dim=1) if agg == "max" else g.amin(dim=1)
-        s = torch.where(torch.isfinite(s), s, 0.0)
+        if not raw_extrema:
+            s = torch.where(torch.isfinite(s), s, 0.0)
     return s.to(out_dtype)
 
 
@@ -65,18 +70,20 @@ def _lib():
     fn = library("spmm").glt_segment_spmm
     if fn.argtypes is None:
         # feats, ids, deg, out, b, cap, d, n_rows, in/out dtype codes, agg,
-        # stream
+        # raw extrema, stream
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
                  degrees: torch.Tensor, agg: str = "sum",
-                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                 out_dtype: Optional[torch.dtype] = None,
+                 raw_extrema: bool = False) -> torch.Tensor:
     """feats [N, D] (f32/bf16), ids [b, cap], degrees [b] -> [b, D]."""
     if feats.requires_grad:
         raise InvalidArgumentError(
@@ -94,7 +101,8 @@ def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
     if feats.device.type == "cpu" and ids.device.type == "cpu" \
             and degrees.device.type == "cpu":
         ids, degrees = clip(ids, degrees, feats.shape[0])
-        return segment_spmm_plain(feats, ids, degrees, agg, out_dtype)
+        return segment_spmm_plain(feats, ids, degrees, agg, out_dtype,
+                                  raw_extrema)
     if not feats.is_cuda or ids.device != feats.device \
             or degrees.device != feats.device:
         raise InvalidArgumentError(
@@ -110,7 +118,7 @@ def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
                       device=feats.device)
     if out.numel() == 0:
         return out
-    args = kernel_args(feats, ids, degrees, agg, out)
+    args = kernel_args(feats, ids, degrees, agg, out, raw_extrema)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream
         launch(_lib(), args, stream)
@@ -127,7 +135,8 @@ def clip(ids: torch.Tensor, degrees: torch.Tensor,
 
 
 def kernel_args(feats: torch.Tensor, ids: torch.Tensor,
-                degrees: torch.Tensor, agg: str, out: torch.Tensor) -> tuple:
+                degrees: torch.Tensor, agg: str, out: torch.Tensor,
+                raw_extrema: bool = False) -> tuple:
     """The arguments of ``glt_segment_spmm`` before the stream: the kernel
     clips int32 ``ids`` and ``degrees`` itself, so those are passed as the
     caller has them (made contiguous); another integer type is clipped and
@@ -140,7 +149,7 @@ def kernel_args(feats: torch.Tensor, ids: torch.Tensor,
     (b, cap), (n_rows, d) = ids.shape, feats.shape
     return (feats.data_ptr(), ids.data_ptr(), degrees.data_ptr(),
             out.data_ptr(), b, cap, d, n_rows, _DTYPE_CODE[feats.dtype],
-            _DTYPE_CODE[out.dtype], AGGS.index(agg))
+            _DTYPE_CODE[out.dtype], AGGS.index(agg), int(raw_extrema))
 
 
 def launch(fn, args: tuple, stream: int):

@@ -264,6 +264,14 @@ def _row(**times):
     (_row(ms=0.025, cold_ms_62m=0.011), True),
     (_row(ms=0.025, cold_ms_62m=0.0099), False),
     (dict(name="k", ms=0.01), True),  # no bound to hold it to
+    # Kernel 1 cold at the row counts the paths launch, each held to its
+    # own bound
+    (_row(ms=0.025, ms_1024=0.003, bound_ms_1024=0.0002), True),
+    (_row(ms=0.025, ms_15360=0.002, bound_ms_15360=0.0024), False),
+    (_row(ms=0.025, cold_ms_62m_15360=0.01, bound_ms_62m_15360=0.0019),
+     True),
+    (_row(ms=0.025, cold_ms_62m_1024=0.0001, bound_ms_62m_1024=0.00012),
+     False),
 ])
 def test_chip_smoke_holds_times_to_their_bounds(row, ok):
     """chip_smoke.py fails when a time on its kernels line reads under the

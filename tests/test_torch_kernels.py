@@ -137,6 +137,31 @@ def test_embedding_agg_matches_jax(op):
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("agg", ["max", "min"])
+def test_segment_spmm_plain_pins_zero_unless_raw_extrema(agg):
+    # embedding_agg keeps the Pallas kernel's 0 for an empty or non-finite
+    # max/min row; raw_extrema (gather_group_agg's option) writes the
+    # extremum as it is: -inf / +inf for an empty row, inf and NaN kept
+    feats, ids, deg = _spmm_inputs(8, seed=9)
+    feats[ids[0, 0], 1], feats[ids[0, 1], 2] = np.inf, np.nan
+    feats[ids[0, 2], 3] = -np.inf
+    t = [torch.from_numpy(a) for a in (feats, ids, deg)]
+    pinned = embedding_agg(*t, op=agg).numpy()
+    assert deg[1] == 0 and (pinned[1] == 0).all()
+    assert np.isfinite(pinned).all()
+    raw = spmm.segment_spmm(*t, agg=agg, raw_extrema=True).numpy()
+    empty = -np.inf if agg == "max" else np.inf
+    assert (raw[1] == empty).all() and (raw[6] == empty).all()
+    assert np.isnan(raw[0, 2])
+    assert raw[0, 1] == (np.inf if agg == "max" else np.min(
+        feats[ids[0, :deg[0]], 1]))
+    assert raw[0, 3] == (-np.inf if agg == "min" else np.max(
+        feats[ids[0, :deg[0]], 3]))
+    finite = np.isfinite(raw)
+    np.testing.assert_array_equal(pinned[finite], raw[finite])
+    assert (pinned[~finite] == 0).all()
+
+
 @pytest.mark.parametrize("call", ["gather", "spmm"])
 def test_wrappers_refuse_non_cpu_tensors_without_a_kernel(call):
     # a tensor that is not on the CPU never takes the plain version: off
@@ -269,4 +294,8 @@ def test_kernel_args_at_the_main_path_shapes(d, dtype, out_dtype):
     assert args[4:8] == (6, 10, d, 50)
     assert args[8:] == ((1 if dtype == torch.bfloat16 else 0),
                         (1 if out_dtype == torch.bfloat16 else 0),
-                        spmm.AGGS.index("mean"))
+                        spmm.AGGS.index("mean"), 0)
+    # gather_group_agg's option: the raw max/min, one field more, one
+    # launch still
+    raw = spmm.kernel_args(feats, ids, deg, "max", out, raw_extrema=True)
+    assert raw[:10] == args[:10] and raw[10:] == (spmm.AGGS.index("max"), 1)

@@ -213,14 +213,57 @@ def test_sorted_gather_clips_ids_like_the_jax_branch():
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
 
 
+def _non_finite_table(dtype):
+    """Rows holding inf, -inf and NaN among finite values."""
+    table = np.random.default_rng(4).standard_normal((40, 6), np.float32)
+    table[1, 0], table[2, 1], table[3, 2] = np.inf, np.nan, -np.inf
+    table[4, :] = -np.inf
+    table[5, 3], table[5, 4] = np.nan, np.inf
+    return table
+
+
+@pytest.mark.parametrize("sorted_on", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_group_agg_max_keeps_non_finite_values(sorted_on, dtype):
+    # the JAX package keeps inf, -inf and NaN in a group max (jnp.max on
+    # the unsorted branch, segment_max on the sorted one); the port's max
+    # runs on Kernel 2 in both settings, which must not write them as 0
+    table = _non_finite_table(dtype)
+    idx = np.array([[0, 1], [0, 2], [0, 3], [3, 3], [2, 1], [4, 4], [4, 7],
+                    [5, 6], [9, 5], [11, 12]], np.int32)
+    jt = jnp.asarray(table).astype(dtype)
+    tt = torch.from_numpy(table).to(getattr(torch, dtype))
+    with both_confs(sorted_gather=sorted_on, sorted_gather_min_bytes=0):
+        ref = np.asarray(jax_gather_group_agg(jt, jnp.asarray(idx), op="max"))
+        out = aggregate.gather_group_agg(tt, torch.from_numpy(idx), op="max")
+    assert np.isinf(ref).any() and np.isnan(ref).any()
+    assert (np.isneginf(ref[5])).all()  # a group of -inf rows stays -inf
+    # a max of bf16 rows widened to f32 is exact: equal, NaN where JAX has
+    # NaN
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
 # --- segment_aggregate and embedding_agg prod ------------------------------
 
-@pytest.mark.parametrize("op", ["sum", "mean", "max", "min", "prod"])
-def test_segment_aggregate_matches_jax(op):
+SEGMENT_OPS = ["sum", "mean", "max", "min", "prod"]
+
+
+# the in-range cases keep their ids ("sum", ...); "<op>-dropped" adds ids
+# under 0 and at or past num_segments, whose rows jax.ops.segment_* drop
+@pytest.mark.parametrize(
+    "op,dropped", [(op, False) for op in SEGMENT_OPS]
+    + [(op, True) for op in SEGMENT_OPS],
+    ids=SEGMENT_OPS + [op + "-dropped" for op in SEGMENT_OPS])
+def test_segment_aggregate_matches_jax(op, dropped):
     rng = np.random.default_rng(3)
     feats = rng.standard_normal((60, 5)).astype(np.float32)
     seg = rng.integers(0, 9, 60).astype(np.int32)
     seg[seg == 4] = 5  # segment 4 stays empty
+    if dropped:
+        seg[::4] = -1
+        seg[1::7] = 9
+        seg[2::9] = 40
+        seg[3] = -(2 ** 31)
     ref = np.asarray(jax_segment_aggregate(jnp.asarray(feats),
                                            jnp.asarray(seg), 9, op=op))
     out = aggregate.segment_aggregate(torch.from_numpy(feats),
