@@ -66,7 +66,23 @@ Phases (any failure exits non-zero before the result line):
    held to the unsorted run's, the two routes run in the order unsorted,
    sorted, sorted, unsorted because the host clock drifts; and the
    kernels' times at that table, warm (repeated calls on the same ids)
-   and cold (the L2 flushed before each call).
+   and cold (the L2 flushed before each call);
+10. answer ``.outV("rel").sample(15).by(s).filter("src")`` through
+   QueryService on the 200k graph for random, topk, edge_weight and full,
+   on every node that links to itself and 1 000 others: every id a true
+   neighbour, and no hop-1 id equal to its seed in a row that holds
+   another neighbour (without the filter the seeds do come back);
+11. run the port bench (graph_learn_tpu_torch/bench.py run_bench) at
+   bench.py's CFG on the same 200k graph (120 steps after 2 warm-up
+   calls of K = 30) and at CFG_SCALE on the weighted 61.25M-edge graph it
+   builds under the "minimal" profile (60 steps after 1 call of K = 20),
+   each eager and then with the K steps in one captured CUDA graph: every
+   step's loss bit-equal between the two, the same parameters after, two
+   replays with other seeds and losses, 2 gather_rows and 1 segment_spmm
+   per replayed step from torch.profiler (at CFG also a captured run
+   under conf.sorted_gather: 2 gather_rows and 1 sweep_aggregate), step
+   wall, edges/s, device-busy share, capture seconds, graph-pool bytes,
+   host build seconds and peak bytes on the card.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -1807,6 +1823,217 @@ def full_store_queries(torch, g, spmm):
     return launches
 
 
+FILTER_K = 15
+
+
+def filtered_queries(torch, g):
+    """``.outV("rel").sample(15).by(s).filter("src")`` through QueryService
+    for random, topk, edge_weight and full, on every node that links to
+    itself and 1 000 others: every id a true neighbour, and no hop-1 id
+    equal to its seed in a row that lists the seed once beside another
+    neighbour; without the filter the seeds do come back as their own
+    neighbours."""
+    import graph_learn_tpu_torch as gl
+
+    et = g.store.edge_table("rel")
+    src, dst = et.src, et.dst
+    out_deg = et.out_degrees
+    order = np.argsort(src, kind="stable")
+    row_start = np.concatenate([[0], np.cumsum(out_deg)])
+    loops = np.unique(src[src == dst])
+    raw = np.concatenate([loops, np.random.default_rng(3).integers(
+        0, N_NODES, 1000)])
+    svc = gl.QueryService(g, device="cuda")
+    hits = {}
+    try:
+        for strategy in ("random", "topk", "edge_weight", "full"):
+            for filtered in (False, True):
+                hop = (g.V("item").batch(MICRO_BATCH).alias("src")
+                       .outV("rel").sample(FILTER_K).by(strategy))
+                if filtered:
+                    hop = hop.filter("src")
+                q = hop.alias("nbrs").values()
+                ans = svc.run(svc.install(q, micro_batch=MICRO_BATCH),
+                              raw)["nbrs"]
+                ids = ans.ids.cpu().numpy()
+                deg = (ans.degrees.cpu().numpy() if strategy == "full"
+                       else None)
+                n_hits = 0
+                for i, s in enumerate(raw):
+                    row = dst[order[row_start[s]:row_start[s + 1]]]
+                    got = ids[i, :deg[i]] if deg is not None else ids[i]
+                    if row.size == 0:
+                        check(bool(np.all(got == gl.conf.default_neighbor_id)),
+                              "%s: a zero-degree seed got neighbours"
+                              % strategy)
+                        continue
+                    check(bool(np.isin(got, row).all()),
+                          "%s (filtered=%s): a non-neighbour of seed %d"
+                          % (strategy, filtered, s))
+                    n_hits += int((got == s).sum())
+                    if filtered and (row == s).sum() == 1 and row.size > 1:
+                        check(s not in got, "%s: seed %d sampled as its own "
+                              "neighbour through .filter('src')"
+                              % (strategy, s))
+                hits[strategy, filtered] = n_hits
+            check(hits[strategy, True] < hits[strategy, False],
+                  "%s: the seeds came back %d times without the filter, %d "
+                  "with it" % (strategy, hits[strategy, False],
+                               hits[strategy, True]))
+    finally:
+        svc.close()
+    log("filtered queries through QueryService, .sample(%d).by(s)"
+        ".filter('src') on %d seeds (%d of them linked to themselves): "
+        "every id a true neighbour, no seed its own neighbour where its row "
+        "has another; the seeds came back as their own neighbours %s times "
+        "without the filter, %s with it"
+        % (FILTER_K, raw.size, loops.size,
+           {s: hits[s, False] for s in ("random", "topk", "edge_weight",
+                                        "full")},
+           {s: hits[s, True] for s in ("random", "topk", "edge_weight",
+                                       "full")}))
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the port bench (graph_learn_tpu_torch/bench.py), eager and in
+# one CUDA graph
+# ---------------------------------------------------------------------------
+
+BENCH_KERNELS = ("gather_rows", "segment_spmm", "sweep_aggregate")
+
+
+def bench_work(torch, fn, steps, calls, tries=3):
+    """Kernels per step and device ms per step of the work ``calls`` calls
+    of ``fn`` (``steps`` steps each) put on the card, from torch.profiler:
+    under a replay each kernel of the graph is an event of its own.  A
+    window that lost records (a kernel count that is no whole number a
+    step) is profiled again, up to ``tries`` times."""
+    for _ in range(tries):
+        work, ms = device_work_per_call(torch, fn, calls=calls)
+        per_step = {k: sum(c for n, c in work.items() if k in n) / steps
+                    for k in BENCH_KERNELS}
+        if all(v == int(v) for v in per_step.values()):
+            by_name = {n: c * ms[n] / steps for n, c in work.items()}
+            return per_step, sum(by_name.values()), by_name
+        log("torch.profiler recorded %s kernels per step; profiling again"
+            % per_step)
+    check(False, "torch.profiler lost records in %d windows: %s kernels per "
+          "step" % (tries, per_step))
+
+
+def bench_path(torch, card, cfg, graph, gather, spmm, sweep, name,
+               sorted_route=False):
+    """``bench.run_bench(cfg)`` eager, then in a CUDA graph, from the same
+    model seed, Adam state and generator seed: every step's loss bit for
+    bit the same, and the same parameters after; two replays draw other
+    seeds and give other losses; the profiler's kernels per replayed step
+    are 2 gather_rows and 1 segment_spmm; every loss finite and every
+    parameter moved.  With ``sorted_route`` a run under conf.sorted_gather
+    is captured too (2 gather_rows and 1 sweep_aggregate a step).  Returns
+    (row fields for the kernels line, the graph)."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
+                "sweep_aggregate": sweep.LAUNCHES_SWEEP}
+    K, (k1, k2), b = cfg["scan_steps"], cfg["fanout"], cfg["batch"]
+    for c in counters.values():
+        c.reset()
+    eager = bench.run_bench(cfg, "cuda", capture=False, graph=graph)
+    launches = {k: c.count for k, c in counters.items()}
+    n_steps = (cfg["warmup"] + eager["rounds"]) * K
+    # the first batch's forward, then every step: src and hop 1 gathered,
+    # the deepest hop reduced
+    want = {"gather_rows": 2 * (n_steps + 1), "segment_spmm": n_steps + 1,
+            "sweep_aggregate": 0}
+    check(launches == want, "bench %s eager: launches %s, expected %s"
+          % (name, launches, want))
+    graph = eager["graph"]
+    captured = bench.run_bench(cfg, "cuda", capture=True, graph=graph)
+    el, gl_ = np.asarray(eager["losses"]), np.asarray(captured["losses"])
+    check(el.shape == gl_.shape == (n_steps,)
+          and bool(np.isfinite(gl_).all()),
+          "bench %s: %s eager and %s graph losses, or one not finite"
+          % (name, el.shape, gl_.shape))
+    check(np.array_equal(el, gl_), "bench %s: the graph's losses differ "
+          "from the eager ones from the same state: max relative %g"
+          % (name, np.max(np.abs(el - gl_) / np.abs(el))))
+    fresh = EgoGraphSAGE([cfg["feat_dim"], cfg["hidden"], cfg["classes"]],
+                         graph[1], agg_type="gcn", device="cuda")
+    for p0, pe, pg in zip(fresh.parameters(), eager["model"].parameters(),
+                          captured["model"].parameters()):
+        check(torch.equal(pe, pg), "bench %s: eager and graph parameters "
+              "differ after the same steps" % name)
+        check(not torch.equal(p0, pg) and bool(torch.isfinite(pg).all()),
+              "bench %s: a parameter did not move or is not finite" % name)
+
+    step = captured["step"]
+    seeds0, losses0 = step.graph_seeds[0].clone(), step.losses.clone()
+    step()
+    seeds1, losses1 = step.graph_seeds[0].clone(), step.losses.clone()
+    check(not torch.equal(seeds0, seeds1) and not torch.equal(losses0,
+                                                              losses1)
+          and int(seeds1.min()) >= 0 and int(seeds1.max()) < cfg["n_nodes"],
+          "bench %s: two replays drew the same seeds or gave the same "
+          "losses" % name)
+    graph_work, graph_busy, graph_by_name = bench_work(torch, step, K, 2)
+    check(graph_work == {"gather_rows": 2.0, "segment_spmm": 1.0,
+                         "sweep_aggregate": 0.0},
+          "bench %s: kernels per replayed step %s; want 2 gather_rows and "
+          "1 segment_spmm" % (name, graph_work))
+    eager_work, eager_busy, _ = bench_work(torch, step.run_eager, K, 1)
+    check(eager_work == graph_work, "bench %s: kernels per eager step %s, "
+          "per replayed step %s" % (name, eager_work, graph_work))
+    edges = b * (k1 + k1 * k2)
+    log("bench %s (%d nodes, %d edges, fanout [%d, %d], batch %d, K = %d, G "
+        "= %d, %d steps after %d warm-up calls): eager %.4f ms per step "
+        "(%.4g edges/s, device busy %.4f ms, %.1f%%), CUDA graph %.4f ms per "
+        "step (%.4g edges/s, device busy %.4f ms, %.1f%%); capture %.3f s, "
+        "graph pool %.1f MB; %d losses bit-equal eager and captured (%.4f -> "
+        "%.4f); kernels per replayed step %s; host draw %.1f s, CSR build "
+        "and tables onto the card %.1f s (%.3f GB), peak allocated %.3f GB "
+        "eager, %.3f GB with the graph; card: %s"
+        % (name, cfg["n_nodes"], cfg["n_nodes"] * cfg["avg_degree"], k1, k2,
+           b, K, captured["G"], captured["rounds"] * K, cfg["warmup"],
+           eager["step_ms"], eager["edges_per_s"], eager_busy,
+           100.0 * eager_busy / eager["step_ms"], captured["step_ms"],
+           captured["edges_per_s"], graph_busy,
+           100.0 * graph_busy / captured["step_ms"], captured["capture_s"],
+           captured["graph_pool_bytes"] / 1e6, n_steps, gl_[0], gl_[-1],
+           {k: v for k, v in graph_work.items() if v}, eager["host_build_s"],
+           eager["tables_s"], eager["tables_bytes"] / 1e9,
+           eager["device_bytes_peak"] / 1e9,
+           captured["device_bytes_peak"] / 1e9, card))
+    for kname, ms in sorted(graph_by_name.items(),
+                            key=lambda kv: -kv[1])[:10]:
+        log("  device %.4f ms per replayed step: %s" % (ms, kname[:90]))
+    rows = {k: {"bench_%s_launches_per_step" % name: graph_work[k],
+                "bench_%s_eager_launches" % name: launches[k]}
+            for k in ("gather_rows", "segment_spmm")}
+    del eager, captured, step
+    if not sorted_route:
+        return rows, graph
+    with bench.bench_conf(sorted_gather=True):
+        first = bench.run_bench(dict(cfg, steps=K, warmup=1), "cuda",
+                                capture=True, graph=graph)
+        work, busy, _ = bench_work(torch, first["step"], K, 2)
+    check(work == {"gather_rows": 2.0, "segment_spmm": 0.0,
+                   "sweep_aggregate": 1.0},
+          "bench %s sorted_gather: kernels per replayed step %s; want 2 "
+          "gather_rows and 1 sweep_aggregate" % (name, work))
+    check(abs(first["losses"][0] - el[0]) <= SORTED_LOSS_RTOL * abs(el[0])
+          and bool(np.isfinite(first["losses"]).all()),
+          "bench %s sorted_gather: first loss %g, unsorted %g"
+          % (name, first["losses"][0], el[0]))
+    log("bench %s, conf.sorted_gather on, captured: kernels per replayed "
+        "step %s, device busy %.4f ms per step, first loss %.7f (unsorted "
+        "%.7f, limit %g relative)"
+        % (name, {k: v for k, v in work.items() if v}, busy,
+           first["losses"][0], el[0], SORTED_LOSS_RTOL))
+    rows["sweep_aggregate"] = {"bench_%s_sorted_launches_per_step" % name:
+                               work["sweep_aggregate"]}
+    return rows, graph
+
 
 def main() -> int:
     import torch
@@ -1822,6 +2049,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gl.conf.feature_dtype = "bfloat16"
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
@@ -1852,6 +2080,10 @@ def main() -> int:
     sage_launches, gat_launches = training_path(torch, card, g, dec, gather,
                                                 spmm, gat)
     ragged_launches = full_store_queries(torch, g, spmm)
+    filtered_queries(torch, g)
+    from graph_learn_tpu_torch import bench
+    bench_rows, _ = bench_path(torch, card, bench.CFG, (g, dec), gather,
+                               spmm, sweep, "cfg", sorted_route=True)
     del g, dec
     gc.collect()  # the 200k graph's tables (Graph, Dag and Query form cycles)
     rows["sweep_aggregate"], rows["stream_sum"], bar = sweep_rows(
@@ -1860,6 +2092,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     scale_launches, sorted_launches, extra = scale_path(torch, card, gl,
                                                         gather, spmm, sweep)
+    gc.collect()  # the 62M graph of scale_path
+    torch.cuda.empty_cache()
+    with bench.bench_conf(storage_profile="minimal"):
+        scale_rows, scale_graph = bench_path(
+            torch, card, bench.CFG_SCALE, None, gather, spmm, sweep,
+            "cfg_scale")
+    et = scale_graph[0].store.edge_table("rel")
+    check(et.weights is not None and et.num_edges == 61_250_000,
+          "bench cfg_scale: not the weighted 61.25M-edge graph")
+    del scale_graph, et
+    for part in (bench_rows, scale_rows):
+        for kname, fields in part.items():
+            extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from
     # zero: the serving phase for gather_rows and segment_spmm, the EgoGAT
     # training run for gat_block, the sorted-gather 62M run for
@@ -1886,6 +2131,7 @@ def main() -> int:
     for name, fields in extra.items():
         rows[name].update(fields)
     check_bounds(kernels)
+    log("every phase passed in %.1f s" % (time.perf_counter() - t_start))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,8 +7,10 @@ on an NVIDIA H100, with hand-written CUDA kernels for the feature gather,
 the segment SpMM, the fused GAT neighbour block, forward and backward, and
 the sorted-hit sweep aggregation and full-table sum of the 62M-edge
 frontier (``ops/kernels``, sources in ``csrc/``; ``examples/`` holds the
-62M-edge training run and the sweep-aggregate harness).  Entry points run
-on the card unless the caller passes ``device="cpu"``.
+62M-edge training run and the sweep-aggregate harness).  ``bench`` is the
+counterpart of the repository's ``bench.py``: K sample+train steps a call,
+captured in one CUDA graph on the card.  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from graph_learn_tpu_torch.config import conf

@@ -17,6 +17,9 @@ class _Config:
     padding_mode: int = 1
     # fill for the neighbours of zero-degree seeds (reference DefaultNeighborId)
     default_neighbor_id: int = 0
+    # extra candidate rounds of a filtered "random" draw (reference
+    # SamplingRetryTimes): after that many rejections the last is kept
+    sampling_retry_times: int = 5
     # cap of "full" neighbour sampling when the query gives none (reference
     # DefaultFullNbrNum): the width of the SparseNodes result
     default_full_nbr_num: int = 100

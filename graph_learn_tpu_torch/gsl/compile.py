@@ -3,8 +3,8 @@
 Counterpart of ``graph_learn_tpu/gsl/compile.py`` ``Query:51``,
 ``source_space:69``, ``device_tables:77``, ``_execute:156`` and the
 ``source_v``, ``out_v`` and ``in_v`` branches of ``_exec_node:172`` /
-``_exec_hop:249`` for every non-temporal, unfiltered strategy (``full``
-returns ``SparseNodes``).
+``_exec_hop:249`` for every non-temporal strategy (``full`` returns
+``SparseNodes``), with ``.filter()`` and registered strategies.
 PyTorch runs eagerly, so there is no jit: ``_execute`` walks the DAG once
 per call.  Each hop's feature rows stay deferred (ops/lookup.py) until a
 reader gathers or reduces them.  Randomness comes from one explicit
@@ -99,13 +99,14 @@ def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
         val = lookup_nodes(tables["nodes"][base], ids, type_name=node.node_type)
         return _Rec(ids, val)
     if node.kind in ("out_v", "in_v"):
-        return _exec_hop(query, tables, node, recs[node.parent.nid],
+        return _exec_hop(query, tables, node, recs[node.parent.nid], recs,
                          generator)
     raise InvalidArgumentError("dag node kind %r is not yet ported"
                                % node.kind)
 
 
-def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, generator):
+def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, recs,
+              generator):
     et = tables["edges"][node.edge_type]
     s_t, d_t = query.graph.store.topology[node.edge_type]
     incoming = node.kind == "in_v"
@@ -128,15 +129,32 @@ def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, generator):
     k = node.count
     strategy = node.strategy
     nt = tables["nodes"][result_type]
+    flt = None
+    if node.filter_alias is not None:
+        # reject samples equal to the target's ids in the same row
+        # (reference FilterType.EQUAL on FilterField.ID, applied inside
+        # every built-in sampler)
+        target = query.dag.get_node(node.filter_alias)
+        excl = recs[target.nid].ids.reshape(-1)
+        if excl.shape != flat.shape:
+            raise InvalidArgumentError(
+                ".filter(%r): the target has %d ids for the hop's %d rows"
+                % (node.filter_alias, excl.numel(), flat.numel()))
+        flt = samp_ops.SampleFilter(exclude_dst=excl)
     if strategy == "full":
         cap = k if k > 0 else conf.default_full_nbr_num
-        ids, _, degs = samp_ops.full_sample(csr, flat, cap)
+        ids, _, degs = samp_ops.full_sample(csr, flat, cap, flt=flt)
         val = lookup_sparse_nodes(nt, ids, degs, type_name=result_type)
         return _Rec(ids.reshape(shape + (cap,)), val)
     if strategy in ("edge_weight", "in_degree"):
         ids, _ = samp_ops.weighted_sample(csr, flat, k, generator,
-                                          by=strategy)
+                                          by=strategy, flt=flt)
+    elif strategy in samp_ops.BUILTIN_STRATEGIES:
+        ids, _ = samp_ops.STRATEGY_FNS[strategy](csr, flat, k, generator,
+                                                 flt=flt)
     elif strategy in samp_ops.STRATEGY_FNS:
+        # a registered strategy (register_sampler); filters do not reach
+        # it, as in the JAX package
         ids, _ = samp_ops.STRATEGY_FNS[strategy](csr, flat, k, generator)
     else:
         raise InvalidArgumentError("unknown strategy %r" % strategy)

@@ -2,11 +2,12 @@
 
 Counterpart of ``graph_learn_tpu/gsl/dag.py`` for the kinds the port
 runs: ``g.V(t).batch(b).shuffle().alias('src').outV(e).sample(k)
-.by('random').alias('hop1')...values(func)``, with ``inV`` beside ``outV``
-and the strategies ``random``, ``topk``, ``edge_weight``, ``in_degree``,
-``random_without_replacement`` and ``full``.  Other hops (edges, negatives,
-walks, subgraphs), filters and registered strategies are not yet ported
-and raise when the query is built.
+.by('random').filter('src').alias('hop1')...values(func)``, with ``inV``
+beside ``outV``, the strategies ``random``, ``topk``, ``edge_weight``,
+``in_degree``, ``random_without_replacement`` and ``full``, and any
+strategy added by ``ops.sampling.register_sampler``.  Other hops (edges,
+negatives, walks, subgraphs) are not yet ported and raise when the query
+is built.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ import itertools
 from typing import Dict, List, Optional
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
+from graph_learn_tpu_torch.ops.sampling import (BUILTIN_STRATEGIES,
+                                                STRATEGY_FNS)
 
-_PORTED_SAMPLERS = ("random", "topk", "edge_weight", "in_degree",
-                    "random_without_replacement", "full")
 _HOPS = ("out_v", "in_v")
 
 
@@ -63,6 +64,7 @@ class DagNode:
         self.alias_name: Optional[str] = None
         self.count = 0  # sample fanout
         self.strategy = "by_order" if kind == "source_v" else "random"
+        self.filter_alias: Optional[str] = None
         dag.add(self)
 
     def alias(self, name: str) -> "DagNode":
@@ -94,10 +96,11 @@ class DagNode:
     def by(self, strategy: str) -> "DagNode":
         if self.kind not in _HOPS:
             raise InvalidArgumentError(".by() only after .sample()")
-        if strategy not in _PORTED_SAMPLERS:
+        if strategy not in STRATEGY_FNS:
             raise InvalidArgumentError(
-                "sampler strategy %r is not yet ported (ported: %r)"
-                % (strategy, _PORTED_SAMPLERS))
+                "sampler strategy %r is neither one of %r nor registered "
+                "(ops.sampling.register_sampler)"
+                % (strategy, BUILTIN_STRATEGIES))
         self.strategy = strategy
         return self
 
@@ -113,5 +116,11 @@ class DagNode:
     def inV(self, edge_type: str) -> "DagNode":
         return DagNode(self.dag, "in_v", self, edge_type=edge_type)
 
-    def filter(self, target: str) -> "DagNode":
-        raise InvalidArgumentError(".filter() is not yet ported")
+    def filter(self, target) -> "DagNode":
+        """Reject samples equal to the ids of ``target`` (an alias or a
+        node) in the same row (reference dag_node.py:212)."""
+        if self.kind not in _HOPS:
+            raise InvalidArgumentError(".filter() only after a hop")
+        self.filter_alias = (target if isinstance(target, str)
+                             else target.alias_name)
+        return self

@@ -15,6 +15,7 @@ import torch
 import graph_learn_tpu_torch as glt
 from graph_learn_tpu_torch.errors import (DeviceUnavailableError,
                                           InvalidArgumentError)
+from graph_learn_tpu_torch import bench
 from graph_learn_tpu_torch.examples import scale_demo, sweep_aggregate
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
 from graph_learn_tpu_torch.nn.trainer import LocalTrainer
@@ -72,8 +73,9 @@ def no_card(monkeypatch):
 @pytest.mark.parametrize("entry", ["graph", "graph_cuda0", "service", "model",
                                    "node_table", "edge_table", "gat_model",
                                    "trainer", "dataset", "scale_demo",
-                                   "sweep_harness"])
-def test_entry_points_raise_without_a_card(no_card, entry):
+                                   "sweep_harness", "bench", "bench_main"])
+def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch):
+    monkeypatch.delenv("GLT_PLATFORM", raising=False)
     a = numpy_graph(n=30, d=4)
     g, dec = torch_graph(a)  # device="cpu" works without a card
     calls = {
@@ -88,6 +90,8 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "dataset": lambda: glt.Dataset(two_hop(g, 2, 2, batch=8)),
         "scale_demo": lambda: scale_demo.run(steps=1, **scale_demo.SMALL),
         "sweep_harness": lambda: sweep_aggregate.run(small=True, steps=1),
+        "bench": lambda: bench.run_bench(bench.CFG_SMALL),
+        "bench_main": bench.main,
     }
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         calls[entry]()

@@ -270,14 +270,17 @@ def test_an_empty_adjacency_fills_every_slot(strategy):
     assert strategy != "full" or (out[2] == 0).all()
 
 
-@pytest.mark.parametrize("strategy", sorted(sampling.STRATEGY_FNS))
+@pytest.mark.parametrize("strategy", sorted(sampling.BUILTIN_STRATEGIES))
 def test_filters_are_refused_until_they_are_ported(strategy):
+    # exclude_dst filters are ported (tests/test_torch_filters.py); the
+    # temporal ts_upper bound waits for the temporal samplers
     from graph_learn_tpu_torch.errors import InvalidArgumentError
     _, _, tcsr = _csrs(n=30)
     args = () if strategy == "full" else (torch.Generator().manual_seed(0),)
+    flt = sampling.SampleFilter(ts_upper=torch.zeros(4))
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
         sampling.STRATEGY_FNS[strategy](
-            tcsr, torch.arange(4, dtype=torch.int32), 3, *args, flt=object())
+            tcsr, torch.arange(4, dtype=torch.int32), 3, *args, flt=flt)
 
 
 def test_segmented_searchsorted_matches_jax():

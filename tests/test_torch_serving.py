@@ -168,14 +168,18 @@ def test_from_query_result_gathers_only_what_the_model_reads(service,
 
 def test_in_v_is_not_yet_ported(service):
     # inV is ported now (tests/test_torch_sampling.py holds it against the
-    # JAX query); what is still refused when a query is built: filters
+    # JAX query), and so are filters (tests/test_torch_filters.py); what is
+    # still refused when a query is built: strategies nobody registered,
+    # and edge sources
     _, _, q = service
-    hop = q.graph.V("item").batch(4).inV("rel").sample(2).by("topk")
+    hop = q.graph.V("item").batch(4).alias("src").inV("rel").sample(2) \
+        .by("topk")
     assert hop.kind == "in_v" and hop.strategy == "topk"
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        hop.filter("src")
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+    assert hop.filter("src") is hop and hop.filter_alias == "src"
+    with pytest.raises(InvalidArgumentError, match="nor registered"):
         hop.by("my_registered_sampler")
+    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        q.graph.E("rel")
 
 
 def test_full_query_is_served_as_sparse_nodes(graph_arrays):
