@@ -82,11 +82,27 @@ Phases (any failure exits non-zero before the result line):
    per replayed step from torch.profiler (at CFG also a captured run
    under conf.sorted_gather: 2 gather_rows and 1 sweep_aggregate), step
    wall, edges/s, device-busy share, capture seconds, graph-pool bytes,
-   host build seconds and peak bytes on the card.
+   host build seconds and peak bytes on the card;
+12. run the bipartite u2i path (examples/family_scale.py's bipartite
+   family) at its full store: 1 225 000 users and items with 100 bf16
+   features, 41 037 500 u-i and 20 212 500 i-i weighted edges on the
+   "full" profile (host draw, CSR and candidate-pool build, upload and
+   table bytes timed); one step of the two towers (EgoSAGEConv mean, 100 ->
+   256, batch 1024, 10 neighbours, 2 negatives) on the kernels against the
+   plain versions, with every hop gathered (6 gather_rows) and with the
+   towers' hops deferred (3 gather_rows + 3 segment_spmm); the batch's
+   random negatives in the u-i pool, and the true neighbours among
+   soft_in_degree and in_degree negatives at the count neighbour_mass
+   predicts; 10 steps of bipartite_sage through LocalTrainer.train (6
+   gather_rows a step); the K-step form (K = 20) eager and captured: losses
+   bit-equal, 3 gather_rows + 3 segment_spmm per replayed step, step wall,
+   edges/s, device-busy share, capture seconds and graph pool.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
-just before them.
+just before them (Kernels 1 and 2 carry the bipartite path's
+``bipartite_launches_per_step``, per replayed K-step step, and
+``bipartite_trainer_launches_per_step``, per LocalTrainer step).
 """
 
 from __future__ import annotations
@@ -2035,6 +2051,296 @@ def bench_path(torch, card, cfg, graph, gather, spmm, sweep, name,
     return rows, graph
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the bipartite u2i path at the 61M-edge bipartite store
+# ---------------------------------------------------------------------------
+
+# draws per seed of the negative-rate check: enough that the expected
+# count of true neighbours among soft_in_degree draws is tens
+NEG_RATE_DRAWS = 2048
+# steps of LocalTrainer.train at this store (after 2 of warm-up)
+BIPARTITE_TRAIN_STEPS = 10
+
+
+def neighbour_mass(torch, et, seeds):
+    """[b] f64: for each seed, the share of the ``outNeg`` in-degree pool's
+    mass that falls on the seed's distinct out-neighbours, the chance that
+    one ``soft_in_degree`` draw is a true neighbour (an ``in_degree`` draw
+    of R rounds is one with the chance of its R-th power)."""
+    from graph_learn_tpu_torch.ops.segment import row_bounds
+    csr, pool, cdf = et.out, et.unique_dst, et.unique_dst_indeg_cdf
+    start, end, deg = row_bounds(csr.row_offsets, seeds.long())
+    width = max(int(deg.max()), 1)
+    pos = start[:, None] + torch.arange(width, device=seeds.device)[None, :]
+    valid = pos < end[:, None]
+    nbr = csr.nbr_ids_sorted[torch.clamp(pos, max=csr.num_edges - 1).long()]
+    # the row's id-sorted copy lists a repeated edge's id more than once
+    first = torch.ones_like(valid)
+    first[:, 1:] = nbr[:, 1:] != nbr[:, :-1]
+    at = torch.clamp(torch.searchsorted(pool, nbr.contiguous()), max=pool.numel() - 1)
+    cdf64 = cdf.double()
+    mass = cdf64[at] - torch.where(at > 0, cdf64[torch.clamp(at - 1, min=0)],
+                                   0.0)
+    return torch.where(valid & first & (pool[at] == nbr), mass, 0.0).sum(1)
+
+
+def negative_rates(torch, et, seeds, generator, k=NEG_RATE_DRAWS):
+    """{strategy: (true neighbours among the ``b * k`` draws, the count
+    :func:`neighbour_mass` predicts)} for ``soft_in_degree`` and
+    ``in_degree`` (R = ``conf.sampling_retry_times + 1`` rounds)."""
+    from graph_learn_tpu_torch.config import conf
+    from graph_learn_tpu_torch.ops.negative import negative_sample
+    from graph_learn_tpu_torch.ops.segment import row_member
+    p = neighbour_mass(torch, et, seeds)
+    rounds = conf.sampling_retry_times + 1
+    out = {}
+    for strategy, power in (("soft_in_degree", 1), ("in_degree", rounds)):
+        ids = negative_sample(et, seeds, k, generator, strategy=strategy)
+        hits = int(row_member(et.out, seeds, ids).sum())
+        out[strategy] = (hits, float(k * (p ** power).sum()))
+    return out
+
+
+def rate_agrees(hits, expected):
+    """A Poisson count within five standard deviations (and one) of its
+    mean."""
+    return abs(hits - expected) <= 5.0 * expected ** 0.5 + 1.0
+
+
+def bipartite_path(torch, card, gather, spmm, sweep):
+    """``examples/family_scale.py``'s bipartite family at its full store
+    (1.225M users and items, 61.25M weighted edges, the "full" profile):
+    the store build timed; one step of the towers on the kernels against
+    the plain versions; the negatives checked; LocalTrainer.train over the
+    port's bipartite_sage; the K-step form eager and captured.  Returns
+    the kernels line's fields."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.config import conf
+    from graph_learn_tpu_torch.examples import bipartite_sage as bs
+    from graph_learn_tpu_torch.examples import family_scale as fs
+    from graph_learn_tpu_torch.examples.scale_demo import nbytes
+    from graph_learn_tpu_torch.gsl.dataset import Dataset
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = bench.CFG_SCALE
+    k1, n_neg = fs.fanout(False)
+    b, d, hidden = cfg["batch"], cfg["feat_dim"], cfg["hidden"]
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
+                "sweep_aggregate": sweep.LAUNCHES_SWEEP}
+    t0 = time.perf_counter()
+    graph = fs.build_graph(cfg, "cuda")
+    draw_s = time.perf_counter() - t0
+    g, udec, idec = graph
+    q = fs.build_query(g, b, k1, n_neg)
+    t0 = time.perf_counter()
+    tables = q.device_tables()
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    csr_s = sum(g.store.edge_table(t).host_build_s for t in fs.EDGE_TYPES)
+    n_ui = g.store.edge_table("u-i").num_edges
+    n_ii = g.store.edge_table("i-i").num_edges
+    et = tables["edges"]["u-i"]
+    check(n_ui == 41_037_500 and n_ii == 20_212_500 and et.inc is not None
+          and et.unique_dst is not None and et.out.cum_weights is not None,
+          "bipartite store: not the full-profile 41.04M + 20.21M-edge store")
+    log("bipartite store (%d users, %d items, %d u-i + %d i-i weighted "
+        "edges, %d bf16 features, full profile): host draw %.1f s, CSR and "
+        "candidate-pool build %.1f s (both directions of both edge types), "
+        "upload %.1f s, tables %.3f GB on the card; u-i pool %d distinct "
+        "items; card: %s"
+        % (g.store.node_table("u").num_nodes, g.store.node_table("i").num_nodes,
+           n_ui, n_ii, d, draw_s, csr_s, tables_s - csr_s,
+           nbytes(tables) / 1e9, et.unique_dst.numel(), card))
+
+    # 1. one step of the towers on the kernels against the plain versions
+    model = bs.towers(udec, idec, d, hidden, "cuda")
+    batch = Dataset(q, window=1, device="cuda").next()
+    table = tables["nodes"]["i"].float_attrs
+    feats = {"u": tables["nodes"]["u"].float_attrs, "i": table}
+
+    def embeddings(bt, defer=None):
+        src, dst, neg = bs.egos(bt, defer)
+        return [model["u"](src), model["i"](dst), model["i"](neg)]
+
+    def loss_and_grads(bt, defer=None):
+        embs = embeddings(bt, defer)
+        loss = bs.unsupervised_softmax_cross_entropy_loss(*embs)
+        return embs, loss, torch.autograd.grad(loss,
+                                               list(model.parameters()))
+
+    plain = {a: v.replace(float_attrs=feats[v.type_name][v.ids.long()])
+             for a, v in batch.items() if a != "seed"}
+    ref = loss_and_grads(plain)
+    worst = {}
+    for form, defer in (("gathered", None), ("deferred", table)):
+        for c in counters.values():
+            c.reset()
+        got = loss_and_grads(batch, defer)
+        launches = {kn: c.count for kn, c in counters.items()}
+        want = ({"gather_rows": 6, "segment_spmm": 0, "sweep_aggregate": 0}
+                if defer is None else
+                {"gather_rows": 3, "segment_spmm": 3, "sweep_aggregate": 0})
+        check(launches == want, "bipartite step, %s: launches %s, expected "
+              "%s" % (form, launches, want))
+        lk, lp = got[1].item(), ref[1].item()
+        check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), "bipartite step, %s: "
+              "loss %g on the kernels, %g on the plain versions"
+              % (form, lk, lp))
+        rel = 0.0
+        for x, y in zip(list(got[0]) + list(got[2]),
+                        list(ref[0]) + list(ref[2])):
+            r = (x - y).abs().max().item() / max(y.abs().max().item(), 1e-12)
+            rel = max(rel, r)
+        check(rel <= STEP_GRAD_TOL, "bipartite step, %s: an embedding or "
+              "gradient off by %g of its largest value" % (form, rel))
+        worst[form] = (lk, lp, rel)
+    log("bipartite towers (EgoSAGEConv mean, %d -> %d, batch %d, k1 %d, %d "
+        "negatives): one step on the kernels against the plain versions: "
+        "gathered hops (6 gather_rows) loss %.6f vs %.6f, deferred hops (3 "
+        "gather_rows + 3 segment_spmm) loss %.6f vs %.6f (limit %g "
+        "relative); worst embedding or gradient error %.3g / %.3g of the "
+        "tensor's largest value (limit %g)"
+        % (d, hidden, b, k1, n_neg, worst["gathered"][0],
+           worst["gathered"][1], worst["deferred"][0], worst["deferred"][1],
+           STEP_LOSS_RTOL, worst["gathered"][2], worst["deferred"][2],
+           STEP_GRAD_TOL))
+
+    # 2. the negatives: random ones from the pool, in_degree ones rejected
+    neg = batch["neg"].ids
+    check(tuple(neg.shape) == (b, n_neg)
+          and bool(torch.isin(neg, et.unique_dst).all()),
+          "bipartite: a random negative outside the u-i pool")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rates = negative_rates(torch, et, batch["src"].ids, gen)
+    for strategy, (hits, expected) in rates.items():
+        check(rate_agrees(hits, expected), "bipartite %s negatives: %d true "
+              "neighbours among %d draws, %.2f expected"
+              % (strategy, hits, b * NEG_RATE_DRAWS, expected))
+    log("bipartite negatives: the batch's %d random negatives all in the "
+        "u-i pool; true neighbours among %d draws: soft_in_degree %d "
+        "(%.2f expected), in_degree with %d rounds %d (%.3g expected)"
+        % (neg.numel(), b * NEG_RATE_DRAWS, rates["soft_in_degree"][0],
+           rates["soft_in_degree"][1],
+           conf.sampling_retry_times + 1, rates["in_degree"][0],
+           rates["in_degree"][1]))
+
+    # 3. LocalTrainer.train over bipartite_sage's query and loss
+    tq = bs.build_query(g, b, [k1])
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+    tr = LocalTrainer(seed=0, device="cuda")
+    losses, stamps = [], []
+
+    def loss_fn(m, bt, generator, training):
+        stamps.append(time.perf_counter())
+        loss = bs.loss_fn(m, bt, generator, training)
+        losses.append(loss.detach())
+        return loss
+
+    def train(n):
+        """(seconds from the call to its first step: the call's set-up,
+        above all the epoch's permutation of the 41M seed edges, and the
+        first batch; ms per step from the first step to the last)."""
+        del losses[:], stamps[:]
+        t0 = time.perf_counter()
+        tr.train(tq, model, loss_fn, opt, epochs=1, steps_per_epoch=n,
+                 verbose=False)
+        torch.cuda.synchronize()
+        return (stamps[0] - t0,
+                (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3)
+
+    train(2)  # warm-up
+    for c in counters.values():
+        c.reset()
+    n = BIPARTITE_TRAIN_STEPS
+    setup_s, step_ms = train(n)
+    tr_launches = {kn: c.count / n for kn, c in counters.items()}
+    check(tr_launches == {"gather_rows": 6.0, "segment_spmm": 0.0,
+                          "sweep_aggregate": 0.0},
+          "bipartite LocalTrainer: launches per step %s; want 6 gather_rows"
+          % tr_launches)
+    check(len(losses) == n and bool(torch.isfinite(torch.stack(losses))
+                                    .all()),
+          "bipartite LocalTrainer: %d losses or one not finite" % len(losses))
+    first, last = losses[0].item(), losses[-1].item()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, prof_step_ms = train(5)
+    busy = sum(device_ms_by_kernel(prof).values()) / 5
+    edges = b * (2 * k1 + n_neg * (1 + k1))
+    log("bipartite LocalTrainer.train (bipartite_sage, shuffle over %d u-i "
+        "edges): %.3f s from the call to its first step (the epoch's seed "
+        "permutation and the first batch), then %d steps of batch %d, %.3f "
+        "ms per step on the host clock (%.3f ms under the profiler), %.4g "
+        "edges/s (%d sampled edges a step); loss %.4f -> %.4f; launches per "
+        "step %s; device busy %.3f ms per step (%.1f%%); card: %s"
+        % (n_ui, setup_s, n, b, step_ms, prof_step_ms,
+           edges / step_ms * 1e3, edges, first, last,
+           {k: v for k, v in tr_launches.items() if v}, busy,
+           100.0 * busy / step_ms, card))
+    del model, opt, tr, losses
+
+    # 4. the K-step form, eager then captured, from the same state
+    K = cfg["scan_steps"]
+    for c in counters.values():
+        c.reset()
+    eager = fs.run_bipartite(cfg, device="cuda", capture=False, graph=graph)
+    launches = {kn: c.count for kn, c in counters.items()}
+    n_steps = (1 + eager["rounds"]) * K
+    # the first batch's loss, then every step
+    want = {"gather_rows": 3 * (n_steps + 1),
+            "segment_spmm": 3 * (n_steps + 1), "sweep_aggregate": 0}
+    check(launches == want, "bipartite K-step eager: launches %s, expected "
+          "%s" % (launches, want))
+    captured = fs.run_bipartite(cfg, device="cuda", capture=True, graph=graph)
+    el, gl_ = np.asarray(eager["losses"]), np.asarray(captured["losses"])
+    check(el.shape == gl_.shape == (n_steps,)
+          and bool(np.isfinite(gl_).all()), "bipartite K-step: %s eager and "
+          "%s graph losses, or one not finite" % (el.shape, gl_.shape))
+    check(np.array_equal(el, gl_), "bipartite K-step: the graph's losses "
+          "differ from the eager ones from the same state: max relative %g"
+          % np.max(np.abs(el - gl_) / np.abs(el)))
+    for pe, pg in zip(eager["model"].parameters(),
+                      captured["model"].parameters()):
+        check(torch.equal(pe, pg) and bool(torch.isfinite(pg).all()),
+              "bipartite K-step: eager and graph parameters differ")
+    step = captured["step"]
+    seeds0 = step.graph_seeds[0].clone()
+    step()
+    seeds1 = step.graph_seeds[0]
+    check(not torch.equal(seeds0, seeds1) and int(seeds1.min()) >= 0
+          and int(seeds1.max()) < n_ui,
+          "bipartite K-step: two replays drew the same seed edges")
+    graph_work, graph_busy, by_name = bench_work(torch, step, K, 2)
+    check(graph_work == {"gather_rows": 3.0, "segment_spmm": 3.0,
+                         "sweep_aggregate": 0.0},
+          "bipartite K-step: kernels per replayed step %s; want 3 "
+          "gather_rows and 3 segment_spmm" % graph_work)
+    eager_work, eager_busy, _ = bench_work(torch, step.run_eager, K, 1)
+    check(eager_work == graph_work, "bipartite K-step: kernels per eager "
+          "step %s, per replayed step %s" % (eager_work, graph_work))
+    log("bipartite K-step (family_scale run_bipartite, K = %d, %d steps after "
+        "1 warm-up call, %d sampled edges a step): eager %.4f ms per step "
+        "(%.4g edges/s, device busy %.4f ms, %.1f%%), CUDA graph %.4f ms per "
+        "step (%.4g edges/s, device busy %.4f ms, %.1f%%); capture %.3f s, "
+        "graph pool %.1f MB; %d losses bit-equal eager and captured (%.4f -> "
+        "%.4f); kernels per replayed step %s; peak allocated %.3f GB; card: "
+        "%s"
+        % (K, captured["rounds"] * K, edges, eager["step_ms"],
+           eager["edges_per_s"], eager_busy,
+           100.0 * eager_busy / eager["step_ms"], captured["step_ms"],
+           captured["edges_per_s"], graph_busy,
+           100.0 * graph_busy / captured["step_ms"], captured["capture_s"],
+           captured["graph_pool_bytes"] / 1e6, n_steps, gl_[0], gl_[-1],
+           {k: v for k, v in graph_work.items() if v},
+           captured["device_bytes_peak"] / 1e9, card))
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log("  device %.4f ms per replayed step: %s" % (ms, kname[:90]))
+    return {k: {"bipartite_launches_per_step": graph_work[k],
+                "bipartite_trainer_launches_per_step": tr_launches[k]}
+            for k in ("gather_rows", "segment_spmm")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2102,7 +2408,11 @@ def main() -> int:
     check(et.weights is not None and et.num_edges == 61_250_000,
           "bench cfg_scale: not the weighted 61.25M-edge graph")
     del scale_graph, et
-    for part in (bench_rows, scale_rows):
+    gc.collect()  # the weighted 61.25M-edge graph of the bench phase
+    torch.cuda.empty_cache()
+    with bench.bench_conf(storage_profile="full"):
+        bipartite_rows = bipartite_path(torch, card, gather, spmm, sweep)
+    for part in (bench_rows, scale_rows, bipartite_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

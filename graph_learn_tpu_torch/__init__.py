@@ -7,14 +7,15 @@ on an NVIDIA H100, with hand-written CUDA kernels for the feature gather,
 the segment SpMM, the fused GAT neighbour block, forward and backward, and
 the sorted-hit sweep aggregation and full-table sum of the 62M-edge
 frontier (``ops/kernels``, sources in ``csrc/``; ``examples/`` holds the
-62M-edge training run and the sweep-aggregate harness).  ``bench`` is the
-counterpart of the repository's ``bench.py``: K sample+train steps a call,
+62M-edge training run, the sweep-aggregate harness and the bipartite u2i
+link prediction over ``E()`` edge sources with negatives and two towers).
+``bench`` is the counterpart of the repository's ``bench.py``: K sample+train steps a call,
 captured in one CUDA graph on the card.  Entry points run on the card
 unless the caller passes ``device="cpu"``.
 """
 
 from graph_learn_tpu_torch.config import conf
-from graph_learn_tpu_torch.core.schema import Decoder
+from graph_learn_tpu_torch.core.schema import Decoder, Mask, NodeFrom
 from graph_learn_tpu_torch.core.store import EdgeTable, NodeTable
 from graph_learn_tpu_torch.errors import (DeviceUnavailableError, GLError,
                                           InvalidArgumentError, NotFoundError,
@@ -23,7 +24,7 @@ from graph_learn_tpu_torch.graph import Graph, synthetic_graph
 from graph_learn_tpu_torch.gsl.dataset import Dataset
 from graph_learn_tpu_torch.online.serving import QueryService
 
-__all__ = ["conf", "Decoder", "EdgeTable", "NodeTable", "Graph",
+__all__ = ["conf", "Decoder", "Mask", "NodeFrom", "EdgeTable", "NodeTable", "Graph",
            "synthetic_graph", "QueryService", "Dataset", "GLError",
            "InvalidArgumentError", "NotFoundError", "OutOfRangeError",
            "DeviceUnavailableError"]

@@ -1,7 +1,8 @@
-"""Data-source schema: ``Decoder`` (numeric attributes, labels, weights).
+"""Data-source schema: ``Decoder`` (numeric attributes, labels, weights),
+``Mask``, ``NodeFrom`` and ``mask_type``.
 
-The subset of ``graph_learn_tpu/core/schema.py`` that the serving slice
-reads.  Numeric attributes (``"float"``, and ``"int"`` read as a number)
+The subset of ``graph_learn_tpu/core/schema.py`` that the port reads
+(``Mask``, ``NodeFrom`` and ``mask_type`` are copies of ``:23-58``).  Numeric attributes (``"float"``, and ``"int"`` read as a number)
 become one dense float column each, in attribute order, as in the JAX
 package.  Hashed, bucketed and multi-value attributes and timestamps are
 not ported yet and raise.
@@ -9,9 +10,42 @@ not ported yet and raise.
 
 from __future__ import annotations
 
+import enum
 from typing import Optional, Sequence
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
+
+
+class Mask(enum.Enum):
+    """Train/val/test split selector: a masked split is a virtual node type
+    named by prefixing the type (reference python/utils.py:44-63)."""
+
+    NONE = 0
+    TRAIN = 1
+    VAL = 2
+    TEST = 3
+
+    def decorate(self, type_name: str) -> str:
+        if self == Mask.NONE:
+            return type_name
+        return "MASK" + "*" * self.value + type_name
+
+
+class NodeFrom(enum.Enum):
+    """Seed space selector for ``V()``: NODE iterates a node table or set,
+    EDGE_SRC / EDGE_DST the distinct src / dst nodes of an EDGE type."""
+
+    NODE = 0
+    EDGE_SRC = 1
+    EDGE_DST = 2
+
+
+def mask_type(type_name: str, mask: "Mask | str | None") -> str:
+    if mask is None:
+        return type_name
+    if isinstance(mask, str):
+        mask = Mask[mask.upper()]
+    return mask.decorate(type_name)
 
 
 class Decoder:

@@ -9,8 +9,12 @@ views and interleaved ``off_pairs``, which only served the TPU's gather
 layout.  A ``bfloat16`` feature table is ``torch.bfloat16``.  Under
 ``conf.storage_profile = "full"`` each CSR also carries the id-sorted copy
 of its rows and the per-row weight and in-degree CDFs, flat and bit-equal
-to the JAX package's flat views; ``"minimal"`` leaves them (and the reverse
-CSR) off the device, and the samplers that need them raise.
+to the JAX package's flat views, and each edge table the negative-sampling
+candidate pools (the sorted distinct dst / src ids with their in- / out-
+degree CDFs, as ``_pool`` at ``core/store.py:468-479``); ``"minimal"``
+leaves them (and the reverse CSR) off the device, and the samplers that
+need them raise.  A weighted node table also carries the normalised
+cumulative weights that ``node_weight`` negatives draw by.
 
 Device views are built lazily per device, on the card unless the caller
 passes ``device="cpu"``.
@@ -19,6 +23,7 @@ passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -45,6 +50,12 @@ class DeviceNodeTable(TensorStruct):
     float_attrs: Optional[torch.Tensor] = None  # [N, nf] conf.feature_dtype
     weights: Optional[torch.Tensor] = None  # [N] f32
     labels: Optional[torch.Tensor] = None  # [N] int32
+    # normalised cumulative node weights (node_weight negatives)
+    cum_weights: Optional[torch.Tensor] = None  # [N] f32
+
+    @property
+    def num_nodes(self) -> int:
+        return self.raw_ids.shape[0]
 
 
 @dataclasses.dataclass
@@ -81,6 +92,17 @@ class DeviceEdgeTable(TensorStruct):
     inc: Optional[DeviceCSR] = None  # dst -> src (None in minimal profile)
     weights: Optional[torch.Tensor] = None  # [E] f32
     labels: Optional[torch.Tensor] = None  # [E] int32
+    # negative-sampling candidate pools (None under "minimal"): the sorted
+    # distinct dst ids with their in-degree CDF (outNeg), and the sorted
+    # distinct src ids with their out-degree CDF (inNeg)
+    unique_dst: Optional[torch.Tensor] = None  # [Du] int32
+    unique_dst_indeg_cdf: Optional[torch.Tensor] = None  # [Du] f32
+    unique_src: Optional[torch.Tensor] = None  # [Su] int32
+    unique_src_outdeg_cdf: Optional[torch.Tensor] = None  # [Su] f32
+
+    @property
+    def num_edges(self) -> int:
+        return self.src.shape[0]
 
 
 def _put(x, dev: torch.device, dtype: Optional[torch.dtype] = None):
@@ -160,6 +182,14 @@ class NodeTable:
     def device(self, device: DeviceLike = "cuda") -> DeviceNodeTable:
         dev = resolve_device(device)
         if dev not in self._device:
+            cum = None
+            if self.weights is not None and self.num_nodes:
+                w = np.maximum(self.weights.astype(np.float64), 0.0)
+                total = w.sum()
+                if total <= 0:
+                    w = np.ones_like(w)
+                    total = w.sum()
+                cum = np.cumsum(w / total).astype(np.float32)
             # the cast to bf16 happens on the host so the f32 table never
             # occupies the card
             self._device[dev] = DeviceNodeTable(
@@ -167,7 +197,8 @@ class NodeTable:
                 float_attrs=_put(self.float_attrs, dev,
                                  torch_dtype(conf.feature_dtype)),
                 weights=_put(self.weights, dev),
-                labels=_put(self.labels, dev))
+                labels=_put(self.labels, dev),
+                cum_weights=_put(cum, dev))
         return self._device[dev]
 
 
@@ -187,6 +218,16 @@ def _segment_cdf(vals: np.ndarray, row_offsets: np.ndarray,
     per_row = cs - np.repeat((cs - v)[start], counts)
     denom = np.repeat(np.where(seg_sum > 0, seg_sum, 1.0), counts)
     return (per_row / denom).astype(np.float32)
+
+
+def _pool(ids32: np.ndarray, degs: np.ndarray):
+    """The sorted distinct ids and the CDF of their degrees (float64
+    normalised cumsum, cast to f32): a copy of the JAX package's ``_pool``."""
+    uniq = np.unique(ids32)
+    d = degs[uniq].astype(np.float64)
+    tot = d.sum()
+    cdf = np.cumsum(d / (tot if tot > 0 else 1.0)).astype(np.float32)
+    return uniq.astype(np.int32), cdf
 
 
 def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
@@ -244,6 +285,7 @@ class EdgeTable:
                                                                np.float32)
         self.labels = None if labels is None else np.asarray(labels, np.int32)
         self._device: Dict[torch.device, DeviceEdgeTable] = {}
+        self.host_build_s = 0.0  # host seconds of the last device view
         # adjacency sort key: weight desc > insertion order
         if self.weights is not None:
             self._sort_key, self._sort_desc = self.weights.astype(np.float64), True
@@ -258,47 +300,66 @@ class EdgeTable:
     def num_edges(self) -> int:
         return self.src.size
 
-    def _csr(self, rows, cols, num_rows, nbr_degrees, dev) -> DeviceCSR:
-        """One direction on ``dev``; ``nbr_degrees`` are the degrees the
-        in-degree CDF weighs each neighbour by."""
+    def _host_csr(self, rows, cols, num_rows, nbr_degrees) -> dict:
+        """One direction's CSR arrays (numpy); ``nbr_degrees`` are the
+        degrees the in-degree CDF weighs each neighbour by."""
         ro, nbr, eids, nbr_s, eid_s, cumw, cumind = _build_csr(
             rows, cols.astype(np.int32), num_rows, self._sort_key,
             self._sort_desc, self.weights, nbr_degrees,
             full=conf.storage_profile != "minimal")
-        d = np.diff(ro)
-        return DeviceCSR(row_offsets=_put(ro, dev), nbr_ids=_put(nbr, dev),
-                         nbr_edge_ids=_put(eids, dev),
-                         max_degree=int(d.max()) if d.size else 0,
-                         nbr_ids_sorted=_put(nbr_s, dev),
-                         nbr_edge_ids_sorted=_put(eid_s, dev),
-                         cum_weights=_put(cumw, dev),
-                         cum_in_degrees=_put(cumind, dev))
+        return dict(row_offsets=ro, nbr_ids=nbr, nbr_edge_ids=eids,
+                    nbr_ids_sorted=nbr_s, nbr_edge_ids_sorted=eid_s,
+                    cum_weights=cumw, cum_in_degrees=cumind)
 
     def device(self, device: DeviceLike = "cuda") -> DeviceEdgeTable:
+        """The table's view on ``device``, built on first use: the CSR
+        arrays and candidate pools on the host (``host_build_s`` records
+        those seconds), then every array copied to the device."""
         dev = resolve_device(device)
         if dev not in self._device:
-            inc = None
+            t0 = time.perf_counter()
+            src32, dst32 = self.src.astype(np.int32), self.dst.astype(np.int32)
+            out = self._host_csr(self.src, self.dst, self.num_src_nodes,
+                                 self.in_degrees)
+            inc, pools = None, [None] * 4
             if conf.storage_profile != "minimal":
-                inc = self._csr(self.dst, self.src, self.num_dst_nodes,
-                                self.out_degrees, dev)
+                inc = self._host_csr(self.dst, self.src, self.num_dst_nodes,
+                                     self.out_degrees)
+                pools = (_pool(dst32, self.in_degrees)
+                         + _pool(src32, self.out_degrees))
+            self.host_build_s = time.perf_counter() - t0
+
+            def csr(h):
+                d = np.diff(h["row_offsets"])
+                return DeviceCSR(max_degree=int(d.max()) if d.size else 0,
+                                 **{k: _put(a, dev) for k, a in h.items()})
+
+            u_dst, u_dst_cdf, u_src, u_src_cdf = [_put(a, dev) for a in pools]
             self._device[dev] = DeviceEdgeTable(
-                out=self._csr(self.src, self.dst, self.num_src_nodes,
-                              self.in_degrees, dev),
-                inc=inc,
-                src=_put(self.src.astype(np.int32), dev),
-                dst=_put(self.dst.astype(np.int32), dev),
+                out=csr(out), inc=None if inc is None else csr(inc),
+                src=_put(src32, dev), dst=_put(dst32, dev),
                 weights=_put(self.weights, dev),
-                labels=_put(self.labels, dev))
+                labels=_put(self.labels, dev),
+                unique_dst=u_dst, unique_dst_indeg_cdf=u_dst_cdf,
+                unique_src=u_src, unique_src_outdeg_cdf=u_src_cdf)
         return self._device[dev]
 
 
 @dataclasses.dataclass
 class NodeSet:
-    """Seed set for traversal: dense indices into a base node table."""
+    """Seed set for traversal: dense indices into a base node table.  A
+    masked split (``MASK*type``) or the distinct endpoints of an edge type
+    (``ESRC*e`` / ``EDST*e``) maps into its base table, so lookups read the
+    base payload."""
 
-    type_name: str
+    type_name: str  # possibly masked name
     base_type: str
     indices: np.ndarray  # [M] int32
+    weights: Optional[np.ndarray] = None  # [M] f32
+
+    @property
+    def size(self) -> int:
+        return self.indices.size
 
 
 class GraphStore:
@@ -314,11 +375,19 @@ class GraphStore:
         self.nodes[table.type_name] = table
         self.node_sets[table.type_name] = NodeSet(
             type_name=table.type_name, base_type=table.type_name,
-            indices=np.arange(table.num_nodes, dtype=np.int32))
+            indices=np.arange(table.num_nodes, dtype=np.int32),
+            weights=table.weights)
 
     def add_edge_table(self, table: EdgeTable):
         self.edges[table.type_name] = table
         self.topology[table.type_name] = (table.src_type, table.dst_type)
+        # V(edge, node_from=EDGE_SRC/EDGE_DST) seed sets are snapshots of
+        # this table's endpoints: rebuilt on next use
+        for nm in ("ESRC*" + table.type_name, "EDST*" + table.type_name):
+            self.node_sets.pop(nm, None)
+
+    def add_node_set(self, ns: NodeSet):
+        self.node_sets[ns.type_name] = ns
 
     def node_table(self, t: str) -> NodeTable:
         if t not in self.nodes:

@@ -1,6 +1,7 @@
-"""Result value types: ``Nodes``, ``SparseNodes`` and ``DeferredRows``.
+"""Result value types: ``Nodes``, ``SparseNodes``, ``Edges``,
+``SparseEdges`` and ``DeferredRows``.
 
-Counterparts of ``graph_learn_tpu/core/values.py:29-100`` as plain
+Counterparts of ``graph_learn_tpu/core/values.py:29-150`` as plain
 dataclasses of tensors.  Shapes follow the JAX package: ``Nodes.ids`` is
 [batch] or fanout-shaped [batch, k1, ...]; ``SparseNodes`` is the cap +
 degrees form of variable-degree results.
@@ -63,6 +64,16 @@ class Nodes(TensorStruct):
     out_degrees: Optional[torch.Tensor] = None  # [*] int32
     type_name: str = ""
 
+    @property
+    def shape(self):
+        return self.ids.shape
+
+    def flat(self) -> "Nodes":
+        """The fanout dims flattened into one leading dim (a deferred
+        feature gather's indices with them)."""
+        n = self.ids.dim()
+        return self.map(lambda x: x.reshape((-1,) + tuple(x.shape[n:])))
+
 
 @dataclasses.dataclass
 class SparseNodes(TensorStruct):
@@ -101,6 +112,50 @@ class SparseNodes(TensorStruct):
             raise ValueError("these SparseNodes carry no deferred float "
                              "attrs to reduce")
         return embedding_agg(fa.table, fa.idx, self.degrees, op)
+
+
+@dataclasses.dataclass
+class Edges(TensorStruct):
+    """A batch of edges with src / dst node views (reference
+    values.py:471-543)."""
+
+    edge_ids: torch.Tensor  # [*] int32 dense edge indices, -1 = none
+    src_nodes: Nodes
+    dst_nodes: Nodes
+    weights: Optional[torch.Tensor] = None  # [*] f32, 0 where edge_ids < 0
+    labels: Optional[torch.Tensor] = None  # [*] int32
+    type_name: str = ""
+
+    @property
+    def shape(self):
+        return self.edge_ids.shape
+
+    @property
+    def src_ids(self) -> torch.Tensor:
+        return self.src_nodes.ids
+
+    @property
+    def dst_ids(self) -> torch.Tensor:
+        return self.dst_nodes.ids
+
+
+@dataclasses.dataclass
+class SparseEdges(TensorStruct):
+    """Variable-degree edges as [b, cap] edge ids plus [b] true degrees;
+    the src of every slot of a row is that row's seed."""
+
+    edge_ids: torch.Tensor  # [b, cap]
+    degrees: torch.Tensor  # [b]
+    src_nodes: Nodes  # [b]
+    dst_nodes: SparseNodes  # [b, cap]
+    weights: Optional[torch.Tensor] = None
+    labels: Optional[torch.Tensor] = None
+    type_name: str = ""
+
+    def mask(self) -> torch.Tensor:
+        pos = torch.arange(self.edge_ids.shape[-1], dtype=torch.int32,
+                           device=self.edge_ids.device)[None, :]
+        return pos < self.degrees[:, None]
 
 
 @dataclasses.dataclass

@@ -1,9 +1,12 @@
-"""Graph facade: in-memory table registration, lookups, the ``V()`` entry.
+"""Graph facade: in-memory table registration, lookups, the ``V()`` and
+``E()`` entries.
 
 Counterpart of ``graph_learn_tpu/graph.py:47-321`` for tables built in
 memory, as ``bench.py:84-112`` builds them (``add_node_table`` /
-``add_edge_table``).  Loading sources from files (``node()``, ``edge()``,
-``init()``) needs ``core/ingest.py`` and is not yet ported.
+``add_edge_table``, and ``add_node_set`` for a masked split, which the JAX
+package registers while it loads a masked source, ``graph.py:117-126``).
+Loading sources from files (``node()``, ``edge()``, ``init()``) needs
+``core/ingest.py`` and is not yet ported.
 
 A ``Graph`` owns the device its views live on: the CUDA card unless the
 caller passes ``device="cpu"``.
@@ -11,13 +14,14 @@ caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
 
-from graph_learn_tpu_torch.core.schema import Decoder
-from graph_learn_tpu_torch.core.store import EdgeTable, GraphStore, NodeTable
+from graph_learn_tpu_torch.core.schema import Decoder, Mask, mask_type
+from graph_learn_tpu_torch.core.store import (EdgeTable, GraphStore, NodeSet,
+                                              NodeTable)
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -34,6 +38,22 @@ class Graph:
 
     def add_edge_table(self, table: EdgeTable) -> "Graph":
         self.store.add_edge_table(table)
+        return self
+
+    def add_node_set(self, node_type: str, raw_ids: np.ndarray,
+                     mask: Union[Mask, str], weights=None) -> "Graph":
+        """Register the split ``mask`` of ``node_type``: the nodes of the
+        given raw ids (each must be in the table), traversed by
+        ``V(node_type, mask=mask)``."""
+        typed = mask_type(node_type, mask)
+        if typed == node_type:
+            raise InvalidArgumentError("add_node_set needs a mask other "
+                                       "than Mask.NONE")
+        idx = self.store.node_table(node_type).index.lookup(raw_ids)
+        self.store.add_node_set(NodeSet(
+            type_name=typed, base_type=node_type, indices=idx,
+            weights=None if weights is None else np.asarray(weights,
+                                                            np.float32)))
         return self
 
     # --- direct (non-GSL) APIs ----------------------------------------
@@ -56,12 +76,14 @@ class Graph:
                             type_name=node_type)
 
     # --- GSL entry point ----------------------------------------------
-    def V(self, t: str):
+    def V(self, t: str, node_from=None,
+          mask: Union[Mask, str, None] = Mask.NONE):
         from graph_learn_tpu_torch.gsl.query import v_entry
-        return v_entry(self, t)
+        return v_entry(self, t, node_from=node_from, mask=mask)
 
     def E(self, edge_type: str):
-        raise InvalidArgumentError("E() sources are not yet ported")
+        from graph_learn_tpu_torch.gsl.query import e_entry
+        return e_entry(self, edge_type)
 
 
 def synthetic_graph(n_nodes: int, avg_degree: int, feat_dim: int,

@@ -2,24 +2,36 @@
 
 Counterpart of ``graph_learn_tpu/gsl/dag.py`` for the kinds the port
 runs: ``g.V(t).batch(b).shuffle().alias('src').outV(e).sample(k)
-.by('random').filter('src').alias('hop1')...values(func)``, with ``inV``
-beside ``outV``, the strategies ``random``, ``topk``, ``edge_weight``,
-``in_degree``, ``random_without_replacement`` and ``full``, and any
-strategy added by ``ops.sampling.register_sampler``.  Other hops (edges,
-negatives, walks, subgraphs) are not yet ported and raise when the query
-is built.
+.by('random').filter('src').alias('hop1')...values(func)`` and
+``g.E(e).batch(b)`` with its ``outV()`` / ``inV()`` endpoint views; the
+hops ``outV`` / ``inV`` / ``outE`` / ``inE`` with the strategies
+``random``, ``topk``, ``edge_weight``, ``in_degree``,
+``random_without_replacement`` and ``full`` and any strategy added by
+``ops.sampling.register_sampler``; the negatives ``outNeg`` / ``inNeg`` /
+``Neg`` with ``random``, ``in_degree``, ``soft_in_degree`` and
+``node_weight``; and ``.each()``.  Conditional negatives (``.where``),
+walks and subgraphs are not yet ported and raise when the query is built.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
+from graph_learn_tpu_torch.ops.negative import NEGATIVE_STRATEGIES
 from graph_learn_tpu_torch.ops.sampling import (BUILTIN_STRATEGIES,
                                                 STRATEGY_FNS)
 
-_HOPS = ("out_v", "in_v")
+_SOURCES = ("source_v", "source_e")
+_HOPS = ("out_v", "in_v", "out_e", "in_e")
+_NEGS = ("out_neg", "in_neg")
+# the JAX package's _VALID_NEG: "conditional" is refused as not yet ported
+_VALID_NEG = NEGATIVE_STRATEGIES + ("conditional",)
+
+
+def _unported(what: str):
+    raise InvalidArgumentError("%s is not yet ported" % what)
 
 
 class Dag:
@@ -50,7 +62,9 @@ class Dag:
 
 
 class DagNode:
-    """One traversal step (``source_v`` | ``out_v`` | ``in_v``)."""
+    """One traversal step: ``source_v`` | ``source_e`` | ``endpoint_src`` |
+    ``endpoint_dst`` | ``out_v`` | ``in_v`` | ``out_e`` | ``in_e`` |
+    ``out_neg`` | ``in_neg``."""
 
     def __init__(self, dag: Dag, kind: str, parent: Optional["DagNode"],
                  edge_type: Optional[str] = None,
@@ -63,7 +77,7 @@ class DagNode:
         self.nid = -1
         self.alias_name: Optional[str] = None
         self.count = 0  # sample fanout
-        self.strategy = "by_order" if kind == "source_v" else "random"
+        self.strategy = "by_order" if kind in _SOURCES else "random"
         self.filter_alias: Optional[str] = None
         dag.add(self)
 
@@ -73,8 +87,8 @@ class DagNode:
         return self
 
     def batch(self, batch_size: int) -> "DagNode":
-        if self.kind != "source_v":
-            raise InvalidArgumentError(".batch() only on V() sources")
+        if self.kind not in _SOURCES:
+            raise InvalidArgumentError(".batch() only on V()/E() sources")
         self.dag.batch_size = int(batch_size)
         self.strategy = "by_order"
         return self
@@ -82,18 +96,26 @@ class DagNode:
     def shuffle(self, traverse: bool = False) -> "DagNode":
         """Seeds in random order: one permutation per epoch with
         ``traverse``, else uniform with replacement (an endless epoch)."""
-        if self.kind != "source_v":
-            raise InvalidArgumentError(".shuffle() only on V() sources")
+        if self.kind not in _SOURCES:
+            raise InvalidArgumentError(".shuffle() only on V()/E() sources")
         self.strategy = "shuffle" if traverse else "random"
         return self
 
     def sample(self, count: int) -> "DagNode":
-        if self.kind not in _HOPS:
+        if self.kind not in _HOPS + _NEGS:
             raise InvalidArgumentError(".sample() only after a hop")
         self.count = int(count)
         return self
 
     def by(self, strategy: str) -> "DagNode":
+        if self.kind in _NEGS:
+            if strategy not in _VALID_NEG:
+                raise InvalidArgumentError(
+                    "negative strategy %r not in %r" % (strategy, _VALID_NEG))
+            if strategy == "conditional":
+                _unported("conditional negative sampling")
+            self.strategy = strategy
+            return self
         if self.kind not in _HOPS:
             raise InvalidArgumentError(".by() only after .sample()")
         if strategy not in STRATEGY_FNS:
@@ -104,17 +126,58 @@ class DagNode:
         self.strategy = strategy
         return self
 
+    def each(self, func: Callable[["DagNode"], object]) -> "DagNode":
+        """Branch the query: ``func(self)`` adds hops from this node."""
+        func(self)
+        return self
+
     def values(self, func=None):
         """Finish the query; ``func`` post-processes each batch that
         ``Dataset.next()`` returns."""
         from graph_learn_tpu_torch.gsl.compile import Query
         return Query(self.dag, post_func=func)
 
-    def outV(self, edge_type: str) -> "DagNode":
-        return DagNode(self.dag, "out_v", self, edge_type=edge_type)
+    def _hop(self, kind: str, edge_type: Optional[str]) -> "DagNode":
+        if edge_type is None:
+            if (self.kind in ("source_e", "out_e", "in_e")
+                    and kind in ("out_v", "in_v")):
+                # outV()/inV() of an edge node: its src/dst endpoints
+                return EndpointNode(self.dag, kind, self)
+            raise InvalidArgumentError("edge_type required")
+        return DagNode(self.dag, kind, self, edge_type=edge_type)
 
-    def inV(self, edge_type: str) -> "DagNode":
-        return DagNode(self.dag, "in_v", self, edge_type=edge_type)
+    def outV(self, edge_type: Optional[str] = None) -> "DagNode":
+        return self._hop("out_v", edge_type)
+
+    def inV(self, edge_type: Optional[str] = None) -> "DagNode":
+        return self._hop("in_v", edge_type)
+
+    def outE(self, edge_type: str) -> "DagNode":
+        return self._hop("out_e", edge_type)
+
+    def inE(self, edge_type: str) -> "DagNode":
+        return self._hop("in_e", edge_type)
+
+    def outNeg(self, edge_type: str) -> "DagNode":
+        return DagNode(self.dag, "out_neg", self, edge_type=edge_type)
+
+    def inNeg(self, edge_type: str) -> "DagNode":
+        return DagNode(self.dag, "in_neg", self, edge_type=edge_type)
+
+    def Neg(self, node_type: str) -> "DagNode":
+        """Negatives from a node set, whatever the topology."""
+        return DagNode(self.dag, "out_neg", self, node_type=node_type)
+
+    def where(self, target, condition: Optional[dict] = None) -> "DagNode":
+        _unported("conditional negative sampling (.where)")
+
+    def random_walk(self, walk_len: int, p: float = 1.0, q: float = 1.0,
+                    edge_type: Optional[str] = None) -> "DagNode":
+        _unported("random_walk")
+
+    def SubGraph(self, edge_type: str, nbr_cap: Optional[int] = None,
+                 need_dist: bool = False) -> "DagNode":
+        _unported("SubGraph")
 
     def filter(self, target) -> "DagNode":
         """Reject samples equal to the ids of ``target`` (an alias or a
@@ -124,3 +187,13 @@ class DagNode:
         self.filter_alias = (target if isinstance(target, str)
                              else target.alias_name)
         return self
+
+
+class EndpointNode(DagNode):
+    """The src (``outV()``) or dst (``inV()``) endpoint view of an edge
+    node."""
+
+    def __init__(self, dag: Dag, kind: str, parent: DagNode):
+        super().__init__(dag, "endpoint_" + ("src" if kind == "out_v"
+                                             else "dst"),
+                         parent, edge_type=parent.edge_type)

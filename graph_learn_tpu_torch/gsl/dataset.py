@@ -3,7 +3,8 @@
 Counterpart of ``graph_learn_tpu/gsl/dataset.py`` ``Dataset:46-170``:
 ``next()`` returns {alias: value} per batch and raises OutOfRangeError at
 the end of an epoch; an EOF marker queued in order keeps epoch ends where
-they belong while batches are produced ahead.
+they belong while batches are produced ahead.  A ``V()`` query walks its
+node set; an ``E()`` query walks the edge ids of its edge type.
 
 The JAX package's lookahead rests on async dispatch of the jitted plan.
 Here the plan of each queued batch (and its ``transform``) runs on a side
@@ -67,8 +68,7 @@ class Dataset:
         size, _ = query.source_space()
         self._trav = Traverser(size, query.dag.batch_size,
                                strategy=query.source.strategy, seed=seed)
-        self._seed_indices = query.graph.store.node_set(
-            query.source.node_type).indices
+        self._seed_indices = query.seed_indices()
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self._tables = query.device_tables(self.device)
@@ -91,7 +91,8 @@ class Dataset:
         positions, count = self._trav.next()
         if self.drop_last and count < self._trav.batch_size:
             raise OutOfRangeError("No more nodes exist.")
-        seeds = self._seed_indices[positions]
+        seeds = (positions if self._seed_indices is None
+                 else self._seed_indices[positions])
         ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                else contextlib.nullcontext())
         with ctx, torch.no_grad():

@@ -11,8 +11,13 @@ The flax tree is
     params/layers_<i>/convs_0/{x_<h>, n_<h>, attn_<h>}/{kernel, bias?}
                                   (GAT; n_<h> only with hetero dims)
     params/encoder/proj/{kernel, bias?}      (only with an output_dim)
+    params/hop_encoders_<i>/proj/{kernel, bias?}
+                          (with ``hop_encoders``, in place of ``encoder``)
 
-Each Dense of a conv is a ``torch.nn.Linear`` child of the same name.
+Each Dense of a conv is a ``torch.nn.Linear`` child of the same name.  A
+two-tower model, a dict or ``nn.ModuleDict`` of ``EgoGNN`` such as
+``{"u": u_tower, "i": i_tower}``, maps to the dict of the towers' params
+under the same keys.
 
 ``EgoLayer`` shares one conv across its hop pairs, so each layer holds a
 single ``convs_0`` whatever its pair count.  A flax ``Dense`` kernel is
@@ -56,7 +61,7 @@ def _load_dense(linear: nn.Linear, tree: Dict, path, used):
                 raise InvalidArgumentError(
                     "%s: flax Dense has a bias, the Linear has none"
                     % "/".join(path))
-            b = torch.from_numpy(np.asarray(tree["bias"], np.float32))
+            b = torch.from_numpy(np.array(tree["bias"], np.float32))
             linear.bias.copy_(b.to(linear.bias.device, linear.bias.dtype))
             used.add(path + ("bias",))
 
@@ -69,14 +74,33 @@ def _denses(model: nn.Module):
             for name, child in conv.named_children():
                 if isinstance(child, nn.Linear):
                     yield ("layers_%d" % i, "convs_%d" % j, name), child
-    proj = getattr(model.encoder, "proj", None)
-    if proj is not None:
-        yield ("encoder", "proj"), proj
+    if model.hop_encoders is not None:
+        encoders = [("hop_encoders_%d" % i, enc)
+                    for i, enc in enumerate(model.hop_encoders)]
+    else:
+        encoders = [("encoder", model.encoder)]
+    for name, enc in encoders:
+        proj = getattr(enc, "proj", None)
+        if proj is not None:
+            yield (name, "proj"), proj
 
 
-def load_flax_params(model: nn.Module, params: Dict) -> nn.Module:
-    """Copy flax ``EgoGraphSAGE`` / ``EgoGAT`` params into the port's
-    ``EgoGNN``."""
+def _towers(model) -> bool:
+    """Is ``model`` a dict (or ModuleDict) of towers?"""
+    return isinstance(model, (dict, nn.ModuleDict))
+
+
+def load_flax_params(model, params: Dict):
+    """Copy flax ``EgoGraphSAGE`` / ``EgoGAT`` / ``EgoGNN`` params into the
+    port's ``EgoGNN``, or each tower's params into its tower."""
+    if _towers(model):
+        if sorted(model.keys()) != sorted(params.keys()):
+            raise InvalidArgumentError(
+                "towers %s, flax params for %s"
+                % (sorted(model.keys()), sorted(params.keys())))
+        for k in model.keys():
+            load_flax_params(model[k], params[k])
+        return model
     tree = params["params"] if "params" in params else params
     used: Set[Tuple[str, ...]] = set()
     for path, linear in _denses(model):
@@ -95,9 +119,11 @@ def load_flax_params(model: nn.Module, params: Dict) -> nn.Module:
     return model
 
 
-def to_flax_params(model: nn.Module) -> Dict:
-    """The port's ``EgoGNN`` weights as the flax tree (numpy arrays), the
-    inverse of :func:`load_flax_params`."""
+def to_flax_params(model) -> Dict:
+    """The port's ``EgoGNN`` weights as the flax tree (numpy arrays), or a
+    dict of the towers' trees; the inverse of :func:`load_flax_params`."""
+    if _towers(model):
+        return {k: to_flax_params(model[k]) for k in model.keys()}
     tree: Dict = {}
     for path, linear in _denses(model):
         sub = tree

@@ -41,15 +41,30 @@ def _encoder_commutes(enc, op: str) -> bool:
 
 class EgoGNN(nn.Module):
     """Fold K+1 hop tensors through EgoLayers; ``act`` (and dropout when
-    training) between layers, none after the last."""
+    training) between layers, none after the last.
 
-    def __init__(self, layers: Sequence[EgoLayer], encoder: nn.Module,
-                 act: Callable = torch.relu, dropout: float = 0.0):
+    ``encoder`` encodes every hop; ``hop_encoders`` (one per hop position,
+    index 0 = src), where given, takes its place for heterogeneous hops, as
+    in a bipartite tower."""
+
+    def __init__(self, layers: Sequence[EgoLayer],
+                 encoder: Optional[nn.Module] = None,
+                 act: Callable = torch.relu, dropout: float = 0.0,
+                 hop_encoders: Optional[Sequence[nn.Module]] = None):
         super().__init__()
+        if encoder is None and hop_encoders is None:
+            raise InvalidArgumentError(
+                "EgoGNN needs an encoder or hop_encoders")
         self.layers = nn.ModuleList(layers)
         self.encoder = encoder
+        self.hop_encoders = (nn.ModuleList(hop_encoders)
+                             if hop_encoders is not None else None)
         self.act = act
         self.dropout = dropout
+
+    def _enc_for(self, i: int) -> nn.Module:
+        return (self.hop_encoders[i] if self.hop_encoders is not None
+                else self.encoder)
 
     def _prepare(self, ego: EgoGraph):
         """Split into (values to encode, deep_agg), handling deferral."""
@@ -59,7 +74,7 @@ class EgoGNN(nn.Module):
             return values, None
         conv = self.layers[0].convs[-1]
         op = getattr(conv, "deferred_op", None)
-        enc = self.encoder
+        enc = self._enc_for(len(values) - 1)
         if isinstance(fa, PreAggregatedRows):
             if op != fa.op or not _encoder_commutes(enc, op):
                 raise InvalidArgumentError(
@@ -82,7 +97,7 @@ class EgoGNN(nn.Module):
     def forward(self, ego: EgoGraph, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         values, deep_agg = self._prepare(ego)
-        h = [self.encoder(v) for v in values]
+        h = [self._enc_for(i)(v) for i, v in enumerate(values)]
         hops = list(ego.nbr_nums)
         n_layers = len(self.layers)
         for i in range(n_layers - 1):

@@ -5,7 +5,8 @@ one device.  The JAX package fuses sampling, the forward, the backward and
 the optimizer update into one jitted step; here one step is a plain eager
 sequence on the card:
 
-    seeds from the Traverser -> ``_execute`` (GSL plan)
+    seeds from the Traverser (node-set indices of a ``V()`` query, edge ids
+    of an ``E()`` query) -> ``_execute`` (GSL plan)
     -> ``batch_transform`` under ``torch.no_grad()``
     -> ``loss_fn`` -> ``backward()`` -> ``optimizer.step()``
 
@@ -38,7 +39,9 @@ class LocalTrainer:
     ``loss_fn(model, batch, generator, training)`` -> scalar loss, where
     ``batch`` is the {alias: value} dict the query plan produces and
     ``generator`` the trainer's ``torch.Generator`` (sampling and dropout
-    draw from it in turn).
+    draw from it in turn).  ``model`` is any ``nn.Module``: a two-tower
+    model is, for example, an ``nn.ModuleDict`` of the towers whose
+    ``loss_fn`` calls both.
     """
 
     def __init__(self, seed: Optional[int] = None,
@@ -50,8 +53,9 @@ class LocalTrainer:
         size, _ = query.source_space()
         trav = Traverser(size, query.dag.batch_size,
                          strategy=query.source.strategy, seed=self.seed)
-        idx = query.graph.store.node_set(query.source.node_type).indices
-        return trav, idx
+        idx = query.seed_indices()
+        # an E() source's positions are its edge ids
+        return trav, (lambda pos: pos) if idx is None else idx.__getitem__
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -81,7 +85,7 @@ class LocalTrainer:
         check_tier(tier)
         tables = query.device_tables(self.device)
         generator = self._generator(self.seed)
-        trav, idx = self._seed_stream(query)
+        trav, seeds_of = self._seed_stream(query)
         if trav.strategy == "random" and steps_per_epoch is None:
             raise ValueError("a 'random' (shuffle()) source never exhausts an "
                              "epoch; pass steps_per_epoch")
@@ -95,7 +99,7 @@ class LocalTrainer:
                     pos, _ = trav.next()
                 except OutOfRangeError:
                     break
-                batch = self._batch(query, tables, idx[pos], generator,
+                batch = self._batch(query, tables, seeds_of(pos), generator,
                                     batch_transform)
                 loss = loss_fn(model, batch, generator, True)
                 optimizer.zero_grad(set_to_none=True)
@@ -127,7 +131,7 @@ class LocalTrainer:
         check_tier(tier)
         tables = query.device_tables(self.device)
         generator = self._generator(self.seed + 1)
-        trav, idx = self._seed_stream(query)
+        trav, seeds_of = self._seed_stream(query)
         if trav.strategy == "random":
             raise ValueError("a 'random' (shuffle()) source never exhausts an "
                              "epoch; evaluate over a by_order or "
@@ -140,7 +144,7 @@ class LocalTrainer:
                     pos, n_valid = trav.next()
                 except OutOfRangeError:
                     break
-                batch = self._batch(query, tables, idx[pos], generator,
+                batch = self._batch(query, tables, seeds_of(pos), generator,
                                     batch_transform)
                 vals = metric_fn(model, batch)
                 total += vals[:n_valid].double().sum()

@@ -31,6 +31,7 @@ import torch
 
 from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.values import TensorStruct, map_result
+from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.gsl.compile import Query, _execute
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -56,6 +57,8 @@ class InstalledQuery:
         self.query = query
         self.micro_batch = micro_batch
         self.device = service.device
+        if query.source.kind != "source_v":
+            raise InvalidArgumentError("serving expects a V() query")
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(conf.seed)
         self._stream = (torch.cuda.Stream(device=self.device)

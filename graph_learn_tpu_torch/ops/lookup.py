@@ -1,7 +1,9 @@
-"""Attribute lookup: node payloads into ``Nodes``.
+"""Attribute lookup: node payloads into ``Nodes``, edge payloads.
 
 Counterpart of ``graph_learn_tpu/ops/lookup.py`` ``_g:25``,
-``lookup_nodes:65`` and ``lookup_sparse_nodes:84`` on a single device.  1-D
+``lookup_nodes:65``, ``lookup_sparse_nodes:84`` and ``edge_payload:100``
+on a single device, and of the non-sharded branch of
+``graph_learn_tpu/core/sharding.py edge_field:327``.  1-D
 payloads (raw ids, labels, weights) are plain indexing.  Feature rows (2-D
 tables) are not gathered here: ``float_attrs`` is a ``DeferredRows`` over
 the table, gathered by ``feature_gather`` (Kernel 1 on the card) where a
@@ -15,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from graph_learn_tpu_torch.core.store import DeviceNodeTable
+from graph_learn_tpu_torch.core.store import DeviceEdgeTable, DeviceNodeTable
 from graph_learn_tpu_torch.core.values import (DeferredRows, Nodes,
                                               SparseNodes)
 
@@ -57,3 +59,22 @@ def lookup_sparse_nodes(table: DeviceNodeTable, ids: torch.Tensor,
         weights=_g(table.weights, ids),
         labels=_g(table.labels, ids),
         type_name=type_name)
+
+
+def edge_field(et: DeviceEdgeTable, name: str,
+               edge_ids: torch.Tensor) -> Optional[torch.Tensor]:
+    """A per-edge field (``src``, ``dst``, ...) at edge row ids; a -1 pad
+    reads row 0 (masked downstream)."""
+    arr = getattr(et, name)
+    if arr is None:
+        return None
+    return arr[torch.clamp(edge_ids, min=0)]
+
+
+def edge_payload(et: DeviceEdgeTable, edge_ids: torch.Tensor) -> dict:
+    """{"weights", "labels"} at edge row ids (-1 = pad): the weights are 0
+    where the edge id is -1; a field the table lacks is None."""
+    valid = edge_ids >= 0
+    w = edge_field(et, "weights", edge_ids)
+    return {"weights": None if w is None else torch.where(valid, w, 0.0),
+            "labels": edge_field(et, "labels", edge_ids)}

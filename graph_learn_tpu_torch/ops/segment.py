@@ -1,9 +1,11 @@
 """Segment primitives over flat CSR rows.
 
-Counterpart of ``graph_learn_tpu/ops/segment.py`` ``row_bounds:173`` and
-``segmented_searchsorted:82``.  The tiled gathers of the JAX package
-(``flat_gather``, ``pair_gather``) exist for the TPU's layout only; flat
-tensors index directly here.
+Counterpart of ``graph_learn_tpu/ops/segment.py`` ``row_bounds:173``,
+``segmented_searchsorted:82``, ``segment_member:123`` and
+``row_member:142``.  The tiled gathers of the JAX package (``flat_gather``,
+``pair_gather``) and ``row_member``'s 128-lane window exist for the TPU's
+layout only; flat tensors index directly here, and membership always
+bisects the id-sorted row.
 """
 
 from __future__ import annotations
@@ -53,3 +55,27 @@ def segmented_searchsorted(vals: torch.Tensor, lo: torch.Tensor,
         lo, hi = (torch.where(go_right & open_, mid + 1, lo),
                   torch.where(go_right | ~open_, hi, mid))
     return lo
+
+
+def segment_member(sorted_ids: torch.Tensor, lo: torch.Tensor,
+                   hi: torch.Tensor, queries: torch.Tensor,
+                   iters: Optional[int] = None) -> torch.Tensor:
+    """Is each query id present in its segment [lo, hi) of ``sorted_ids``
+    (ascending inside each segment)?  ``lo`` / ``hi`` broadcast to
+    ``queries``."""
+    e = sorted_ids.shape[0]
+    pos = segmented_searchsorted(sorted_ids, lo, hi, queries, side="left",
+                                 iters=iters)
+    found = sorted_ids[torch.clamp(pos, 0, max(e - 1, 0)).long()] == queries
+    return (pos < torch.broadcast_to(hi, queries.shape)) & found
+
+
+def row_member(csr, rows: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Is each query id in its row's neighbour list?  ``rows`` [b],
+    ``queries`` [b, ...] -> bool of ``queries``' shape, by bisection over
+    the row's id-sorted copy (``csr.nbr_ids_sorted``)."""
+    start, end, _ = row_bounds(csr.row_offsets, rows)
+    shape = (rows.shape[0],) + (1,) * (queries.dim() - 1)
+    return segment_member(csr.nbr_ids_sorted, start.reshape(shape),
+                          end.reshape(shape), queries,
+                          iters=bisect_iters(csr.max_degree))

@@ -160,7 +160,20 @@ def test_the_bench_makes_no_host_tensor_and_reads_nothing_back(monkeypatch):
         q, tables, model, tbench.make_optimizer(model, torch.device("cpu")),
         dict(TINY, scan_steps=2), 1, torch.Generator().manual_seed(0))
     calls = []
+    _guard_host_tensors(monkeypatch, calls)
+    seeds = torch.randint(0, TINY["n_nodes"], (TINY["batch"],),
+                          dtype=torch.int32)
+    out = _execute(q, tables, seeds, torch.Generator().manual_seed(1))
+    loss = step()
+    monkeypatch.undo()
+    assert calls == []
+    assert out["hop2"].ids.shape == (TINY["batch"],) + TINY["fanout"]
+    assert np.isfinite(loss.item())
 
+
+def _guard_host_tensors(monkeypatch, calls):
+    """Make torch.tensor / as_tensor and Tensor.item / tolist / cpu / numpy
+    raise when a function of the port calls them."""
     def guard(name, fn):
         def wrapped(*args, **kwargs):
             caller = sys._getframe(1).f_globals.get("__name__", "")
@@ -175,13 +188,47 @@ def test_the_bench_makes_no_host_tensor_and_reads_nothing_back(monkeypatch):
     for name in ("item", "tolist", "cpu", "numpy"):
         monkeypatch.setattr(torch.Tensor, name,
                             guard(name, getattr(torch.Tensor, name)))
-    seeds = torch.randint(0, TINY["n_nodes"], (TINY["batch"],),
-                          dtype=torch.int32)
+
+
+@pytest.mark.parametrize("neg", ["random", "in_degree", "node_weight"])
+def test_the_bipartite_plan_makes_no_host_tensor_and_reads_nothing_back(
+        neg, monkeypatch):
+    """The same guard over the bipartite path: ``source_e``, the endpoint
+    views, ``edge_payload`` (an outE hop), ``negative_sample`` and
+    family_scale's K-step function."""
+    from graph_learn_tpu_torch.examples import family_scale as fs
+    from torch_parity import torch_u2i_graph, u2i_arrays
+    g = torch_u2i_graph(u2i_arrays(seed=1))[0]
+    seed = g.E("u-i").batch(16).alias("seed")
+    src, dst = seed.outV().alias("src"), seed.inV().alias("dst")
+    src.outNeg("u-i").sample(2).by(neg).alias("neg")
+    dst.inNeg("u-i").sample(2).by("in_degree").alias("ineg")
+    src.Neg("i").sample(2).by(neg if neg != "in_degree" else "random") \
+        .alias("nneg")
+    src.outE("u-i").sample(3).by("random").alias("e")
+    q = seed.values()
+    tables = q.device_tables("cpu")
+    cfg = dict(tbench.CFG_SMALL, n_nodes=400, avg_degree=4, feat_dim=8,
+               hidden=16, batch=32, scan_steps=2)
+    with both_confs(storage_profile="full"):
+        graph = fs.build_graph(cfg, "cpu")
+        fq = fs.build_query(graph[0], 32, 4, 2)
+        ftables = fq.device_tables("cpu")
+    model = fs.towers(graph[1], graph[2], 8, 16, "cpu")
+    step = fs.BipartiteSteps(fq, ftables, model,
+                             tbench.make_optimizer(model,
+                                                   torch.device("cpu")),
+                             cfg, torch.Generator().manual_seed(0), False)
+    calls = []
+    _guard_host_tensors(monkeypatch, calls)
+    seeds = torch.randint(0, 400, (16,), dtype=torch.int32)
     out = _execute(q, tables, seeds, torch.Generator().manual_seed(1))
     loss = step()
     monkeypatch.undo()
     assert calls == []
-    assert out["hop2"].ids.shape == (TINY["batch"],) + TINY["fanout"]
+    assert out["e"].weights.shape == (16, 3) and out["neg"].ids.shape == (
+        16, 2)
+    assert torch.equal(out["src"].ids, out["seed"].src_ids)
     assert np.isfinite(loss.item())
 
 

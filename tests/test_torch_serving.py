@@ -168,9 +168,10 @@ def test_from_query_result_gathers_only_what_the_model_reads(service,
 
 def test_in_v_is_not_yet_ported(service):
     # inV is ported now (tests/test_torch_sampling.py holds it against the
-    # JAX query), and so are filters (tests/test_torch_filters.py); what is
-    # still refused when a query is built: strategies nobody registered,
-    # and edge sources
+    # JAX query), and so are filters (tests/test_torch_filters.py) and edge
+    # sources (tests/test_torch_edges.py); what is still refused when a
+    # query is built: strategies nobody registered, walks and conditional
+    # negatives
     _, _, q = service
     hop = q.graph.V("item").batch(4).alias("src").inV("rel").sample(2) \
         .by("topk")
@@ -178,8 +179,19 @@ def test_in_v_is_not_yet_ported(service):
     assert hop.filter("src") is hop and hop.filter_alias == "src"
     with pytest.raises(InvalidArgumentError, match="nor registered"):
         hop.by("my_registered_sampler")
+    seed = q.graph.E("rel")
+    assert seed.kind == "source_e" and seed.edge_type == "rel"
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        q.graph.E("rel")
+        seed.outV().random_walk(3)
+    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        seed.outV().outNeg("rel").where("src")
+    # serving answers V() queries only, as the JAX package's does
+    svc = QueryService(q.graph, device="cpu")
+    try:
+        with pytest.raises(InvalidArgumentError, match="V\\(\\) query"):
+            svc.install(seed.alias("seed").values())
+    finally:
+        svc.close()
 
 
 def test_full_query_is_served_as_sparse_nodes(graph_arrays):

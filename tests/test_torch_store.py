@@ -149,3 +149,41 @@ def test_empty_edge_table_builds_empty_views():
     et = torch_graph(a)[0].store.edge_table("rel").device("cpu")
     assert et.out.num_edges == 0 and et.out.max_degree == 0
     assert et.out.cum_weights is None and et.out.nbr_ids_sorted.numel() == 0
+
+
+POOLS = ("unique_dst", "unique_dst_indeg_cdf", "unique_src",
+         "unique_src_outdeg_cdf")
+
+
+@pytest.mark.parametrize("edge_type", ["u-i", "i-i"])
+def test_candidate_pools_bitwise_equal_jax(edge_type):
+    """The negative-sampling pools of a weighted two-type graph: the sorted
+    distinct dst / src ids and their degree CDFs, bit for bit."""
+    from torch_parity import jax_u2i_graph, torch_u2i_graph, u2i_arrays
+    a = u2i_arrays(hub=40, seed=3)
+    jet = jax_u2i_graph(a)[0].store.edge_table(edge_type).device()
+    tet = torch_u2i_graph(a)[0].store.edge_table(edge_type).device("cpu")
+    for name in POOLS:
+        want, got = np.asarray(getattr(jet, name)), getattr(tet, name)
+        assert got.dim() == 1 and got.numpy().dtype == want.dtype, name
+        np.testing.assert_array_equal(got.numpy(), want, name)
+    assert tet.num_edges == jet.num_edges
+
+
+def test_minimal_profile_has_no_pools_and_node_weights_keep_their_cdf():
+    from torch_parity import jax_u2i_graph, torch_u2i_graph, u2i_arrays
+    a = u2i_arrays(seed=2)
+    a["i_weights"][:4] = 0.0
+    with both_confs(storage_profile="minimal"):
+        jg, tg = jax_u2i_graph(a)[0], torch_u2i_graph(a)[0]
+        tet = tg.store.edge_table("u-i").device("cpu")
+        jnt = jg.store.node_table("i").device()
+        tnt = tg.store.node_table("i").device("cpu")
+    assert all(getattr(tet, name) is None for name in POOLS)
+    np.testing.assert_array_equal(tnt.cum_weights.numpy(),
+                                  np.asarray(jnt.cum_weights))
+    assert tnt.num_nodes == 50
+    assert tg.store.node_table("u").device("cpu").cum_weights is None
+    # a node table's own seed set carries its weights
+    np.testing.assert_array_equal(tg.store.node_set("i").weights,
+                                  a["i_weights"])

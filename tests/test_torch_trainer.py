@@ -275,8 +275,14 @@ def test_dataset_refuses_unported_tiers():
             glt.Dataset(q, device="cpu")
     finally:
         glt.conf.storage_device = old
+    # E() sources are ported: an edge source node; walks and conditional
+    # negatives are what is still refused
+    seed = tg.E("rel")
+    assert seed.kind == "source_e" and seed.edge_type == "rel"
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        tg.E("rel")
+        seed.outV().random_walk(3)
+    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        seed.outV().outNeg("rel").where("src")
 
 
 @pytest.mark.parametrize("pre", [False, True])

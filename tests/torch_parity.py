@@ -188,3 +188,87 @@ def ego_pair(d: int, mode: str = "materialised", op: str = "mean",
     return (jdata.EgoGraph(src=jn[0], hops=jn[1:], nbr_nums=(k1, k2)),
             tdata.EgoGraph(src=tn[0], hops=tn[1:], nbr_nums=(k1, k2)),
             labels)
+
+
+def u2i_arrays(n_u: int = 60, n_i: int = 50, e_ui: int = 400,
+               e_ii: int = 200, d: int = 8, seed: int = 0,
+               hub: int = 0) -> Dict[str, np.ndarray]:
+    """Arrays of a weighted two-type graph: users "u" and items "i" with
+    float features (items also weighted), weighted and labelled "u-i" and
+    "i-i" edges, uniformly random.  The last user is isolated.  ``hub``
+    extra "u-i" edges go from user 0 to random items, so that its row is
+    longer than a 128-lane window pair (256)."""
+    rng = np.random.default_rng(seed)
+    ui_src = np.concatenate([rng.integers(0, n_u - 1, e_ui),
+                             np.zeros(hub, np.int64)])
+    ui_dst = np.concatenate([rng.integers(0, n_i, e_ui),
+                             rng.integers(0, n_i, hub)])
+    return {
+        "u_feat": rng.standard_normal((n_u, d), np.float32),
+        "i_feat": rng.standard_normal((n_i, d), np.float32),
+        "i_weights": rng.random(n_i).astype(np.float32),
+        "ui_src": ui_src, "ui_dst": ui_dst,
+        "ui_w": rng.random(ui_src.size).astype(np.float32),
+        "ui_labels": rng.integers(0, 3, ui_src.size).astype(np.int32),
+        "ii_src": rng.integers(0, n_i, e_ii),
+        "ii_dst": rng.integers(0, n_i, e_ii),
+        "ii_w": rng.random(e_ii).astype(np.float32),
+    }
+
+
+def _u2i_tables(mod, a):
+    """(node tables, edge tables) of ``a`` built with ``mod``'s
+    NodeTable / EdgeTable / Decoder."""
+    n_u, d = a["u_feat"].shape
+    n_i = a["i_feat"].shape[0]
+    udec = mod.Decoder(attr_types=["float"] * d)
+    idec = mod.Decoder(weighted=True, attr_types=["float"] * d)
+    nodes = [mod.NodeTable("u", udec, np.arange(n_u, dtype=np.int64) + 100,
+                           float_attrs=a["u_feat"]),
+             mod.NodeTable("i", idec, np.arange(n_i, dtype=np.int64),
+                           float_attrs=a["i_feat"], weights=a["i_weights"])]
+    edges = [mod.EdgeTable("u-i", "u", "i",
+                           mod.Decoder(weighted=True, labeled=True),
+                           src=a["ui_src"], dst=a["ui_dst"],
+                           num_src_nodes=n_u, num_dst_nodes=n_i,
+                           weights=a["ui_w"], labels=a["ui_labels"]),
+             mod.EdgeTable("i-i", "i", "i", mod.Decoder(weighted=True),
+                           src=a["ii_src"], dst=a["ii_dst"],
+                           num_src_nodes=n_i, num_dst_nodes=n_i,
+                           weights=a["ii_w"])]
+    return nodes, edges, udec, idec
+
+
+def jax_u2i_graph(a: Dict[str, np.ndarray]):
+    """The JAX package's Graph over ``u2i_arrays``: (graph, udec, idec)."""
+    import types
+
+    from graph_learn_tpu.core import schema, store
+    from graph_learn_tpu.graph import Graph
+
+    mod = types.SimpleNamespace(Decoder=schema.Decoder,
+                                NodeTable=store.NodeTable,
+                                EdgeTable=store.EdgeTable)
+    nodes, edges, udec, idec = _u2i_tables(mod, a)
+    g = Graph()
+    for t in nodes:
+        g.store.add_node_table(t)
+        g._node_decoders[t.type_name] = t.decoder
+    for t in edges:
+        g.store.add_edge_table(t)
+        g._edge_decoders[t.type_name] = t.decoder
+    g._initialized = True
+    return g, udec, idec
+
+
+def torch_u2i_graph(a: Dict[str, np.ndarray]):
+    """The port's Graph over ``u2i_arrays``, on the CPU."""
+    import graph_learn_tpu_torch as glt
+
+    nodes, edges, udec, idec = _u2i_tables(glt, a)
+    g = glt.Graph(device="cpu")
+    for t in nodes:
+        g.add_node_table(t)
+    for t in edges:
+        g.add_edge_table(t)
+    return g, udec, idec
