@@ -22,7 +22,8 @@ Phases (any failure exits non-zero before the result line):
    its prep's invariants), and time kernel, plain version and, where one
    PyTorch call computes the same function, that call, at the main paths'
    shapes (the gather kernel at 1 024, 15 360 and 153 600 rows, the row
-   counts the paths launch, with one kernel a call), checking with
+   counts the paths launch, with one kernel a call; the segment SpMM
+   kernel's mean and, for EgoGIN, its sum), checking with
    torch.profiler that one call of the segment SpMM wrapper puts one
    kernel on the card (the sweep wrapper: one kernel and one memset, each
    timed from the profiler's events); the GAT block also part by part
@@ -40,7 +41,9 @@ Phases (any failure exits non-zero before the result line):
    of the forward, and the device time by kernel (torch.profiler);
 6. run the training path on the same graph through LocalTrainer.train
    (shuffle source, batch 1024, Adam 1e-3): EgoGraphSAGE([128, 256, 32],
-   "gcn") with the deepest hop pre-aggregated outside the gradient, then
+   "gcn") with the deepest hop pre-aggregated outside the gradient,
+   EgoGIN([128, 256, 32]) with its deepest hop pre-summed (the segment
+   SpMM kernel's sum), then
    EgoGAT([128, 256, 32], num_heads=[8, 1]) with every neighbour block on
    the GAT kernel, forward and backward, its products on the tensor cores
    and the first layer's forward products on wgmma (checked).  For each:
@@ -96,13 +99,31 @@ Phases (any failure exits non-zero before the result line):
    predicts; 10 steps of bipartite_sage through LocalTrainer.train (6
    gather_rows a step); the K-step form (K = 20) eager and captured: losses
    bit-equal, 3 gather_rows + 3 segment_spmm per replayed step, step wall,
-   edges/s, device-busy share, capture seconds and graph pool.
+   edges/s, device-busy share, capture seconds and graph pool;
+13. run the rgcn family (examples/family_scale.py's rgcn family) at its
+   full store: 2 450 000 items with 100 bf16 features and 47 classes, two
+   weighted relations of 30 625 000 edges each on the "minimal" profile
+   (host draw, CSR build, upload and table bytes timed);
+   EgoRGCN([100, 256, 47], num_relations=2, num_bases=1), batch 1024,
+   fanout [10, 5] per relation: one step on the kernels against the plain
+   versions with every hop gathered (7 gather_rows) and with the deepest
+   level deferred (3 gather_rows + 4 segment_spmm), and the two routes'
+   losses on the same batch; the K-step form (K = 20, 60 steps after one
+   call) eager and captured on both routes, in the order deferred,
+   gathered, gathered, deferred: losses bit-equal, the kernels per replayed
+   step, step wall, edges/s, device-busy share, capture seconds, graph
+   pool and peak bytes; 10 steps of the ego_rgcn example's loss through
+   LocalTrainer.train (7 gather_rows a step); Kernel 1 at 10 240 and 51 200
+   rows and Kernel 2 at [10 240, 5] means of the store's table, cold.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
 just before them (Kernels 1 and 2 carry the bipartite path's
 ``bipartite_launches_per_step``, per replayed K-step step, and
-``bipartite_trainer_launches_per_step``, per LocalTrainer step).
+``bipartite_trainer_launches_per_step``, per LocalTrainer step, and the
+rgcn path's ``rgcn_launches_per_step`` and ``rgcn_defer_launches_per_step``
+per replayed K-step step on each route and
+``rgcn_trainer_launches_per_step``).
 """
 
 from __future__ import annotations
@@ -131,6 +152,7 @@ MICRO_BATCH = 1024
 N_CLIENTS, REQUESTS_PER_CLIENT = 8, 16
 # Training: steps per measured run (SAGE: two epochs of 20) and Adam's rate
 SAGE_EPOCHS, SAGE_STEPS, GAT_STEPS, LEARNING_RATE = 2, 20, 10, 1e-3
+GIN_STEPS = 20
 GAT_HEADS = (8, 1)
 
 
@@ -249,19 +271,22 @@ def check_one_launch(torch, what, fn, kernel, allow_memset=False):
 def check_bounds(rows):
     """No time on the kernels line reads under the least time it is held
     to: ``ms`` under ``bound_ms``, the backward, the harness bar, the
-    cold call at the 62M table and Kernel 1's cold calls at the row counts
+    cold call at the 62M table, Kernel 1's cold calls at the row counts
     the paths launch (``ms_1024`` under ``bound_ms_1024``,
-    ``cold_ms_62m_15360`` under ``bound_ms_62m_15360``, ...).  The bounds
+    ``cold_ms_62m_15360`` under ``bound_ms_62m_15360``, ...) and Kernel
+    2's cold sum (``ms_sum``) and rgcn means (``cold_ms_rgcn``).  The bounds
     count device-memory bytes, so the times held to them are those of
     calls whose rows come from device memory: cold where the rows fit the
     L2 (Kernels 1 and 2 at the 200k table), and the warm figures
     (``warm_ms``, ``ms_62m``) are not held.
     Raises SmokeFailure naming each time that reads under its bound."""
     pairs = (("ms", "bound_ms"), ("bwd_ms", "bwd_bound_ms"),
-             ("bar_ms", "bar_bound_ms"), ("cold_ms_62m", "bound_ms_62m"))
-    pairs += tuple(pair for m in GATHER_PATH_ROWS for pair in (
-        ("ms_%d" % m, "bound_ms_%d" % m),
-        ("cold_ms_62m_%d" % m, "bound_ms_62m_%d" % m)))
+             ("bar_ms", "bar_bound_ms"), ("cold_ms_62m", "bound_ms_62m"),
+             ("ms_sum", "bound_ms_sum"), ("cold_ms_rgcn", "bound_ms_rgcn"))
+    pairs += tuple(pair for m in GATHER_PATH_ROWS + RGCN_GATHER_ROWS
+                   for pair in (("ms_%d" % m, "bound_ms_%d" % m),
+                                ("cold_ms_62m_%d" % m,
+                                 "bound_ms_62m_%d" % m)))
     under = ["%s %s %.4f < %.4f" % (r["name"], t, r[t], r[b])
              for r in rows for t, b in pairs
              if t in r and b in r and r[t] < r[b]]
@@ -923,6 +948,39 @@ def spmm_work(torch, spmm, where, table, ids, deg):
     return {"work_per_call": work}
 
 
+def spmm_shape(torch, spmm, table, ids, op, where):
+    """Kernel 2 at one shape, ids [G, k] of ``table`` reduced with ``op``
+    into f32: against the plain version (rtol = atol = 1e-5: f32 sums in
+    other orders), cold (L2 flushed) with its bound (each row read once,
+    the ids and degrees, the f32 output written once), and the plain
+    version and ``embedding_bag`` cold."""
+    import torch.nn.functional as F
+    g, k = ids.shape
+    d = table.shape[1]
+    deg = torch.full((g,), k, dtype=torch.int32, device="cuda")
+    out = spmm.segment_spmm(table, ids, deg, op, torch.float32)
+    ref = spmm.segment_spmm_plain(table, ids, deg, op, torch.float32)
+    err = (out - ref).abs().max().item()
+    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
+          "segment_spmm %s, [%d, %d] %s: max err %g" % (where, g, k, op, err))
+    nnz = g * k
+    b, by = bound(nnz * d * table.element_size() + nnz * 4 + g * 4
+                  + g * d * 4, nnz * d + (g * d if op == "mean" else 0))
+    f = dict(
+        ms=time_cold_ms(lambda: spmm.segment_spmm(table, ids, deg, op,
+                                                  torch.float32)),
+        bound_ms=b, bound_by=by, max_abs_err=err,
+        plain_ms=time_cold_ms(lambda: spmm.segment_spmm_plain(
+            table, ids, deg, op, torch.float32)),
+        library_ms=time_cold_ms(lambda: F.embedding_bag(ids, table,
+                                                        mode=op)))
+    log("segment_spmm %s, [%d, %d] %s: %.4f ms cold, bound %.4f by %s "
+        "(%.1f%%); plain %.4f, embedding_bag %.4f, both cold; max abs err %g"
+        % (where, g, k, op, f["ms"], b, by, 100 * b / f["ms"], f["plain_ms"],
+           f["library_ms"], err))
+    return f
+
+
 def measure_kernels(torch, gather, spmm):
     """Time each kernel, its plain version and one library call at the
     serving path's deepest-hop shapes.  The 51 MB table lies largely in the
@@ -994,6 +1052,11 @@ def measure_kernels(torch, gather, spmm):
             table, ids, deg, "mean", torch.float32), hold=True))
     rows["segment_spmm"].update(spmm_work(
         torch, spmm, "at the serving shape", table, ids, deg))
+    # EgoGIN's deepest hop: the same [15 360, 10] ids summed
+    f = spmm_shape(torch, spmm, table, ids, "sum", "at the 200k table")
+    rows["segment_spmm"].update(
+        ms_sum=f["ms"], bound_ms_sum=f["bound_ms"], plain_ms_sum=f["plain_ms"],
+        library_ms_sum=f["library_ms"])
     for r in rows.values():
         log("%s at the serving shape: %.4f ms cold L2, %.4f ms warm L2 "
             "(plain %.4f, library %.4f, both cold; bound %.4f by %s, %.1f%% "
@@ -1228,13 +1291,15 @@ STEP_LOSS_RTOL, STEP_GRAD_TOL = 1e-4, 1e-3
 
 
 def training_path(torch, card, g, dec, gather, spmm, gat):
-    """Both model families through LocalTrainer.train; returns the launch
-    counts of the two measured runs."""
+    """EgoGraphSAGE, EgoGIN and EgoGAT through LocalTrainer.train; returns
+    the launch counts of the SAGE and GIN runs together, then the GAT
+    run's."""
     import graph_learn_tpu_torch as gl
     from graph_learn_tpu_torch.nn import data as gdata
     from graph_learn_tpu_torch.nn.layers import ego as ego_layers
     from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
-    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
+    from graph_learn_tpu_torch.nn.models.ego_gnn import (EgoGAT, EgoGIN,
+                                                         EgoGraphSAGE)
     from graph_learn_tpu_torch.nn.trainer import LocalTrainer
     from torch.profiler import ProfilerActivity, profile
 
@@ -1251,9 +1316,9 @@ def training_path(torch, card, g, dec, gather, spmm, gat):
                 "gat_block": gat.LAUNCHES_FWD,
                 "gat_block_bwd": gat.LAUNCHES_BWD}
 
-    def pre_aggregate(batch, tables):
+    def pre_aggregate(batch, tables, op="mean"):
         return gdata.pre_aggregate_hop(
-            batch, "hop2", tables["nodes"]["item"].float_attrs, op="mean")
+            batch, "hop2", tables["nodes"]["item"].float_attrs, op=op)
 
     def loss_of(model, batch):
         ego = gdata.EgoGraph.from_query_result(batch, "src", HOPS)
@@ -1385,12 +1450,19 @@ def training_path(torch, card, g, dec, gather, spmm, gat):
         pre_aggregate, SAGE_EPOCHS, SAGE_STEPS,
         {"gather_rows": 2, "segment_spmm": 1, "gat_block": 0,
          "gat_block_bwd": 0})
+    gin = EgoGIN(dims, dec, device="cuda")
+    gin_launches = run(
+        "EgoGIN %s, deepest hop pre-summed" % dims, gin,
+        lambda batch, tables: pre_aggregate(batch, tables, "sum"), 1,
+        GIN_STEPS, {"gather_rows": 2, "segment_spmm": 1, "gat_block": 0,
+                    "gat_block_bwd": 0})
     gat_model = EgoGAT(dims, dec, num_heads=list(GAT_HEADS), device="cuda")
     gat_launches = run(
         "EgoGAT %s heads %s" % (dims, list(GAT_HEADS)), gat_model, None, 1,
         GAT_STEPS, {"gather_rows": 3, "segment_spmm": 0, "gat_block": 3,
                     "gat_block_bwd": 3})
-    return sage_launches, gat_launches
+    return ({k: sage_launches[k] + gin_launches[k] for k in sage_launches},
+            gat_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2341,6 +2413,300 @@ def bipartite_path(torch, card, gather, spmm, sweep):
             for k in ("gather_rows", "segment_spmm")}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the rgcn family at the two-relation 61.25M-edge store
+# ---------------------------------------------------------------------------
+
+# steps of LocalTrainer.train at this store (after 2 of warm-up)
+RGCN_TRAIN_STEPS = 10
+# Kernel 1's row counts on the rgcn path besides the src's 1 024: the two
+# level-1 hops (10 240 each) and, gathered, the four deepest (51 200 each)
+RGCN_GATHER_ROWS = (10_240, 51_200)
+# the two routes of one batch: the deepest level's means in f32 from the
+# same bf16 rows, summed in other orders
+RGCN_ROUTE_RTOL = 1e-5
+
+
+def rgcn_path(torch, card, gather, spmm, sweep):
+    """``examples/family_scale.py``'s rgcn family at its full store (2.45M
+    items, two weighted relations of 30 625 000 edges, the "minimal"
+    profile): the store build timed; one step on the kernels against the
+    plain versions on both routes, and the routes against each other; the
+    K-step form eager and captured on both routes, in the order deferred,
+    gathered, gathered, deferred; LocalTrainer.train over the port's
+    ego_rgcn example; Kernels 1-2 at the path's shapes.  Returns the
+    kernels line's fields."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.core.schema import Mask
+    from graph_learn_tpu_torch.examples import ego_rgcn as er
+    from graph_learn_tpu_torch.examples import family_scale as fs
+    from graph_learn_tpu_torch.examples.scale_demo import nbytes
+    from graph_learn_tpu_torch.nn.data import PreAggregatedRows
+    from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoRGCN
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = bench.CFG_SCALE
+    nbrs = fs.rgcn_fanout(False)
+    k1, k2 = nbrs
+    R = len(er.RELS)
+    n, b, d = cfg["n_nodes"], cfg["batch"], cfg["feat_dim"]
+    dims = [d, cfg["hidden"], cfg["classes"]]
+    edges = b * (R * k1 + R * R * k1 * k2)
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
+                "sweep_aggregate": sweep.LAUNCHES_SWEEP}
+    per_step = {False: {"gather_rows": 1 + R + R * R, "segment_spmm": 0,
+                        "sweep_aggregate": 0},
+                True: {"gather_rows": 1 + R, "segment_spmm": R * R,
+                       "sweep_aggregate": 0}}
+
+    def launches():
+        return {kn: c.count for kn, c in counters.items()}
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    t0 = time.perf_counter()
+    graph = er.build_rgcn_graph(cfg, "cuda")
+    draw_s = time.perf_counter() - t0
+    g, dec = graph
+    q, aliases = er.rgcn_query(g, Mask.NONE, b, nbrs)
+    t0 = time.perf_counter()
+    tables = q.device_tables()
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    csr_s = sum(g.store.edge_table(r).host_build_s for r in er.RELS)
+    table = tables["nodes"]["item"].float_attrs
+    ets = [tables["edges"][r] for r in er.RELS]
+    check(all(g.store.edge_table(r).num_edges == 30_625_000
+              and g.store.edge_table(r).weights is not None
+              for r in er.RELS)
+          and all(et.inc is None and et.out.num_edges == 30_625_000
+                  for et in ets)
+          and table.shape == (n, d) and table.dtype == torch.bfloat16,
+          "rgcn store: not two weighted minimal-profile relations of "
+          "30 625 000 edges over a [%d, %d] bf16 table" % (n, d))
+    log("rgcn store (%d items, %d bf16 features, %d classes; %s: %d "
+        "weighted edges each, minimal profile): host draw %.1f s, CSR build "
+        "%.1f s, upload %.1f s, tables %.3f GB on the card; card: %s"
+        % (n, d, cfg["classes"], " and ".join(er.RELS), 30_625_000, draw_s,
+           csr_s, tables_s - csr_s, nbytes(tables) / 1e9, card))
+
+    # 1. one step on the kernels against the plain versions, both routes
+    model = EgoRGCN(dims, dec, num_relations=R, num_bases=1, device="cuda")
+    params = list(model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    with torch.no_grad():
+        _, batch = bench.sample_one(q, tables, n, gen)
+    deep = aliases[-R * R:]
+    plain = {a: v.replace(float_attrs=table[v.ids.long()])
+             for a, v in batch.items()}
+    plain_on = dict(plain)
+    for a in deep:
+        plain_on[a] = batch[a].replace(float_attrs=PreAggregatedRows(
+            table[batch[a].ids.long()].float().reshape(-1, k2, d).mean(1),
+            "mean"))
+
+    def step_of(bt):
+        logits = model(er.make_ego(bt, aliases, nbrs))
+        loss = supervised_softmax_loss(logits, bt["src"].labels)
+        return logits, loss, torch.autograd.grad(loss, params)
+
+    worst = {}
+    for route, defer in (("gathered", False), ("deferred", True)):
+        ref = step_of(plain_on if defer else plain)
+        reset()
+        with torch.no_grad():
+            bt = (er.pre_aggregate_deepest(batch, aliases, table, R * R)
+                  if defer else batch)
+        got = step_of(bt)
+        check(launches() == per_step[defer], "rgcn step, %s: launches %s, "
+              "expected %s" % (route, launches(), per_step[defer]))
+        lk, lp = got[1].item(), ref[1].item()
+        check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), "rgcn step, %s: loss "
+              "%g on the kernels, %g on the plain versions" % (route, lk, lp))
+        rel = 0.0
+        for x, y in zip([got[0]] + list(got[2]), [ref[0]] + list(ref[2])):
+            rel = max(rel, (x - y).abs().max().item()
+                      / max(y.abs().max().item(), 1e-12))
+        check(rel <= STEP_GRAD_TOL, "rgcn step, %s: the logits or a gradient "
+              "off by %g of its largest value" % (route, rel))
+        worst[route] = (lk, lp, rel)
+    l_off, l_on = worst["gathered"][0], worst["deferred"][0]
+    check(abs(l_on - l_off) <= RGCN_ROUTE_RTOL * abs(l_off),
+          "rgcn: first loss %g deferred, %g gathered, on the same batch"
+          % (l_on, l_off))
+    log("rgcn EgoRGCN(%s, num_relations=2, num_bases=1), batch %d, fanout "
+        "%s per relation: one step on the kernels against the plain "
+        "versions: gathered (%d gather_rows) loss %.6f vs %.6f, deferred (%d "
+        "gather_rows + %d segment_spmm) loss %.6f vs %.6f (limit %g "
+        "relative); worst logit or gradient error %.3g / %.3g of the "
+        "tensor's largest value (limit %g); the two routes' losses on the "
+        "same batch %.7f / %.7f (limit %g relative)"
+        % (dims, b, list(nbrs), per_step[False]["gather_rows"],
+           worst["gathered"][0], worst["gathered"][1],
+           per_step[True]["gather_rows"], per_step[True]["segment_spmm"],
+           worst["deferred"][0], worst["deferred"][1], STEP_LOSS_RTOL,
+           worst["gathered"][2], worst["deferred"][2], STEP_GRAD_TOL,
+           l_off, l_on, RGCN_ROUTE_RTOL))
+
+    # 2. the K-step form, eager then captured from the same state, in the
+    # order deferred, gathered, gathered, deferred (the host clock drifts)
+    K = cfg["scan_steps"]
+    runs, work = [], {}
+    for defer in (True, False, False, True):
+        name = "deferred" if defer else "gathered"
+        reset()
+        eager = fs.run_rgcn(cfg, device="cuda", capture=False, graph=graph,
+                            defer=defer)
+        n_steps = (1 + eager["rounds"]) * K
+        # the first batch's loss, then every step
+        want = {kn: v * (n_steps + 1) for kn, v in per_step[defer].items()}
+        check(launches() == want, "rgcn K-step %s eager: launches %s, "
+              "expected %s" % (name, launches(), want))
+        captured = fs.run_rgcn(cfg, device="cuda", capture=True, graph=graph,
+                               defer=defer)
+        el, gl_ = np.asarray(eager["losses"]), np.asarray(captured["losses"])
+        check(el.shape == gl_.shape == (n_steps,)
+              and bool(np.isfinite(gl_).all()), "rgcn K-step %s: %s eager "
+              "and %s graph losses, or one not finite"
+              % (name, el.shape, gl_.shape))
+        check(np.array_equal(el, gl_), "rgcn K-step %s: the graph's losses "
+              "differ from the eager ones from the same state: max relative "
+              "%g" % (name, np.max(np.abs(el - gl_) / np.abs(el))))
+        for pe, pg in zip(eager["model"].parameters(),
+                          captured["model"].parameters()):
+            check(torch.equal(pe, pg) and bool(torch.isfinite(pg).all()),
+                  "rgcn K-step %s: eager and graph parameters differ" % name)
+        step = captured["step"]
+        if name not in work:
+            seeds0 = step.graph_seeds[0].clone()
+            step()
+            seeds1 = step.graph_seeds[0]
+            check(not torch.equal(seeds0, seeds1) and int(seeds1.min()) >= 0
+                  and int(seeds1.max()) < n,
+                  "rgcn K-step %s: two replays drew the same seeds" % name)
+            graph_work, graph_busy, by_name = bench_work(torch, step, K, 2)
+            want_work = {kn: float(v) for kn, v in per_step[defer].items()}
+            check(graph_work == want_work, "rgcn K-step %s: kernels per "
+                  "replayed step %s; want %s" % (name, graph_work, want_work))
+            eager_work, eager_busy, _ = bench_work(torch, step.run_eager, K,
+                                                   1)
+            check(eager_work == graph_work, "rgcn K-step %s: kernels per "
+                  "eager step %s, per replayed step %s"
+                  % (name, eager_work, graph_work))
+            work[name] = (graph_work, graph_busy, eager_busy, by_name)
+        graph_work, graph_busy, eager_busy, by_name = work[name]
+        runs.append((name, eager["step_ms"], captured["step_ms"]))
+        log("rgcn K-step, %s (family_scale run_rgcn, K = %d, %d steps after 1 "
+            "warm-up call, %d sampled edges a step): eager %.4f ms per step "
+            "(%.4g edges/s, device busy %.4f ms, %.1f%%), CUDA graph %.4f ms "
+            "per step (%.4g edges/s, device busy %.4f ms, %.1f%%); capture "
+            "%.3f s, graph pool %.1f MB; %d losses bit-equal eager and "
+            "captured (%.4f -> %.4f); kernels per replayed step %s; peak "
+            "allocated %.3f GB; card: %s"
+            % (name, K, captured["rounds"] * K, edges, eager["step_ms"],
+               eager["edges_per_s"], eager_busy,
+               100.0 * eager_busy / eager["step_ms"], captured["step_ms"],
+               captured["edges_per_s"], graph_busy,
+               100.0 * graph_busy / captured["step_ms"],
+               captured["capture_s"], captured["graph_pool_bytes"] / 1e6,
+               n_steps, gl_[0], gl_[-1],
+               {k: v for k, v in graph_work.items() if v},
+               captured["device_bytes_peak"] / 1e9, card))
+        if len(runs) <= 2:
+            for kname, ms in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1])[:10]:
+                log("  device %.4f ms per replayed step: %s"
+                    % (ms, kname[:90]))
+        del eager, captured, step
+    log("rgcn K-step, runs in the order %s: CUDA graph %s ms per step, eager "
+        "%s ms per step; card: %s"
+        % (", ".join(r[0] for r in runs),
+           ", ".join("%.4f" % r[2] for r in runs),
+           ", ".join("%.4f" % r[1] for r in runs), card))
+
+    # 3. LocalTrainer.train over the ego_rgcn example's query and loss
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+    tr = LocalTrainer(seed=0, device="cuda")
+    losses, stamps = [], []
+
+    def loss_fn(m, bt, generator, training):
+        stamps.append(time.perf_counter())
+        loss = er.rgcn_loss(m, bt, aliases, nbrs, training, generator)
+        losses.append(loss.detach())
+        return loss
+
+    def train(n_steps):
+        """(seconds from the call to its first step, ms per step from the
+        first step to the last)."""
+        del losses[:], stamps[:]
+        t0 = time.perf_counter()
+        tr.train(q, model, loss_fn, opt, epochs=1, steps_per_epoch=n_steps,
+                 verbose=False)
+        torch.cuda.synchronize()
+        return (stamps[0] - t0,
+                (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3)
+
+    before = [p.detach().clone() for p in model.parameters()]
+    train(2)  # warm-up
+    reset()
+    n_tr = RGCN_TRAIN_STEPS
+    setup_s, step_ms = train(n_tr)
+    tr_launches = {kn: c.count / n_tr for kn, c in counters.items()}
+    want = {kn: float(v) for kn, v in per_step[False].items()}
+    check(tr_launches == want, "rgcn LocalTrainer: launches per step %s; "
+          "want %s" % (tr_launches, want))
+    check(len(losses) == n_tr and bool(torch.isfinite(torch.stack(losses))
+                                       .all()),
+          "rgcn LocalTrainer: %d losses or one not finite" % len(losses))
+    check(all(not torch.equal(a, p.detach()) for a, p in
+              zip(before, model.parameters())),
+          "rgcn LocalTrainer: a parameter did not move")
+    first, last = losses[0].item(), losses[-1].item()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, prof_step_ms = train(5)
+    busy = sum(device_ms_by_kernel(prof).values()) / 5
+    log("rgcn LocalTrainer.train (ego_rgcn's query and loss, every hop "
+        "gathered): %.3f s from the call to its first step, then %d steps "
+        "of batch %d, %.3f ms per step on the host clock (%.3f ms under the "
+        "profiler), %.4g edges/s; loss %.4f -> %.4f; launches per step %s; "
+        "device busy %.3f ms per step (%.1f%%); card: %s"
+        % (setup_s, n_tr, b, step_ms, prof_step_ms, edges / step_ms * 1e3,
+           first, last, {k: v for k, v in tr_launches.items() if v}, busy,
+           100.0 * busy / step_ms, card))
+    del model, opt, tr, losses
+
+    # 4. Kernels 1-2 at this path's shapes, cold, at its table
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shapes = gather_shapes(torch, gather, table, gen, "at the rgcn table",
+                           rows=RGCN_GATHER_ROWS,
+                           yardsticks=RGCN_GATHER_ROWS)
+    rows = {"gather_rows": {}, "segment_spmm": {}}
+    for m, f in shapes.items():
+        rows["gather_rows"].update({
+            "cold_ms_62m_%d" % m: f["ms"], "bound_ms_62m_%d" % m:
+            f["bound_ms"], "plain_cold_ms_62m_%d" % m: f["plain_ms"],
+            "library_cold_ms_62m_%d" % m: f["library_ms"],
+            "kernel_route_62m_%d" % m: f["route"]})
+    ids = torch.randint(0, n, (b * k1, k2), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    f = spmm_shape(torch, spmm, table, ids, "mean", "at the rgcn table")
+    rows["segment_spmm"].update({
+        "cold_ms_rgcn": f["ms"], "bound_ms_rgcn": f["bound_ms"],
+        "plain_cold_ms_rgcn": f["plain_ms"],
+        "library_cold_ms_rgcn": f["library_ms"]})
+    for k in ("gather_rows", "segment_spmm"):
+        rows[k].update({
+            "rgcn_launches_per_step": work["gathered"][0][k],
+            "rgcn_defer_launches_per_step": work["deferred"][0][k],
+            "rgcn_trainer_launches_per_step": tr_launches[k]})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2383,8 +2749,8 @@ def main() -> int:
     log("graph (%d nodes, %d edges) built in %.1f s"
         % (N_NODES, N_NODES * AVG_DEGREE, time.perf_counter() - t0))
     launches = serving_path(torch, card, g, dec, gather, spmm)
-    sage_launches, gat_launches = training_path(torch, card, g, dec, gather,
-                                                spmm, gat)
+    sage_gin_launches, gat_launches = training_path(torch, card, g, dec,
+                                                    gather, spmm, gat)
     ragged_launches = full_store_queries(torch, g, spmm)
     filtered_queries(torch, g)
     from graph_learn_tpu_torch import bench
@@ -2412,7 +2778,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with bench.bench_conf(storage_profile="full"):
         bipartite_rows = bipartite_path(torch, card, gather, spmm, sweep)
-    for part in (bench_rows, scale_rows, bipartite_rows):
+    gc.collect()  # the bipartite store
+    torch.cuda.empty_cache()
+    with bench.bench_conf(storage_profile="minimal"):
+        rgcn_rows = rgcn_path(torch, card, gather, spmm, sweep)
+    for part in (bench_rows, scale_rows, bipartite_rows, rgcn_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from
@@ -2422,7 +2792,7 @@ def main() -> int:
     kernels = []
     for name in ("gather_rows", "segment_spmm"):
         rows[name]["launches"] = launches[name]
-        rows[name]["train_launches"] = (sage_launches[name]
+        rows[name]["train_launches"] = (sage_gin_launches[name]
                                         + gat_launches[name])
         rows[name]["scale_launches"] = (scale_launches[name]
                                         + sorted_launches[name])

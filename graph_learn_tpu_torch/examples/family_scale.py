@@ -1,37 +1,58 @@
-"""The model families at the 61M-edge scale: the bipartite u2i family.
+"""The model families at the 61M-edge scale: the rgcn and bipartite families.
 
-Counterpart of ``examples/family_scale.py`` for its ``bipartite`` family
-(``run_bipartite:164-281``): bipartite SAGE u2i link prediction on the
-store of ``bench.CFG_SCALE``'s sizes, 1 225 000 users and 1 225 000 items
-with 100 float features each, 41 037 500 weighted ``u-i`` and 20 212 500
-weighted ``i-i`` edges (the same generator, ``np.random.default_rng(1)``,
-and the same draws in the same order), on the "full" store profile, which
-``outNeg`` needs for its candidate pools.  Edge seeds on ``u-i``, the
-``outV()`` / ``inV()`` endpoints, two ``random`` ``outNeg`` negatives, 10
-``random`` neighbours per tower (``u-i`` for users, ``i-i`` for items and
-negatives), two one-layer EgoSAGEConv(mean) towers of hidden width 256 with
-per-hop FeatureEncoders, the in-batch softmax loss and Adam at 1e-3.
+Counterpart of ``examples/family_scale.py`` for its ``rgcn`` family
+(``run_rgcn:57-161``) and its ``bipartite`` family
+(``run_bipartite:164-281``), at ``bench.CFG_SCALE``'s sizes.
 
-One call runs K = ``cfg["scan_steps"]`` steps, each on ``b`` seed edge ids
-drawn with ``torch.randint`` on the card; on the card they are captured in
-one CUDA graph after a first eager run: ``BipartiteSteps`` is a
-``bench.MultiStep``, with its side-stream warm-up, its generator
-registered with the graph and its fused, capturable Adam, whose step is
-the bipartite one.  The three ``*_h1`` hops are
-deferred, so each tower's mean over its neighbours runs on Kernel 2
-straight from the item table; the src, dst and negative rows are gathered
-by Kernel 1: 3 + 3 launches a step.  ``--small`` takes the port bench's
-``CFG_SMALL`` sizes (the JAX script's ``--small`` under
-``GLT_BENCH_SMALL=1``) with 4 neighbours.  The ``rgcn``, ``temporal`` and
-``walks`` families are not yet ported.
+**rgcn.** ``EgoRGCN([100, 256, 47], num_relations=2, num_bases=1)`` over
+2 450 000 "item" nodes with 100 float features and 47 classes, and two
+weighted item -> item relations, ``rel0`` and ``rel1``, of 30 625 000
+uniformly random edges each (``examples/ego_rgcn.py build_rgcn_graph``:
+the same generator, ``np.random.default_rng(0)``, and the same draws in the
+same order), on the "minimal" store profile.  ``V("item").batch(1024)``,
+the hop tree expanded per relation at each level with fanout [10, 5], all
+``random`` (aliases ``r0_h1, r1_h1, r0_r0_h2, r0_r1_h2, r1_r0_h2,
+r1_r1_h2``): ``1024 * (2 * 10 + 4 * 10 * 5)`` = 225 280 sampled edges a step;
+supervised softmax cross-entropy and Adam at 1e-3.  The port's lookups
+leave every hop's rows deferred, where the JAX plan gathers them; so the
+family gathers each hop's rows before the model (Kernel 1: 7 launches a
+step), as the JAX batch arrives.  Under ``GLT_RGCN_DEFER=1`` the four
+deepest hops are instead reduced to their means outside the gradient
+(``pre_aggregate_hop``, Kernel 2) and the model takes its deferred route:
+3 ``gather_rows`` + 4 ``segment_spmm`` a step.
+
+**bipartite.** Bipartite SAGE u2i link prediction on 1 225 000 users and
+1 225 000 items with 100 float features each, 41 037 500 weighted ``u-i``
+and 20 212 500 weighted ``i-i`` edges (the same generator,
+``np.random.default_rng(1)``, and the same draws in the same order), on the
+"full" store profile, which ``outNeg`` needs for its candidate pools.  Edge
+seeds on ``u-i``, the ``outV()`` / ``inV()`` endpoints, two ``random``
+``outNeg`` negatives, 10 ``random`` neighbours per tower (``u-i`` for users,
+``i-i`` for items and negatives), two one-layer EgoSAGEConv(mean) towers of
+hidden width 256 with per-hop FeatureEncoders, the in-batch softmax loss
+and Adam at 1e-3.  The three ``*_h1`` hops are deferred, so each tower's
+mean over its neighbours runs on Kernel 2 straight from the item table;
+the src, dst and negative rows are gathered by Kernel 1: 3 + 3 launches a
+step.
+
+One call runs K = ``cfg["scan_steps"]`` steps, each on ``b`` seeds (node
+ids for rgcn, ``u-i`` edge ids for bipartite) drawn with ``torch.randint``
+on the card; on the card they are captured in one CUDA graph after a first
+eager run: ``RGCNSteps`` and ``BipartiteSteps`` are ``bench.MultiStep``s,
+with its side-stream warm-up, its generator registered with the graph and
+its fused, capturable Adam, whose step is the family's own.  ``--small``
+takes the port bench's ``CFG_SMALL`` sizes (the JAX script's ``--small``
+under ``GLT_BENCH_SMALL=1``) with fanout [4, 2] (rgcn) or 4 neighbours
+(bipartite).  The ``temporal`` and ``walks`` families are not yet ported.
 
 Usage:  python -m graph_learn_tpu_torch.examples.family_scale [--small]
-            [--families bipartite] [--cpu]
+            [--families rgcn,bipartite] [--cpu]
 Prints one line per family: <family>  <eps>M edges/s  <ms> ms/step
 (warm <s>s).
 
 Env:
   GLT_FEATURE_DTYPE    float32 | bfloat16 (default bfloat16)
+  GLT_RGCN_DEFER=1     rgcn: the deepest level reduced outside the gradient
 """
 
 from __future__ import annotations
@@ -45,18 +66,167 @@ import numpy as np
 import torch
 
 from graph_learn_tpu_torch import bench
-from graph_learn_tpu_torch.core.schema import Decoder
+from graph_learn_tpu_torch.core.schema import Decoder, Mask
 from graph_learn_tpu_torch.core.store import EdgeTable, NodeTable
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.examples.bipartite_sage import towers, tower_loss
+from graph_learn_tpu_torch.examples.ego_rgcn import (RELS, build_rgcn_graph,
+                                                     pre_aggregate_deepest,
+                                                     rgcn_loss, rgcn_query)
 from graph_learn_tpu_torch.examples.scale_demo import nbytes
 from graph_learn_tpu_torch.graph import Graph
 from graph_learn_tpu_torch.gsl.compile import Query
 from graph_learn_tpu_torch.gsl.dataset import Dataset
+from graph_learn_tpu_torch.nn.models.ego_gnn import EgoRGCN
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 FAMILIES = ("rgcn", "bipartite", "temporal", "walks")
+PORTED = ("rgcn", "bipartite")
 EDGE_TYPES = ("u-i", "i-i")
+
+
+def _device_tables(q: Query, edge_types, dev: torch.device, out: dict):
+    """The plan's tables on ``dev``, timed into ``out``: ``tables_s``, the
+    host's CSR (and pool) build ``csr_build_s``, the rest of it
+    ``upload_s``, and ``tables_bytes``.  Resets the card's peak-memory
+    count first."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    ets = [q.graph.store.edge_table(t) for t in edge_types]
+    for et in ets:
+        et.host_build_s = 0.0  # stays 0 where the view is already built
+    t0 = time.perf_counter()
+    tables = q.device_tables(dev)
+    bench._sync(dev)
+    out["tables_s"] = time.perf_counter() - t0
+    out["csr_build_s"] = sum(et.host_build_s for et in ets)
+    out["upload_s"] = out["tables_s"] - out["csr_build_s"]
+    out["tables_bytes"] = nbytes(tables)
+    return tables
+
+
+def _time_calls(step: bench.MultiStep, cfg: dict, dev: torch.device,
+                out: dict):
+    """One warm-up call of ``step`` (``warm_s``), then ``cfg["steps"] //
+    K`` calls closed by one pull of the loss, into ``out``: rounds,
+    edges/s, the step wall in ms, every step's loss, capture seconds and
+    graph-pool bytes (None when eager), and the card's peak bytes."""
+    K = step.K
+    t0 = time.perf_counter()
+    step()
+    losses = [step.losses.clone()]
+    float(step.losses[-1])
+    out["warm_s"] = time.perf_counter() - t0
+    rounds = max(cfg["steps"] // K, 1)
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        step()
+        losses.append(step.losses.clone())
+    float(step.losses[-1])  # the one pull: a true barrier
+    dt = time.perf_counter() - t0
+    out.update(rounds=rounds,
+               edges_per_s=out["edges_per_step"] * K * rounds / dt,
+               step_ms=dt / (K * rounds) * 1e3,
+               losses=torch.cat(losses).tolist(),
+               capture_s=step.capture_s, graph_pool_bytes=step.pool_bytes)
+    if dev.type == "cuda":
+        out["device_bytes_peak"] = torch.cuda.max_memory_allocated(dev)
+
+
+def rgcn_fanout(small: bool) -> Tuple[int, int]:
+    """(k1, k2): [10, 5], and [4, 2] when small."""
+    return (4, 2) if small else (10, 5)
+
+
+class RGCNSteps(bench.MultiStep):
+    """K rgcn sample+train steps a call (see the module docstring):
+    ``bench.MultiStep`` with groups of one step; with ``defer`` the R^K
+    deepest hops are reduced to their means under ``no_grad`` first."""
+
+    def __init__(self, q: Query, tables, model: EgoRGCN,
+                 optimizer: torch.optim.Optimizer, cfg: dict,
+                 aliases, nbrs, defer: bool, generator: torch.Generator,
+                 capture: bool):
+        super().__init__(q, tables, model, optimizer, cfg, 1, generator,
+                         capture)
+        self.aliases, self.nbrs, self.defer = list(aliases), tuple(nbrs), defer
+        self.n_deep = model.num_relations ** len(nbrs)
+        self.table = tables["nodes"]["item"].float_attrs
+
+    def prepare(self, batch: dict) -> dict:
+        """The batch as the model takes it on this route."""
+        if not self.defer:
+            return batch
+        with torch.no_grad():
+            return pre_aggregate_deepest(batch, self.aliases, self.table,
+                                         self.n_deep)
+
+    def _group(self, first: int):
+        with torch.no_grad():
+            seeds, batch = bench.sample_one(self.q, self.tables, self.n_nodes,
+                                            self.generator)
+        self.seeds.append(seeds)
+        loss = rgcn_loss(self.model, self.prepare(batch), self.aliases,
+                         self.nbrs)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.losses[first].copy_(loss.detach())
+
+
+def run_rgcn(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
+             capture: Optional[bool] = None,
+             graph: Optional[Tuple[Graph, Decoder]] = None, seed: int = 0,
+             defer: Optional[bool] = None) -> Dict[str, object]:
+    """Build the store (or take ``graph``, a ``build_rgcn_graph`` result on
+    the same device), put the plan's tables on the device, check the first
+    batch through a ``Dataset``, build the model, make one warm-up call,
+    then time ``cfg["steps"] // K`` calls closed by one pull of the loss.
+    ``capture`` defaults to True on the card, ``defer`` to
+    ``GLT_RGCN_DEFER``.
+
+    Returns the dict of :func:`run_bipartite` (edges/s of ``b * (R k1 +
+    R^2 k1 k2)`` edges a step) with "defer" and "aliases"."""
+    dev = resolve_device(device)
+    if capture is None:
+        capture = dev.type == "cuda"
+    if defer is None:
+        defer = os.environ.get("GLT_RGCN_DEFER") == "1"
+    nbrs = rgcn_fanout(small)
+    k1, k2 = nbrs
+    R = len(RELS)
+    b, K = cfg["batch"], cfg["scan_steps"]
+    out: Dict[str, object] = {
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"), "capture": capture, "K": K, "defer": defer,
+        "edges_per_step": b * (R * k1 + R * R * k1 * k2)}
+    t0 = time.perf_counter()
+    if graph is None:
+        graph = build_rgcn_graph(cfg, dev)
+    g, dec = graph
+    out["host_draw_s"] = time.perf_counter() - t0
+    q, aliases = rgcn_query(g, Mask.NONE, b, nbrs)
+    tables = _device_tables(q, RELS, dev, out)
+
+    model = EgoRGCN([cfg["feat_dim"], cfg["hidden"], cfg["classes"]], dec,
+                    num_relations=R, num_bases=1, device=dev)
+    optimizer = bench.make_optimizer(model, dev)
+    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    step = RGCNSteps(q, tables, model, optimizer, cfg, aliases, nbrs, defer,
+                     generator, capture)
+    b0 = Dataset(q, window=1, seed=seed, device=dev).next()
+    with torch.no_grad():
+        loss0 = rgcn_loss(model, step.prepare(b0), aliases, nbrs, False)
+    if b0[aliases[-1]].ids.shape != (b, k1, k2) or not bool(
+            torch.isfinite(loss0)):
+        raise RuntimeError("first batch: %s %s, loss %s"
+                           % (aliases[-1], tuple(b0[aliases[-1]].ids.shape),
+                              loss0))
+    _time_calls(step, cfg, dev, out)
+    out.update(graph=graph, query=q, aliases=aliases, tables=tables,
+               model=model, optimizer=optimizer, generator=generator,
+               step=step)
+    return out
 
 
 def build_graph(cfg: dict, device: DeviceLike = "cuda"
@@ -162,19 +332,7 @@ def run_bipartite(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
     g, udec, idec = graph
     out["host_draw_s"] = time.perf_counter() - t0
     q = build_query(g, b, k1, n_neg)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    ets = [g.store.edge_table(t) for t in EDGE_TYPES]
-    for et in ets:
-        et.host_build_s = 0.0  # stays 0 where the view is already built
-    t0 = time.perf_counter()
-    tables = q.device_tables(dev)
-    bench._sync(dev)
-    out["tables_s"] = time.perf_counter() - t0
-    # the host's CSR and pool build, and the rest of it: the upload
-    out["csr_build_s"] = sum(et.host_build_s for et in ets)
-    out["upload_s"] = out["tables_s"] - out["csr_build_s"]
-    out["tables_bytes"] = nbytes(tables)
+    tables = _device_tables(q, EDGE_TYPES, dev, out)
 
     model = towers(udec, idec, cfg["feat_dim"], cfg["hidden"], dev)
     b0 = Dataset(q, window=1, seed=seed, device=dev).next()
@@ -188,25 +346,7 @@ def run_bipartite(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     step = BipartiteSteps(q, tables, model, optimizer, cfg, generator,
                           capture)
-    t0 = time.perf_counter()
-    step()
-    losses = [step.losses.clone()]
-    float(step.losses[-1])
-    out["warm_s"] = time.perf_counter() - t0
-    rounds = max(cfg["steps"] // K, 1)
-    t0 = time.perf_counter()
-    for _ in range(rounds):
-        step()
-        losses.append(step.losses.clone())
-    float(step.losses[-1])  # the one pull: a true barrier
-    dt = time.perf_counter() - t0
-    out.update(rounds=rounds,
-               edges_per_s=out["edges_per_step"] * K * rounds / dt,
-               step_ms=dt / (K * rounds) * 1e3,
-               losses=torch.cat(losses).tolist(),
-               capture_s=step.capture_s, graph_pool_bytes=step.pool_bytes)
-    if dev.type == "cuda":
-        out["device_bytes_peak"] = torch.cuda.max_memory_allocated(dev)
+    _time_calls(step, cfg, dev, out)
     out.update(graph=graph, query=q, tables=tables, model=model,
                optimizer=optimizer, generator=generator, step=step)
     return out
@@ -215,7 +355,7 @@ def run_bipartite(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true")
-    ap.add_argument("--families", default="bipartite")
+    ap.add_argument("--families", default="rgcn,bipartite")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the card)")
     args = ap.parse_args(argv)
@@ -224,13 +364,17 @@ def main(argv=None) -> int:
     for fam in families:
         if fam not in FAMILIES:
             raise InvalidArgumentError("unknown family %r" % fam)
-        if fam != "bipartite":
+        if fam not in PORTED:
             raise InvalidArgumentError("family %r is not yet ported" % fam)
     cfg = bench.CFG_SMALL if args.small else bench.CFG_SCALE
     dtype = os.environ.get("GLT_FEATURE_DTYPE", "bfloat16")
     for fam in families:
-        with bench.bench_conf(feature_dtype=dtype, storage_profile="full"):
-            r = run_bipartite(cfg, args.small, dev)
+        # rgcn samples only forward adjacencies: the minimal profile, as
+        # the JAX script runs it; bipartite's outNeg needs the full one
+        profile = "minimal" if fam == "rgcn" else "full"
+        run = run_rgcn if fam == "rgcn" else run_bipartite
+        with bench.bench_conf(feature_dtype=dtype, storage_profile=profile):
+            r = run(cfg, args.small, dev)
         print("%-10s %.1fM edges/s  %.2f ms/step  (warm %.1fs)"
               % (fam, r["edges_per_s"] / 1e6, r["step_ms"], r["warm_s"]),
               flush=True)

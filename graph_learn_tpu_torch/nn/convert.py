@@ -1,18 +1,23 @@
 """Weight carry-over to and from the JAX package's flax models.
 
 ``load_flax_params(model, params)`` copies the params of a flax
-``EgoGraphSAGE`` or ``EgoGAT`` (``graph_learn_tpu/nn/models/ego_gnn.py:126,
-140``), given as the nested dict of numpy arrays that ``model.init`` /
-training produce, into the port's ``EgoGNN``; ``to_flax_params(model)`` is
-the inverse, so that weights trained in either package can be compared.
-The flax tree is
+``EgoGraphSAGE``, ``EgoGAT``, ``EgoGIN`` or ``EgoRGCN``
+(``graph_learn_tpu/nn/models/ego_gnn.py:126, 140, 157, 169``), given as the
+nested dict of numpy arrays that ``model.init`` / training produce, into
+the port's ``EgoGNN`` or ``EgoRGCN``; ``to_flax_params(model)`` is the
+inverse, so that weights trained in either package can be compared.  The
+flax tree is
 
     params/layers_<i>/convs_0/trans_nodes/{kernel, bias?}       (SAGE)
     params/layers_<i>/convs_0/{x_<h>, n_<h>, attn_<h>}/{kernel, bias?}
                                   (GAT; n_<h> only with hetero dims)
+    params/layers_<i>/convs_0/{trans_x, trans_nbrs, output}/{kernel, bias?}
+                     (GIN; trans_x and trans_nbrs only with hetero dims)
     params/encoder/proj/{kernel, bias?}      (only with an output_dim)
     params/hop_encoders_<i>/proj/{kernel, bias?}
                           (with ``hop_encoders``, in place of ``encoder``)
+    params/rgcn_<i>/{weight, coefficient?, bias?, root_weight/kernel}
+                  (RGCN; its encoder never projects, so it has no params)
 
 Each Dense of a conv is a ``torch.nn.Linear`` child of the same name.  A
 two-tower model, a dict or ``nn.ModuleDict`` of ``EgoGNN`` such as
@@ -21,8 +26,9 @@ under the same keys.
 
 ``EgoLayer`` shares one conv across its hop pairs, so each layer holds a
 single ``convs_0`` whatever its pair count.  A flax ``Dense`` kernel is
-[in, out]; a ``torch.nn.Linear`` weight is [out, in].  Every leaf of the
-tree must be used: a leftover raises.
+[in, out]; a ``torch.nn.Linear`` weight is [out, in].  The RGCN's raw
+``weight``, ``coefficient`` and ``bias`` arrays carry over as they are.
+Every leaf of the tree must be used: a leftover raises.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from torch import nn
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
+from graph_learn_tpu_torch.nn.models.ego_gnn import EgoRGCN
 
 
 def _leaves(tree, prefix=()) -> Set[Tuple[str, ...]]:
@@ -66,8 +73,32 @@ def _load_dense(linear: nn.Linear, tree: Dict, path, used):
             used.add(path + ("bias",))
 
 
+def _load_array(param: nn.Parameter, value, path, used):
+    a = np.asarray(value, np.float32)
+    if a.shape != tuple(param.shape):
+        raise InvalidArgumentError("%s: flax array %s, the port's %s"
+                                   % ("/".join(path), a.shape,
+                                      tuple(param.shape)))
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(a.copy()).to(param.device, param.dtype))
+    used.add(path)
+
+
+def _rgcn_arrays(model: nn.Module):
+    """(flax path, Parameter) of an EgoRGCN's raw arrays."""
+    for i, conv in enumerate(model.convs):
+        for name in ("weight", "coefficient", "bias"):
+            p = getattr(conv, name)
+            if p is not None:
+                yield ("rgcn_%d" % i, name), p
+
+
 def _denses(model: nn.Module):
     """(flax path, Linear) of every Dense the flax tree of ``model`` holds."""
+    if isinstance(model, EgoRGCN):
+        for i, conv in enumerate(model.convs):
+            yield ("rgcn_%d" % i, "root_weight"), conv.root_weight
+        return
     for i, layer in enumerate(model.layers):
         convs = layer.convs[:1] if layer.share else layer.convs
         for j, conv in enumerate(convs):
@@ -90,9 +121,18 @@ def _towers(model) -> bool:
     return isinstance(model, (dict, nn.ModuleDict))
 
 
+def _at(tree: Dict, path):
+    for key in path:
+        if key not in tree:
+            raise InvalidArgumentError("flax params lack %s" % "/".join(path))
+        tree = tree[key]
+    return tree
+
+
 def load_flax_params(model, params: Dict):
-    """Copy flax ``EgoGraphSAGE`` / ``EgoGAT`` / ``EgoGNN`` params into the
-    port's ``EgoGNN``, or each tower's params into its tower."""
+    """Copy flax ``EgoGraphSAGE`` / ``EgoGAT`` / ``EgoGIN`` / ``EgoGNN``
+    params into the port's ``EgoGNN``, flax ``EgoRGCN`` params into the
+    port's ``EgoRGCN``, or each tower's params into its tower."""
     if _towers(model):
         if sorted(model.keys()) != sorted(params.keys()):
             raise InvalidArgumentError(
@@ -104,13 +144,10 @@ def load_flax_params(model, params: Dict):
     tree = params["params"] if "params" in params else params
     used: Set[Tuple[str, ...]] = set()
     for path, linear in _denses(model):
-        sub = tree
-        for key in path:
-            if key not in sub:
-                raise InvalidArgumentError(
-                    "flax params lack %s" % "/".join(path))
-            sub = sub[key]
-        _load_dense(linear, sub, path, used)
+        _load_dense(linear, _at(tree, path), path, used)
+    if isinstance(model, EgoRGCN):
+        for path, param in _rgcn_arrays(model):
+            _load_array(param, _at(tree, path), path, used)
     extra = _leaves(tree) - used
     if extra:
         raise InvalidArgumentError(
@@ -120,8 +157,9 @@ def load_flax_params(model, params: Dict):
 
 
 def to_flax_params(model) -> Dict:
-    """The port's ``EgoGNN`` weights as the flax tree (numpy arrays), or a
-    dict of the towers' trees; the inverse of :func:`load_flax_params`."""
+    """The port's ``EgoGNN`` or ``EgoRGCN`` weights as the flax tree (numpy
+    arrays), or a dict of the towers' trees; the inverse of
+    :func:`load_flax_params`."""
     if _towers(model):
         return {k: to_flax_params(model[k]) for k in model.keys()}
     tree: Dict = {}
@@ -132,4 +170,8 @@ def to_flax_params(model) -> Dict:
         sub["kernel"] = linear.weight.detach().cpu().numpy().T.copy()
         if linear.bias is not None:
             sub["bias"] = linear.bias.detach().cpu().numpy().copy()
+    if isinstance(model, EgoRGCN):
+        for (conv, name), param in _rgcn_arrays(model):
+            tree.setdefault(conv, {})[name] = (
+                param.detach().cpu().numpy().copy())
     return {"params": tree}

@@ -18,7 +18,7 @@ from graph_learn_tpu_torch.core.values import (DeferredRows, Nodes,
                                               TensorStruct)
 from graph_learn_tpu_torch.ops.aggregate import gather_group_agg
 
-__all__ = ["DeferredRows", "EgoGraph", "PreAggregatedRows",
+__all__ = ["DeferredRows", "EgoGraph", "PreAggregatedRows", "materialized",
            "pre_aggregate_hop"]
 
 
@@ -28,6 +28,14 @@ class PreAggregatedRows(TensorStruct):
 
     agg: torch.Tensor  # [n_groups, D]
     op: str = "mean"
+
+
+def materialized(v: Nodes) -> Nodes:
+    """``v`` with its feature rows gathered (Kernel 1 on the card) where
+    they are deferred."""
+    if isinstance(v.float_attrs, DeferredRows):
+        return v.replace(float_attrs=v.float_attrs.materialize())
+    return v
 
 
 def pre_aggregate_hop(batch: dict, alias: str, table: torch.Tensor,
@@ -64,6 +72,6 @@ class EgoGraph(TensorStruct):
             if defer and i == len(values) - 1:
                 values[i] = v.replace(float_attrs=DeferredRows(
                     table=defer_last_table, idx=v.ids))
-            elif isinstance(v.float_attrs, DeferredRows):
-                values[i] = v.replace(float_attrs=v.float_attrs.materialize())
+            else:
+                values[i] = materialized(v)
         return cls(src=values[0], hops=values[1:], nbr_nums=nbr_nums)

@@ -1,14 +1,18 @@
-"""EgoGraph convolution layers: ``EgoSAGEConv``, ``EgoGATConv``, ``EgoLayer``.
+"""EgoGraph convolution layers: ``EgoSAGEConv``, ``EgoGATConv``,
+``EgoGINConv``, ``EgoRGCNConv``, ``EgoLayer``.
 
 Counterpart of ``graph_learn_tpu/nn/layers/ego.py`` ``EgoSAGEConv:36``,
-``EgoGATConv:82`` and ``EgoLayer:308``.  Tensors keep the JAX package's layout: ``x`` [b, D],
+``EgoGATConv:82``, ``EgoGINConv:209``, ``EgoRGCNConv:239`` and
+``EgoLayer:308``.  Tensors keep the JAX package's layout: ``x`` [b, D],
 ``neighbor`` [b * expand, D].  Weights are created uninitialised and set by
-:func:`init_linear` from an explicit ``torch.Generator`` (or carried over
-from a flax model by ``nn/convert.py``).
+:func:`init_linear` / :func:`init_lecun` from an explicit
+``torch.Generator`` (or carried over from a flax model by
+``nn/convert.py``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -39,6 +43,15 @@ def init_linear(linear: nn.Linear, generator: torch.Generator):
                               generator=generator)
         if linear.bias is not None:
             linear.bias.zero_()
+
+
+def init_lecun(param: torch.Tensor, generator: torch.Generator):
+    """LeCun-normal draw of a raw weight array (std = fan_in^-1/2), with
+    flax's fan-in for its shape: ``shape[-2]`` times the product of the
+    leading axes (``I * B`` for [B, I, O], ``R`` for [R, B])."""
+    fan_in = param.shape[-2] * math.prod(param.shape[:-2])
+    with torch.no_grad():
+        param.normal_(0.0, fan_in ** -0.5, generator=generator)
 
 
 class EgoSAGEConv(nn.Module):
@@ -172,6 +185,139 @@ class EgoGATConv(nn.Module):
                           else drop[:, lo:lo + chunk].contiguous())
                 for lo in range(0, b, chunk)], dim=1)
         return out.mean(dim=0)
+
+
+class EgoGINConv(nn.Module):
+    """W((1 + eps) x + sum of the neighbours).
+
+    With unequal in dims, ``trans_x`` projects ``(1 + eps) x``,
+    ``trans_nbrs`` the neighbour sum and ``output`` their sum.  With equal
+    dims there is one ``output`` Linear and no ``(1 + eps)`` factor: the
+    JAX layer's reference-parity quirk, copied.
+    """
+
+    deferred_op = "sum"
+
+    def __init__(self, in_dim: InDim, out_dim: int, eps: float = 0.0,
+                 use_bias: bool = False):
+        super().__init__()
+        self.in_dim = _pair(in_dim)
+        self.out_dim = out_dim
+        self.eps = eps
+        self.hetero = self.in_dim[0] != self.in_dim[1]
+        if self.hetero:
+            self.trans_x = make_linear(self.in_dim[0], out_dim, use_bias)
+            self.trans_nbrs = make_linear(self.in_dim[1], out_dim, use_bias)
+            self.output = make_linear(out_dim, out_dim, use_bias)
+        else:
+            self.output = make_linear(self.in_dim[0], out_dim, use_bias)
+
+    def forward(self, x: torch.Tensor, neighbor: Optional[torch.Tensor],
+                expand: int,
+                neighbor_agg: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if neighbor_agg is not None:
+            agg = neighbor_agg
+        else:
+            agg = neighbor.reshape(-1, expand, self.in_dim[1]).sum(dim=1)
+        if self.hetero:
+            return self.output(self.trans_x((1.0 + self.eps) * x)
+                               + self.trans_nbrs(agg))
+        return self.output(x + agg)
+
+
+class EgoRGCNConv(nn.Module):
+    """Multi-relation conv; ``neighbor`` is a list of R per-relation tensors.
+
+    Each relation's neighbours are reduced over the fanout (mean | sum |
+    max), stacked to [R, b, I] and multiplied by their relation's weight in
+    one batched product over R; the results are summed over relations, then
+    the ``root_weight`` Linear of ``x`` (no bias) and the optional ``bias``
+    are added.  Weights have the JAX layer's shapes: bases ``weight`` [B,
+    I, O] with ``coefficient`` [R, B]; blocks ``weight`` [R, nb, I/nb,
+    O/nb]; otherwise ``weight`` [R, I, O].
+    """
+
+    def __init__(self, in_dim: InDim, out_dim: int, num_relations: int,
+                 num_bases: Optional[int] = None,
+                 num_blocks: Optional[int] = None, agg_type: str = "mean",
+                 use_bias: bool = False):
+        super().__init__()
+        if agg_type not in ("mean", "sum", "max"):
+            raise ValueError("unknown agg_type %r" % agg_type)
+        self.in_dim = _pair(in_dim)
+        self.out_dim = out_dim
+        self.num_relations = num_relations
+        self.num_bases = num_bases
+        self.num_blocks = num_blocks
+        self.agg_type = agg_type
+        R, I, O = num_relations, self.in_dim[1], out_dim
+        self.coefficient = None
+        if num_bases is not None:
+            self.weight = nn.Parameter(torch.empty(num_bases, I, O))
+            self.coefficient = nn.Parameter(torch.empty(R, num_bases))
+        elif num_blocks is not None:
+            if I % num_blocks or O % num_blocks:
+                raise ValueError("num_blocks %d does not divide %d and %d"
+                                 % (num_blocks, I, O))
+            self.weight = nn.Parameter(torch.empty(
+                R, num_blocks, I // num_blocks, O // num_blocks))
+        else:
+            self.weight = nn.Parameter(torch.empty(R, I, O))
+        self.root_weight = make_linear(self.in_dim[0], O, False)
+        self.bias = nn.Parameter(torch.zeros(O)) if use_bias else None
+
+    @property
+    def deferred_op(self) -> str:
+        """The per-relation reduction that pre-aggregated
+        ``neighbors_agg`` entries must contain."""
+        return self.agg_type
+
+    def reset_parameters(self, generator: torch.Generator):
+        """LeCun-normal ``weight`` and ``coefficient`` (:func:`init_lecun`'s
+        fan-in), ``root_weight`` as :func:`init_linear`, zero bias."""
+        init_lecun(self.weight, generator)
+        if self.coefficient is not None:
+            init_lecun(self.coefficient, generator)
+        init_linear(self.root_weight, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def _agg(self, t: torch.Tensor, expand: int) -> torch.Tensor:
+        t = t.reshape(-1, expand, self.in_dim[1])
+        if self.agg_type == "mean":
+            return t.mean(dim=1)
+        if self.agg_type == "sum":
+            return t.sum(dim=1)
+        return t.amax(dim=1)
+
+    def forward(self, x: torch.Tensor,
+                neighbors: Optional[Sequence[torch.Tensor]], expand: int,
+                neighbors_agg: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        R, O = self.num_relations, self.out_dim
+        if neighbors_agg is not None:
+            # per-relation neighbours already reduced (the deferred deepest
+            # level, as EgoSAGEConv's neighbor_agg)
+            assert len(neighbors_agg) == R
+            h = torch.stack(list(neighbors_agg))  # [R, b, I]
+        else:
+            assert len(neighbors) == R
+            h = torch.stack([self._agg(n, expand) for n in neighbors])
+        if self.num_bases is not None:
+            w = torch.einsum("rb,bio->rio", self.coefficient, self.weight)
+            out = torch.bmm(h, w)
+        elif self.num_blocks is not None:
+            nb = self.num_blocks
+            hb = h.reshape(R, -1, nb, self.in_dim[1] // nb)
+            out = torch.einsum("rbni,rnio->rbno", hb,
+                               self.weight).reshape(R, -1, O)
+        else:
+            out = torch.bmm(h, self.weight)
+        out = out.sum(dim=0) + self.root_weight(x)
+        if self.bias is not None:
+            out = out + self.bias
+        return out
 
 
 class EgoLayer(nn.Module):

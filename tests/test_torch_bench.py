@@ -24,6 +24,7 @@ from graph_learn_tpu_torch import bench as tbench
 from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.gsl.compile import _execute
 from graph_learn_tpu_torch.nn.convert import load_flax_params, to_flax_params
+from graph_learn_tpu_torch.nn.data import PreAggregatedRows
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
 from graph_learn_tpu_torch.ops.lookup import lookup_nodes
 from torch_parity import assert_trees_close, both_confs
@@ -229,6 +230,39 @@ def test_the_bipartite_plan_makes_no_host_tensor_and_reads_nothing_back(
     assert out["e"].weights.shape == (16, 3) and out["neg"].ids.shape == (
         16, 2)
     assert torch.equal(out["src"].ids, out["seed"].src_ids)
+    assert np.isfinite(loss.item())
+
+
+@pytest.mark.parametrize("defer", [False, True])
+def test_the_rgcn_plan_makes_no_host_tensor_and_reads_nothing_back(
+        defer, monkeypatch):
+    """The same guard over the rgcn family: its six-hop plan over two
+    relations, the gathers or the deepest level's pre-reduction, and its
+    K-step function."""
+    from graph_learn_tpu_torch.examples import family_scale as fs
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoRGCN
+    cfg = dict(tbench.CFG_SMALL, n_nodes=400, avg_degree=6, feat_dim=8,
+               hidden=16, classes=5, batch=32, scan_steps=2)
+    with both_confs(storage_profile="minimal"):
+        g, dec = fs.build_rgcn_graph(cfg, "cpu")
+        q, aliases = fs.rgcn_query(g, fs.Mask.NONE, 32, (4, 2))
+        tables = q.device_tables("cpu")
+    model = EgoRGCN([8, 16, 5], dec, num_relations=2, num_bases=1,
+                    device="cpu")
+    step = fs.RGCNSteps(q, tables, model,
+                        tbench.make_optimizer(model, torch.device("cpu")),
+                        cfg, aliases, (4, 2), defer,
+                        torch.Generator().manual_seed(0), False)
+    calls = []
+    _guard_host_tensors(monkeypatch, calls)
+    seeds = torch.randint(0, 400, (32,), dtype=torch.int32)
+    out = step.prepare(_execute(q, tables, seeds,
+                                torch.Generator().manual_seed(1)))
+    loss = step()
+    monkeypatch.undo()
+    assert calls == []
+    assert out["r1_r1_h2"].ids.shape == (32, 4, 2)
+    assert isinstance(out["r1_r1_h2"].float_attrs, PreAggregatedRows) is defer
     assert np.isfinite(loss.item())
 
 

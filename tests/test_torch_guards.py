@@ -276,6 +276,16 @@ def _row(**times):
      True),
     (_row(ms=0.025, cold_ms_62m_1024=0.0001, bound_ms_62m_1024=0.00012),
      False),
+    # the rgcn path's shapes: Kernel 1 at 10 240 and 51 200 rows, Kernel 2
+    # at [10 240, 5] means; and Kernel 2's sum at the 200k table
+    (_row(ms=0.025, cold_ms_62m_51200=0.02, bound_ms_62m_51200=0.0062),
+     True),
+    (_row(ms=0.025, cold_ms_62m_10240=0.001, bound_ms_62m_10240=0.0013),
+     False),
+    (_row(ms=0.025, cold_ms_rgcn=0.01, bound_ms_rgcn=0.004), True),
+    (_row(ms=0.025, cold_ms_rgcn=0.003, bound_ms_rgcn=0.004), False),
+    (_row(ms=0.025, ms_sum=0.02, bound_ms_sum=0.014), True),
+    (_row(ms=0.025, ms_sum=0.013, bound_ms_sum=0.014), False),
 ])
 def test_chip_smoke_holds_times_to_their_bounds(row, ok):
     """chip_smoke.py fails when a time on its kernels line reads under the
