@@ -28,7 +28,11 @@ Phases (any failure exits non-zero before the result line):
    kernel on the card (the sweep wrapper: one kernel and one memset, each
    timed from the profiler's events); the GAT block also part by part
    (attention passes, each product on the tensor cores and on the f32 FMA
-   route, the forward's also on mma.sync beside wgmma, the tail);
+   route, the forward's also on mma.sync beside wgmma, the tail), and at
+   EgoTGAT's three call shapes (depths 20 and 40, not multiples of the
+   wgmma tile): forward and every gradient against its plain version, each
+   product on every route against float64, forward and backward timed
+   against the plain version and the bound;
 4. run the serving path at the benchmark's width: the 200k-node / 3.2M-edge
    synthetic graph with bf16 features, the 2-hop EgoSAGE query installed on
    QueryService(micro_batch=1024), several client threads sending raw-id
@@ -114,7 +118,25 @@ Phases (any failure exits non-zero before the result line):
    step, step wall, edges/s, device-busy share, capture seconds, graph
    pool and peak bytes; 10 steps of the ego_rgcn example's loss through
    LocalTrainer.train (7 gather_rows a step); Kernel 1 at 10 240 and 51 200
-   rows and Kernel 2 at [10 240, 5] means of the store's table, cold.
+   rows and Kernel 2 at [10 240, 5] means of the store's table, cold;
+14. run the temporal family (examples/family_scale.py's temporal family)
+   at its full store: 2 450 000 items with 100 bf16 features and 47
+   classes, 61 250 000 weighted, timestamped edges on the "full" profile
+   (host draw, CSR build, upload and table bytes timed);
+   EgoGraphSAGE([100, 256, 47], "gcn") on E("rel").batch(1024) event
+   seeds with two edge_weight hops [15, 10] strictly before the propagated
+   time: the before-t bound of one batch checked on the card (every edge
+   earlier than its bound, zero-admissible seeds filled with the default
+   id and -1); one step on the kernels against the plain versions; the
+   K-step form (K = 20) eager and captured: losses bit-equal, 2
+   gather_rows + 1 segment_spmm per replayed step from the profiler, step
+   wall, edges/s, device-busy share and the top device operations;
+15. run the EgoTGAT link-prediction path (examples/ego_tgat.py) at its
+   defaults: one step of the three towers on the kernels against the plain
+   versions (15 gather_rows, 9 gat_block forwards and 9 backwards, every
+   product on the tensor cores, the forwards on wgmma), LocalTrainer.train
+   for 3 epochs with those launches per step, every loss finite, step wall,
+   device-busy share and the test link-prediction accuracy.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -123,7 +145,12 @@ just before them (Kernels 1 and 2 carry the bipartite path's
 ``bipartite_trainer_launches_per_step``, per LocalTrainer step, and the
 rgcn path's ``rgcn_launches_per_step`` and ``rgcn_defer_launches_per_step``
 per replayed K-step step on each route and
-``rgcn_trainer_launches_per_step``).
+``rgcn_trainer_launches_per_step``, the temporal path's
+``temporal_launches_per_step``; Kernel 1 also the EgoTGAT path's
+``tgat_trainer_launches_per_step``, Kernel 3 its
+``tgat_launches_per_step`` / ``tgat_bwd_launches_per_step``, the test
+accuracy and its times at the EgoTGAT shapes, ``ms_tgat0a`` ... with
+their bounds and plain times).
 """
 
 from __future__ import annotations
@@ -287,6 +314,9 @@ def check_bounds(rows):
                    for pair in (("ms_%d" % m, "bound_ms_%d" % m),
                                 ("cold_ms_62m_%d" % m,
                                  "bound_ms_62m_%d" % m)))
+    pairs += tuple(pair for label in GAT_TGAT_SHAPES
+                   for pair in (("ms_" + label, "bound_ms_" + label),
+                                ("bwd_ms_" + label, "bwd_bound_ms_" + label)))
     under = ["%s %s %.4f < %.4f" % (r["name"], t, r[t], r[b])
              for r in rows for t, b in pairs
              if t in r and b in r and r[t] < r[b]]
@@ -873,6 +903,43 @@ def measure_gat(torch, gat):
     return row
 
 
+# "tensor" is the route the shape takes (product_out on wgmma where the
+# depth allows), "mma" the same with every product on mma.sync
+GAT_PART_ROUTES = {"product_out": ("tensor", "mma", "fma"),
+                   "product_da": ("tensor", "fma"),
+                   "product_dwn": ("tensor", "fma")}
+
+
+def check_gat_products(torch, gat, t, g, where=""):
+    """Run every kernel of one gat_block forward and backward on the inputs
+    of ``t`` (GatParts), then each of the three products on each route
+    against the float64 product of the same operands (the scratch ``a`` of
+    the attention pass, g, wn), within GAT_TOL of its largest value.
+    Returns (the GatParts, {part/route: error})."""
+    k = t["wn"].shape[1]
+    parts = gat.GatParts(t["nbr"], t["wn"], t["ar"], t["el"], g)
+    for part in parts.PARTS:  # every scratch tensor written once
+        parts.run(part)
+    torch.cuda.synchronize()
+    a64, g64 = parts.t["a"][..., :k].double(), g.double()
+    wn64 = t["wn"].detach().double()
+    exact = {"product_out": ("out", torch.einsum("hbk,hkw->hbw", a64, wn64)),
+             "product_da": ("da", torch.einsum("hbw,hkw->hbk", g64, wn64)),
+             "product_dwn": ("d_wn", torch.einsum("hbk,hbw->hkw", a64, g64))}
+    errs = {}
+    for part, (name, want) in exact.items():
+        for route in GAT_PART_ROUTES[part]:
+            parts.t[name].zero_()  # product_dwn adds into d_wn
+            parts.run(part, route)
+            got = parts.t[name][..., :want.shape[-1]].double()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            check(rel <= GAT_TOL, "gat_block %s on the %s route%s: %g of "
+                  "the largest value off the float64 product (limit %g)"
+                  % (part, route, where, rel, GAT_TOL))
+            errs["%s/%s" % (part, route)] = rel
+    return parts, errs
+
+
 def gat_parts(torch, gat, t, g):
     """Time each kernel of one gat_block forward and backward at the shape
     of ``t`` (stream held): the attention passes against the bytes they
@@ -882,34 +949,13 @@ def gat_parts(torch, gat, t, g):
     b, e, din = t["nbr"].shape
     h, k, w = t["wn"].shape
     lda = gat.padded_depth(k)
-    parts = gat.GatParts(t["nbr"], t["wn"], t["ar"], t["el"], g)
-    for part in parts.PARTS:  # every scratch tensor written once
-        parts.run(part)
-    torch.cuda.synchronize()
-    # each product on each route against the float64 product of the same
-    # operands (the scratch `a` of the attention pass, g, wn)
-    a64, g64 = parts.t["a"][..., :k].double(), g.double()
-    wn64 = t["wn"].detach().double()
-    exact = {"product_out": ("out", torch.einsum("hbk,hkw->hbw", a64, wn64)),
-             "product_da": ("da", torch.einsum("hbw,hkw->hbk", g64, wn64)),
-             "product_dwn": ("d_wn", torch.einsum("hbk,hbw->hkw", a64, g64))}
-    # "tensor" is the route the shape takes (product_out on wgmma here),
-    # "mma" the same with every product on mma.sync
-    routes = {part: ("tensor", "mma", "fma") if part == "product_out"
-              else ("tensor", "fma") for part in exact}
-    for part, (name, want) in exact.items():
-        for route in routes[part]:
-            parts.t[name].zero_()  # product_dwn adds into d_wn
-            parts.run(part, route)
-            got = parts.t[name][..., :want.shape[-1]].double()
-            rel = ((got - want).abs().max() / want.abs().max()).item()
-            check(rel <= GAT_TOL, "gat_block %s on the %s route: %g of the "
-                  "largest value off the float64 product (limit %g)"
-                  % (part, route, rel, GAT_TOL))
-            log("gat_block part %s on the %s route: %.3g of the largest "
-                "value off the float64 product of the same operands "
-                "(limit %g)" % (part, route, rel, GAT_TOL))
-    del a64, g64, wn64
+    parts, errs = check_gat_products(torch, gat, t, g)
+    for name, rel in errs.items():
+        part, route = name.split("/")
+        log("gat_block part %s on the %s route: %.3g of the largest "
+            "value off the float64 product of the same operands "
+            "(limit %g)" % (part, route, rel, GAT_TOL))
+    routes = GAT_PART_ROUTES
     nbr_bytes = t["nbr"].numel() * t["nbr"].element_size()
     a_bytes = 4 * h * b * lda
     traffic = {"attn_fwd": nbr_bytes + a_bytes + 4 * h * b,
@@ -936,6 +982,78 @@ def gat_parts(torch, gat, t, g):
                 % (part, ms, traffic[part] / ms / 1e9, traffic[part], least,
                    100 * least / ms))
     return out
+
+
+# EgoTGAT's gat_block calls at the ego_tgat example's defaults, batch 128
+# (b, e, Din, H, W): level 0 over hop 1 and over hop 2 (keys of feat 8 +
+# edge feat 4 + time 8), level 1 (hidden 32 + time 8, out 16)
+GAT_TGAT_SHAPES = {"tgat0a": (128, 8, 20, 2, 32),
+                   "tgat0b": (1024, 4, 20, 2, 32),
+                   "tgat1": (128, 8, 40, 2, 16)}
+
+
+def measure_gat_tgat(torch, gat):
+    """gat_block at each EgoTGAT shape (f32, no bias, no dropout, every
+    input differentiated, d_nbr too: the keys carry the time encoder's
+    gradient): forward and every gradient against gat_block_plain, each
+    product on every route against float64, then forward and backward
+    timed against the plain version and the bound.  Returns the kernels
+    line's fields."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    row = {}
+    for label, (b, e, din, h, w) in GAT_TGAT_SHAPES.items():
+        t = gat_inputs(torch, gen, b, e, din, h, w, torch.float32, False,
+                       False)
+        g = torch.randn((h, b, w), generator=gen, device="cuda")
+        before = gat.WGMMA_LAUNCHES.count
+        (rel, name), err = gat_compare(torch, gat, t, g)
+        check(gat.product_route(w) == "tensor"
+              and gat.forward_product_kernel(din, w) == "wgmma"
+              and gat.WGMMA_LAUNCHES.count - before == 1,
+              "gat_block at %s: products not on the tensor cores, or the "
+              "forward's not on wgmma" % label)
+        _, errs = check_gat_products(torch, gat, t, g, " at %s" % label)
+        args = [t[n] for n in GAT_INPUTS] + [None]
+        leaves = [t[n] for n in ("nbr", "wn", "ar", "el")]
+        out, plain = gat.gat_block(*args), gat.gat_block_plain(*args)
+
+        def backward(o):
+            return lambda: torch.autograd.grad(o, leaves, g,
+                                               retain_graph=True)
+
+        with torch.no_grad():
+            ms = time_ms(lambda: gat.gat_block(*args), iters=50, hold=True)
+            plain_ms = time_ms(lambda: gat.gat_block_plain(*args), iters=20,
+                               hold=True)
+        bwd_ms = time_ms(backward(out), iters=50, hold=True)
+        plain_bwd_ms = time_ms(backward(plain), iters=20, hold=True)
+        # as measure_gat counts it; the backward also writes d_nbr
+        io = 4 * (b * e * din + h * din * w + h * w + h * b)
+        dots = 2 * h * din * w + 4 * h * b * e * din
+        product = 2 * h * b * din * w
+        bound_ms, by = bound(io + 4 * h * b * w, dots, product)
+        bwd_io = io + 4 * (h * b * w + h * din * w + h * w + h * b
+                           + b * e * din)
+        bwd_bound_ms, bwd_by = bound(bwd_io, dots + 4 * h * b * e * din,
+                                     2 * product)
+        row.update({"ms_" + label: ms, "bound_ms_" + label: bound_ms,
+                    "plain_ms_" + label: plain_ms,
+                    "bwd_ms_" + label: bwd_ms,
+                    "bwd_bound_ms_" + label: bwd_bound_ms,
+                    "plain_bwd_ms_" + label: plain_bwd_ms,
+                    "max_abs_err_" + label: err})
+        log("gat_block at the EgoTGAT shape %s (b, e, Din, H, W)=%s f32: "
+            "forward and every gradient (d_nbr too) match gat_block_plain, "
+            "worst %s at %.3f of its limit; products on the tensor route "
+            "(forward on wgmma), mma.sync and f32 FMA against float64, "
+            "worst %.3g (limit %g); forward %.4f ms (plain %.4f, bound %.4f "
+            "by %s, %.1f%% of it), backward %.4f ms (plain %.4f, bound %.4f "
+            "by %s, %.1f%%)"
+            % (label, (b, e, din, h, w), name, rel, max(errs.values()),
+               GAT_TOL, ms, plain_ms, bound_ms, by, 100 * bound_ms / ms,
+               bwd_ms, plain_bwd_ms, bwd_bound_ms, bwd_by,
+               100 * bwd_bound_ms / bwd_ms))
+    return row
 
 
 def spmm_work(torch, spmm, where, table, ids, deg):
@@ -2707,6 +2825,422 @@ def rgcn_path(torch, card, gather, spmm, sweep):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the temporal family at the 61.25M-edge timestamped store
+# ---------------------------------------------------------------------------
+
+TEMPORAL_PER_STEP = {"gather_rows": 2.0, "segment_spmm": 1.0,
+                     "sweep_aggregate": 0.0}
+
+
+def temporal_edge_query(g, b, nbrs):
+    """The family's query with each hop as an edge hop and its endpoint:
+    the same draws in the same order, so on the same generator state its
+    ``h1`` / ``h2`` ids are the family query's, and its ``e1`` / ``e2``
+    Edges carry the sampled edges' ids and timestamps."""
+    seed = g.E("rel").batch(b).alias("ev")
+    src = seed.outV().alias("src")
+    e1 = src.outE("rel").sample(nbrs[0]).by("edge_weight").alias("e1")
+    e2 = (e1.inV().alias("h1").outE("rel").sample(nbrs[1])
+          .by("edge_weight").alias("e2"))
+    e2.inV().alias("h2")
+    return seed.values()
+
+
+def before_t_check(torch, gl, q, eq, tables, n_edges, csr):
+    """One batch of the family query, and the same draws through
+    :func:`temporal_edge_query`, checked on the card: the same ids; every
+    sampled edge strictly earlier than its bound (hop 1: the event, hop 2:
+    the hop-1 edge); where a seed has no admissible edge, the default id
+    and edge id -1, and elsewhere no -1.  Returns the zero-admissible seed
+    counts of the two hops."""
+    from graph_learn_tpu_torch.gsl.compile import _execute
+    from graph_learn_tpu_torch.ops import temporal
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    seeds = torch.randint(0, n_edges, (q.dag.batch_size,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    with torch.no_grad():
+        out = _execute(q, tables, seeds,
+                       torch.Generator(device="cuda").manual_seed(41))
+        eout = _execute(eq, tables, seeds,
+                        torch.Generator(device="cuda").manual_seed(41))
+    ev_ts = eout["ev"].timestamps
+    e1, e2 = eout["e1"], eout["e2"]
+    oks, zero = [], []
+    for parent_ids, bound, hop, ids in (
+            (eout["src"].ids, ev_ts, e1, out["h1"].ids),
+            (eout["h1"].ids.reshape(-1), e1.timestamps.reshape(-1), e2,
+             out["h2"].ids)):
+        eids = hop.edge_ids.reshape(bound.shape[0], -1)
+        ts = hop.timestamps.reshape(eids.shape)
+        _, _, deg = temporal.cutoffs(csr, parent_ids, bound)
+        none = (deg == 0)[:, None]
+        oks += [torch.equal(hop.dst_ids.reshape(-1), ids.reshape(-1)),
+                ((eids < 0) | (ts < bound[:, None])).all(),
+                (~none | ((eids == -1) & (hop.dst_ids.reshape(eids.shape)
+                                          == gl.conf.default_neighbor_id)))
+                .all(),
+                (none | (eids >= 0)).all()]
+        zero.append((deg == 0).sum())
+    oks = torch.stack([torch.as_tensor(o, device="cuda") for o in oks])
+    result = oks.cpu().tolist()
+    names = ("the edge query's ids equal the family query's",
+             "every edge earlier than its bound",
+             "zero-admissible seeds filled with the default id and -1",
+             "admissible seeds without a -1")
+    for hop in range(2):
+        for i, name in enumerate(names):
+            check(result[4 * hop + i], "temporal hop %d: not %s"
+                  % (hop + 1, name))
+    return [int(z) for z in torch.stack(zero).cpu()]
+
+
+def temporal_path(torch, card, gather, spmm, sweep):
+    """``examples/family_scale.py``'s temporal family at its full store
+    (2.45M items, 61.25M weighted, timestamped edges, the "full"
+    profile): the store build timed; the before-t bound of one batch
+    checked on the card; one step on the kernels against the plain
+    versions; the K-step form eager and captured.  Returns the kernels
+    line's fields."""
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.examples import family_scale as fs
+    from graph_learn_tpu_torch.examples.scale_demo import nbytes
+    from graph_learn_tpu_torch.gsl.dataset import Dataset
+    from graph_learn_tpu_torch.nn.data import EgoGraph
+    from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+
+    cfg = bench.CFG_SCALE
+    nbrs = fs.temporal_fanout(False)
+    k1, k2 = nbrs
+    n, b, d = cfg["n_nodes"], cfg["batch"], cfg["feat_dim"]
+    dims = [d, cfg["hidden"], cfg["classes"]]
+    edges = b * (k1 + k1 * k2)
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
+                "sweep_aggregate": sweep.LAUNCHES_SWEEP}
+
+    def launches():
+        return {kn: c.count for kn, c in counters.items()}
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    t0 = time.perf_counter()
+    graph = fs.build_temporal_graph(cfg, "cuda")
+    draw_s = time.perf_counter() - t0
+    g, dec = graph
+    q = fs.temporal_query(g, b, nbrs)
+    eq = temporal_edge_query(g, b, nbrs)
+    t0 = time.perf_counter()
+    tables = q.device_tables()
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    host = g.store.edge_table("rel")
+    csr_s = host.host_build_s
+    et = tables["edges"]["rel"]
+    table = tables["nodes"]["item"].float_attrs
+    n_e = host.num_edges
+    check(n_e == 61_250_000 and host.weights is not None
+          and host.timestamps is not None and et.inc is not None
+          and et.out.nbr_ts is not None and et.out.nbr_ts.dtype == torch.int32
+          and et.out.cum_weights is not None and et.timestamps is not None
+          and table.shape == (n, d) and table.dtype == torch.bfloat16,
+          "temporal store: not the weighted, timestamped full-profile "
+          "61.25M-edge store over a [%d, %d] bf16 table" % (n, d))
+    log("temporal store (%d items, %d bf16 features, %d classes; rel: %d "
+        "weighted edges, timestamps in [0, %d), full profile): host draw "
+        "%.1f s, CSR build %.1f s (both directions: ts-ascending rows, "
+        "nbr_ts, id-sorted copies, weight and in-degree CDFs, pools), "
+        "upload %.1f s, tables %.3f GB on the card; largest row %d; card: %s"
+        % (n, d, cfg["classes"], n_e, fs.TS_RANGE, draw_s, csr_s,
+           tables_s - csr_s, nbytes(tables) / 1e9, et.out.max_degree, card))
+
+    # 1. the before-t bound of one batch, on the card
+    zero = before_t_check(torch, gl, q, eq, tables, n_e, et.out)
+    check(zero[0] > 0 and zero[1] > 0, "temporal: no zero-admissible seed "
+          "at a hop (%s): the fill check saw nothing" % zero)
+    log("temporal before-t bound, one batch of %d events checked on the "
+        "card: every sampled edge of hops 1 and 2 strictly earlier than its "
+        "bound (the event's time, then the hop-1 edge's); %d of %d hop-1 and "
+        "%d of %d hop-2 seeds with no admissible edge, each slot the default "
+        "id and edge id -1; the outE / inV form of the query drew the same "
+        "ids" % (b, zero[0], b, zero[1], b * k1))
+
+    # 2. one step on the kernels against the plain versions
+    model = EgoGraphSAGE(dims, dec, agg_type="gcn", device="cuda")
+    params = list(model.parameters())
+    batch = Dataset(q, window=1, device="cuda").next()
+    plain = {a: batch[a].replace(float_attrs=table[batch[a].ids.long()])
+             for a in ("src",) + fs.TEMPORAL_HOPS}
+
+    def loss_and_grads(loss):
+        return loss, torch.autograd.grad(loss, params)
+
+    reset()
+    loss, grads = loss_and_grads(fs.temporal_loss(model, batch, table))
+    step_launches = launches()
+    check(step_launches == {k: int(v) for k, v in TEMPORAL_PER_STEP.items()},
+          "temporal step: launches %s, expected %s" % (step_launches,
+                                                       TEMPORAL_PER_STEP))
+    ref_loss, ref_grads = loss_and_grads(supervised_softmax_loss(
+        model(EgoGraph.from_query_result(plain, "src", fs.TEMPORAL_HOPS)),
+        plain["src"].labels))
+    lk, lp = loss.item(), ref_loss.item()
+    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), "temporal step: loss %g "
+          "on the kernels, %g on the plain versions" % (lk, lp))
+    worst = 0.0
+    for x, y in zip(grads, ref_grads):
+        worst = max(worst, (x - y).abs().max().item()
+                    / max(y.abs().max().item(), 1e-12))
+    check(worst <= STEP_GRAD_TOL, "temporal step: a gradient off by %g of "
+          "its largest value" % worst)
+    log("temporal EgoGraphSAGE(%s, gcn), batch %d, fanout %s: one step on "
+        "the kernels (%s) against the plain versions (plain indexing, the "
+        "conv's own mean): loss %.6f vs %.6f (limit %g relative), worst "
+        "gradient error %.3g of the tensor's largest value (limit %g)"
+        % (dims, b, list(nbrs), step_launches, lk, lp, STEP_LOSS_RTOL, worst,
+           STEP_GRAD_TOL))
+    del model, params, grads, ref_grads
+
+    # 3. the K-step form, eager then captured, from the same state
+    K = cfg["scan_steps"]
+    reset()
+    eager = fs.run_temporal(cfg, device="cuda", capture=False, graph=graph)
+    n_steps = (1 + eager["rounds"]) * K
+    # the first batch's loss, then every step
+    want = {kn: int(v) * (n_steps + 1) for kn, v in TEMPORAL_PER_STEP.items()}
+    check(launches() == want, "temporal K-step eager: launches %s, expected "
+          "%s" % (launches(), want))
+    captured = fs.run_temporal(cfg, device="cuda", capture=True, graph=graph)
+    el, gl_ = np.asarray(eager["losses"]), np.asarray(captured["losses"])
+    check(el.shape == gl_.shape == (n_steps,)
+          and bool(np.isfinite(gl_).all()), "temporal K-step: %s eager and "
+          "%s graph losses, or one not finite" % (el.shape, gl_.shape))
+    check(np.array_equal(el, gl_), "temporal K-step: the graph's losses "
+          "differ from the eager ones from the same state: max relative %g"
+          % np.max(np.abs(el - gl_) / np.abs(el)))
+    for pe, pg in zip(eager["model"].parameters(),
+                      captured["model"].parameters()):
+        check(torch.equal(pe, pg) and bool(torch.isfinite(pg).all()),
+              "temporal K-step: eager and graph parameters differ")
+    step = captured["step"]
+    seeds0 = step.graph_seeds[0].clone()
+    step()
+    seeds1 = step.graph_seeds[0]
+    check(not torch.equal(seeds0, seeds1) and int(seeds1.min()) >= 0
+          and int(seeds1.max()) < n_e,
+          "temporal K-step: two replays drew the same seed edges")
+    graph_work, graph_busy, by_name = bench_work(torch, step, K, 2)
+    check(graph_work == TEMPORAL_PER_STEP, "temporal K-step: kernels per "
+          "replayed step %s; want %s" % (graph_work, TEMPORAL_PER_STEP))
+    eager_work, eager_busy, _ = bench_work(torch, step.run_eager, K, 1)
+    check(eager_work == graph_work, "temporal K-step: kernels per eager step "
+          "%s, per replayed step %s" % (eager_work, graph_work))
+    log("temporal K-step (family_scale run_temporal, K = %d, %d steps after "
+        "1 warm-up call, %d sampled edges a step): eager %.4f ms per step "
+        "(%.4g edges/s, device busy %.4f ms, %.1f%%), CUDA graph %.4f ms per "
+        "step (%.4g edges/s, device busy %.4f ms, %.1f%%); capture %.3f s, "
+        "graph pool %.1f MB; %d losses bit-equal eager and captured (%.4f -> "
+        "%.4f); kernels per replayed step %s; peak allocated %.3f GB; card: "
+        "%s"
+        % (K, captured["rounds"] * K, edges, eager["step_ms"],
+           eager["edges_per_s"], eager_busy,
+           100.0 * eager_busy / eager["step_ms"], captured["step_ms"],
+           captured["edges_per_s"], graph_busy,
+           100.0 * graph_busy / captured["step_ms"], captured["capture_s"],
+           captured["graph_pool_bytes"] / 1e6, n_steps, gl_[0], gl_[-1],
+           {k: v for k, v in graph_work.items() if v},
+           captured["device_bytes_peak"] / 1e9, card))
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log("  device %.4f ms per replayed step: %s" % (ms, kname[:90]))
+    return {k: {"temporal_launches_per_step": graph_work[k]}
+            for k in ("gather_rows", "segment_spmm")}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the EgoTGAT link-prediction path (examples/ego_tgat.py)
+# ---------------------------------------------------------------------------
+
+# per step: three towers, each gathering its src, two node hops and two
+# edge hops (Kernel 1), and running three convs (Kernel 3), each
+# differentiated
+TGAT_PER_STEP = {"gather_rows": 15, "gat_block": 9, "gat_block_bwd": 9}
+# the example's tower width at level 0 (feat 8 + time 8 queries against
+# feat 8 + edge 4 + time 8 keys) and level 1 (hidden 32 + time 8)
+TGAT_NBRS, TGAT_BATCH = (8, 4), 128
+# gradients under this share of the step's largest one are held to it
+TGAT_GRAD_FLOOR = 1e-6
+
+
+def tgat_path(torch, card, gather, gat):
+    """``examples/ego_tgat.py`` at its defaults (6 000 events, f32): one
+    step on the kernels against the plain versions, LocalTrainer.train for
+    its 3 epochs with the launches per step held to the design, the test
+    accuracy.  Returns the kernels line's fields."""
+    from graph_learn_tpu_torch.core.values import DeferredRows
+    from graph_learn_tpu_torch.examples import ego_tgat as et
+    from graph_learn_tpu_torch.gsl.compile import _execute
+    from graph_learn_tpu_torch.nn.layers import ego as ego_layers
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+    from torch.profiler import ProfilerActivity, profile
+
+    nhops = len(TGAT_NBRS)
+    counters = {"gather_rows": gather.LAUNCHES,
+                "gat_block": gat.LAUNCHES_FWD,
+                "gat_block_bwd": gat.LAUNCHES_BWD}
+    routes = list(gat.ROUTE_LAUNCHES.values()) + [gat.WGMMA_LAUNCHES]
+
+    def reset():
+        for c in list(counters.values()) + routes:
+            c.reset()
+
+    t0 = time.perf_counter()
+    g, udec, idec, edec = et.build_graph(et.temporal_u2i(), "cuda")
+    q = et.build_query(g, TGAT_BATCH, TGAT_NBRS, "train")
+    q_test = et.build_query(g, TGAT_BATCH, TGAT_NBRS, "test")
+    q.device_tables()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_train = g.store.edge_table("train").num_edges
+    model = et.TGATLink(udec, idec, 32, 16, 8, nhops,
+                        edec.float_attr_num, device="cuda")
+    params = list(model.parameters())
+
+    # 1. one step on the kernels against the plain versions, on events
+    # from the middle of the train span: the first batch's users and items
+    # have almost no earlier interactions, so their neighbours are the same
+    # fill (or a few repeated edges), the attention is uniform and level
+    # 0's query and attention weights get gradients that are zero in exact
+    # arithmetic (1e-20 to 1e-12, rounding noise)
+    mid = n_train // 2
+    with torch.no_grad():
+        batch = _execute(q, q.device_tables(),
+                         torch.arange(mid, mid + TGAT_BATCH, device="cuda",
+                                      dtype=torch.int32),
+                         torch.Generator(device="cuda").manual_seed(15))
+
+    def plain_rows(v):
+        fa = v.float_attrs
+        if isinstance(fa, DeferredRows):
+            return v.replace(float_attrs=fa.table[fa.idx.long()])
+        return v
+
+    plain = {a: plain_rows(v) for a, v in batch.items()}
+    reset()
+    loss = et.tgat_loss(model, batch, nhops)
+    grads = torch.autograd.grad(loss, params)
+    step_launches = {k: c.count for k, c in counters.items()}
+    check(step_launches == TGAT_PER_STEP, "tgat step: launches %s, "
+          "expected %s" % (step_launches, TGAT_PER_STEP))
+    check(gat.ROUTE_LAUNCHES["tensor"].count == 18
+          and gat.ROUTE_LAUNCHES["fma"].count == 0
+          and gat.WGMMA_LAUNCHES.count == 9,
+          "tgat step: gat_block product routes %s, %d forwards on wgmma; "
+          "want every product on the tensor cores and 9 forwards on wgmma"
+          % ({r: c.count for r, c in gat.ROUTE_LAUNCHES.items()},
+             gat.WGMMA_LAUNCHES.count))
+    kernel_block = ego_layers.gat_block
+    ego_layers.gat_block = gat.gat_block_plain
+    try:
+        ref_loss = et.tgat_loss(model, plain, nhops)
+        ref_grads = torch.autograd.grad(ref_loss, params)
+    finally:
+        ego_layers.gat_block = kernel_block
+    lk, lp = loss.item(), ref_loss.item()
+    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), "tgat step: loss %g on "
+          "the kernels, %g on the plain versions" % (lk, lp))
+    # each gradient held to its own largest value, or to TGAT_GRAD_FLOOR of
+    # the step's largest gradient where its own is smaller (a gradient that
+    # is zero in exact arithmetic); the tensors under the floor are counted
+    top = max(y.abs().max().item() for y in ref_grads)
+    worst, floored = 0.0, 0
+    for (pname, _), x, y in zip(model.named_parameters(), grads, ref_grads):
+        own = y.abs().max().item()
+        floored += own < TGAT_GRAD_FLOOR * top
+        rel = ((x - y).abs().max().item()
+               / max(own, TGAT_GRAD_FLOOR * top))
+        check(rel <= STEP_GRAD_TOL, "tgat step: the gradient of %s off by "
+              "%g of its largest value %g" % (pname, rel, own))
+        worst = max(worst, rel)
+    log("tgat TGATLink (feat 8, edge feat 4, hidden 32, out 16, time 8, "
+        "heads 2, nbrs %s, batch %d; store and plan tables %.2f s): one step "
+        "on the kernels (%s, every product on the tensor cores, 9 forwards "
+        "on wgmma) against the plain versions (plain indexing, "
+        "gat_block_plain), events %d-%d: loss %.6f vs %.6f (limit %g "
+        "relative), worst gradient error %.3g of the tensor's largest value "
+        "(limit %g; %d of %d tensors under %g of the step's largest "
+        "gradient, held to that)"
+        % (list(TGAT_NBRS), TGAT_BATCH, build_s, step_launches, mid,
+           mid + TGAT_BATCH - 1, lk, lp, STEP_LOSS_RTOL, worst,
+           STEP_GRAD_TOL, floored, len(params), TGAT_GRAD_FLOOR))
+    del grads, ref_grads
+
+    # 2. LocalTrainer.train for the example's 3 epochs, then the accuracy
+    opt = torch.optim.Adam(params, lr=1e-3)
+    tr = LocalTrainer(seed=0, device="cuda")
+    losses, stamps = [], []
+
+    def loss_fn(m, bt, generator, training):
+        stamps.append(time.perf_counter())
+        loss_ = et.tgat_loss(m, bt, nhops, training, generator)
+        losses.append(loss_.detach())
+        return loss_
+
+    def train(epochs, steps=None):
+        del losses[:], stamps[:]
+        t0 = time.perf_counter()
+        _, hist = tr.train(q, model, loss_fn, opt, epochs=epochs,
+                           steps_per_epoch=steps, verbose=False)
+        torch.cuda.synchronize()
+        return hist, time.perf_counter() - t0
+
+    before = [p.detach().clone() for p in params]
+    reset()
+    hist, wall = train(3)
+    n = len(losses)
+    per_step = {k: c.count / n for k, c in counters.items()}
+    check(n == 3 * -(-n_train // TGAT_BATCH) and len(hist) == 3,
+          "tgat LocalTrainer: %d steps in %d epochs" % (n, len(hist)))
+    check(per_step == {k: float(v) for k, v in TGAT_PER_STEP.items()},
+          "tgat LocalTrainer: launches per step %s, expected %s"
+          % (per_step, TGAT_PER_STEP))
+    check(bool(torch.isfinite(torch.stack(losses)).all())
+          and all(np.isfinite(hist)), "tgat LocalTrainer: a loss is not "
+          "finite")
+    check(all(not torch.equal(a, p.detach()) for a, p in zip(before, params)),
+          "tgat LocalTrainer: a parameter did not move")
+    step_ms = (stamps[-1] - stamps[0]) / (n - 1) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = train(1, 5)
+    by_kernel = device_ms_by_kernel(prof)
+    busy = sum(by_kernel.values()) / 5
+    t0 = time.perf_counter()
+    acc = tr.evaluate(q_test, model,
+                      lambda m, bt: et.link_accuracy(m, bt, nhops))
+    eval_s = time.perf_counter() - t0
+    check(0.0 <= acc <= 1.0, "tgat: test accuracy %g" % acc)
+    log("tgat LocalTrainer.train (ego_tgat, %d train events, batch %d, Adam "
+        "1e-3): 3 epochs, %d steps in %.3f s, %.3f ms per step on the host "
+        "clock (%.3f ms under the profiler); per-epoch mean loss %s; "
+        "launches per step %s; device busy %.3f ms per step (%.1f%%); test "
+        "link-pred acc: %.4f (%d test events, %.2f s); card: %s"
+        % (n_train, TGAT_BATCH, n, wall, step_ms, prof_wall / 5 * 1e3,
+           ["%.4f" % x for x in hist], per_step, busy, 100.0 * busy / step_ms,
+           acc, g.store.edge_table("test").num_edges, eval_s, card))
+    for kname, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log("  device %.4f ms per step: %s" % (ms / 5, kname[:90]))
+    return {"gather_rows": {"tgat_trainer_launches_per_step":
+                            per_step["gather_rows"]},
+            "gat_block": {"tgat_launches_per_step": per_step["gat_block"],
+                          "tgat_bwd_launches_per_step":
+                          per_step["gat_block_bwd"],
+                          "tgat_test_accuracy": acc}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2742,6 +3276,7 @@ def main() -> int:
     check_gat(torch, gat)
     rows = measure_kernels(torch, gather, spmm)
     rows["gat_block"] = measure_gat(torch, gat)
+    rows["gat_block"].update(measure_gat_tgat(torch, gat))
 
     t0 = time.perf_counter()
     g, dec = gl.synthetic_graph(N_NODES, AVG_DEGREE, FEAT_DIM, CLASSES,
@@ -2782,7 +3317,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     with bench.bench_conf(storage_profile="minimal"):
         rgcn_rows = rgcn_path(torch, card, gather, spmm, sweep)
-    for part in (bench_rows, scale_rows, bipartite_rows, rgcn_rows):
+    gc.collect()  # the rgcn store
+    torch.cuda.empty_cache()
+    with bench.bench_conf(storage_profile="full"):
+        temporal_rows = temporal_path(torch, card, gather, spmm, sweep)
+    gc.collect()  # the temporal store
+    torch.cuda.empty_cache()
+    # the example's own feature dtype
+    with bench.bench_conf(storage_profile="full", feature_dtype="float32"):
+        tgat_rows = tgat_path(torch, card, gather, gat)
+    for part in (bench_rows, scale_rows, bipartite_rows, rgcn_rows,
+                 temporal_rows, tgat_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

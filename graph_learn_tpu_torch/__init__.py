@@ -7,8 +7,11 @@ on an NVIDIA H100, with hand-written CUDA kernels for the feature gather,
 the segment SpMM, the fused GAT neighbour block, forward and backward, and
 the sorted-hit sweep aggregation and full-table sum of the 62M-edge
 frontier (``ops/kernels``, sources in ``csrc/``; ``examples/`` holds the
-62M-edge training run, the sweep-aggregate harness and the bipartite u2i
-link prediction over ``E()`` edge sources with negatives and two towers).
+62M-edge training run, the sweep-aggregate harness, the bipartite u2i
+link prediction over ``E()`` edge sources with negatives and two towers,
+EgoRGCN, and EgoTGAT temporal link prediction over timestamped events,
+whose hops sample only edges strictly before the event,
+``ops/temporal.py``).
 ``bench`` is the counterpart of the repository's ``bench.py``: K sample+train steps a call,
 captured in one CUDA graph on the card.  Entry points run on the card
 unless the caller passes ``device="cpu"``.

@@ -1,11 +1,12 @@
-"""Data-source schema: ``Decoder`` (numeric attributes, labels, weights),
-``Mask``, ``NodeFrom`` and ``mask_type``.
+"""Data-source schema: ``Decoder`` (numeric attributes, labels, weights,
+timestamps), ``Mask``, ``NodeFrom`` and ``mask_type``.
 
 The subset of ``graph_learn_tpu/core/schema.py`` that the port reads
 (``Mask``, ``NodeFrom`` and ``mask_type`` are copies of ``:23-58``).  Numeric attributes (``"float"``, and ``"int"`` read as a number)
 become one dense float column each, in attribute order, as in the JAX
-package.  Hashed, bucketed and multi-value attributes and timestamps are
-not ported yet and raise.
+package.  ``timestamped`` marks a source whose rows carry an int64 time
+(``core/schema.py:90-112`` of the JAX package).  Hashed, bucketed and
+multi-value attributes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -57,9 +58,6 @@ class Decoder:
                  timestamped: bool = False,
                  attr_types: Optional[Sequence[str]] = None,
                  attr_dims: Optional[Sequence[Optional[int]]] = None):
-        if timestamped:
-            raise InvalidArgumentError(
-                "timestamped sources are not yet ported")
         attr_types = list(attr_types or [])
         if attr_dims and any(attr_dims):
             raise InvalidArgumentError(
@@ -71,7 +69,7 @@ class Decoder:
                     "'int' only)" % (t,))
         self.weighted = bool(weighted)
         self.labeled = bool(labeled)
-        self.timestamped = False
+        self.timestamped = bool(timestamped)
         self.attr_types = attr_types
         self.attributed = bool(attr_types)
 
@@ -88,5 +86,6 @@ class Decoder:
         return 0
 
     def __repr__(self):
-        return ("Decoder(weighted=%s, labeled=%s, float_attrs=%d)"
-                % (self.weighted, self.labeled, self.float_attr_num))
+        return ("Decoder(weighted=%s, labeled=%s, timestamped=%s, "
+                "float_attrs=%d)" % (self.weighted, self.labeled,
+                                     self.timestamped, self.float_attr_num))

@@ -1,12 +1,22 @@
 """Device-resident graph store: node tables + per-edge-type CSR.
 
 Counterpart of ``graph_learn_tpu/core/store.py``.  The host build is the
-same numpy code (``IdIndex``, ``_build_csr``, adjacency order: weight desc
-when weighted, else insertion order), copied rather than imported.  The
-device views differ: flat int32 tensors ``row_offsets [N+1]``,
-``nbr_ids [E]`` and ``nbr_edge_ids [E]`` replace the TPU's 128-lane tiled
-views and interleaved ``off_pairs``, which only served the TPU's gather
-layout.  A ``bfloat16`` feature table is ``torch.bfloat16``.  Under
+same numpy code (``IdIndex``, ``_build_csr``, adjacency order: timestamp
+ascending when timestamped, else weight descending when weighted, else
+insertion order, each stable, ``:15-16``, ``:394-396``;
+``unify_ts_bases:583``), copied rather than imported.  The device views
+differ: flat int32 tensors ``row_offsets [N+1]``, ``nbr_ids [E]``,
+``nbr_edge_ids [E]`` and, for a timestamped edge type, ``nbr_ts [E]`` (the
+rebased timestamps in CSR order, ascending inside each row) replace the
+TPU's 128-lane tiled views and interleaved ``off_pairs``, which only served
+the TPU's gather layout.  A ``bfloat16`` feature table is
+``torch.bfloat16``; edge features stay float32, as in the JAX package.
+
+Timestamps are int64 on the host.  An ``EdgeTable`` rebases its own to
+their minimum, and ``unify_ts_bases`` moves every timestamped table of a
+store to one base (and, where the span exceeds int32, one coarser scale):
+the device holds int32 ``ts - ts_base`` (``// ts_scale``), and
+``abs = ts * ts_scale + ts_base`` restores absolute time.  Under
 ``conf.storage_profile = "full"`` each CSR also carries the id-sorted copy
 of its rows and the per-row weight and in-degree CDFs, flat and bit-equal
 to the JAX package's flat views, and each edge table the negative-sampling
@@ -24,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -73,6 +84,9 @@ class DeviceCSR(TensorStruct):
     # "minimal"; cum_weights also None for an unweighted edge type):
     cum_weights: Optional[torch.Tensor] = None  # [E] f32, by edge weight
     cum_in_degrees: Optional[torch.Tensor] = None  # [E] f32, by nbr degree
+    # rebased edge timestamps in CSR order, ascending inside each row, on
+    # every profile (None unless the edge type is timestamped)
+    nbr_ts: Optional[torch.Tensor] = None  # [E] int32
 
     @property
     def num_edges(self) -> int:
@@ -92,6 +106,8 @@ class DeviceEdgeTable(TensorStruct):
     inc: Optional[DeviceCSR] = None  # dst -> src (None in minimal profile)
     weights: Optional[torch.Tensor] = None  # [E] f32
     labels: Optional[torch.Tensor] = None  # [E] int32
+    timestamps: Optional[torch.Tensor] = None  # [E] int32, rebased
+    float_attrs: Optional[torch.Tensor] = None  # [E, nf] f32
     # negative-sampling candidate pools (None under "minimal"): the sorted
     # distinct dst ids with their in-degree CDF (outNeg), and the sorted
     # distinct src ids with their out-degree CDF (inNeg)
@@ -230,21 +246,39 @@ def _pool(ids32: np.ndarray, degs: np.ndarray):
     return uniq.astype(np.int32), cdf
 
 
+def _stable_order(rows: np.ndarray, key: np.ndarray) -> np.ndarray:
+    """``np.lexsort((key, rows))``: by row, then by key, ties in input
+    order.  Where the key is integral and in [0, 2**32) (timestamps, ids)
+    one stable argsort of ``row * 2**32 + key`` gives the same order in
+    about a third of the time."""
+    if (key.size and key.dtype.kind in "iuf" and key.min() >= 0
+            and key.max() < 2 ** 32 and rows.max() < 2 ** 31
+            and (key.dtype.kind != "f" or np.array_equal(key,
+                                                         np.floor(key)))):
+        return np.argsort((rows.astype(np.int64) << 32)
+                          | key.astype(np.int64), kind="stable")
+    return np.lexsort((key, rows))
+
+
 def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
                sort_key: Optional[np.ndarray], sort_desc: bool,
                weights: Optional[np.ndarray] = None,
                nbr_in_degrees: Optional[np.ndarray] = None,
-               full: bool = False) -> Tuple[Optional[np.ndarray], ...]:
-    """(row_offsets, nbr, eid, nbr_s, eid_s, cumw, cumind) of the CSR, rows
-    sorted stably by row and within a row by ``sort_key`` (the JAX
-    package's ``_build_csr`` order and arithmetic).  The last four (the
-    id-sorted copy, the weight CDF, the CDF over the neighbours' degrees)
-    are only computed when ``full``; else they are None."""
+               full: bool = False,
+               timestamps: Optional[np.ndarray] = None
+               ) -> Tuple[Optional[np.ndarray], ...]:
+    """(row_offsets, nbr, eid, nbr_s, eid_s, cumw, cumind, nbr_ts) of the
+    CSR, rows sorted stably by row and within a row by ``sort_key`` (the
+    JAX package's ``_build_csr`` order and arithmetic).  ``nbr_ts`` is
+    ``timestamps`` in CSR order (None without them).  The id-sorted copy,
+    the weight CDF and the CDF over the neighbours' degrees are only
+    computed when ``full``; else they are None.  Each CDF is cumulative
+    over the row in CSR order: ts-ascending on a timestamped edge type."""
     e = rows.size
     eid = np.arange(e, dtype=np.int64)
     if sort_key is not None:
         key = -sort_key if sort_desc else sort_key
-        order = np.lexsort((key, rows))
+        order = _stable_order(rows, key)
     else:
         order = np.argsort(rows, kind="stable")
     r = rows[order]
@@ -253,9 +287,12 @@ def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
     counts = np.bincount(r, minlength=num_rows).astype(np.int64)
     row_offsets = np.zeros(num_rows + 1, dtype=np.int32)
     np.cumsum(counts, out=row_offsets[1:])
+    nbr_ts = None
+    if timestamps is not None and e:
+        nbr_ts = timestamps[order].astype(np.int32)
     if not full:
-        return row_offsets, nbr, eids, None, None, None, None
-    order2 = np.lexsort((cols, rows))
+        return row_offsets, nbr, eids, None, None, None, None, nbr_ts
+    order2 = _stable_order(rows, cols)
     nbr_s = cols[order2].astype(np.int32)
     eid_s = eid[order2].astype(np.int32)
     cumw = cumind = None
@@ -263,7 +300,7 @@ def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
         cumw = _segment_cdf(weights[order], row_offsets, counts)
     if nbr_in_degrees is not None and e:
         cumind = _segment_cdf(nbr_in_degrees[nbr], row_offsets, counts)
-    return row_offsets, nbr, eids, nbr_s, eid_s, cumw, cumind
+    return row_offsets, nbr, eids, nbr_s, eid_s, cumw, cumind, nbr_ts
 
 
 class EdgeTable:
@@ -272,7 +309,8 @@ class EdgeTable:
     def __init__(self, type_name: str, src_type: str, dst_type: str,
                  decoder: Decoder, src: np.ndarray, dst: np.ndarray,
                  num_src_nodes: int, num_dst_nodes: int,
-                 weights=None, labels=None):
+                 weights=None, labels=None, timestamps=None,
+                 float_attrs=None):
         self.type_name = type_name
         self.src_type = src_type
         self.dst_type = dst_type
@@ -284,10 +322,24 @@ class EdgeTable:
         self.weights = None if weights is None else np.asarray(weights,
                                                                np.float32)
         self.labels = None if labels is None else np.asarray(labels, np.int32)
+        self.float_attrs = (None if float_attrs is None
+                            else np.asarray(float_attrs, np.float32))
+        self.timestamps = (None if timestamps is None
+                           else np.asarray(timestamps, np.int64))
+        # rebased to this table's own minimum: abs = ts * ts_scale +
+        # ts_base (unify_ts_bases moves every table of a store to one base)
+        self.ts_base = 0
+        self.ts_scale = 1
+        if self.timestamps is not None and self.timestamps.size:
+            self.ts_base = int(self.timestamps.min())
+            self.timestamps = self.timestamps - self.ts_base
         self._device: Dict[torch.device, DeviceEdgeTable] = {}
         self.host_build_s = 0.0  # host seconds of the last device view
-        # adjacency sort key: weight desc > insertion order
-        if self.weights is not None:
+        # adjacency sort key: ts asc > weight desc > insertion order
+        if self.timestamps is not None:
+            self._sort_key, self._sort_desc = (
+                self.timestamps.astype(np.float64), False)
+        elif self.weights is not None:
             self._sort_key, self._sort_desc = self.weights.astype(np.float64), True
         else:
             self._sort_key, self._sort_desc = None, False
@@ -303,13 +355,14 @@ class EdgeTable:
     def _host_csr(self, rows, cols, num_rows, nbr_degrees) -> dict:
         """One direction's CSR arrays (numpy); ``nbr_degrees`` are the
         degrees the in-degree CDF weighs each neighbour by."""
-        ro, nbr, eids, nbr_s, eid_s, cumw, cumind = _build_csr(
+        ro, nbr, eids, nbr_s, eid_s, cumw, cumind, nts = _build_csr(
             rows, cols.astype(np.int32), num_rows, self._sort_key,
             self._sort_desc, self.weights, nbr_degrees,
-            full=conf.storage_profile != "minimal")
+            full=conf.storage_profile != "minimal",
+            timestamps=self.timestamps)
         return dict(row_offsets=ro, nbr_ids=nbr, nbr_edge_ids=eids,
                     nbr_ids_sorted=nbr_s, nbr_edge_ids_sorted=eid_s,
-                    cum_weights=cumw, cum_in_degrees=cumind)
+                    cum_weights=cumw, cum_in_degrees=cumind, nbr_ts=nts)
 
     def device(self, device: DeviceLike = "cuda") -> DeviceEdgeTable:
         """The table's view on ``device``, built on first use: the CSR
@@ -340,6 +393,9 @@ class EdgeTable:
                 src=_put(src32, dev), dst=_put(dst32, dev),
                 weights=_put(self.weights, dev),
                 labels=_put(self.labels, dev),
+                timestamps=_put(None if self.timestamps is None
+                                else self.timestamps.astype(np.int32), dev),
+                float_attrs=_put(self.float_attrs, dev),
                 unique_dst=u_dst, unique_dst_indeg_cdf=u_dst_cdf,
                 unique_src=u_src, unique_src_outdeg_cdf=u_src_cdf)
         return self._device[dev]
@@ -409,3 +465,44 @@ class GraphStore:
             "nodes": {t: tb.num_nodes for t, tb in self.nodes.items()},
             "edges": {t: tb.num_edges for t, tb in self.edges.items()},
         }
+
+
+def unify_ts_bases(store: GraphStore) -> None:
+    """Rebase every timestamped edge table of ``store`` to one (base,
+    scale): a copy of the JAX package's ``unify_ts_bases:583``.
+
+    Temporal traversal compares timestamps across tables (events of one
+    type bound hops over another; ``TemporalGraph`` spans), so all must
+    share one time domain.  Device timestamps are int32: where the global
+    span exceeds it, every table is coarsened by the smallest power of 10
+    that fits, with a warning (before-t sampling is then exact at that
+    resolution).  A table whose base or scale changes drops its device
+    views, to be rebuilt on next use."""
+    tables = [t for t in store.edges.values()
+              if t.timestamps is not None and t.timestamps.size]
+    if not tables:
+        return
+    lo = min(int(t.timestamps.min()) * t.ts_scale + t.ts_base
+             for t in tables)
+    hi = max(int(t.timestamps.max()) * t.ts_scale + t.ts_base
+             for t in tables)
+    span = hi - lo
+    scale = 1
+    while span // scale > 2**31 - 2:
+        scale *= 10
+    if scale > 1:
+        warnings.warn(
+            "global timestamp span %d exceeds int32; coarsening device "
+            "timestamps by %dx (before-t sampling is exact at that "
+            "resolution)" % (span, scale))
+    for t in tables:
+        if t.ts_base == lo and t.ts_scale == scale:
+            continue
+        absolute = t.timestamps.astype(np.int64) * t.ts_scale + t.ts_base
+        t.timestamps = (absolute - lo) // scale
+        t.ts_base = lo
+        t.ts_scale = scale
+        # the adjacency keeps the order of the table's own timestamps (the
+        # JAX package's sort key is set once): under coarsening, ties of
+        # the coarse values stay in their fine order
+        t._device = {}

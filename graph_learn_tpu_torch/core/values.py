@@ -61,6 +61,8 @@ class Nodes(TensorStruct):
     float_attrs: Any = None
     weights: Optional[torch.Tensor] = None  # [*] f32
     labels: Optional[torch.Tensor] = None  # [*] int32
+    # [*] timestamps (the port's node tables carry none: always None)
+    timestamps: Optional[torch.Tensor] = None
     out_degrees: Optional[torch.Tensor] = None  # [*] int32
     type_name: str = ""
 
@@ -85,6 +87,7 @@ class SparseNodes(TensorStruct):
     float_attrs: Any = None  # DeferredRows from a lookup
     weights: Optional[torch.Tensor] = None
     labels: Optional[torch.Tensor] = None
+    timestamps: Optional[torch.Tensor] = None
     type_name: str = ""
 
     @property
@@ -124,6 +127,9 @@ class Edges(TensorStruct):
     dst_nodes: Nodes
     weights: Optional[torch.Tensor] = None  # [*] f32, 0 where edge_ids < 0
     labels: Optional[torch.Tensor] = None  # [*] int32
+    # [*] int32 rebased timestamps (a -1 pad reads edge row 0's)
+    timestamps: Optional[torch.Tensor] = None
+    float_attrs: Any = None  # [*, nf] f32 edge features: DeferredRows
     type_name: str = ""
 
     @property
@@ -150,6 +156,8 @@ class SparseEdges(TensorStruct):
     dst_nodes: SparseNodes  # [b, cap]
     weights: Optional[torch.Tensor] = None
     labels: Optional[torch.Tensor] = None
+    timestamps: Optional[torch.Tensor] = None
+    float_attrs: Any = None
     type_name: str = ""
 
     def mask(self) -> torch.Tensor:

@@ -1,8 +1,10 @@
-"""The model families at the 61M-edge scale: the rgcn and bipartite families.
+"""The model families at the 61M-edge scale: the rgcn, bipartite and
+temporal families.
 
 Counterpart of ``examples/family_scale.py`` for its ``rgcn`` family
-(``run_rgcn:57-161``) and its ``bipartite`` family
-(``run_bipartite:164-281``), at ``bench.CFG_SCALE``'s sizes.
+(``run_rgcn:57-161``), its ``bipartite`` family (``run_bipartite:164-281``)
+and its ``temporal`` family (``run_temporal:283-368``), at
+``bench.CFG_SCALE``'s sizes.
 
 **rgcn.** ``EgoRGCN([100, 256, 47], num_relations=2, num_bases=1)`` over
 2 450 000 "item" nodes with 100 float features and 47 classes, and two
@@ -35,18 +37,34 @@ mean over its neighbours runs on Kernel 2 straight from the item table;
 the src, dst and negative rows are gathered by Kernel 1: 3 + 3 launches a
 step.
 
+**temporal.** Temporal EgoGraphSAGE: 2 450 000 "item" nodes with 100
+float features and 47 classes, and 61 250 000 weighted, **timestamped**
+item -> item ``rel`` edges with timestamps uniform in [0, 1 000 000) (the
+same generator, ``np.random.default_rng(2)``, and the same draws in the
+same order), on the "full" store profile, whose per-row weight CDFs the
+temporal ``edge_weight`` draw reads.  ``E("rel").batch(1024)`` event
+seeds, ``outV()`` (the src, at the event's time), then two ``edge_weight``
+hops [15, 10] strictly before the propagated time (ops/temporal.py: the
+first bounded by the event, the second by the edge that led to it):
+``1024 * (15 + 150)`` = 168 960 sampled edges a step;
+``EgoGraphSAGE([100, 256, 47], "gcn")``, the supervised softmax
+cross-entropy on the src labels and Adam at 1e-3.  The src and hop-1 rows
+are gathered (Kernel 1) and the hop-2 rows reduced to their means straight
+from the table (Kernel 2): 2 + 1 launches a step.
+
 One call runs K = ``cfg["scan_steps"]`` steps, each on ``b`` seeds (node
-ids for rgcn, ``u-i`` edge ids for bipartite) drawn with ``torch.randint``
-on the card; on the card they are captured in one CUDA graph after a first
-eager run: ``RGCNSteps`` and ``BipartiteSteps`` are ``bench.MultiStep``s,
-with its side-stream warm-up, its generator registered with the graph and
-its fused, capturable Adam, whose step is the family's own.  ``--small``
-takes the port bench's ``CFG_SMALL`` sizes (the JAX script's ``--small``
-under ``GLT_BENCH_SMALL=1``) with fanout [4, 2] (rgcn) or 4 neighbours
-(bipartite).  The ``temporal`` and ``walks`` families are not yet ported.
+ids for rgcn, ``u-i`` / ``rel`` edge ids for bipartite / temporal) drawn
+with ``torch.randint`` on the card; on the card they are captured in one
+CUDA graph after a first eager run: ``RGCNSteps``, ``BipartiteSteps`` and
+``TemporalSteps`` are ``bench.MultiStep``s, with its side-stream warm-up,
+its generator registered with the graph and its fused, capturable Adam,
+whose step is the family's own.  ``--small`` takes the port bench's
+``CFG_SMALL`` sizes (the JAX script's ``--small`` under
+``GLT_BENCH_SMALL=1``) with fanout [4, 2] (rgcn, temporal) or 4
+neighbours (bipartite).  The ``walks`` family is not yet ported.
 
 Usage:  python -m graph_learn_tpu_torch.examples.family_scale [--small]
-            [--families rgcn,bipartite] [--cpu]
+            [--families rgcn,bipartite,temporal] [--cpu]
 Prints one line per family: <family>  <eps>M edges/s  <ms> ms/step
 (warm <s>s).
 
@@ -77,12 +95,17 @@ from graph_learn_tpu_torch.examples.scale_demo import nbytes
 from graph_learn_tpu_torch.graph import Graph
 from graph_learn_tpu_torch.gsl.compile import Query
 from graph_learn_tpu_torch.gsl.dataset import Dataset
-from graph_learn_tpu_torch.nn.models.ego_gnn import EgoRGCN
+from graph_learn_tpu_torch.nn.data import EgoGraph
+from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE, EgoRGCN
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 FAMILIES = ("rgcn", "bipartite", "temporal", "walks")
-PORTED = ("rgcn", "bipartite")
+PORTED = ("rgcn", "bipartite", "temporal")
 EDGE_TYPES = ("u-i", "i-i")
+TEMPORAL_HOPS = ("h1", "h2")
+# event timestamps of the temporal store: uniform in [0, TS_RANGE)
+TS_RANGE = 1_000_000
 
 
 def _device_tables(q: Query, edge_types, dev: torch.device, out: dict):
@@ -352,10 +375,135 @@ def run_bipartite(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
     return out
 
 
+def build_temporal_graph(cfg: dict, device: DeviceLike = "cuda"
+                         ) -> Tuple[Graph, Decoder]:
+    """``run_temporal:299-315``'s store: ``cfg["n_nodes"]`` "item" nodes
+    with ``cfg["feat_dim"]`` float features and labels in [0,
+    ``cfg["classes"]``), and ``n_nodes * avg_degree`` weighted, timestamped
+    ``rel`` edges, uniformly random."""
+    rng = np.random.default_rng(2)
+    n, d = cfg["n_nodes"], cfg["feat_dim"]
+    e = n * cfg["avg_degree"]
+    dec = Decoder(labeled=True, attr_types=["float"] * d)
+    g = Graph(device=device)
+    g.add_node_table(NodeTable(
+        "item", dec, np.arange(n, dtype=np.int64),
+        float_attrs=rng.standard_normal((n, d), np.float32),
+        labels=rng.integers(0, cfg["classes"], n).astype(np.int32)))
+    g.add_edge_table(EdgeTable(
+        "rel", "item", "item", Decoder(weighted=True, timestamped=True),
+        src=rng.integers(0, n, e), dst=rng.integers(0, n, e),
+        num_src_nodes=n, num_dst_nodes=n,
+        weights=rng.random(e).astype(np.float32),
+        timestamps=rng.integers(0, TS_RANGE, e)))
+    return g, dec
+
+
+def temporal_query(g: Graph, b: int, nbrs: Tuple[int, int]) -> Query:
+    """``run_temporal:317-322``'s query: event seeds, their src, two
+    ``edge_weight`` hops bounded by the propagated time."""
+    seed = g.E("rel").batch(b).alias("ev")
+    src = seed.outV().alias("src")
+    (src.outV("rel").sample(nbrs[0]).by("edge_weight").alias("h1")
+     .outV("rel").sample(nbrs[1]).by("edge_weight").alias("h2"))
+    return seed.values()
+
+
+def temporal_fanout(small: bool) -> Tuple[int, int]:
+    """(k1, k2): ``cfg["fanout"]`` [15, 10], and [4, 2] when small."""
+    return (4, 2) if small else (15, 10)
+
+
+def temporal_loss(model: torch.nn.Module, batch: dict,
+                  table: torch.Tensor) -> torch.Tensor:
+    """The supervised loss of a temporal batch: the src and h1 rows
+    gathered, h2 reduced to its means from ``table`` (Kernel 2)."""
+    logits = model(EgoGraph.from_query_result(batch, "src", TEMPORAL_HOPS,
+                                              defer_last_table=table))
+    return supervised_softmax_loss(logits, batch["src"].labels)
+
+
+class TemporalSteps(bench.MultiStep):
+    """K temporal sample+train steps a call (see the module docstring):
+    ``bench.MultiStep`` with groups of one step whose seeds are ``rel``
+    edge ids."""
+
+    def __init__(self, q: Query, tables, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, cfg: dict,
+                 generator: torch.Generator, capture: bool):
+        super().__init__(q, tables, model, optimizer, cfg, 1, generator,
+                         capture)
+        self.n_edges = q.source_space()[0]
+        self.table = tables["nodes"]["item"].float_attrs
+
+    def _group(self, first: int):
+        with torch.no_grad():
+            seeds, batch = bench.sample_one(self.q, self.tables, self.n_edges,
+                                            self.generator)
+        self.seeds.append(seeds)
+        loss = temporal_loss(self.model, batch, self.table)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.losses[first].copy_(loss.detach())
+
+
+def run_temporal(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
+                 capture: Optional[bool] = None,
+                 graph: Optional[Tuple[Graph, Decoder]] = None,
+                 seed: int = 0) -> Dict[str, object]:
+    """Build the store (or take ``graph``, a :func:`build_temporal_graph`
+    result on the same device), put the plan's tables on the device, check
+    the first batch through a ``Dataset``, build the model, make one
+    warm-up call, then time ``cfg["steps"] // K`` calls closed by one pull
+    of the loss.  ``capture`` defaults to True on the card.
+
+    Returns the dict of :func:`run_bipartite` (edges/s of ``b * (k1 + k1
+    k2)`` edges a step)."""
+    dev = resolve_device(device)
+    if capture is None:
+        capture = dev.type == "cuda"
+    k1, k2 = temporal_fanout(small)
+    b, K = cfg["batch"], cfg["scan_steps"]
+    out: Dict[str, object] = {
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"), "capture": capture, "K": K,
+        "edges_per_step": b * (k1 + k1 * k2)}
+    t0 = time.perf_counter()
+    if graph is None:
+        graph = build_temporal_graph(cfg, dev)
+    g, dec = graph
+    out["host_draw_s"] = time.perf_counter() - t0
+    q = temporal_query(g, b, (k1, k2))
+    tables = _device_tables(q, ("rel",), dev, out)
+    table = tables["nodes"]["item"].float_attrs
+
+    model = EgoGraphSAGE([cfg["feat_dim"], cfg["hidden"], cfg["classes"]],
+                         dec, agg_type="gcn", device=dev)
+    b0 = Dataset(q, window=1, seed=seed, device=dev).next()
+    with torch.no_grad():
+        loss0 = temporal_loss(model, b0, table)
+    if b0["h2"].ids.shape != (b, k1, k2) or not bool(torch.isfinite(loss0)):
+        raise RuntimeError("first batch: h2 %s, loss %s"
+                           % (tuple(b0["h2"].ids.shape), loss0))
+    optimizer = bench.make_optimizer(model, dev)
+    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    step = TemporalSteps(q, tables, model, optimizer, cfg, generator,
+                         capture)
+    _time_calls(step, cfg, dev, out)
+    out.update(graph=graph, query=q, tables=tables, model=model,
+               optimizer=optimizer, generator=generator, step=step)
+    return out
+
+
+RUNNERS = {"rgcn": run_rgcn, "bipartite": run_bipartite,
+           "temporal": run_temporal}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true")
-    ap.add_argument("--families", default="rgcn,bipartite")
+    ap.add_argument("--families", default="rgcn,bipartite,temporal")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the card)")
     args = ap.parse_args(argv)
@@ -370,11 +518,11 @@ def main(argv=None) -> int:
     dtype = os.environ.get("GLT_FEATURE_DTYPE", "bfloat16")
     for fam in families:
         # rgcn samples only forward adjacencies: the minimal profile, as
-        # the JAX script runs it; bipartite's outNeg needs the full one
+        # the JAX script runs it; bipartite's outNeg needs the full one's
+        # pools, temporal edge_weight its CDFs
         profile = "minimal" if fam == "rgcn" else "full"
-        run = run_rgcn if fam == "rgcn" else run_bipartite
         with bench.bench_conf(feature_dtype=dtype, storage_profile=profile):
-            r = run(cfg, args.small, dev)
+            r = RUNNERS[fam](cfg, args.small, dev)
         print("%-10s %.1fM edges/s  %.2f ms/step  (warm %.1fs)"
               % (fam, r["edges_per_s"] / 1e6, r["step_ms"], r["warm_s"]),
               flush=True)

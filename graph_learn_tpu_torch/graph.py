@@ -8,6 +8,14 @@ package registers while it loads a masked source, ``graph.py:117-126``).
 Loading sources from files (``node()``, ``edge()``, ``init()``) needs
 ``core/ingest.py`` and is not yet ported.
 
+Timestamps: the JAX ``Graph.init`` calls ``unify_ts_bases`` once every
+table is loaded (``graph.py:143-144``).  The port has no ``init``: tables
+arrive one at a time, so ``add_edge_table`` calls it after each one, and
+the store is in one time domain whenever a caller can reach it.  An
+undirected edge type is ``add_edge_table`` and then
+``add_reverse_edge_table`` (``Graph.edge(directed=False)``,
+``graph.py:72-88``).
+
 A ``Graph`` owns the device its views live on: the CUDA card unless the
 caller passes ``device="cpu"``.
 """
@@ -21,7 +29,7 @@ import torch
 
 from graph_learn_tpu_torch.core.schema import Decoder, Mask, mask_type
 from graph_learn_tpu_torch.core.store import (EdgeTable, GraphStore, NodeSet,
-                                              NodeTable)
+                                              NodeTable, unify_ts_bases)
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
@@ -37,8 +45,32 @@ class Graph:
         return self
 
     def add_edge_table(self, table: EdgeTable) -> "Graph":
+        """Register ``table``, then move every timestamped table of the
+        store to one time base (``core/store.py unify_ts_bases``)."""
         self.store.add_edge_table(table)
+        unify_ts_bases(self.store)
         return self
+
+    def add_reverse_edge_table(self, edge_type: str) -> "Graph":
+        """Make the bipartite ``edge_type`` undirected, as the JAX package's
+        ``Graph.edge(..., directed=False)`` does: a ``<edge_type>_reverse``
+        table of the same edges from dst to src (the same weights, labels,
+        timestamps and features, in the same order).  Within one node type
+        the JAX package appends the reversed edges to the type itself,
+        which is not ported."""
+        et = self.store.edge_table(edge_type)
+        if et.src_type == et.dst_type:
+            raise InvalidArgumentError(
+                "add_reverse_edge_table: %r joins %r to itself; an "
+                "undirected edge type within one node type is not yet "
+                "ported" % (edge_type, et.src_type))
+        ts = (None if et.timestamps is None
+              else et.timestamps * et.ts_scale + et.ts_base)
+        return self.add_edge_table(EdgeTable(
+            edge_type + "_reverse", et.dst_type, et.src_type, et.decoder,
+            src=et.dst, dst=et.src, num_src_nodes=et.num_dst_nodes,
+            num_dst_nodes=et.num_src_nodes, weights=et.weights,
+            labels=et.labels, timestamps=ts, float_attrs=et.float_attrs))
 
     def add_node_set(self, node_type: str, raw_ids: np.ndarray,
                      mask: Union[Mask, str], weights=None) -> "Graph":

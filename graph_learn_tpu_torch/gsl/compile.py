@@ -4,20 +4,31 @@ Counterpart of ``graph_learn_tpu/gsl/compile.py`` ``Query:51``,
 ``source_space:69``, ``device_tables:77``, ``_execute:156``, and of the
 ``source_v``, ``source_e`` and ``endpoint_*`` branches of
 ``_exec_node:172``, ``_exec_hop:249`` (``out_v`` / ``in_v`` / ``out_e`` /
-``in_e`` for every non-temporal strategy; ``full`` returns ``SparseNodes``,
-on an edge hop too, as in the JAX package) and ``_exec_neg:372`` without
-its conditional branch, with ``.filter()`` and registered strategies.
-PyTorch runs eagerly, so there is no jit: ``_execute`` walks the DAG once
-per call.  Each hop's feature rows stay deferred (ops/lookup.py) until a
-reader gathers or reduces them.  Randomness comes from one explicit
-``torch.Generator``, drawn from in DAG order (the JAX package splits one
-key per node; the two streams differ, see ops/sampling.py).  No
-timestamped table can be built yet (``Decoder`` refuses one), so no record
-carries the JAX package's per-element timestamps.
+``in_e``; ``full`` returns ``SparseNodes``, on an edge hop too, as in the
+JAX package) and ``_exec_neg:372`` without its conditional branch, with
+``.filter()`` and registered strategies.  PyTorch runs eagerly, so there
+is no jit: ``_execute`` walks the DAG once per call.  Each hop's feature
+rows stay deferred (ops/lookup.py) until a reader gathers or reduces them.
+Randomness comes from one explicit ``torch.Generator``, drawn from in DAG
+order (the JAX package splits one key per node; the two streams differ,
+see ops/sampling.py).
+
+Time threads through the plan as in the JAX package (``_Rec.ts:39-48``):
+an ``E()`` source over a timestamped edge type carries its events'
+timestamps, its endpoint views inherit them (``:193-207``), and a hop
+whose parent carries timestamps over a timestamped edge type samples only
+edges strictly earlier than the parent's time (ops/temporal.py:
+``full``, ``random``, ``edge_weight``, ``in_degree``,
+``random_without_replacement``, ``topk``; a registered strategy must
+accept ``t_upper`` or the plan raises, ``:277-343``).  The hop then
+carries its sampled edges' timestamps (``hop_ts``, ``:346-368``), so a
+deeper hop is bounded by the edge that led to it, and negatives inherit
+the time of the row they were drawn for (``:403-405``).
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Dict, Optional
 
 import torch
@@ -28,6 +39,7 @@ from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.gsl.dag import Dag, DagNode
 from graph_learn_tpu_torch.ops import negative as neg_ops
 from graph_learn_tpu_torch.ops import sampling as samp_ops
+from graph_learn_tpu_torch.ops import temporal as temporal_ops
 from graph_learn_tpu_torch.ops.lookup import (edge_field, edge_payload,
                                               lookup_nodes,
                                               lookup_sparse_nodes)
@@ -36,14 +48,16 @@ from graph_learn_tpu_torch.utils.platform import DeviceLike
 
 
 class _Rec:
-    """Per-node execution record inside the plan: the node's dense ids and
-    its value (``Nodes``, ``SparseNodes`` or ``Edges``)."""
+    """Per-node execution record inside the plan: the node's dense ids, its
+    value (``Nodes``, ``SparseNodes`` or ``Edges``) and, on a temporal
+    path, the per-element timestamps that bound the hops below it."""
 
-    __slots__ = ("ids", "value")
+    __slots__ = ("ids", "value", "ts")
 
-    def __init__(self, ids, value):
+    def __init__(self, ids, value, ts=None):
         self.ids = ids
         self.value = value
+        self.ts = ts
 
 
 class Query:
@@ -130,13 +144,14 @@ def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
                                    edge_field(et, "dst", eidx),
                                    type_name=d_t),
             weights=pay["weights"], labels=pay["labels"],
+            timestamps=pay["timestamps"], float_attrs=pay["float_attrs"],
             type_name=node.edge_type)
-        return _Rec(src_ids, val)
+        return _Rec(src_ids, val, pay["timestamps"])
     parent = recs[node.parent.nid]
     if kind in ("endpoint_src", "endpoint_dst"):
         ev = parent.value
         nv = ev.src_nodes if kind == "endpoint_src" else ev.dst_nodes
-        return _Rec(nv.ids, nv)
+        return _Rec(nv.ids, nv, parent.ts)
     if kind in ("out_v", "in_v", "out_e", "in_e"):
         return _exec_hop(query, tables, node, parent, recs, generator)
     if kind in ("out_neg", "in_neg"):
@@ -181,13 +196,28 @@ def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, recs,
                 ".filter(%r): the target has %d ids for the hop's %d rows"
                 % (node.filter_alias, excl.numel(), flat.numel()))
         flt = samp_ops.SampleFilter(exclude_dst=excl)
+    # temporal traversal: a parent that carries timestamps bounds a hop
+    # over a timestamped edge type to edges strictly before its time
+    # (reference auto-injected ts filters, gsl/dag_node.py:357-364)
+    t_upper = None
+    if parent.ts is not None and csr.nbr_ts is not None:
+        t_upper = parent.ts.reshape(-1)
     if strategy == "full":
         # SparseNodes on an edge hop too, as the JAX package answers it
         cap = k if k > 0 else conf.default_full_nbr_num
-        ids, _, degs = samp_ops.full_sample(csr, flat, cap, flt=flt)
+        if t_upper is not None:
+            ids, eids, degs = temporal_ops.temporal_full_sample(
+                csr, flat, cap, t_upper, flt=flt)
+        else:
+            ids, eids, degs = samp_ops.full_sample(csr, flat, cap, flt=flt)
         val = lookup_sparse_nodes(nt, ids, degs, type_name=result_type)
-        return _Rec(ids.reshape(shape + (cap,)), val)
-    if strategy in ("edge_weight", "in_degree"):
+        new_ts = (edge_field(et, "timestamps", eids).reshape(shape + (cap,))
+                  if t_upper is not None else None)
+        return _Rec(ids.reshape(shape + (cap,)), val, new_ts)
+    if t_upper is not None:
+        ids, eids = _temporal_hop(csr, flat, k, strategy, generator, t_upper,
+                                  flt)
+    elif strategy in ("edge_weight", "in_degree"):
         ids, eids = samp_ops.weighted_sample(csr, flat, k, generator,
                                              by=strategy, flt=flt)
     elif strategy in samp_ops.BUILTIN_STRATEGIES:
@@ -200,10 +230,14 @@ def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, recs,
     else:
         raise InvalidArgumentError("unknown strategy %r" % strategy)
     ids = ids.reshape(shape + (k,))
-    if node.kind in ("out_v", "in_v"):
-        return _Rec(ids, lookup_nodes(nt, ids, type_name=result_type))
-    # edge hop: Edges whose src view repeats the parent's id in every slot
     eids = eids.reshape(shape + (k,))
+    if node.kind in ("out_v", "in_v"):
+        # on a temporal path the sampled edges' times bound the next hop
+        hop_ts = (edge_field(et, "timestamps", eids)
+                  if t_upper is not None else None)
+        return _Rec(ids, lookup_nodes(nt, ids, type_name=result_type),
+                    hop_ts)
+    # edge hop: Edges whose src view repeats the parent's id in every slot
     src_type = d_t if incoming else s_t
     pay = edge_payload(et, eids)
     val = Edges(
@@ -213,8 +247,39 @@ def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, recs,
                                type_name=src_type),
         dst_nodes=lookup_nodes(nt, ids, type_name=result_type),
         weights=pay["weights"], labels=pay["labels"],
+        timestamps=pay["timestamps"], float_attrs=pay["float_attrs"],
         type_name=node.edge_type)
-    return _Rec(ids, val)
+    # an edge hop carries its edges' times whenever the type has them, as
+    # the JAX plan's does
+    return _Rec(ids, val, pay["timestamps"])
+
+
+def _temporal_hop(csr, flat, k: int, strategy: str, generator, t_upper,
+                  flt):
+    """(ids, eids) [b, k] of a hop bounded by ``t_upper`` [b]."""
+    if strategy == "random":
+        return temporal_ops.temporal_uniform_sample(csr, flat, k, generator,
+                                                    t_upper, flt=flt)
+    if strategy in ("edge_weight", "in_degree"):
+        return temporal_ops.temporal_weighted_sample(
+            csr, flat, k, generator, t_upper, by=strategy, flt=flt)
+    if strategy == "random_without_replacement":
+        return temporal_ops.temporal_without_replacement_sample(
+            csr, flat, k, generator, t_upper, flt=flt)
+    if strategy == "topk":
+        return temporal_ops.temporal_topk_sample(csr, flat, k, t_upper,
+                                                 flt=flt)
+    if strategy in samp_ops.STRATEGY_FNS:
+        # a registered strategy must take the before-t bound: no silent
+        # temporal leakage
+        fn = samp_ops.STRATEGY_FNS[strategy]
+        if "t_upper" not in inspect.signature(fn).parameters:
+            raise InvalidArgumentError(
+                "custom strategy %r does not accept t_upper and the seed "
+                "path is temporal; add a t_upper keyword to the registered "
+                "sampler" % strategy)
+        return fn(csr, flat, k, generator, t_upper=t_upper)
+    raise InvalidArgumentError("unknown strategy %r" % strategy)
 
 
 def _exec_neg(query: Query, tables, node: DagNode, parent: _Rec, generator):
@@ -237,4 +302,8 @@ def _exec_neg(query: Query, tables, node: DagNode, parent: _Rec, generator):
                                   strategy=node.strategy, dst_table=nt,
                                   reverse=reverse)
     ids = ids.reshape(shape + (node.count,))
-    return _Rec(ids, lookup_nodes(nt, ids, type_name=result_type))
+    # negatives inherit the time of their row: hops below a negative tower
+    # stay bounded by the event (reference TGAT train_eval.py:58-78)
+    neg_ts = (parent.ts[..., None].expand(ids.shape)
+              if parent.ts is not None else None)
+    return _Rec(ids, lookup_nodes(nt, ids, type_name=result_type), neg_ts)

@@ -2,11 +2,13 @@
 
 ``load_flax_params(model, params)`` copies the params of a flax
 ``EgoGraphSAGE``, ``EgoGAT``, ``EgoGIN`` or ``EgoRGCN``
-(``graph_learn_tpu/nn/models/ego_gnn.py:126, 140, 157, 169``), given as the
-nested dict of numpy arrays that ``model.init`` / training produce, into
-the port's ``EgoGNN`` or ``EgoRGCN``; ``to_flax_params(model)`` is the
-inverse, so that weights trained in either package can be compared.  The
-flax tree is
+(``graph_learn_tpu/nn/models/ego_gnn.py:126, 140, 157, 169``), or of the
+temporal models (``graph_learn_tpu/nn/models/tgat.py``: ``EgoTGAT``,
+``LinkScorePredict``, and modules built of them such as the ego_tgat
+example's ``TGATLink``), given as the nested dict of numpy arrays that
+``model.init`` / training produce, into the port's model;
+``to_flax_params(model)`` is the inverse, so that weights trained in
+either package can be compared.  The flax tree is
 
     params/layers_<i>/convs_0/trans_nodes/{kernel, bias?}       (SAGE)
     params/layers_<i>/convs_0/{x_<h>, n_<h>, attn_<h>}/{kernel, bias?}
@@ -18,6 +20,17 @@ flax tree is
                           (with ``hop_encoders``, in place of ``encoder``)
     params/rgcn_<i>/{weight, coefficient?, bias?, root_weight/kernel}
                   (RGCN; its encoder never projects, so it has no params)
+    params/time_encoder/{basis_freq, phase}                   (EgoTGAT)
+    params/tgat_conv_<l>/{x_<h>, n_<h>, attn_<h>}/kernel
+                                (EgoTGAT; n_<h> on level 0 only)
+    params/affinity_score/{merge_layer1, merge_layer2}/{kernel, bias}
+                                                    (LinkScorePredict)
+
+Any other module maps its named children to subtrees of the same names
+(``TGATLink``: ``u_enc``, ``i_enc`` (a ``FeatureEncoder``'s ``proj``, where
+it projects), ``u_tower``, ``i_tower``, ``scorer``); an ``EgoTGAT``'s
+encoders belong to the module that names them, so its own tree does not
+repeat them.
 
 Each Dense of a conv is a ``torch.nn.Linear`` child of the same name.  A
 two-tower model, a dict or ``nn.ModuleDict`` of ``EgoGNN`` such as
@@ -40,7 +53,9 @@ import torch
 from torch import nn
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
-from graph_learn_tpu_torch.nn.models.ego_gnn import EgoRGCN
+from graph_learn_tpu_torch.nn.feature_column import FeatureEncoder
+from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGNN, EgoRGCN
+from graph_learn_tpu_torch.nn.models.tgat import EgoTGAT, TimeEncoder
 
 
 def _leaves(tree, prefix=()) -> Set[Tuple[str, ...]]:
@@ -116,6 +131,37 @@ def _denses(model: nn.Module):
             yield (name, "proj"), proj
 
 
+def _tgat_items(model: nn.Module, prefix=()):
+    """(flax path, Linear or Parameter) of a temporal model's tree."""
+    if isinstance(model, TimeEncoder):
+        yield prefix + ("basis_freq",), model.basis_freq
+        yield prefix + ("phase",), model.phase
+    elif isinstance(model, EgoTGAT):
+        yield from _tgat_items(model.time_encoder,
+                               prefix + ("time_encoder",))
+        for lvl, conv in enumerate(model.convs):
+            for name, child in conv.named_children():
+                yield prefix + ("tgat_conv_%d" % lvl, name), child
+    elif isinstance(model, FeatureEncoder):
+        if model.proj is not None:
+            yield prefix + ("proj",), model.proj
+    elif isinstance(model, nn.Linear):
+        yield prefix, model
+    else:
+        for name, child in model.named_children():
+            yield from _tgat_items(child, prefix + (name,))
+
+
+def _items(model: nn.Module):
+    """(flax path, Linear or Parameter) of every leaf group of the tree."""
+    if isinstance(model, (EgoGNN, EgoRGCN)):
+        yield from _denses(model)
+        if isinstance(model, EgoRGCN):
+            yield from _rgcn_arrays(model)
+    else:
+        yield from _tgat_items(model)
+
+
 def _towers(model) -> bool:
     """Is ``model`` a dict (or ModuleDict) of towers?"""
     return isinstance(model, (dict, nn.ModuleDict))
@@ -132,7 +178,8 @@ def _at(tree: Dict, path):
 def load_flax_params(model, params: Dict):
     """Copy flax ``EgoGraphSAGE`` / ``EgoGAT`` / ``EgoGIN`` / ``EgoGNN``
     params into the port's ``EgoGNN``, flax ``EgoRGCN`` params into the
-    port's ``EgoRGCN``, or each tower's params into its tower."""
+    port's ``EgoRGCN``, a temporal model's into its port, or each tower's
+    params into its tower."""
     if _towers(model):
         if sorted(model.keys()) != sorted(params.keys()):
             raise InvalidArgumentError(
@@ -143,11 +190,11 @@ def load_flax_params(model, params: Dict):
         return model
     tree = params["params"] if "params" in params else params
     used: Set[Tuple[str, ...]] = set()
-    for path, linear in _denses(model):
-        _load_dense(linear, _at(tree, path), path, used)
-    if isinstance(model, EgoRGCN):
-        for path, param in _rgcn_arrays(model):
-            _load_array(param, _at(tree, path), path, used)
+    for path, leaf in _items(model):
+        if isinstance(leaf, nn.Linear):
+            _load_dense(leaf, _at(tree, path), path, used)
+        else:
+            _load_array(leaf, _at(tree, path), path, used)
     extra = _leaves(tree) - used
     if extra:
         raise InvalidArgumentError(
@@ -163,15 +210,15 @@ def to_flax_params(model) -> Dict:
     if _towers(model):
         return {k: to_flax_params(model[k]) for k in model.keys()}
     tree: Dict = {}
-    for path, linear in _denses(model):
+    for path, leaf in _items(model):
         sub = tree
-        for key in path:
+        for key in path[:-1]:
             sub = sub.setdefault(key, {})
-        sub["kernel"] = linear.weight.detach().cpu().numpy().T.copy()
-        if linear.bias is not None:
-            sub["bias"] = linear.bias.detach().cpu().numpy().copy()
-    if isinstance(model, EgoRGCN):
-        for (conv, name), param in _rgcn_arrays(model):
-            tree.setdefault(conv, {})[name] = (
-                param.detach().cpu().numpy().copy())
+        if isinstance(leaf, nn.Linear):
+            sub = sub.setdefault(path[-1], {})
+            sub["kernel"] = leaf.weight.detach().cpu().numpy().T.copy()
+            if leaf.bias is not None:
+                sub["bias"] = leaf.bias.detach().cpu().numpy().copy()
+        else:
+            sub[path[-1]] = leaf.detach().cpu().numpy().copy()
     return {"params": tree}

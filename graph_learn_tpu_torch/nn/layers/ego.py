@@ -109,7 +109,9 @@ class EgoGATConv(nn.Module):
     the concatenation splits linearly, ``xt @ a_l + nh @ a_r``.  Parameters
     mirror the flax layer: per head ``x_<i>``, ``n_<i>`` (hetero dims only:
     a homo layer projects neighbours with ``x_<i>``, so that weight gets
-    both gradients) and ``attn_<i>`` ([2W] -> 1).
+    both gradients) and ``attn_<i>`` ([2W] -> 1).  ``hetero=True`` keeps
+    ``n_<i>`` even where the two widths are equal, as the flax layer does
+    for the ``in_dim`` pair EgoTGAT's first level passes it.
 
     The neighbour block (project, score, softmax, weighted sum) is
     :func:`graph_learn_tpu_torch.ops.kernels.gat.gat_block`: on the card
@@ -125,7 +127,7 @@ class EgoGATConv(nn.Module):
 
     def __init__(self, in_dim: InDim, out_dim: int, num_head: int = 1,
                  use_bias: bool = False, attn_dropout: float = 0.0,
-                 seed_chunk: Optional[int] = None):
+                 seed_chunk: Optional[int] = None, hetero: bool = False):
         super().__init__()
         self.in_dim = _pair(in_dim)
         self.out_dim = out_dim
@@ -133,7 +135,7 @@ class EgoGATConv(nn.Module):
         self.use_bias = use_bias
         self.attn_dropout = attn_dropout
         self.seed_chunk = seed_chunk
-        self.is_homo = self.in_dim[0] == self.in_dim[1]
+        self.is_homo = self.in_dim[0] == self.in_dim[1] and not hetero
         for i in range(num_head):
             setattr(self, "x_%d" % i,
                     make_linear(self.in_dim[0], out_dim, use_bias))

@@ -4,11 +4,12 @@ Counterpart of ``graph_learn_tpu/ops/lookup.py`` ``_g:25``,
 ``lookup_nodes:65``, ``lookup_sparse_nodes:84`` and ``edge_payload:100``
 on a single device, and of the non-sharded branch of
 ``graph_learn_tpu/core/sharding.py edge_field:327``.  1-D
-payloads (raw ids, labels, weights) are plain indexing.  Feature rows (2-D
-tables) are not gathered here: ``float_attrs`` is a ``DeferredRows`` over
-the table, gathered by ``feature_gather`` (Kernel 1 on the card) where a
-reader materialises it, or reduced by Kernel 2 without a gather
-(core/values.py).  The sharded branches wait for the parallel slice.
+payloads (raw ids, labels, weights, edge timestamps) are plain indexing.
+Feature rows (2-D tables, the edge features too) are not gathered here:
+``float_attrs`` is a ``DeferredRows`` over the table, gathered by
+``feature_gather`` (Kernel 1 on the card) where a reader materialises it,
+or reduced by Kernel 2 without a gather (core/values.py).  The sharded
+branches wait for the parallel slice.
 """
 
 from __future__ import annotations
@@ -72,9 +73,14 @@ def edge_field(et: DeviceEdgeTable, name: str,
 
 
 def edge_payload(et: DeviceEdgeTable, edge_ids: torch.Tensor) -> dict:
-    """{"weights", "labels"} at edge row ids (-1 = pad): the weights are 0
-    where the edge id is -1; a field the table lacks is None."""
+    """{"weights", "labels", "timestamps", "float_attrs"} at edge row ids
+    (-1 = pad): the weights are 0 where the edge id is -1, the other fields
+    read edge row 0 there, as in the JAX package; the features are
+    deferred; a field the table lacks is None."""
     valid = edge_ids >= 0
+    idx = torch.clamp(edge_ids, min=0)
     w = edge_field(et, "weights", edge_ids)
     return {"weights": None if w is None else torch.where(valid, w, 0.0),
-            "labels": edge_field(et, "labels", edge_ids)}
+            "labels": edge_field(et, "labels", edge_ids),
+            "timestamps": edge_field(et, "timestamps", edge_ids),
+            "float_attrs": _g(et.float_attrs, idx)}

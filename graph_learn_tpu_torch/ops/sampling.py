@@ -24,8 +24,14 @@ candidate rounds that passes (``retry_positions``, as
 slot from the row before they select (``excluded_slot``, as ``_excl_rel:137``).
 The JAX package finds that slot in a 128-lane window and so refuses rows
 of more than 256 neighbours; the flat CSR here scans a row of any length.
-``ts_upper`` waits for the temporal samplers and raises.
-``register_sampler:423`` adds a custom strategy.
+``ts_upper`` (a [b] bound, as ``SampleFilter:45-63``) rejects a candidate
+whose edge timestamp is not strictly below it: ``random`` counts such a
+candidate as failing its round when the caller passes the edge type's
+timestamps (``edge_ts``), as ``_apply_filter_retry:173`` does; like
+``_filter_guard:149`` the other strategies read only ``exclude_dst``.  The
+GSL sends hops on a temporal path to ``ops/temporal.py`` instead, whose
+before-t prefix is exact.  ``register_sampler:423`` adds a custom
+strategy.
 """
 
 from __future__ import annotations
@@ -51,18 +57,33 @@ class SampleFilter:
     """Per-seed rejection predicates (reference filter.h)."""
 
     exclude_dst: Optional[torch.Tensor] = None  # [b] neighbour id to reject
-    # [b] timestamp bound of temporal sampling: not yet ported
-    ts_upper: Optional[torch.Tensor] = None
+    ts_upper: Optional[torch.Tensor] = None  # [b] timestamp upper bound
+
+    def hit(self, cand_ids: torch.Tensor,
+            cand_ts: Optional[torch.Tensor]) -> torch.Tensor:
+        """True where a candidate [b, ...] violates the filter: its id is
+        the seed's excluded one, or (given ``cand_ts``) its edge time is
+        not strictly below the seed's bound."""
+        bad = torch.zeros(cand_ids.shape, dtype=torch.bool,
+                          device=cand_ids.device)
+        shape = (-1,) + (1,) * (cand_ids.dim() - 1)
+        if self.exclude_dst is not None:
+            bad |= cand_ids == self.exclude_dst.reshape(shape)
+        if self.ts_upper is not None and cand_ts is not None:
+            bad |= cand_ts >= self.ts_upper.reshape(shape)
+        return bad
 
 
 def _exclusion(flt: Optional[SampleFilter]) -> Optional[torch.Tensor]:
-    """The [b] ids ``flt`` rejects, or None when nothing is filtered."""
-    if flt is None:
-        return None
-    if flt.ts_upper is not None:
-        raise InvalidArgumentError(
-            "ts_upper filters (temporal sampling) are not yet ported")
-    return flt.exclude_dst
+    """The [b] ids ``flt`` rejects, or None: the only part of a filter the
+    strategies other than ``random`` read (``_filter_guard:149``)."""
+    return None if flt is None else flt.exclude_dst
+
+
+def _retries(flt: Optional[SampleFilter]) -> bool:
+    """Does ``random`` draw candidate rounds for ``flt``?"""
+    return flt is not None and (flt.exclude_dst is not None
+                                or flt.ts_upper is not None)
 
 
 def excluded_slot(csr: DeviceCSR, start: torch.Tensor, end: torch.Tensor,
@@ -108,14 +129,22 @@ def uniform_positions(start: torch.Tensor, deg: torch.Tensor,
 
 
 def retry_positions(csr: DeviceCSR, pos: torch.Tensor,
-                    excl: torch.Tensor) -> torch.Tensor:
+                    excl: Optional[torch.Tensor],
+                    ts_upper: Optional[torch.Tensor] = None,
+                    edge_ts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Candidate positions [b, k, rounds] -> [b, k]: per draw the first
-    round whose neighbour is not ``excl`` [b], else the last round
+    round whose neighbour is not ``excl`` [b] and, given ``ts_upper`` [b]
+    and the edge type's timestamps ``edge_ts`` [E], whose edge is strictly
+    earlier than the bound; else the last round
     (``_apply_filter_retry:173``; reference random_sampler.cc:62-72)."""
     if csr.num_edges == 0:  # every slot is a fill
         return pos[..., -1]
-    cand = csr.nbr_ids[torch.clamp(pos, 0, csr.num_edges - 1)]
-    bad = cand == excl[:, None, None]
+    posc = torch.clamp(pos, 0, csr.num_edges - 1)
+    cand_ts = None
+    if edge_ts is not None:
+        cand_ts = edge_ts[torch.clamp(csr.nbr_edge_ids[posc], min=0)]
+    bad = SampleFilter(exclude_dst=excl, ts_upper=ts_upper).hit(
+        csr.nbr_ids[posc], cand_ts)
     first_ok = torch.argmax((~bad).to(torch.uint8), dim=-1)
     pick = torch.where(bad.all(dim=-1), pos.shape[-1] - 1, first_ok)
     return torch.gather(pos, -1, pick[..., None])[..., 0]
@@ -137,34 +166,38 @@ def _gather(csr: DeviceCSR, pos: torch.Tensor, valid: torch.Tensor):
 
 
 def uniform_draw(csr: DeviceCSR, seeds: torch.Tensor, u: torch.Tensor,
-                 flt: Optional[SampleFilter] = None):
+                 flt: Optional[SampleFilter] = None,
+                 edge_ts: Optional[torch.Tensor] = None):
     """Uniform neighbours of ``seeds`` [b] for given ``u``: [b, k], or with
-    an ``exclude_dst`` filter [b, k, conf.sampling_retry_times + 1]."""
-    excl = _exclusion(flt)
-    if u.dim() != (2 if excl is None else 3):
+    a filter [b, k, conf.sampling_retry_times + 1]; a ``ts_upper`` bound
+    rejects candidates by ``edge_ts`` (the edge type's [E] timestamps)
+    where it is given."""
+    if u.dim() != (3 if _retries(flt) else 2):
         raise InvalidArgumentError(
             "uniform_draw: u must be [b, k] without a filter and [b, k, "
             "rounds] with one, got %s" % (tuple(u.shape),))
     start, _, deg = row_bounds(csr.row_offsets, seeds)
     pos = uniform_positions(start, deg, u)
-    if excl is not None:
-        pos = retry_positions(csr, pos, excl)
+    if _retries(flt):
+        pos = retry_positions(csr, pos, flt.exclude_dst, flt.ts_upper,
+                              edge_ts)
     return _gather(csr, pos, (deg > 0)[:, None])
 
 
 def uniform_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                    generator: torch.Generator,
-                   flt: Optional[SampleFilter] = None):
+                   flt: Optional[SampleFilter] = None,
+                   edge_ts: Optional[torch.Tensor] = None):
     """Uniform with replacement.  Returns (nbr_ids [b,k], edge_ids [b,k]).
 
-    With an ``exclude_dst`` filter it draws ``conf.sampling_retry_times +
-    1`` candidate rounds per slot, as the JAX package does."""
+    With a filter it draws ``conf.sampling_retry_times + 1`` candidate
+    rounds per slot, as the JAX package does."""
     shape = (seeds.shape[0], k)
-    if _exclusion(flt) is not None:
+    if _retries(flt):
         shape += (conf.sampling_retry_times + 1,)
     u = torch.rand(shape, generator=generator, device=seeds.device,
                    dtype=torch.float32)
-    return uniform_draw(csr, seeds, u, flt)
+    return uniform_draw(csr, seeds, u, flt, edge_ts)
 
 
 def _arange(k: int, like: torch.Tensor) -> torch.Tensor:
@@ -207,11 +240,15 @@ def weighted_positions(start: torch.Tensor, end: torch.Tensor,
 def excluded_weighted_positions(start: torch.Tensor, end: torch.Tensor,
                                 cum: torch.Tensor, u: torch.Tensor,
                                 rel: torch.Tensor, present: torch.Tensor,
-                                max_degree: int) -> torch.Tensor:
+                                max_degree: int,
+                                mass: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
     """:func:`weighted_positions` with the excluded slot's mass removed:
     ``u`` is drawn over the rest of the row's CDF and shifted past the
     slot's interval, then stepped off the slot where a float boundary lands
-    on it (``weighted_sample:277-296``, the same f32 arithmetic)."""
+    on it (``weighted_sample:277-296``, the same f32 arithmetic).  ``mass``
+    [b] is the CDF's value at ``end - 1`` (the temporal prefix's, in
+    ops/temporal.py); without it a whole row's, 1."""
     e = cum.shape[0]
     last = torch.clamp(end - start, min=1) - 1
     relc = torch.minimum(rel, last)
@@ -219,7 +256,7 @@ def excluded_weighted_positions(start: torch.Tensor, end: torch.Tensor,
     at_x = cum[torch.clamp(at, 0, e - 1)]
     prev_x = torch.where(relc > 0, cum[torch.clamp(at - 1, 0, e - 1)], 0.0)
     w_x = torch.where(present, at_x - prev_x, 0.0)
-    u2 = u * (1.0 - w_x)[:, None]
+    u2 = u * ((1.0 if mass is None else mass) - w_x)[:, None]
     t = torch.where(u2 < prev_x[:, None], u2, u2 + w_x[:, None])
     pos = segmented_searchsorted(cum, start[:, None], end[:, None], t,
                                  side="left", iters=bisect_iters(max_degree))
@@ -258,7 +295,6 @@ def weighted_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
     """Inverse-CDF sampling with replacement: a neighbour's probability
     follows its edge weight (``edge_weight``) or its own in-degree
     (``in_degree``).  A filter removes the excluded neighbour's mass."""
-    _exclusion(flt)
     u = torch.rand((seeds.shape[0], k), generator=generator,
                    device=seeds.device, dtype=torch.float32)
     return weighted_draw(csr, seeds, u, by, flt)
@@ -321,7 +357,6 @@ def without_replacement_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                                generator: torch.Generator,
                                flt: Optional[SampleFilter] = None):
     """Uniform without replacement over each seed's (filtered) row."""
-    _exclusion(flt)
     r = torch.rand((k, seeds.shape[0]), generator=generator,
                    device=seeds.device, dtype=torch.float32)
     return wor_draw(csr, seeds, r, flt)

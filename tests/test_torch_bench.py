@@ -266,6 +266,47 @@ def test_the_rgcn_plan_makes_no_host_tensor_and_reads_nothing_back(
     assert np.isfinite(loss.item())
 
 
+@pytest.mark.parametrize("strategy", ["edge_weight", "random", "in_degree",
+                                      "random_without_replacement", "topk",
+                                      "full"])
+def test_the_temporal_plan_makes_no_host_tensor_and_reads_nothing_back(
+        strategy, monkeypatch):
+    """The same guard over the temporal family: ``source_e`` with its
+    timestamps, the endpoint view, every temporal strategy's cut-off
+    bisection and draw (ops/temporal.py), ``hop_ts``, and family_scale's
+    K-step function."""
+    from graph_learn_tpu_torch.examples import family_scale as fs
+    cfg = dict(tbench.CFG_SMALL, n_nodes=400, avg_degree=6, feat_dim=8,
+               hidden=16, classes=5, batch=32, scan_steps=2)
+    with both_confs(storage_profile="full"):
+        g, dec = fs.build_temporal_graph(cfg, "cpu")
+        q = fs.temporal_query(g, 32, (4, 2))
+        tables = q.device_tables("cpu")
+        seed = g.E("rel").batch(32).alias("ev")
+        (seed.outV().alias("src").outV("rel").sample(4).by(strategy)
+         .alias("h1").outE("rel").sample(3).by(strategy).alias("e2"))
+        sq = seed.values()
+        stables = sq.device_tables("cpu")
+    model = EgoGraphSAGE([8, 16, 5], dec, agg_type="gcn", device="cpu")
+    step = fs.TemporalSteps(q, tables, model,
+                            tbench.make_optimizer(model,
+                                                  torch.device("cpu")),
+                            cfg, torch.Generator().manual_seed(0), False)
+    calls = []
+    _guard_host_tensors(monkeypatch, calls)
+    seeds = torch.randint(0, 2400, (32,), dtype=torch.int32)
+    out = _execute(sq, stables, seeds, torch.Generator().manual_seed(1))
+    loss = step()
+    monkeypatch.undo()
+    assert calls == []
+    # a full hop answers SparseNodes [rows, cap], on an edge hop too
+    if strategy == "full":
+        assert out["e2"].ids.shape == (128, 3)
+    else:
+        assert out["e2"].timestamps.shape == (32, 4, 3)
+    assert np.isfinite(loss.item())
+
+
 def _lines(fn):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):

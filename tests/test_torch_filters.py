@@ -376,15 +376,46 @@ def test_hub_rows_are_filtered_where_the_jax_package_refuses(strategy):
             assert np.unique(ids[i]).size == k
 
 
-def test_a_ts_upper_filter_is_refused_through_every_entry():
-    a = _arrays(seed=9)
-    _, tcsr = _csrs(a)
-    seeds = torch.arange(4, dtype=torch.int32)
-    flt = sampling.SampleFilter(exclude_dst=seeds, ts_upper=torch.zeros(4))
-    with pytest.raises(InvalidArgumentError, match="ts_upper"):
-        sampling.uniform_draw(tcsr, seeds, torch.zeros(4, 3, 6), flt=flt)
-    with pytest.raises(InvalidArgumentError, match="ts_upper"):
-        sampling.wor_draw(tcsr, seeds, torch.zeros(3, 4), flt=flt)
+def test_a_ts_upper_filter_composes_with_exclusion_through_every_entry():
+    """``exclude_dst`` and ``ts_upper`` together, on JAX's draws:
+    ``random``'s rounds reject both (given the edge timestamps), and the
+    without-replacement draw removes the excluded slot and ignores the
+    bound, as the JAX package's samplers do."""
+    import types
+    from graph_learn_tpu.core import schema, store
+    from graph_learn_tpu_torch.core.schema import Decoder
+    from graph_learn_tpu_torch.core.store import EdgeTable
+    from torch_parity import temporal_arrays, temporal_table
+    a = temporal_arrays(n=40, seed=9)
+    jet = temporal_table(types.SimpleNamespace(
+        Decoder=schema.Decoder, EdgeTable=store.EdgeTable), a).device()
+    tet = temporal_table(types.SimpleNamespace(
+        Decoder=Decoder, EdgeTable=EdgeTable), a).device("cpu")
+    rng = np.random.default_rng(2)
+    seeds = rng.integers(0, 36, 16).astype(np.int32)
+    excl = np.array([int(a["dst"][a["src"] == s][0]) if (a["src"] == s).any()
+                     else 0 for s in seeds], np.int32)
+    bound = rng.integers(0, 400, 16).astype(np.int32)
+    jflt = jax_sampling.SampleFilter(exclude_dst=jnp.asarray(excl),
+                                     ts_upper=jnp.asarray(bound))
+    tflt = sampling.SampleFilter(exclude_dst=torch.from_numpy(excl),
+                                 ts_upper=torch.from_numpy(bound))
+    key, k = jax.random.key(3), 5
+    want = jax_sampling.uniform_sample(jet.out, jnp.asarray(seeds), k, key,
+                                       flt=jflt, edge_ts=jet.timestamps)
+    u = np.array(jax.random.uniform(
+        key, (16, k, conf.sampling_retry_times + 1)))
+    got = sampling.uniform_draw(tet.out, torch.from_numpy(seeds),
+                                torch.from_numpy(u), flt=tflt,
+                                edge_ts=tet.timestamps)
+    _equal(got, want)
+    want = jax_sampling.without_replacement_sample(
+        jet.out, jnp.asarray(seeds), k, key, flt=jflt)
+    r = np.stack([np.array(jax.random.uniform(kj, (16,)))
+                  for kj in jax.random.split(key, k)])
+    got = sampling.wor_draw(tet.out, torch.from_numpy(seeds),
+                            torch.from_numpy(r), flt=tflt)
+    _equal(got, want)
 
 
 def test_uniform_draw_refuses_a_u_of_the_wrong_rank():

@@ -271,16 +271,64 @@ def test_an_empty_adjacency_fills_every_slot(strategy):
 
 
 @pytest.mark.parametrize("strategy", sorted(sampling.BUILTIN_STRATEGIES))
-def test_filters_are_refused_until_they_are_ported(strategy):
-    # exclude_dst filters are ported (tests/test_torch_filters.py); the
-    # temporal ts_upper bound waits for the temporal samplers
-    from graph_learn_tpu_torch.errors import InvalidArgumentError
-    _, _, tcsr = _csrs(n=30)
-    args = () if strategy == "full" else (torch.Generator().manual_seed(0),)
-    flt = sampling.SampleFilter(ts_upper=torch.zeros(4))
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        sampling.STRATEGY_FNS[strategy](
-            tcsr, torch.arange(4, dtype=torch.int32), 3, *args, flt=flt)
+def test_a_ts_upper_filter_matches_jax(strategy):
+    """``SampleFilter(ts_upper=...)`` on each built-in strategy, on JAX's
+    own draws: ``random`` rejects candidates whose edge is not strictly
+    earlier than the bound (retry rounds, given the edge timestamps), the
+    others read only ``exclude_dst``, as JAX's ``_filter_guard`` does."""
+    import jax.numpy as jnp
+    from graph_learn_tpu.core import schema, store
+    from graph_learn_tpu_torch.core.schema import Decoder
+    from graph_learn_tpu_torch.core.store import EdgeTable
+    from graph_learn_tpu_torch.config import conf
+    from torch_parity import temporal_arrays, temporal_table
+    import types
+    a = temporal_arrays(n=40, seed=3)
+    jet = temporal_table(types.SimpleNamespace(
+        Decoder=schema.Decoder, EdgeTable=store.EdgeTable), a).device()
+    tet = temporal_table(types.SimpleNamespace(
+        Decoder=Decoder, EdgeTable=EdgeTable), a).device("cpu")
+    rng = np.random.default_rng(1)
+    seeds = rng.integers(0, 40, 32).astype(np.int32)
+    seeds[:2] = [39, 38]  # zero-degree seeds
+    bound = rng.integers(0, 400, 32).astype(np.int32)
+    jflt = jax_sampling.SampleFilter(ts_upper=jnp.asarray(bound))
+    tflt = sampling.SampleFilter(ts_upper=torch.from_numpy(bound))
+    js, ts_ = jnp.asarray(seeds), torch.from_numpy(seeds)
+    key, k = jax.random.key(5), 6
+    if strategy == "random":
+        want = jax_sampling.uniform_sample(jet.out, js, k, key, flt=jflt,
+                                           edge_ts=jet.timestamps)
+        u = np.array(jax.random.uniform(
+            key, (32, k, conf.sampling_retry_times + 1)))
+        got = sampling.uniform_draw(tet.out, ts_, torch.from_numpy(u),
+                                    flt=tflt, edge_ts=tet.timestamps)
+        # every drawn edge that passed a round is earlier than its bound
+        eids = got[1].numpy()
+        late = (eids >= 0) & (a["ts"][np.maximum(eids, 0)] - a["ts"].min()
+                              >= bound[:, None])
+        assert late.mean() < 0.5
+    elif strategy in ("edge_weight", "in_degree"):
+        want = jax_sampling.weighted_sample(jet.out, js, k, key, by=strategy,
+                                            flt=jflt)
+        u = np.array(jax.random.uniform(key, (32, k)))
+        got = sampling.weighted_draw(tet.out, ts_, torch.from_numpy(u),
+                                     strategy, flt=tflt)
+    elif strategy == "random_without_replacement":
+        want = jax_sampling.without_replacement_sample(jet.out, js, k, key,
+                                                       flt=jflt)
+        r = np.stack([np.array(jax.random.uniform(kj, (32,)))
+                      for kj in jax.random.split(key, k)])
+        got = sampling.wor_draw(tet.out, ts_, torch.from_numpy(r), flt=tflt)
+    elif strategy == "topk":
+        want = jax_sampling.topk_sample(jet.out, js, k, flt=jflt)
+        got = sampling.topk_sample(tet.out, ts_, k, flt=tflt)
+    else:
+        want = jax_sampling.full_sample(jet.out, js, k, flt=jflt)
+        got = sampling.full_sample(tet.out, ts_, k, flt=tflt)
+    assert len(got) == len(want)
+    for g_, w in zip(got, want):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w))
 
 
 def test_segmented_searchsorted_matches_jax():

@@ -272,3 +272,64 @@ def torch_u2i_graph(a: Dict[str, np.ndarray]):
     for t in edges:
         g.add_edge_table(t)
     return g, udec, idec
+
+
+def temporal_arrays(n: int = 80, avg_degree: int = 6, seed: int = 0,
+                    isolated: int = 4, ts_range: int = 400,
+                    t0: int = 1_600_000_000,
+                    edge_dim: int = 3) -> Dict[str, np.ndarray]:
+    """``numpy_graph``'s arrays plus int64 epoch-style edge timestamps in
+    [t0, t0 + ts_range) (narrow enough that rows hold ties) and
+    ``edge_dim`` float edge features."""
+    a = numpy_graph(n=n, avg_degree=avg_degree, seed=seed, isolated=isolated)
+    rng = np.random.default_rng(seed + 7)
+    e = a["src"].size
+    a["ts"] = t0 + rng.integers(0, ts_range, e)
+    a["edge_feats"] = rng.standard_normal((e, edge_dim), np.float32)
+    return a
+
+
+def temporal_table(mod, a: Dict[str, np.ndarray], name: str = "rel",
+                   rows=slice(None)):
+    """A weighted, timestamped item -> item edge table of ``a`` (the rows
+    ``rows``) built with ``mod``'s EdgeTable / Decoder."""
+    n = a["feats"].shape[0]
+    dec = mod.Decoder(weighted=True, timestamped=True,
+                      attr_types=["float"] * a["edge_feats"].shape[1])
+    return mod.EdgeTable(name, "item", "item", dec, src=a["src"][rows],
+                         dst=a["dst"][rows], num_src_nodes=n,
+                         num_dst_nodes=n, weights=a["weights"][rows],
+                         timestamps=a["ts"][rows],
+                         float_attrs=a["edge_feats"][rows])
+
+
+def jax_temporal_graph(a: Dict[str, np.ndarray], events=None):
+    """The JAX package's Graph over ``temporal_arrays``: "item" nodes, the
+    timestamped "rel" edges and, given ``events`` (a slice of the rows),
+    an "ev" table of those rows; the ts bases unified as ``Graph.init``
+    does."""
+    import types
+
+    from graph_learn_tpu.core import schema, store
+    g, dec = jax_graph(a)
+    mod = types.SimpleNamespace(Decoder=schema.Decoder,
+                                EdgeTable=store.EdgeTable)
+    tables = [temporal_table(mod, a)]
+    if events is not None:
+        tables.append(temporal_table(mod, a, "ev", events))
+    for t in tables:
+        g.store.add_edge_table(t)
+        g._edge_decoders[t.type_name] = t.decoder
+    store.unify_ts_bases(g.store)
+    return g, dec
+
+
+def torch_temporal_graph(a: Dict[str, np.ndarray], events=None):
+    """The port's Graph over the same tables, on the CPU."""
+    import graph_learn_tpu_torch as glt
+
+    g, dec = torch_graph(a)
+    g.add_edge_table(temporal_table(glt, a))
+    if events is not None:
+        g.add_edge_table(temporal_table(glt, a, "ev", events))
+    return g, dec
