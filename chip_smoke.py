@@ -136,7 +136,25 @@ Phases (any failure exits non-zero before the result line):
    versions (15 gather_rows, 9 gat_block forwards and 9 backwards, every
    product on the tensor cores, the forwards on wgmma), LocalTrainer.train
    for 3 epochs with those launches per step, every loss finite, step wall,
-   device-busy share and the test link-prediction accuracy.
+   device-busy share and the test link-prediction accuracy;
+16. (run inside phase 11, on its weighted 61.25M-edge "minimal" store,
+   before that store is freed) run the walks family
+   (examples/family_scale.py run_walks): deepwalk and node2vec (p 0.5,
+   q 2), 1 024 walks of 20 a batch, K = 20 batches a call, eager and in
+   one CUDA graph from the same generator seed: the walks bit-equal,
+   transitions/s, ms a batch, device-busy share and kernels per replayed
+   batch; one batch held on the host to the edge table's own arrays (every
+   step an edge, column 0 the seeds, -1 only at a dead end and after it)
+   and node2vec's return / neighbour-of-previous / other steps within a
+   chi-square bound of their expectation; then a random_walk query's
+   feature rows materialised once through its DeferredRows (one
+   gather_rows launch, bit-equal to the plain version) and Kernel 1 timed
+   cold at those 20 480 rows;
+17. run the node2vec, UltraGCN and TGN examples at their defaults (node2vec
+   walks on the example's undirected store held to its edges and to their
+   step shares first): the label coherence above 1/7, Recall@20 above that
+   of random scores, the pairwise AUC above 0.5, and TGN's item features
+   on Kernel 1, two launches a step.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -150,13 +168,17 @@ per replayed K-step step on each route and
 ``tgat_trainer_launches_per_step``, Kernel 3 its
 ``tgat_launches_per_step`` / ``tgat_bwd_launches_per_step``, the test
 accuracy and its times at the EgoTGAT shapes, ``ms_tgat0a`` ... with
-their bounds and plain times).
+their bounds and plain times; Kernel 1 the walk query's ``walks_launches``
+with ``cold_ms_62m_20480`` and its bound, plain and library times, and
+the examples' ``tgn_launches_per_step``, ``node2vec_coherence``,
+``ultra_gcn_recall_at_20`` and ``tgn_pairwise_auc``).
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -310,7 +332,8 @@ def check_bounds(rows):
     pairs = (("ms", "bound_ms"), ("bwd_ms", "bwd_bound_ms"),
              ("bar_ms", "bar_bound_ms"), ("cold_ms_62m", "bound_ms_62m"),
              ("ms_sum", "bound_ms_sum"), ("cold_ms_rgcn", "bound_ms_rgcn"))
-    pairs += tuple(pair for m in GATHER_PATH_ROWS + RGCN_GATHER_ROWS
+    pairs += tuple(pair for m in (GATHER_PATH_ROWS + RGCN_GATHER_ROWS
+                                  + WALK_GATHER_ROWS)
                    for pair in (("ms_%d" % m, "bound_ms_%d" % m),
                                 ("cold_ms_62m_%d" % m,
                                  "bound_ms_62m_%d" % m)))
@@ -3241,6 +3264,302 @@ def tgat_path(torch, card, gather, gat):
                           "tgat_test_accuracy": acc}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the walks family at the weighted 61.25M-edge store
+# ---------------------------------------------------------------------------
+
+# Kernel 1's row count on the walk path: a batch of 1 024 walks of 20
+WALK_GATHER_ROWS = (20_480,)
+# a share check fails below this chi-square p-value
+WALK_SHARE_P = 1e-4
+
+
+def edge_keys(src, dst, n):
+    """The edges of the host arrays ``src`` / ``dst`` as sorted int64 keys
+    ``src * n + dst`` (repeated edges repeated): the reference the walk
+    checks hold a walk to, apart from the port's CSR and membership code."""
+    return np.sort(np.asarray(src, np.int64) * n + np.asarray(dst, np.int64))
+
+
+def key_row(keys, n, v):
+    """The out-neighbours of ``v`` (with repeats, ascending) in ``keys``."""
+    v = int(v)  # an int32 id times n overflows int32
+    lo, hi = np.searchsorted(keys, [v * n, (v + 1) * n])
+    return keys[lo:hi] - v * n
+
+
+def walk_invariants(walks, seeds, keys, n):
+    """Hold a batch of walks [b, L] (numpy) to the edges ``keys``: column 0
+    is ``seeds``; every step (w[:, t], w[:, t + 1]) between two ids is an
+    edge; a walker emits -1 only at a node with no out-edge, and only -1
+    after that.  Returns (transitions checked, walkers that got stuck)."""
+    check(np.array_equal(walks[:, 0], seeds), "walks: column 0 is not the "
+          "seeds")
+    a, b = walks[:, :-1], walks[:, 1:]
+    live = (a >= 0) & (b >= 0)
+    k = a[live].astype(np.int64) * n + b[live]
+    pos = np.minimum(np.searchsorted(keys, k), keys.size - 1)
+    check(bool((keys[pos] == k).all()), "walks: %d of %d steps are not "
+          "edges" % (int((keys[pos] != k).sum()), k.size))
+    check(not bool(((a < 0) & (b >= 0)).any()), "walks: a walker moved "
+          "again after a -1")
+    stops = a[(a >= 0) & (b < 0)]
+    degs = np.searchsorted(keys, (stops.astype(np.int64) + 1) * n) \
+        - np.searchsorted(keys, stops.astype(np.int64) * n)
+    check(not bool(degs.any()), "walks: a walker stopped at a node with "
+          "out-edges")
+    return int(live.sum()), int(stops.size)
+
+
+def node2vec_shares(walks, keys, n, p, q, tries):
+    """(observed, expected) counts of node2vec steps that return to the
+    previous node, go to a neighbour of it, or elsewhere, over every step
+    of ``walks`` [b, L] after the first (numpy, the edges ``keys``).  A
+    proposal y of the current node's d out-edges, of weight w(y) / max_w =
+    r, is taken with probability r/d (1 - (1 - a)^tries) / a + (1 - a)^(tries
+    - 1) (1 - r)/d, with ``a`` the row's mean r: accepted at some try, or
+    the last proposal after every try was rejected."""
+    inv = np.array([1.0 / p, 1.0, 1.0 / q])
+    r_of = inv / inv.max()
+    obs, exp = np.zeros(3), np.zeros(3)
+    for t in range(1, walks.shape[1] - 1):
+        for prev, cur, nxt in walks[:, t - 1:t + 2]:
+            if cur < 0:
+                continue
+            row = key_row(keys, n, cur)
+            if row.size == 0:
+                continue
+            prow = key_row(keys, n, prev)
+            cls = np.where(row == prev, 0, np.where(np.isin(row, prow), 1, 2))
+            r, d = r_of[cls], row.size
+            a = r.mean()
+            pr = (r / d * (1 - (1 - a) ** tries) / a
+                  + (1 - a) ** (tries - 1) * (1 - r) / d)
+            exp += np.bincount(cls, weights=pr, minlength=3)
+            obs[0 if nxt == prev else 1 if np.isin(nxt, prow) else 2] += 1
+    return obs, exp
+
+
+def share_p_value(obs, exp):
+    """The chi-square p-value of ``obs`` against ``exp`` over the classes
+    that can occur (1 or 2 degrees of freedom: erfc and exp are the chi-
+    square tails); 0 where a class that cannot occur did."""
+    if bool((obs[exp == 0] > 0).any()):
+        return 0.0
+    m = exp > 0
+    stat = float(((obs[m] - exp[m]) ** 2 / exp[m]).sum())
+    dof = int(m.sum()) - 1
+    if dof <= 0:
+        return 1.0
+    return (math.erfc(math.sqrt(stat / 2)) if dof == 1
+            else math.exp(-stat / 2))
+
+
+def walks_path(torch, card, gather, graph):
+    """``examples/family_scale.py``'s walks family on the weighted 61.25M-
+    edge store that the bench phase built under the "minimal" profile: for
+    deepwalk and node2vec (p 0.5, q 2) the K-batch form eager and captured
+    from the same generator seed, the walks bit for bit the same, rates,
+    device busy and kernels per replayed batch; one batch held to the host
+    edge arrays (``walk_invariants``) and node2vec's step shares to their
+    expectation; then a ``random_walk`` query's feature rows materialised
+    once through its ``DeferredRows`` (one gather_rows launch, bit for bit
+    against the plain version, timed cold).  Returns the kernels line's
+    fields."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.examples import family_scale as fs
+    from graph_learn_tpu_torch.gsl.compile import _execute
+    from graph_learn_tpu_torch.ops.walk import NUM_TRIES
+
+    cfg = bench.CFG_SCALE
+    n, b, K = cfg["n_nodes"], cfg["batch"], cfg["scan_steps"]
+    length = fs.walk_len(False)
+    g, _ = graph
+    host = g.store.edge_table("rel")
+    csr = host.device("cuda").out
+    check(csr.nbr_ids_sorted is None and host.num_edges == 61_250_000,
+          "walks: not the minimal-profile 61.25M-edge store")
+    eager = fs.run_walks(cfg, device="cuda", capture=False, graph=graph)
+    captured = fs.run_walks(cfg, device="cuda", capture=True, graph=graph)
+    t0 = time.perf_counter()
+    keys = edge_keys(host.src, host.dst, n)
+    keys_s = time.perf_counter() - t0
+    for label, p, q in fs.WALKS:
+        e, c = eager[label], captured[label]
+        se, sc = e["step"], c["step"]
+        check(torch.equal(se.walks, sc.walks) and int(se.acc) == int(sc.acc)
+              and torch.equal(se.seeds[0], sc.graph_seeds[0]),
+              "walks %s: the captured batches differ from the eager ones "
+              "from the same generator seed" % label)
+        walks0 = sc.walks[0].cpu().numpy()
+        seeds0 = sc.graph_seeds[0].cpu().numpy()
+        steps, stuck = walk_invariants(walks0, seeds0, keys, n)
+        work, ms = device_work_per_call(torch, sc, calls=2)
+        per_batch = sum(c_ for name, c_ in work.items()
+                        if not name.startswith("Memset")) / K
+        busy = sum(c_ * ms[k] for k, c_ in work.items()) / K
+        check(not any(k_ in name for name in work for k_ in BENCH_KERNELS),
+              "walks %s: a kernel of the port ran: %s" % (label, work))
+        extra = ""
+        if p != 1.0 or q != 1.0:
+            obs, exp = node2vec_shares(walks0, keys, n, p, q, NUM_TRIES)
+            pv = share_p_value(obs, exp)
+            check(pv > WALK_SHARE_P, "walks %s: return / neighbour / other "
+                  "steps %s, expected %s (p = %g)" % (label, obs, exp, pv))
+            extra = ("; steps returning / to a neighbour of the previous "
+                     "node / elsewhere %s, expected %s (chi-square p %.3g)"
+                     % (obs.astype(int).tolist(),
+                        [round(float(x), 2) for x in exp], pv))
+        log("walks %s (p %g, q %g; length %d, b %d, K = %d, %d batches after "
+            "1 warm-up call; minimal profile, membership by scan): eager "
+            "%.4f ms a batch (%.4g transitions/s), CUDA graph %.4f ms a "
+            "batch (%.4g transitions/s, device busy %.4f ms, %.1f%%, %.1f "
+            "kernels a replayed batch); capture %.3f s, graph pool %.1f MB; "
+            "%d walks bit-equal eager and captured; one batch on the host "
+            "edge arrays: %d steps are edges, column 0 the seeds, %d walkers "
+            "stuck at dead ends and -1 after%s; card: %s"
+            % (label, p, q, length, b, K, c["rounds"] * K, e["batch_ms"],
+               e["transitions_per_s"], c["batch_ms"],
+               c["transitions_per_s"], busy, 100.0 * busy / c["batch_ms"],
+               per_batch, c["capture_s"], c["graph_pool_bytes"] / 1e6,
+               K * b, steps, stuck, extra, card))
+        for kname, kms in sorted(ms.items(), key=lambda kv: -kv[1]
+                                 * work[kv[0]])[:5]:
+            log("  device %.4f ms per replayed batch: %s"
+                % (work[kname] * kms / K, kname[:90]))
+    log("walks: host edge keys sorted in %.1f s" % keys_s)
+    del eager, captured
+
+    # the walk query's feature rows: Kernel 1 at b * length rows
+    q = (g.V("item").batch(b).alias("src")
+         .random_walk(length, p=0.5, q=2.0, edge_type="rel").alias("walks")
+         .values())
+    tables = q.device_tables()
+    table = tables["nodes"]["item"].float_attrs
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    seeds = torch.randint(0, n, (b,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    out = _execute(q, tables, seeds, gen)["walks"]
+    rows = out.float_attrs
+    check(tuple(out.ids.shape) == (b, length) and torch.equal(
+        rows.idx, torch.clamp(out.ids, min=0)), "walk query: ids %s, rows "
+        "not at max(ids, 0)" % (tuple(out.ids.shape),))
+    gather.LAUNCHES.reset()
+    feats = rows.materialize()
+    torch.cuda.synchronize()
+    launches = gather.LAUNCHES.count
+    flat = rows.idx.reshape(-1)
+    check(launches == 1 and torch.equal(
+        feats.reshape(-1, table.shape[1]),
+        gather.gather_rows_plain(table, flat)),
+          "walk query: %d gather_rows launches materialising the rows, or "
+          "rows not bit-equal to gather_rows_plain" % launches)
+    log("walk query (random_walk(%d, p 0.5, q 2) of %d seeds): %d ids, %d "
+        "of them -1, rows [%d, %d] %s materialised by 1 gather_rows launch, "
+        "bit-equal to gather_rows_plain"
+        % (length, b, out.ids.numel(), int((out.ids < 0).sum()),
+           flat.numel(), table.shape[1], table.dtype))
+    shapes = gather_shapes(torch, gather, table, gen, "on the walk path",
+                           rows=WALK_GATHER_ROWS,
+                           given={flat.numel(): flat.to(torch.int32)},
+                           yardsticks=WALK_GATHER_ROWS)
+    fields = {"walks_launches": launches}
+    for m, f in shapes.items():
+        fields.update({
+            "cold_ms_62m_%d" % m: f["ms"], "bound_ms_62m_%d" % m:
+            f["bound_ms"], "plain_cold_ms_62m_%d" % m: f["plain_ms"],
+            "library_cold_ms_62m_%d" % m: f["library_ms"],
+            "kernel_route_62m_%d" % m: f["route"]})
+    return {"gather_rows": fields}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the node2vec, UltraGCN and TGN examples
+# ---------------------------------------------------------------------------
+
+# node2vec walks held to their step shares on the example's store
+N2V_SHARE_WALKS = 512
+
+
+def examples_path(torch, card, gather):
+    """``examples/node2vec.py``, ``ultra_gcn.py`` and ``tgn.py`` at their
+    defaults on the card, each quality number above chance: the label
+    coherence above 1/7, Recall@20 above that of random scores, the
+    pairwise AUC above 0.5; TGN's item features on Kernel 1, two launches
+    a step.  Before them, node2vec walks (the example's p = q = 0.25) on
+    the example's undirected store, held to its edges and to their step
+    shares.  Returns the kernels line's fields."""
+    from graph_learn_tpu_torch.examples import node2vec as n2v
+    from graph_learn_tpu_torch.examples import tgn, ultra_gcn
+    from graph_learn_tpu_torch.examples.bipartite_sage import u2i_arrays
+    from graph_learn_tpu_torch.ops import walk as walk_ops
+
+    a = n2v.cora_like()
+    g, _ = n2v.build_graph(a, "cuda")
+    et = g.store.edge_table("relation")
+    n = g.store.node_table("item").num_nodes
+    keys = edge_keys(et.src, et.dst, n)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    seeds = torch.randint(0, n, (N2V_SHARE_WALKS,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    walks = walk_ops.node2vec_walk(et.device("cuda").out, seeds, 10, gen,
+                                   p=0.25, q=0.25).cpu().numpy()
+    steps, stuck = walk_invariants(walks, seeds.cpu().numpy(), keys, n)
+    obs, exp = node2vec_shares(walks, keys, n, 0.25, 0.25,
+                               walk_ops.NUM_TRIES)
+    pv = share_p_value(obs, exp)
+    check(pv > WALK_SHARE_P and obs[0] > 0 and obs[1] > 0,
+          "node2vec shares on the example store: %s, expected %s (p = %g)"
+          % (obs, exp, pv))
+    log("node2vec walks on the example's undirected store (%d nodes, %d "
+        "edges both ways; %d walks of 10, p = q = 0.25): %d steps are "
+        "edges, %d walkers stuck; steps returning / to a neighbour of the "
+        "previous node / elsewhere %s, expected %s (chi-square p %.3g)"
+        % (n, et.num_edges, N2V_SHARE_WALKS, steps, stuck,
+           obs.astype(int).tolist(), [round(float(x), 1) for x in exp], pv))
+
+    t0 = time.perf_counter()
+    coherence = n2v.main([])
+    log("node2vec example (5 epochs, batch 128, walks of 10, window 5, 5 "
+        "negatives; nothing cut): label coherence %.3f (chance %.3f) in "
+        "%.1f s; card: %s" % (coherence, 1.0 / n2v.CLASSES,
+                              time.perf_counter() - t0, card))
+    check(coherence > 1.0 / n2v.CLASSES, "node2vec: label coherence %.3f "
+          "not above chance" % coherence)
+
+    t0 = time.perf_counter()
+    recall = ultra_gcn.main([])
+    u2i = u2i_arrays(feat_dim=16)
+    rng = np.random.default_rng(0)
+    chance = ultra_gcn.recall_at(
+        rng.standard_normal((u2i["u_feat"].shape[0], 64)),
+        rng.standard_normal((u2i["i_feat"].shape[0], 64)),
+        u2i["ui_src"], u2i["ui_dst"])
+    log("ultra_gcn example (400 steps of batch 512, 20 negatives; nothing "
+        "cut): Recall@20 %.4f, random scores %.4f, in %.1f s; card: %s"
+        % (recall, chance, time.perf_counter() - t0, card))
+    check(recall > chance, "ultra_gcn: Recall@20 %.4f not above random "
+          "scores' %.4f" % (recall, chance))
+
+    gather.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    auc = tgn.main([])
+    launches = gather.LAUNCHES.count
+    # 3 epochs of 31 batches of 128 of the 4 000 events, 2 gathers a step
+    tgn_steps = 3 * len(range(0, 4000 - 128, 128))
+    log("tgn example (3 epochs, batch 128, 5 recency neighbours; nothing "
+        "cut): pairwise AUC of the last quarter %.3f in %.1f s; %d "
+        "gather_rows launches over %d steps; card: %s"
+        % (auc, time.perf_counter() - t0, launches, tgn_steps, card))
+    check(auc > 0.5, "tgn: pairwise AUC %.3f not above 0.5" % auc)
+    check(launches == 2 * tgn_steps, "tgn: %d gather_rows launches, want "
+          "2 a step over %d steps" % (launches, tgn_steps))
+    return {"gather_rows": {"tgn_launches_per_step": launches / tgn_steps,
+                            "node2vec_coherence": coherence,
+                            "ultra_gcn_recall_at_20": recall,
+                            "tgn_pairwise_auc": auc}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3305,9 +3624,10 @@ def main() -> int:
         scale_rows, scale_graph = bench_path(
             torch, card, bench.CFG_SCALE, None, gather, spmm, sweep,
             "cfg_scale")
-    et = scale_graph[0].store.edge_table("rel")
-    check(et.weights is not None and et.num_edges == 61_250_000,
-          "bench cfg_scale: not the weighted 61.25M-edge graph")
+        et = scale_graph[0].store.edge_table("rel")
+        check(et.weights is not None and et.num_edges == 61_250_000,
+              "bench cfg_scale: not the weighted 61.25M-edge graph")
+        walks_rows = walks_path(torch, card, gather, scale_graph)
     del scale_graph, et
     gc.collect()  # the weighted 61.25M-edge graph of the bench phase
     torch.cuda.empty_cache()
@@ -3326,8 +3646,9 @@ def main() -> int:
     # the example's own feature dtype
     with bench.bench_conf(storage_profile="full", feature_dtype="float32"):
         tgat_rows = tgat_path(torch, card, gather, gat)
-    for part in (bench_rows, scale_rows, bipartite_rows, rgcn_rows,
-                 temporal_rows, tgat_rows):
+        example_rows = examples_path(torch, card, gather)
+    for part in (bench_rows, scale_rows, walks_rows, bipartite_rows,
+                 rgcn_rows, temporal_rows, tgat_rows, example_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

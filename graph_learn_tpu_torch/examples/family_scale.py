@@ -1,10 +1,10 @@
-"""The model families at the 61M-edge scale: the rgcn, bipartite and
-temporal families.
+"""The model families at the 61M-edge scale: the rgcn, bipartite, temporal
+and walks families.
 
 Counterpart of ``examples/family_scale.py`` for its ``rgcn`` family
-(``run_rgcn:57-161``), its ``bipartite`` family (``run_bipartite:164-281``)
-and its ``temporal`` family (``run_temporal:283-368``), at
-``bench.CFG_SCALE``'s sizes.
+(``run_rgcn:57-161``), its ``bipartite`` family (``run_bipartite:164-281``),
+its ``temporal`` family (``run_temporal:283-368``) and its ``walks``
+family (``run_walks:371-420``), at ``bench.CFG_SCALE``'s sizes.
 
 **rgcn.** ``EgoRGCN([100, 256, 47], num_relations=2, num_bases=1)`` over
 2 450 000 "item" nodes with 100 float features and 47 classes, and two
@@ -52,6 +52,18 @@ cross-entropy on the src labels and Adam at 1e-3.  The src and hop-1 rows
 are gathered (Kernel 1) and the hop-2 rows reduced to their means straight
 from the table (Kernel 2): 2 + 1 launches a step.
 
+**walks.** Random-walk generation over the port bench's ``CFG_SCALE``
+store (``bench.build_graph``: 2 450 000 "item" nodes, 61 250 000
+weighted ``rel`` edges, the same draws as ``bench.py
+build_graph_inmem``) on the "minimal" profile: ``b`` seeds drawn
+uniformly, one walk of length 20 (8 when small) each, deepwalk (p = q = 1)
+and then node2vec (p 0.5, q 2; ``ops/walk.py``, its "neighbour of the
+previous node" test a scan of the row, the profile having no id-sorted
+copy).  The unit is the transition: ``b * (walk_len - 1)`` a batch, the
+unit the reference's random-walk operator produces.  The walks' ids only;
+no feature row is read, so no kernel of the port runs here (the GSL's
+``random_walk`` hands its feature rows to Kernel 1 as ``DeferredRows``).
+
 One call runs K = ``cfg["scan_steps"]`` steps, each on ``b`` seeds (node
 ids for rgcn, ``u-i`` / ``rel`` edge ids for bipartite / temporal) drawn
 with ``torch.randint`` on the card; on the card they are captured in one
@@ -61,12 +73,15 @@ its generator registered with the graph and its fused, capturable Adam,
 whose step is the family's own.  ``--small`` takes the port bench's
 ``CFG_SMALL`` sizes (the JAX script's ``--small`` under
 ``GLT_BENCH_SMALL=1``) with fanout [4, 2] (rgcn, temporal) or 4
-neighbours (bipartite).  The ``walks`` family is not yet ported.
+neighbours (bipartite).  ``WalkSteps`` is a ``MultiStep`` of K batches of
+walks (no model), each batch's sum of last ids accumulated as the JAX
+script does.
 
 Usage:  python -m graph_learn_tpu_torch.examples.family_scale [--small]
-            [--families rgcn,bipartite,temporal] [--cpu]
+            [--families rgcn,bipartite,temporal,walks] [--cpu]
 Prints one line per family: <family>  <eps>M edges/s  <ms> ms/step
-(warm <s>s).
+(warm <s>s); walks prints one line per walk: walks/<label>  <tps>M
+transitions/s  <ms> ms/batch (len <walk_len>, b <b>).
 
 Env:
   GLT_FEATURE_DTYPE    float32 | bfloat16 (default bfloat16)
@@ -98,10 +113,9 @@ from graph_learn_tpu_torch.gsl.dataset import Dataset
 from graph_learn_tpu_torch.nn.data import EgoGraph
 from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE, EgoRGCN
+from graph_learn_tpu_torch.ops import walk as walk_ops
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
-FAMILIES = ("rgcn", "bipartite", "temporal", "walks")
-PORTED = ("rgcn", "bipartite", "temporal")
 EDGE_TYPES = ("u-i", "i-i")
 TEMPORAL_HOPS = ("h1", "h2")
 # event timestamps of the temporal store: uniform in [0, TS_RANGE)
@@ -496,8 +510,107 @@ def run_temporal(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
     return out
 
 
+# (label, p, q) of run_walks:386
+WALKS = (("deepwalk", 1.0, 1.0), ("node2vec", 0.5, 2.0))
+
+
+def walk_len(small: bool) -> int:
+    """20, and 8 when small."""
+    return 8 if small else 20
+
+
+class WalkSteps(bench.MultiStep):
+    """K batches of walks a call: ``bench.MultiStep`` with no model, each
+    batch's ``b`` seeds drawn with ``torch.randint`` on the device, its
+    walks kept in ``walks[i]`` [b, walk_len] and the sum of their last ids
+    added to ``acc`` (``run_walks:390-398``)."""
+
+    def __init__(self, csr, n_nodes: int, b: int, length: int, p: float,
+                 q: float, K: int, generator: torch.Generator,
+                 capture: bool):
+        super().__init__(None, None, None, None,
+                         {"scan_steps": K, "n_nodes": n_nodes}, 1, generator,
+                         capture)
+        self.csr, self.b, self.walk_len, self.pq = csr, b, length, (p, q)
+        dev = generator.device
+        self.walks = torch.zeros((K, b, length), dtype=torch.int32,
+                                 device=dev)
+        self.acc = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def _body(self):
+        self.acc.zero_()
+        super()._body()
+
+    def _group(self, first: int):
+        seeds = torch.randint(0, self.n_nodes, (self.b,),
+                              generator=self.generator,
+                              device=self.generator.device,
+                              dtype=torch.int32)
+        self.seeds.append(seeds)
+        p, q = self.pq
+        w = walk_ops.node2vec_walk(self.csr, seeds, self.walk_len,
+                                   self.generator, p=p, q=q)
+        self.walks[first].copy_(w)
+        self.acc += w[:, -1].sum()
+
+
+def run_walks(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
+              capture: Optional[bool] = None,
+              graph: Optional[Tuple[Graph, Decoder]] = None,
+              seed: int = 0) -> Dict[str, object]:
+    """Build the store (or take ``graph``, a ``bench.build_graph`` result on
+    the same device, whose ``rel`` view is built under the "minimal"
+    profile), then for each walk of ``WALKS`` one warm-up call of
+    :class:`WalkSteps` and ``cfg["steps"] // K`` timed calls closed by one
+    read of ``acc``.  ``capture`` defaults to True on the card.
+
+    Returns the host draw and table seconds and bytes, and under each
+    label: rounds, transitions/s (``b * (walk_len - 1) * K * rounds /
+    dt``), ms a batch, the warm-up call's seconds, capture seconds and
+    graph-pool bytes (None when eager) and the ``step``."""
+    dev = resolve_device(device)
+    if capture is None:
+        capture = dev.type == "cuda"
+    b, K, length = cfg["batch"], cfg["scan_steps"], walk_len(small)
+    out: Dict[str, object] = {
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"), "capture": capture, "K": K,
+        "walk_len": length, "transitions_per_batch": b * (length - 1)}
+    t0 = time.perf_counter()
+    if graph is None:
+        graph = bench.build_graph(cfg, dev)
+    g, _ = graph
+    out["host_draw_s"] = time.perf_counter() - t0
+    host = g.store.edge_table("rel")
+    t0 = time.perf_counter()
+    csr = host.device(dev).out
+    bench._sync(dev)
+    out["tables_s"] = time.perf_counter() - t0
+    out["tables_bytes"] = nbytes(csr)
+    n, rounds = cfg["n_nodes"], max(cfg["steps"] // K, 1)
+    for i, (label, p, q) in enumerate(WALKS):
+        generator = torch.Generator(device=dev).manual_seed(seed + 1 + i)
+        step = WalkSteps(csr, n, b, length, p, q, K, generator, capture)
+        t0 = time.perf_counter()
+        step()
+        int(step.acc)
+        warm = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            step()
+        int(step.acc)  # the one read: a true barrier
+        dt = time.perf_counter() - t0
+        out[label] = dict(
+            p=p, q=q, rounds=rounds, warm_s=warm, step=step,
+            transitions_per_s=out["transitions_per_batch"] * K * rounds / dt,
+            batch_ms=dt / (K * rounds) * 1e3, capture_s=step.capture_s,
+            graph_pool_bytes=step.pool_bytes)
+    out["graph"] = graph
+    return out
+
+
 RUNNERS = {"rgcn": run_rgcn, "bipartite": run_bipartite,
-           "temporal": run_temporal}
+           "temporal": run_temporal, "walks": run_walks}
 
 
 def main(argv=None) -> int:
@@ -510,19 +623,24 @@ def main(argv=None) -> int:
     dev = resolve_device("cpu" if args.cpu else "cuda")
     families = args.families.split(",")
     for fam in families:
-        if fam not in FAMILIES:
+        if fam not in RUNNERS:
             raise InvalidArgumentError("unknown family %r" % fam)
-        if fam not in PORTED:
-            raise InvalidArgumentError("family %r is not yet ported" % fam)
     cfg = bench.CFG_SMALL if args.small else bench.CFG_SCALE
     dtype = os.environ.get("GLT_FEATURE_DTYPE", "bfloat16")
     for fam in families:
-        # rgcn samples only forward adjacencies: the minimal profile, as
-        # the JAX script runs it; bipartite's outNeg needs the full one's
-        # pools, temporal edge_weight its CDFs
-        profile = "minimal" if fam == "rgcn" else "full"
+        # rgcn and walks sample only forward adjacencies: the minimal
+        # profile, as the JAX script runs them; bipartite's outNeg needs
+        # the full one's pools, temporal edge_weight its CDFs
+        profile = "minimal" if fam in ("rgcn", "walks") else "full"
         with bench.bench_conf(feature_dtype=dtype, storage_profile=profile):
             r = RUNNERS[fam](cfg, args.small, dev)
+        if fam == "walks":
+            for label, _, _ in WALKS:
+                print("walks/%-9s %.1fM transitions/s  %.2f ms/batch "
+                      "(len %d, b %d)" % (label, r[label][
+                          "transitions_per_s"] / 1e6, r[label]["batch_ms"],
+                          r["walk_len"], cfg["batch"]), flush=True)
+            continue
         print("%-10s %.1fM edges/s  %.2f ms/step  (warm %.1fs)"
               % (fam, r["edges_per_s"] / 1e6, r["step_ms"], r["warm_s"]),
               flush=True)

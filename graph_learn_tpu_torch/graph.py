@@ -12,9 +12,12 @@ Timestamps: the JAX ``Graph.init`` calls ``unify_ts_bases`` once every
 table is loaded (``graph.py:143-144``).  The port has no ``init``: tables
 arrive one at a time, so ``add_edge_table`` calls it after each one, and
 the store is in one time domain whenever a caller can reach it.  An
-undirected edge type is ``add_edge_table`` and then
-``add_reverse_edge_table`` (``Graph.edge(directed=False)``,
-``graph.py:72-88``).
+undirected edge type is ``add_edge_table(table, directed=False)``
+(``Graph.edge(directed=False)``, ``graph.py:72-98``): within one node type
+the table holds its edges and then their swapped copies, with every
+payload repeated in the same order, as the JAX package loads the reversed
+source into the type itself; between two node types it is the table and
+its ``add_reverse_edge_table``.
 
 A ``Graph`` owns the device its views live on: the CUDA card unless the
 caller passes ``device="cpu"``.
@@ -44,11 +47,20 @@ class Graph:
         self.store.add_node_table(table)
         return self
 
-    def add_edge_table(self, table: EdgeTable) -> "Graph":
+    def add_edge_table(self, table: EdgeTable,
+                       directed: bool = True) -> "Graph":
         """Register ``table``, then move every timestamped table of the
-        store to one time base (``core/store.py unify_ts_bases``)."""
+        store to one time base (``core/store.py unify_ts_bases``).  With
+        ``directed=False`` the edges are traversable both ways: a table
+        within one node type is registered as ``[edges; swapped edges]``
+        (edge ids ``n..2n-1`` the swapped copies), a table between two
+        node types gets its ``<type>_reverse`` table."""
+        if not directed and table.src_type == table.dst_type:
+            table = _with_swapped_copy(table)
         self.store.add_edge_table(table)
         unify_ts_bases(self.store)
+        if not directed and table.src_type != table.dst_type:
+            self.add_reverse_edge_table(table.type_name)
         return self
 
     def add_reverse_edge_table(self, edge_type: str) -> "Graph":
@@ -56,21 +68,21 @@ class Graph:
         ``Graph.edge(..., directed=False)`` does: a ``<edge_type>_reverse``
         table of the same edges from dst to src (the same weights, labels,
         timestamps and features, in the same order).  Within one node type
-        the JAX package appends the reversed edges to the type itself,
-        which is not ported."""
+        the JAX package appends the reversed edges to the type itself:
+        ``add_edge_table(table, directed=False)``."""
         et = self.store.edge_table(edge_type)
         if et.src_type == et.dst_type:
             raise InvalidArgumentError(
                 "add_reverse_edge_table: %r joins %r to itself; an "
-                "undirected edge type within one node type is not yet "
-                "ported" % (edge_type, et.src_type))
-        ts = (None if et.timestamps is None
-              else et.timestamps * et.ts_scale + et.ts_base)
+                "undirected edge type within one node type is registered "
+                "with add_edge_table(table, directed=False)"
+                % (edge_type, et.src_type))
         return self.add_edge_table(EdgeTable(
             edge_type + "_reverse", et.dst_type, et.src_type, et.decoder,
             src=et.dst, dst=et.src, num_src_nodes=et.num_dst_nodes,
             num_dst_nodes=et.num_src_nodes, weights=et.weights,
-            labels=et.labels, timestamps=ts, float_attrs=et.float_attrs))
+            labels=et.labels, timestamps=_absolute_ts(et),
+            float_attrs=et.float_attrs))
 
     def add_node_set(self, node_type: str, raw_ids: np.ndarray,
                      mask: Union[Mask, str], weights=None) -> "Graph":
@@ -116,6 +128,28 @@ class Graph:
     def E(self, edge_type: str):
         from graph_learn_tpu_torch.gsl.query import e_entry
         return e_entry(self, edge_type)
+
+
+def _absolute_ts(et: EdgeTable):
+    """The table's timestamps in their own (not rebased) time domain."""
+    return (None if et.timestamps is None
+            else et.timestamps * et.ts_scale + et.ts_base)
+
+
+def _with_swapped_copy(et: EdgeTable) -> EdgeTable:
+    """``et`` followed by its edges from dst to src, each payload repeated
+    in the same order (``graph.py _load_edge_type`` over the source and its
+    reversed copy)."""
+    def twice(a):
+        return None if a is None else np.concatenate([a, a])
+    return EdgeTable(
+        et.type_name, et.src_type, et.dst_type, et.decoder,
+        src=np.concatenate([et.src, et.dst]),
+        dst=np.concatenate([et.dst, et.src]),
+        num_src_nodes=et.num_src_nodes, num_dst_nodes=et.num_dst_nodes,
+        weights=twice(et.weights), labels=twice(et.labels),
+        timestamps=twice(_absolute_ts(et)),
+        float_attrs=twice(et.float_attrs))
 
 
 def synthetic_graph(n_nodes: int, avg_degree: int, feat_dim: int,

@@ -6,7 +6,10 @@ Counterpart of ``graph_learn_tpu/gsl/compile.py`` ``Query:51``,
 ``_exec_node:172``, ``_exec_hop:249`` (``out_v`` / ``in_v`` / ``out_e`` /
 ``in_e``; ``full`` returns ``SparseNodes``, on an edge hop too, as in the
 JAX package) and ``_exec_neg:372`` without its conditional branch, with
-``.filter()`` and registered strategies.  PyTorch runs eagerly, so there
+``.filter()`` and registered strategies, and the ``walk`` branch
+(``:215-225``: the walks of the parent's ids, -1 where a walker is stuck,
+over the out-adjacency, with the dst node table's payload looked up at
+``max(id, 0)``).  PyTorch runs eagerly, so there
 is no jit: ``_execute`` walks the DAG once per call.  Each hop's feature
 rows stay deferred (ops/lookup.py) until a reader gathers or reduces them.
 Randomness comes from one explicit ``torch.Generator``, drawn from in DAG
@@ -40,6 +43,7 @@ from graph_learn_tpu_torch.gsl.dag import Dag, DagNode
 from graph_learn_tpu_torch.ops import negative as neg_ops
 from graph_learn_tpu_torch.ops import sampling as samp_ops
 from graph_learn_tpu_torch.ops import temporal as temporal_ops
+from graph_learn_tpu_torch.ops import walk as walk_ops
 from graph_learn_tpu_torch.ops.lookup import (edge_field, edge_payload,
                                               lookup_nodes,
                                               lookup_sparse_nodes)
@@ -156,6 +160,17 @@ def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
         return _exec_hop(query, tables, node, parent, recs, generator)
     if kind in ("out_neg", "in_neg"):
         return _exec_neg(query, tables, node, parent, generator)
+    if kind == "walk":
+        et = tables["edges"][node.edge_type]
+        d_t = query.graph.store.topology[node.edge_type][1]
+        shape = tuple(parent.ids.shape)
+        walks = walk_ops.node2vec_walk(
+            et.out, parent.ids.reshape(-1), node.walk_len, generator,
+            p=node.walk_p, q=node.walk_q).reshape(shape + (node.walk_len,))
+        val = lookup_nodes(tables["nodes"][d_t], torch.clamp(walks, min=0),
+                           type_name=d_t)
+        # the -1 of a stuck walker stays visible in the ids
+        return _Rec(walks, val.replace(ids=walks))
     raise InvalidArgumentError("dag node kind %r is not yet ported" % kind)
 
 

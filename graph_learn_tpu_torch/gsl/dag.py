@@ -9,8 +9,9 @@ hops ``outV`` / ``inV`` / ``outE`` / ``inE`` with the strategies
 ``random_without_replacement`` and ``full`` and any strategy added by
 ``ops.sampling.register_sampler``; the negatives ``outNeg`` / ``inNeg`` /
 ``Neg`` with ``random``, ``in_degree``, ``soft_in_degree`` and
-``node_weight``; and ``.each()``.  Conditional negatives (``.where``),
-walks and subgraphs are not yet ported and raise when the query is built.
+``node_weight``; ``.random_walk(walk_len, p, q, edge_type)``; and
+``.each()``.  Conditional negatives (``.where``) and subgraphs are not yet
+ported and raise when the query is built.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ class Dag:
 class DagNode:
     """One traversal step: ``source_v`` | ``source_e`` | ``endpoint_src`` |
     ``endpoint_dst`` | ``out_v`` | ``in_v`` | ``out_e`` | ``in_e`` |
-    ``out_neg`` | ``in_neg``."""
+    ``out_neg`` | ``in_neg`` | ``walk``."""
 
     def __init__(self, dag: Dag, kind: str, parent: Optional["DagNode"],
                  edge_type: Optional[str] = None,
@@ -173,7 +174,14 @@ class DagNode:
 
     def random_walk(self, walk_len: int, p: float = 1.0, q: float = 1.0,
                     edge_type: Optional[str] = None) -> "DagNode":
-        _unported("random_walk")
+        """[..., walk_len] walks over ``edge_type`` (default: this node's)
+        from each of this node's ids: uniform, or node2vec-biased by the
+        return parameter ``p`` and the in-out parameter ``q``."""
+        n = DagNode(self.dag, "walk", self,
+                    edge_type=edge_type or self.edge_type)
+        n.walk_len = int(walk_len)
+        n.walk_p, n.walk_q = float(p), float(q)
+        return n
 
     def SubGraph(self, edge_type: str, nbr_cap: Optional[int] = None,
                  need_dist: bool = False) -> "DagNode":

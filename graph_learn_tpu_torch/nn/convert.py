@@ -25,12 +25,20 @@ either package can be compared.  The flax tree is
                                 (EgoTGAT; n_<h> on level 0 only)
     params/affinity_score/{merge_layer1, merge_layer2}/{kernel, bias}
                                                     (LinkScorePredict)
+    params/{ir, iz, in, hn}/{kernel, bias}, params/{hr, hz}/kernel
+                                          (GRUCell, a torch.nn.GRUCell)
 
 Any other module maps its named children to subtrees of the same names
 (``TGATLink``: ``u_enc``, ``i_enc`` (a ``FeatureEncoder``'s ``proj``, where
-it projects), ``u_tower``, ``i_tower``, ``scorer``); an ``EgoTGAT``'s
-encoders belong to the module that names them, so its own tree does not
-repeat them.
+it projects), ``u_tower``, ``i_tower``, ``scorer``; the tgn example's
+``TGNScorer``: ``proj_u``, ``proj_i``); an ``EgoTGAT``'s encoders belong
+to the module that names them, so its own tree does not repeat them.
+
+A ``torch.nn.GRUCell``'s ``weight_ih`` / ``weight_hh`` stack the r, z and n
+gates' [out, in] weights, which are flax's ``i<gate>`` / ``h<gate>``
+kernels transposed; ``bias_ih`` holds flax's three input biases and
+``bias_hh`` the ``hn`` bias after two zeros (flax's r and z gates have no
+hidden bias, and the port's cell holds those two at zero).
 
 Each Dense of a conv is a ``torch.nn.Linear`` child of the same name.  A
 two-tower model, a dict or ``nn.ModuleDict`` of ``EgoGNN`` such as
@@ -99,6 +107,53 @@ def _load_array(param: nn.Parameter, value, path, used):
     used.add(path)
 
 
+_GATES = ("r", "z", "n")
+
+
+def _load_gru(cell: nn.GRUCell, tree: Dict, path, used):
+    h = cell.hidden_size
+
+    def kernel(name, rows):
+        k = np.asarray(_at(tree, (name, "kernel")), np.float32)
+        if k.shape != (rows, h):
+            raise InvalidArgumentError("%s: flax kernel %s does not fit "
+                                       "GRUCell(%d -> %d)"
+                                       % ("/".join(path + (name,)), k.shape,
+                                          cell.input_size, h))
+        used.add(path + (name, "kernel"))
+        return k.T
+
+    def bias(name):
+        used.add(path + (name, "bias"))
+        return np.asarray(_at(tree, (name, "bias")), np.float32)
+
+    w_ih = np.concatenate([kernel("i" + g, cell.input_size) for g in _GATES])
+    w_hh = np.concatenate([kernel("h" + g, h) for g in _GATES])
+    b_ih = np.concatenate([bias("i" + g) for g in _GATES])
+    b_hh = np.concatenate([np.zeros(2 * h, np.float32), bias("hn")])
+    with torch.no_grad():
+        for param, value in ((cell.weight_ih, w_ih), (cell.weight_hh, w_hh),
+                             (cell.bias_ih, b_ih), (cell.bias_hh, b_hh)):
+            param.copy_(torch.from_numpy(np.ascontiguousarray(value)).to(
+                param.device, param.dtype))
+
+
+def _gru_tree(cell: nn.GRUCell) -> Dict:
+    w_ih, w_hh = (cell.weight_ih.detach().cpu().numpy(),
+                  cell.weight_hh.detach().cpu().numpy())
+    b_ih, b_hh = (cell.bias_ih.detach().cpu().numpy(),
+                  cell.bias_hh.detach().cpu().numpy())
+    h = cell.hidden_size
+    tree: Dict = {}
+    for j, g in enumerate(_GATES):
+        rows = slice(j * h, (j + 1) * h)
+        tree["i" + g] = {"kernel": w_ih[rows].T.copy(),
+                         "bias": b_ih[rows].copy()}
+        tree["h" + g] = {"kernel": w_hh[rows].T.copy()}
+    tree["hn"]["bias"] = b_hh[2 * h:].copy()
+    return tree
+
+
 def _rgcn_arrays(model: nn.Module):
     """(flax path, Parameter) of an EgoRGCN's raw arrays."""
     for i, conv in enumerate(model.convs):
@@ -145,7 +200,7 @@ def _tgat_items(model: nn.Module, prefix=()):
     elif isinstance(model, FeatureEncoder):
         if model.proj is not None:
             yield prefix + ("proj",), model.proj
-    elif isinstance(model, nn.Linear):
+    elif isinstance(model, (nn.Linear, nn.GRUCell)):
         yield prefix, model
     else:
         for name, child in model.named_children():
@@ -193,6 +248,8 @@ def load_flax_params(model, params: Dict):
     for path, leaf in _items(model):
         if isinstance(leaf, nn.Linear):
             _load_dense(leaf, _at(tree, path), path, used)
+        elif isinstance(leaf, nn.GRUCell):
+            _load_gru(leaf, _at(tree, path), path, used)
         else:
             _load_array(leaf, _at(tree, path), path, used)
     extra = _leaves(tree) - used
@@ -211,6 +268,13 @@ def to_flax_params(model) -> Dict:
         return {k: to_flax_params(model[k]) for k in model.keys()}
     tree: Dict = {}
     for path, leaf in _items(model):
+        if isinstance(leaf, nn.GRUCell):
+            # the cell's own tree, at the top when the model is the cell
+            sub = tree
+            for key in path:
+                sub = sub.setdefault(key, {})
+            sub.update(_gru_tree(leaf))
+            continue
         sub = tree
         for key in path[:-1]:
             sub = sub.setdefault(key, {})

@@ -44,12 +44,9 @@ import torch
 from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.store import DeviceCSR
 from graph_learn_tpu_torch.errors import InvalidArgumentError
-from graph_learn_tpu_torch.ops.segment import (bisect_iters, row_bounds,
+from graph_learn_tpu_torch.ops.segment import (SCAN_CHUNK, bisect_iters,
+                                               row_bounds,
                                                segmented_searchsorted)
-
-
-# row positions scanned per pass when a filter looks for its excluded id
-EXCLUDE_CHUNK = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,11 +88,11 @@ def excluded_slot(csr: DeviceCSR, start: torch.Tensor, end: torch.Tensor,
     """(rel, present): the position inside its row of the last neighbour
     equal to ``excl`` (2**30 where the row has none), as ``_excl_rel:137``.
 
-    The row is scanned in passes of ``EXCLUDE_CHUNK`` positions, as many as
+    The row is scanned in passes of ``SCAN_CHUNK`` positions, as many as
     the widest row needs, so rows of any degree are searched."""
     last = torch.full_like(start, -1)
     if csr.num_edges:
-        width = max(1, min(csr.max_degree, EXCLUDE_CHUNK))
+        width = max(1, min(csr.max_degree, SCAN_CHUNK))
         ar = _arange(width, start)[None, :]
         for c0 in range(0, max(csr.max_degree, 1), width):
             pos = start[:, None] + (ar + c0)

@@ -4,8 +4,11 @@ Counterpart of ``graph_learn_tpu/ops/segment.py`` ``row_bounds:173``,
 ``segmented_searchsorted:82``, ``segment_member:123`` and
 ``row_member:142``.  The tiled gathers of the JAX package (``flat_gather``,
 ``pair_gather``) and ``row_member``'s 128-lane window exist for the TPU's
-layout only; flat tensors index directly here, and membership always
-bisects the id-sorted row.
+layout only; flat tensors index directly here.  Membership bisects the
+row's id-sorted copy where the store has one, and otherwise scans the
+flat row in passes of ``SCAN_CHUNK`` positions, as many as the widest
+row needs: rows of any degree are answered, where the JAX package's
+window takes rows of at most 256 and needs the sorted copy beyond that.
 """
 
 from __future__ import annotations
@@ -14,6 +17,10 @@ import math
 from typing import Optional
 
 import torch
+
+# row positions compared per pass when a row is scanned (membership here,
+# a filter's excluded slot in ops/sampling.py)
+SCAN_CHUNK = 256
 
 
 def row_bounds(row_offsets: torch.Tensor, rows: torch.Tensor):
@@ -72,10 +79,38 @@ def segment_member(sorted_ids: torch.Tensor, lo: torch.Tensor,
 
 def row_member(csr, rows: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """Is each query id in its row's neighbour list?  ``rows`` [b],
-    ``queries`` [b, ...] -> bool of ``queries``' shape, by bisection over
-    the row's id-sorted copy (``csr.nbr_ids_sorted``)."""
+    ``queries`` [b, ...] -> bool of ``queries``' shape: by bisection over
+    the row's id-sorted copy (``csr.nbr_ids_sorted``), or where the store
+    has none (the "minimal" profile) by :func:`scan_member`."""
     start, end, _ = row_bounds(csr.row_offsets, rows)
+    if csr.nbr_ids_sorted is None:
+        return scan_member(csr, start, end, queries)
     shape = (rows.shape[0],) + (1,) * (queries.dim() - 1)
     return segment_member(csr.nbr_ids_sorted, start.reshape(shape),
                           end.reshape(shape), queries,
                           iters=bisect_iters(csr.max_degree))
+
+
+def scan_member(csr, start: torch.Tensor, end: torch.Tensor,
+                queries: torch.Tensor) -> torch.Tensor:
+    """Is each query id among ``csr.nbr_ids[start_i:end_i]``?  ``start`` /
+    ``end`` [b], ``queries`` [b, ...] -> bool of ``queries``' shape.
+
+    The rows are compared in passes of ``SCAN_CHUNK`` positions, as many
+    as ``csr.max_degree`` needs: a loop fixed on the host, with positions
+    clamped into the table and masked by ``end``, so no value is read back
+    and the scan can be captured in a CUDA graph."""
+    b = queries.shape[0]
+    q = queries.reshape(b, -1)
+    hit = torch.zeros(q.shape, dtype=torch.bool, device=q.device)
+    e = csr.nbr_ids.shape[0]
+    if e:
+        width = max(1, min(csr.max_degree, SCAN_CHUNK))
+        ar = torch.arange(width, dtype=start.dtype, device=start.device)
+        for c0 in range(0, max(csr.max_degree, 1), width):
+            pos = start[:, None] + (ar + c0)[None, :]
+            nbr = csr.nbr_ids[torch.clamp(pos, 0, e - 1)]
+            valid = pos < end[:, None]
+            hit |= ((nbr[:, None, :] == q[:, :, None])
+                    & valid[:, None, :]).any(dim=-1)
+    return hit.reshape(queries.shape)

@@ -256,8 +256,7 @@ def test_unported_kinds_raise_when_the_query_is_built(graphs):
     _, _, tg = graphs
     seed = tg.E("u-i").batch(4).alias("seed")
     src = seed.outV().alias("src")
-    for build in (lambda: src.random_walk(3),
-                  lambda: src.SubGraph("u-i"),
+    for build in (lambda: src.SubGraph("u-i"),
                   lambda: src.outNeg("u-i").where("src"),
                   lambda: src.outNeg("u-i").sample(2).by("conditional")):
         with pytest.raises(InvalidArgumentError, match="not yet ported"):

@@ -169,8 +169,9 @@ def test_from_query_result_gathers_only_what_the_model_reads(service,
 def test_in_v_is_not_yet_ported(service):
     # inV is ported now (tests/test_torch_sampling.py holds it against the
     # JAX query), and so are filters (tests/test_torch_filters.py) and edge
-    # sources (tests/test_torch_edges.py); what is still refused when a
-    # query is built: strategies nobody registered, walks and conditional
+    # sources (tests/test_torch_edges.py), and walks
+    # (tests/test_torch_walk.py); what is still refused when a query is
+    # built: strategies nobody registered, subgraphs and conditional
     # negatives
     _, _, q = service
     hop = q.graph.V("item").batch(4).alias("src").inV("rel").sample(2) \
@@ -181,8 +182,9 @@ def test_in_v_is_not_yet_ported(service):
         hop.by("my_registered_sampler")
     seed = q.graph.E("rel")
     assert seed.kind == "source_e" and seed.edge_type == "rel"
+    assert seed.outV().random_walk(3).kind == "walk"
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        seed.outV().random_walk(3)
+        seed.outV().SubGraph("rel")
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
         seed.outV().outNeg("rel").where("src")
     # serving answers V() queries only, as the JAX package's does

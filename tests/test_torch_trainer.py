@@ -275,12 +275,13 @@ def test_dataset_refuses_unported_tiers():
             glt.Dataset(q, device="cpu")
     finally:
         glt.conf.storage_device = old
-    # E() sources are ported: an edge source node; walks and conditional
+    # E() sources and walks are ported; subgraphs and conditional
     # negatives are what is still refused
     seed = tg.E("rel")
     assert seed.kind == "source_e" and seed.edge_type == "rel"
+    assert seed.outV().random_walk(3).kind == "walk"
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        seed.outV().random_walk(3)
+        seed.outV().SubGraph("rel")
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
         seed.outV().outNeg("rel").where("src")
 
