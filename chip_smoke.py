@@ -154,7 +154,28 @@ Phases (any failure exits non-zero before the result line):
    walks on the example's undirected store held to its edges and to their
    step shares first): the label coherence above 1/7, Recall@20 above that
    of random scores, the pairwise AUC above 0.5, and TGN's item features
-   on Kernel 1, two launches a step.
+   on Kernel 1, two launches a step;
+18. (run inside phase 12, on its store, before that store is freed)
+   categorical items and conditional negatives: the item table swapped for
+   one with the same ids and 100 bf16 features plus a category (1 000
+   values drawn with probability 1 / (rank + 1)), a brand string and 0-8
+   tag strings hashed into 10 000 buckets (core/ingest.py _parse_attrs),
+   each embedded 16 wide by the towers' item encoders (user tower in
+   (100, 148), item tower (148, 148)); the bipartite query's two negatives
+   drawn .where("dst", {"int_cols": [0], "int_props": [0.5]}), one by the
+   positive's category and one free.  One batch: every conditioned
+   negative in its positive's category, and the rows holding a true
+   neighbour or the positive counted; the relaxation rule on 65 536 seed
+   edges whose draws are aimed at their positives (each part's first
+   acceptable candidate, the forced rows exactly those holding a rejected
+   negative); the draws in the heaviest category against its in-run CDF
+   (chi-square); one step on the kernels against the plain versions (6
+   gather_rows, 0 segment_spmm; the embedding tables' gradients too); 10
+   steps through LocalTrainer.train (every embedding table moves); the
+   K-step form (K = 20) eager and in one CUDA graph, losses bit-equal, 6
+   gather_rows per replayed step; Kernel 1 at each of the step's item-row
+   counts (1 024, 2 048, 10 240 and 20 480 rows of the item table), cold,
+   exact and against its bound, plain version and index_select.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -171,7 +192,12 @@ accuracy and its times at the EgoTGAT shapes, ``ms_tgat0a`` ... with
 their bounds and plain times; Kernel 1 the walk query's ``walks_launches``
 with ``cold_ms_62m_20480`` and its bound, plain and library times, and
 the examples' ``tgn_launches_per_step``, ``node2vec_coherence``,
-``ultra_gcn_recall_at_20`` and ``tgn_pairwise_auc``).
+``ultra_gcn_recall_at_20`` and ``tgn_pairwise_auc``; Kernels 1 and 2
+the categorical path's ``cond_launches_per_step`` and
+``cond_trainer_launches_per_step``, and Kernel 1 its cold times at the
+item rows, ``cold_ms_cond_1024`` / ``_2048`` / ``_10240`` / ``_20480`` with
+``bound_ms_cond_*``, ``plain_cold_ms_cond_*``, ``library_cold_ms_cond_*``
+and ``kernel_route_cond_*``).
 """
 
 from __future__ import annotations
@@ -333,10 +359,12 @@ def check_bounds(rows):
              ("bar_ms", "bar_bound_ms"), ("cold_ms_62m", "bound_ms_62m"),
              ("ms_sum", "bound_ms_sum"), ("cold_ms_rgcn", "bound_ms_rgcn"))
     pairs += tuple(pair for m in (GATHER_PATH_ROWS + RGCN_GATHER_ROWS
-                                  + WALK_GATHER_ROWS)
+                                  + WALK_GATHER_ROWS + CAT_GATHER_ROWS)
                    for pair in (("ms_%d" % m, "bound_ms_%d" % m),
                                 ("cold_ms_62m_%d" % m,
-                                 "bound_ms_62m_%d" % m)))
+                                 "bound_ms_62m_%d" % m),
+                                ("cold_ms_cond_%d" % m,
+                                 "bound_ms_cond_%d" % m)))
     pairs += tuple(pair for label in GAT_TGAT_SHAPES
                    for pair in (("ms_" + label, "bound_ms_" + label),
                                 ("bwd_ms_" + label, "bwd_bound_ms_" + label)))
@@ -2325,8 +2353,9 @@ def bipartite_path(torch, card, gather, spmm, sweep):
     (1.225M users and items, 61.25M weighted edges, the "full" profile):
     the store build timed; one step of the towers on the kernels against
     the plain versions; the negatives checked; LocalTrainer.train over the
-    port's bipartite_sage; the K-step form eager and captured.  Returns
-    the kernels line's fields."""
+    port's bipartite_sage; the K-step form eager and captured; then phase
+    18 (``categorical_path``) on the same store.  Returns the kernels
+    line's fields of both."""
     from graph_learn_tpu_torch import bench
     from graph_learn_tpu_torch.config import conf
     from graph_learn_tpu_torch.examples import bipartite_sage as bs
@@ -2367,7 +2396,7 @@ def bipartite_path(torch, card, gather, spmm, sweep):
            nbytes(tables) / 1e9, et.unique_dst.numel(), card))
 
     # 1. one step of the towers on the kernels against the plain versions
-    model = bs.towers(udec, idec, d, hidden, "cuda")
+    model = bs.towers(udec, idec, hidden, "cuda")
     batch = Dataset(q, window=1, device="cuda").next()
     table = tables["nodes"]["i"].float_attrs
     feats = {"u": tables["nodes"]["u"].float_attrs, "i": table}
@@ -2549,9 +2578,416 @@ def bipartite_path(torch, card, gather, spmm, sweep):
            captured["device_bytes_peak"] / 1e9, card))
     for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log("  device %.4f ms per replayed step: %s" % (ms, kname[:90]))
-    return {k: {"bipartite_launches_per_step": graph_work[k],
+    rows = {k: {"bipartite_launches_per_step": graph_work[k],
                 "bipartite_trainer_launches_per_step": tr_launches[k]}
             for k in ("gather_rows", "segment_spmm")}
+    # phase 18 on this store, before it is freed
+    del eager, captured, step, tables, batch, plain, ref, feats, table, et
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, fields in categorical_path(torch, card, gather, spmm, sweep,
+                                      graph).items():
+        rows[k].update(fields)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 18 (inside phase 12): categorical items and conditional negatives
+# ---------------------------------------------------------------------------
+
+# the item table's categorical columns: a category of CAT_VALUES values
+# drawn with probability 1 / (rank + 1), a brand "brand_<j>" (j uniform in
+# [0, CAT_BRANDS)) hashed into CAT_BUCKETS, and 0 to CAT_MAX_TAGS tags
+# "tag_<t>" (t uniform in [0, CAT_TAGS)) hashed into CAT_BUCKETS; each
+# embedded CAT_DIM wide
+CAT_VALUES, CAT_BRANDS, CAT_TAGS, CAT_MAX_TAGS = 1000, 50_000, 5_000, 8
+CAT_BUCKETS, CAT_DIM = 10_000, 16
+CAT_TYPES = [("int", CAT_VALUES), ("string", CAT_BUCKETS),
+             ("string", CAT_BUCKETS, True)]
+# one negative of the two by the positive's category, one free
+CAT_COND = {"int_cols": [0], "int_props": [0.5]}
+# Kernel 1 at every item-table row count of the step: the positives'
+# 1 024, the negatives' 2 048, the positives' hops' 10 240 and the
+# negatives' hops' 20 480
+CAT_GATHER_ROWS = (1_024, 2_048, 10_240, 20_480)
+# draws of the chi-square check in the heaviest category, its bins, and
+# the seed edges (each with one retry-free draw) of the relaxation check
+CAT_CHI_DRAWS, CAT_CHI_BINS, CAT_RELAX_ROWS = 1 << 21, 100, 1 << 16
+CAT_TRAIN_STEPS = 10
+
+
+def category_draw(n, n_values, rng):
+    """[n] int64 categories in [0, n_values), value r drawn with
+    probability proportional to 1 / (r + 1)."""
+    p = 1.0 / np.arange(1, n_values + 1)
+    return rng.choice(n_values, size=n, p=p / p.sum())
+
+
+def categorical_strings(n, seed):
+    """The items' attribute strings ``"<category>:brand_<j>:<tag>,..."``,
+    drawn from ``np.random.default_rng(seed)``, and the categories."""
+    rng = np.random.default_rng(seed)
+    cat = category_draw(n, CAT_VALUES, rng)
+    brand = rng.integers(0, CAT_BRANDS, n)
+    n_tags = rng.integers(0, CAT_MAX_TAGS + 1, n)
+    tags = ["tag_%d" % t for t in rng.integers(0, CAT_TAGS,
+                                              int(n_tags.sum())).tolist()]
+    ends = np.cumsum(n_tags).tolist()
+    starts = [0] + ends[:-1]
+    strs = ["%d:brand_%d:%s" % (c, b_, ",".join(tags[lo:hi]))
+            for c, b_, lo, hi in zip(cat.tolist(), brand.tolist(), starts,
+                                     ends)]
+    return strs, cat
+
+
+def chi_square_p(obs, exp):
+    """The chi-square p-value of counts ``obs`` against ``exp`` (same
+    total) by the Wilson-Hilferty normal approximation of the chi-square
+    tail, close for the tens of degrees of freedom of a binned CDF."""
+    obs, exp = np.asarray(obs, np.float64), np.asarray(exp, np.float64)
+    stat = float(((obs - exp) ** 2 / exp).sum())
+    dof = obs.size - 1
+    z = ((stat / dof) ** (1.0 / 3) - (1 - 2.0 / (9 * dof))) \
+        / math.sqrt(2.0 / (9 * dof))
+    return 0.5 * math.erfc(z / math.sqrt(2))
+
+
+def relaxed_rows(bad, forced):
+    """(rows holding a rejected negative, rows whose draws had fewer
+    acceptable candidates than their quota, whether the two sets are the
+    same) of [b, k] ``bad`` and [b] ``forced`` (numpy bools): a row takes a
+    rejected draw exactly when it had to relax."""
+    bad_rows = np.asarray(bad).any(axis=1)
+    forced = np.asarray(forced)
+    return (int(bad_rows.sum()), int(forced.sum()),
+            bool(np.array_equal(bad_rows, forced)))
+
+
+def categorical_path(torch, card, gather, spmm, sweep, graph):
+    """Categorical items and conditional negatives on the bipartite
+    store: the item table swapped for one with the same ids and float
+    features plus a category, a brand and tags (``categorical_strings``
+    through ``core/ingest.py _parse_attrs``), the towers' item encoders
+    embedding them, the negatives drawn one by the positive's category and
+    one free.  Checks one batch's negatives, the relaxation rule, the
+    in-run CDF, one step against the plain versions, LocalTrainer.train
+    and the K-step form eager and captured; times Kernel 1 at the towers'
+    row counts of the item table.  Returns the kernels line's fields."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.core.ingest import _parse_attrs
+    from graph_learn_tpu_torch.core.schema import Decoder
+    from graph_learn_tpu_torch.core.store import NodeTable
+    from graph_learn_tpu_torch.examples import bipartite_sage as bs
+    from graph_learn_tpu_torch.examples import family_scale as fs
+    from graph_learn_tpu_torch.examples.scale_demo import nbytes
+    from graph_learn_tpu_torch.gsl.dataset import Dataset
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+    from graph_learn_tpu_torch.ops import conditional as cond_ops
+    from graph_learn_tpu_torch.ops.negative import uniform_ids
+    from graph_learn_tpu_torch.ops.segment import row_member
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = bench.CFG_SCALE
+    k1, n_neg = fs.fanout(False)
+    b, d, hidden = cfg["batch"], cfg["feat_dim"], cfg["hidden"]
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
+                "sweep_aggregate": sweep.LAUNCHES_SWEEP}
+    g, udec, _ = graph
+    old = g.store.node_table("i")
+    n_i = old.num_nodes
+    t0 = time.perf_counter()
+    strs, cats = categorical_strings(n_i, seed=12)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ia, _, mv, ml = _parse_attrs(strs, Decoder(
+        attr_types=CAT_TYPES, attr_dims=[CAT_DIM] * 3,
+        multival_max_len=CAT_MAX_TAGS))
+    parse_s = time.perf_counter() - t0
+    del strs
+    check(np.array_equal(ia[:, 0], cats) and ia.shape == (n_i, 2)
+          and mv.shape == (n_i, 1, CAT_MAX_TAGS)
+          and int(ml.min()) == 0 and int(ml.max()) == CAT_MAX_TAGS,
+          "categorical: the parsed columns are not the drawn ones")
+    runs = np.bincount(cats, minlength=CAT_VALUES)
+    idec = Decoder(attr_types=["float"] * d + CAT_TYPES,
+                   attr_dims=[None] * d + [CAT_DIM] * 3,
+                   multival_max_len=CAT_MAX_TAGS)
+    g.add_node_table(NodeTable("i", idec, old.raw_ids, int_attrs=ia,
+                               float_attrs=old.float_attrs,
+                               multival_attrs=mv, multival_lens=ml))
+    del old
+    gc.collect()
+    q = fs.build_query(g, b, k1, n_neg, CAT_COND)
+    t0 = time.perf_counter()
+    tables = q.device_tables()
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    nt, et = tables["nodes"]["i"], tables["edges"]["u-i"]
+    ct = next(iter(tables["cond"].values()))
+    cat_bytes = sum(nbytes(t) for t in (nt.int_attrs, nt.multival_attrs,
+                                        nt.multival_lens))
+    log("categorical items (%d items, 100 bf16 features + category of %d "
+        "values with runs of %d to %d items, brand hashed from %d strings "
+        "and 0-%d tags, into %d buckets, each embedded %d wide): host draw "
+        "%.1f s, _parse_attrs %.1f s, item table and condition table on the "
+        "card %.1f s; the new columns %.1f MB, the condition table %.1f MB; "
+        "card: %s"
+        % (n_i, CAT_VALUES, runs.min(), runs.max(), CAT_BRANDS,
+           CAT_MAX_TAGS, CAT_BUCKETS, CAT_DIM, draw_s, parse_s, tables_s,
+           cat_bytes / 1e6, nbytes(tables["cond"]) / 1e6, card))
+
+    # 1. one batch: conditioned negatives share the positive's category;
+    # rejected negatives only in rows that had to relax
+    batch = Dataset(q, window=1, device="cuda").next()
+    neg, pos, seeds = batch["neg"].ids, batch["dst"].ids, batch["src"].ids
+    cat_dev = nt.int_attrs[:, 0]
+    same = cat_dev[neg[:, 0].long()] == cat_dev[pos.long()]
+    check(tuple(neg.shape) == (b, n_neg) and bool(same.all()),
+          "categorical: %d of %d conditioned negatives outside their "
+          "positive's category" % (int((~same).sum()), b))
+    bad = row_member(et.out, seeds, neg) | (neg == pos[:, None])
+    batch_relaxed = int(bad.any(dim=1).sum())
+    free_same = float((cat_dev[neg[:, 1].long()]
+                       == cat_dev[pos.long()]).float().mean())
+    # the rule on the card, on draws made to be rejected: 65 536 seed
+    # edges, two candidates a part; each part's first candidate is the
+    # positive itself (the category part's by a run draw aimed at it), and
+    # in every 5th row (category part) and every 7th row (free part) the
+    # second too, so those rows must relax
+    col = ct.int_cols[0]
+    inv = torch.empty_like(col.perm)
+    inv[col.perm.long()] = torch.arange(col.perm.numel(), dtype=torch.int32,
+                                        device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    n_r = CAT_RELAX_ROWS
+    e_ids = torch.randint(0, et.num_edges, (n_r,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    s_, p_ = et.src[e_ids.long()], et.dst[e_ids.long()]
+    pia = nt.int_attrs[p_.long()]
+    lo_p = torch.searchsorted(col.vals_sorted, pia[:, 0].contiguous())
+    hi_p = torch.searchsorted(col.vals_sorted, pia[:, 0].contiguous(),
+                              side="right")
+    aim = ((inv[p_.long()] - lo_p).double() + 0.5) / (hi_p - lo_p).double()
+    r_ix = torch.arange(n_r, device="cuda")
+    u = torch.rand((n_r, 2), generator=gen, device="cuda")
+    u[:, 0] = aim.float()
+    u[r_ix % 5 == 0, 1] = aim.float()[r_ix % 5 == 0]
+    fb = uniform_ids(et.unique_dst, (n_r, 2), gen)
+    free = uniform_ids(et.unique_dst, (n_r, 2), gen)
+    free[:, 0] = p_
+    free[r_ix % 7 == 0, 1] = p_[r_ix % 7 == 0]
+    with bench.bench_conf(sampling_retry_times=1):
+        negs = cond_ops.conditional_negative_sample_draw(
+            et, ct, s_, p_, pia, None, n_neg, CAT_COND["int_cols"],
+            CAT_COND["int_props"], [], [], [(fb, u)], free)
+    cands = [cond_ops._sample_matching(col, pia[:, 0], u, fb), free]
+    check(torch.equal(cands[0][:, 0], p_), "categorical relaxation: a run "
+          "draw aimed at the positive missed it")
+    want, forced = [], torch.zeros(n_r, dtype=torch.bool, device="cuda")
+    for c in cands:
+        ok = ~(row_member(et.out, s_, c) | (c == p_[:, None]))
+        # the first acceptable candidate, else the first
+        pick = torch.where(ok.any(dim=1), torch.argmax(ok.to(torch.uint8),
+                                                       dim=1), 0)
+        want.append(torch.gather(c, 1, pick[:, None]))
+        forced |= ~ok.any(dim=1)
+    check(torch.equal(negs, torch.cat(want, dim=1)), "categorical "
+          "relaxation: the negatives are not each part's first acceptable "
+          "candidate (else its first)")
+    neg_bad = row_member(et.out, s_, negs) | (negs == p_[:, None])
+    n_bad, n_forced, same_rows = relaxed_rows(neg_bad.cpu().numpy(),
+                                              forced.cpu().numpy())
+    check(same_rows and n_forced >= n_r // 5, "categorical relaxation: %d "
+          "rows hold a rejected negative, %d rows had to relax; want the "
+          "same rows, at least %d" % (n_bad, n_forced, n_r // 5))
+    # the in-run CDF: draws in the heaviest category, binned by position
+    heavy = int(np.argmax(runs))
+    hv = torch.full((CAT_CHI_DRAWS,), heavy, dtype=torch.int32,
+                    device="cuda")
+    drawn = cond_ops._sample_matching(
+        col, hv, torch.rand((CAT_CHI_DRAWS, 1), generator=gen,
+                            device="cuda"),
+        torch.full((CAT_CHI_DRAWS, 1), -1, dtype=torch.int32,
+                   device="cuda"))[:, 0]
+    lo = int(torch.searchsorted(col.vals_sorted, hv[:1]))
+    at = (inv[drawn.long()] - lo).long()
+    n_run = int(runs[heavy])
+    check(int(at.min()) >= 0 and int(at.max()) < n_run,
+          "categorical: a draw in category %d left its run" % heavy)
+    edges = np.linspace(0, n_run, CAT_CHI_BINS + 1).astype(np.int64)
+    obs = np.histogram(at.cpu().numpy(), bins=edges)[0]
+    exp = CAT_CHI_DRAWS * np.diff(edges) / n_run
+    p_value = chi_square_p(obs, exp)
+    check(p_value > 1e-4, "categorical: draws in category %d off its run's "
+          "CDF, chi-square p %.3g" % (heavy, p_value))
+    log("categorical negatives (%d a seed, base random, one by the "
+        "positive's category, one free): the batch's %d conditioned "
+        "negatives all share their positive's category (the free ones "
+        "%.1f%%); %d of %d rows hold a true neighbour or the positive; the "
+        "relaxation rule on %d seed edges with two candidates a part, each "
+        "part's first the positive: every negative its part's first "
+        "acceptable candidate, %d rows had to relax and exactly those %d "
+        "hold a rejected negative; %d "
+        "draws in the heaviest category (%d items) over %d bins of its run: "
+        "chi-square p %.3g"
+        % (n_neg, b, 100 * free_same, batch_relaxed, b, CAT_RELAX_ROWS,
+           n_forced, n_bad, CAT_CHI_DRAWS, n_run, CAT_CHI_BINS, p_value))
+
+    # 2. one step of the towers on the kernels against the plain versions
+    model = bs.towers(udec, idec, hidden, "cuda")
+    tabs = {"u": tables["nodes"]["u"].float_attrs, "i": nt.float_attrs}
+
+    def loss_and_grads(bt):
+        src, dst, ng = bs.egos(bt)
+        embs = [model["u"](src), model["i"](dst), model["i"](ng)]
+        loss = bs.unsupervised_softmax_cross_entropy_loss(*embs)
+        return loss, torch.autograd.grad(loss, list(model.parameters()))
+
+    plain = {a: v.replace(float_attrs=tabs[v.type_name][v.ids.long()])
+             for a, v in batch.items() if a != "seed"}
+    ref = loss_and_grads(plain)
+    for c in counters.values():
+        c.reset()
+    got = loss_and_grads(batch)
+    launches = {kn: c.count for kn, c in counters.items()}
+    check(launches == {"gather_rows": 6, "segment_spmm": 0,
+                       "sweep_aggregate": 0},
+          "categorical step: launches %s; want 6 gather_rows" % launches)
+    lk, lp = got[0].item(), ref[0].item()
+    check(abs(lk - lp) <= STEP_LOSS_RTOL * abs(lp), "categorical step: loss "
+          "%g on the kernels, %g on the plain versions" % (lk, lp))
+    names = [n for n, _ in model.named_parameters()]
+    rel, emb_rel = 0.0, 0.0
+    for name, x, y in zip(names, got[1], ref[1]):
+        r = (x - y).abs().max().item() / max(y.abs().max().item(), 1e-12)
+        rel = max(rel, r)
+        if "embedding" in name:
+            emb_rel = max(emb_rel, r)
+    check(rel <= STEP_GRAD_TOL, "categorical step: a gradient off by %g of "
+          "its largest value" % rel)
+    n_emb = sum(1 for n in names if "embedding" in n)
+    log("categorical towers (EgoSAGEConv mean, user (100, 148) and item "
+        "(148, 148) -> %d, %d embedding tables): one step on the kernels "
+        "against the plain versions: loss %.6f vs %.6f (limit %g relative), "
+        "worst gradient error %.3g of the tensor's largest value, %.3g on "
+        "the embedding tables (limit %g); 6 gather_rows, 0 segment_spmm"
+        % (hidden, n_emb, lk, lp, STEP_LOSS_RTOL, rel, emb_rel,
+           STEP_GRAD_TOL))
+
+    # 3. LocalTrainer.train over the conditional query
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+    tr = LocalTrainer(seed=0, device="cuda")
+    losses, stamps = [], []
+
+    def loss_fn(m, bt, generator, training):
+        stamps.append(time.perf_counter())
+        loss = bs.loss_fn(m, bt, generator, training)
+        losses.append(loss.detach())
+        return loss
+
+    def train(n_steps):
+        del losses[:], stamps[:]
+        tr.train(q, model, loss_fn, opt, epochs=1, steps_per_epoch=n_steps,
+                 verbose=False)
+        torch.cuda.synchronize()
+        return (stamps[-1] - stamps[0]) / (len(stamps) - 1) * 1e3
+
+    train(2)  # warm-up
+    tables_before = {n: p.detach().clone() for n, p in
+                     model.named_parameters() if "embedding" in n}
+    for c in counters.values():
+        c.reset()
+    step_ms = train(CAT_TRAIN_STEPS)
+    tr_launches = {kn: c.count / CAT_TRAIN_STEPS
+                   for kn, c in counters.items()}
+    check(tr_launches == {"gather_rows": 6.0, "segment_spmm": 0.0,
+                          "sweep_aggregate": 0.0},
+          "categorical LocalTrainer: launches per step %s; want 6 "
+          "gather_rows" % tr_launches)
+    check(len(losses) == CAT_TRAIN_STEPS
+          and bool(torch.isfinite(torch.stack(losses)).all()),
+          "categorical LocalTrainer: %d losses or one not finite"
+          % len(losses))
+    moved = [n for n, p in model.named_parameters()
+             if n in tables_before and not torch.equal(p.detach(),
+                                                       tables_before[n])]
+    check(sorted(moved) == sorted(tables_before), "categorical "
+          "LocalTrainer: embedding tables that did not move: %s"
+          % sorted(set(tables_before) - set(moved)))
+    first, last = losses[0].item(), losses[-1].item()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_step_ms = train(5)
+    busy = sum(device_ms_by_kernel(prof).values()) / 5
+    edges = b * (2 * k1 + n_neg * (1 + k1))
+    log("categorical LocalTrainer.train (bs.loss_fn on the conditional "
+        "query): %d steps of batch %d, %.3f ms per step on the host clock "
+        "(%.3f ms under the profiler), %.4g edges/s (%d sampled edges a "
+        "step); loss %.4f -> %.4f; every embedding table moved; launches "
+        "per step %s; device busy %.3f ms per step (%.1f%%); card: %s"
+        % (CAT_TRAIN_STEPS, b, step_ms, prof_step_ms, edges / step_ms * 1e3,
+           edges, first, last, {k: v for k, v in tr_launches.items() if v},
+           busy, 100.0 * busy / step_ms, card))
+    del model, opt, tr, losses, batch, plain, ref, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the K-step form, eager then captured, from the same state
+    K = cfg["scan_steps"]
+    eager = fs.run_bipartite(cfg, device="cuda", capture=False,
+                             graph=(g, udec, idec), condition=CAT_COND)
+    captured = fs.run_bipartite(cfg, device="cuda", capture=True,
+                                graph=(g, udec, idec), condition=CAT_COND)
+    el, gl_ = np.asarray(eager["losses"]), np.asarray(captured["losses"])
+    n_steps = (1 + eager["rounds"]) * K
+    check(el.shape == gl_.shape == (n_steps,)
+          and bool(np.isfinite(gl_).all()), "categorical K-step: %s eager "
+          "and %s graph losses, or one not finite" % (el.shape, gl_.shape))
+    check(np.array_equal(el, gl_), "categorical K-step: the graph's losses "
+          "differ from the eager ones from the same state: max relative %g"
+          % np.max(np.abs(el - gl_) / np.abs(el)))
+    step = captured["step"]
+    graph_work, graph_busy, by_name = bench_work(torch, step, K, 2)
+    check(graph_work == {"gather_rows": 6.0, "segment_spmm": 0.0,
+                         "sweep_aggregate": 0.0},
+          "categorical K-step: kernels per replayed step %s; want 6 "
+          "gather_rows" % graph_work)
+    eager_work, eager_busy, _ = bench_work(torch, step.run_eager, K, 1)
+    check(eager_work == graph_work, "categorical K-step: kernels per eager "
+          "step %s, per replayed step %s" % (eager_work, graph_work))
+    log("categorical K-step (family_scale run_bipartite with CAT_COND, K = "
+        "%d, %d steps after 1 warm-up call, %d sampled edges a step): eager "
+        "%.4f ms per step (%.4g edges/s, device busy %.4f ms, %.1f%%), CUDA "
+        "graph %.4f ms per step (%.4g edges/s, device busy %.4f ms, %.1f%%); "
+        "capture %.3f s, graph pool %.1f MB; %d losses bit-equal eager and "
+        "captured (%.4f -> %.4f); kernels per replayed step %s; card: %s"
+        % (K, captured["rounds"] * K, edges, eager["step_ms"],
+           eager["edges_per_s"], eager_busy,
+           100.0 * eager_busy / eager["step_ms"], captured["step_ms"],
+           captured["edges_per_s"], graph_busy,
+           100.0 * graph_busy / captured["step_ms"], captured["capture_s"],
+           captured["graph_pool_bytes"] / 1e6, n_steps, gl_[0], gl_[-1],
+           {k: v for k, v in graph_work.items() if v}, card))
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log("  device %.4f ms per replayed step: %s" % (ms, kname[:90]))
+    del eager, captured, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. Kernel 1 at the towers' row counts of the item table, cold
+    shapes = gather_shapes(torch, gather, nt.float_attrs, gen,
+                           "at the categorical item table",
+                           rows=CAT_GATHER_ROWS, yardsticks=CAT_GATHER_ROWS)
+    rows = {k: {"cond_launches_per_step": graph_work[k],
+                "cond_trainer_launches_per_step": tr_launches[k]}
+            for k in ("gather_rows", "segment_spmm")}
+    for m, f in shapes.items():
+        rows["gather_rows"].update({
+            "cold_ms_cond_%d" % m: f["ms"], "bound_ms_cond_%d" % m:
+            f["bound_ms"], "plain_cold_ms_cond_%d" % m: f["plain_ms"],
+            "library_cold_ms_cond_%d" % m: f["library_ms"],
+            "kernel_route_cond_%d" % m: f["route"]})
+    return rows
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,24 @@
-"""Global configuration flags read by the ported serving and training paths.
+"""Global configuration flags and the ``set_*`` setters.
 
-A copy of the subset of ``graph_learn_tpu/config.py`` that this package
-reads.  There is no ``use_pallas`` counterpart: on the card the hand-written
-kernels are the only path, and CPU tensors take their plain versions.
+A copy of the flags of ``graph_learn_tpu/config.py`` that this package
+reads or that a user sets through a setter (``:112-137``).  There is no
+``use_pallas`` counterpart: on the card the hand-written kernels are the
+only path, and CPU tensors take their plain versions, so
+``set_use_pallas`` raises.  The flags of the parallel store, which is
+not ported yet, have no setter here (``set_graph_shards``,
+``set_partition_routing``).  The setters of flags that no ported code
+reads raise ``UnimplementedError`` instead of storing a value nothing
+looks at: the field delimiter (file ingest, ROADMAP A7), the k-NN metric
+(A6), and the attribute defaults, tape capacity and storage mode, which
+the JAX package stores but never reads either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from graph_learn_tpu_torch.errors import (InvalidArgumentError,
+                                          UnimplementedError)
 
 
 @dataclasses.dataclass
@@ -48,3 +59,49 @@ class _Config:
 
 
 conf = _Config()
+
+
+def _make_setter(field: str):
+    def setter(value):
+        setattr(conf, field, value)
+
+    setter.__name__ = "set_" + field
+    return setter
+
+
+def _refuse(name: str, reason: str):
+    def setter(value):
+        raise UnimplementedError(f"{name} is not ported: {reason}")
+
+    setter.__name__ = name
+    return setter
+
+
+_UNREAD = "nothing reads it, in the JAX package either"
+
+# the gl.set_* surface of graph_learn_tpu/config.py:112-137
+set_padding_mode = _make_setter("padding_mode")
+set_default_neighbor_id = _make_setter("default_neighbor_id")
+set_retry_times = _make_setter("sampling_retry_times")
+set_default_full_nbr_num = _make_setter("default_full_nbr_num")
+set_dataset_capacity = _make_setter("dataset_capacity")
+set_seed = _make_setter("seed")
+set_storage_device = _make_setter("storage_device")
+set_field_delimiter = _refuse(
+    "set_field_delimiter", "its reader is file ingest (ROADMAP A7)")
+set_knn_metric = _refuse("set_knn_metric", "its reader is k-NN (ROADMAP A6)")
+set_default_int_attribute = _refuse("set_default_int_attribute", _UNREAD)
+set_default_float_attribute = _refuse("set_default_float_attribute", _UNREAD)
+set_default_string_attribute = _refuse("set_default_string_attribute",
+                                       _UNREAD)
+set_tape_capacity = _refuse("set_tape_capacity", _UNREAD)
+set_storage_mode = _refuse("set_storage_mode", _UNREAD)
+
+
+def set_use_pallas(value):
+    """Refused: the port has no plain-route switch.  A CUDA tensor always
+    takes the hand-written kernel and a CPU tensor its plain version."""
+    raise InvalidArgumentError(
+        "set_use_pallas has no counterpart in the PyTorch port: tensors on "
+        "the card always take the hand-written CUDA kernels, tensors on the "
+        "CPU their plain versions")

@@ -27,7 +27,10 @@ need them raise.  A weighted node table also carries the normalised
 cumulative weights that ``node_weight`` negatives draw by.
 
 Device views are built lazily per device, on the card unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``.  Int (embedding id) and multi-value attribute
+columns and their lengths travel as int32, node timestamps as int64
+(``core/store.py:238-263``, ``:356-364`` of the JAX package, whose device
+views hold them as int32 too without x64).
 """
 
 from __future__ import annotations
@@ -58,9 +61,13 @@ class DeviceNodeTable(TensorStruct):
     """Per-node-type payload tensors on one device."""
 
     raw_ids: torch.Tensor  # [N] int64
+    int_attrs: Optional[torch.Tensor] = None  # [N, ni] int32
     float_attrs: Optional[torch.Tensor] = None  # [N, nf] conf.feature_dtype
+    multival_attrs: Optional[torch.Tensor] = None  # [N, nm, L] int32
+    multival_lens: Optional[torch.Tensor] = None  # [N, nm] int32
     weights: Optional[torch.Tensor] = None  # [N] f32
     labels: Optional[torch.Tensor] = None  # [N] int32
+    timestamps: Optional[torch.Tensor] = None  # [N] int64
     # normalised cumulative node weights (node_weight negatives)
     cum_weights: Optional[torch.Tensor] = None  # [N] f32
 
@@ -107,7 +114,10 @@ class DeviceEdgeTable(TensorStruct):
     weights: Optional[torch.Tensor] = None  # [E] f32
     labels: Optional[torch.Tensor] = None  # [E] int32
     timestamps: Optional[torch.Tensor] = None  # [E] int32, rebased
+    int_attrs: Optional[torch.Tensor] = None  # [E, ni] int32
     float_attrs: Optional[torch.Tensor] = None  # [E, nf] f32
+    multival_attrs: Optional[torch.Tensor] = None  # [E, nm, L] int32
+    multival_lens: Optional[torch.Tensor] = None  # [E, nm] int32
     # negative-sampling candidate pools (None under "minimal"): the sorted
     # distinct dst ids with their in-degree CDF (outNeg), and the sorted
     # distinct src ids with their out-degree CDF (inNeg)
@@ -169,7 +179,9 @@ class NodeTable:
     """Host-side node table (numpy) + lazily created device views."""
 
     def __init__(self, type_name: str, decoder: Decoder, raw_ids: np.ndarray,
-                 float_attrs=None, weights=None, labels=None):
+                 int_attrs=None, float_attrs=None, multival_attrs=None,
+                 multival_lens=None, weights=None, labels=None,
+                 timestamps=None):
         self.type_name = type_name
         self.decoder = decoder
         self.raw_ids = raw_ids.astype(np.int64)
@@ -186,9 +198,13 @@ class NodeTable:
                                                      type_name))
             return a
 
+        self.int_attrs = chk(int_attrs, "int_attrs", np.int32)
         self.float_attrs = chk(float_attrs, "float_attrs", np.float32)
+        self.multival_attrs = chk(multival_attrs, "multival_attrs", np.int32)
+        self.multival_lens = chk(multival_lens, "multival_lens", np.int32)
         self.weights = chk(weights, "weights", np.float32)
         self.labels = chk(labels, "labels", np.int32)
+        self.timestamps = chk(timestamps, "timestamps", np.int64)
         self._device: Dict[torch.device, DeviceNodeTable] = {}
 
     @property
@@ -210,10 +226,14 @@ class NodeTable:
             # occupies the card
             self._device[dev] = DeviceNodeTable(
                 raw_ids=_put(self.raw_ids, dev),
+                int_attrs=_put(self.int_attrs, dev),
                 float_attrs=_put(self.float_attrs, dev,
                                  torch_dtype(conf.feature_dtype)),
+                multival_attrs=_put(self.multival_attrs, dev),
+                multival_lens=_put(self.multival_lens, dev),
                 weights=_put(self.weights, dev),
                 labels=_put(self.labels, dev),
+                timestamps=_put(self.timestamps, dev),
                 cum_weights=_put(cum, dev))
         return self._device[dev]
 
@@ -309,8 +329,9 @@ class EdgeTable:
     def __init__(self, type_name: str, src_type: str, dst_type: str,
                  decoder: Decoder, src: np.ndarray, dst: np.ndarray,
                  num_src_nodes: int, num_dst_nodes: int,
-                 weights=None, labels=None, timestamps=None,
-                 float_attrs=None):
+                 int_attrs=None, float_attrs=None, multival_attrs=None,
+                 multival_lens=None, weights=None, labels=None,
+                 timestamps=None):
         self.type_name = type_name
         self.src_type = src_type
         self.dst_type = dst_type
@@ -322,8 +343,14 @@ class EdgeTable:
         self.weights = None if weights is None else np.asarray(weights,
                                                                np.float32)
         self.labels = None if labels is None else np.asarray(labels, np.int32)
+        self.int_attrs = (None if int_attrs is None
+                          else np.asarray(int_attrs, np.int32))
         self.float_attrs = (None if float_attrs is None
                             else np.asarray(float_attrs, np.float32))
+        self.multival_attrs = (None if multival_attrs is None
+                               else np.asarray(multival_attrs, np.int32))
+        self.multival_lens = (None if multival_lens is None
+                              else np.asarray(multival_lens, np.int32))
         self.timestamps = (None if timestamps is None
                            else np.asarray(timestamps, np.int64))
         # rebased to this table's own minimum: abs = ts * ts_scale +
@@ -395,7 +422,10 @@ class EdgeTable:
                 labels=_put(self.labels, dev),
                 timestamps=_put(None if self.timestamps is None
                                 else self.timestamps.astype(np.int32), dev),
+                int_attrs=_put(self.int_attrs, dev),
                 float_attrs=_put(self.float_attrs, dev),
+                multival_attrs=_put(self.multival_attrs, dev),
+                multival_lens=_put(self.multival_lens, dev),
                 unique_dst=u_dst, unique_dst_indeg_cdf=u_dst_cdf,
                 unique_src=u_src, unique_src_outdeg_cdf=u_src_cdf)
         return self._device[dev]

@@ -1,8 +1,11 @@
 """Result value types: ``Nodes``, ``SparseNodes``, ``Edges``,
-``SparseEdges`` and ``DeferredRows``.
+``SparseEdges``, ``SubGraphVal`` and ``DeferredRows``.
 
-Counterparts of ``graph_learn_tpu/core/values.py:29-150`` as plain
-dataclasses of tensors.  Shapes follow the JAX package: ``Nodes.ids`` is
+Counterparts of ``graph_learn_tpu/core/values.py:29-210`` as plain
+dataclasses of tensors (``SubGraphVal`` as the value type alone: the
+subgraph sampler that makes one is not ported yet).  Int (embedding id)
+attributes are [*, n_int] int32, multi-value ones [*, n_mv, max_len] int32
+with their lengths [*, n_mv].  Shapes follow the JAX package: ``Nodes.ids`` is
 [batch] or fanout-shaped [batch, k1, ...]; ``SparseNodes`` is the cap +
 degrees form of variable-degree results.
 
@@ -56,19 +59,25 @@ class Nodes(TensorStruct):
 
     ids: torch.Tensor  # int32 dense indices, [*]
     raw_ids: Optional[torch.Tensor] = None  # int64 source ids
+    int_attrs: Optional[torch.Tensor] = None  # [*, n_int] int32
     # [*, n_float] features, or a stand-in: DeferredRows (rows not yet
     # gathered) or nn/data.py PreAggregatedRows
     float_attrs: Any = None
+    multival_attrs: Optional[torch.Tensor] = None  # [*, n_mv, L] int32
+    multival_lens: Optional[torch.Tensor] = None  # [*, n_mv] int32
     weights: Optional[torch.Tensor] = None  # [*] f32
     labels: Optional[torch.Tensor] = None  # [*] int32
-    # [*] timestamps (the port's node tables carry none: always None)
-    timestamps: Optional[torch.Tensor] = None
+    timestamps: Optional[torch.Tensor] = None  # [*] int64
     out_degrees: Optional[torch.Tensor] = None  # [*] int32
     type_name: str = ""
 
     @property
     def shape(self):
         return self.ids.shape
+
+    @property
+    def batch_size(self) -> int:
+        return self.ids.shape[0]
 
     def flat(self) -> "Nodes":
         """The fanout dims flattened into one leading dim (a deferred
@@ -84,7 +93,10 @@ class SparseNodes(TensorStruct):
     ids: torch.Tensor  # [b, cap] int32
     degrees: torch.Tensor  # [b] int32, clipped to cap
     raw_ids: Optional[torch.Tensor] = None
+    int_attrs: Optional[torch.Tensor] = None
     float_attrs: Any = None  # DeferredRows from a lookup
+    multival_attrs: Optional[torch.Tensor] = None
+    multival_lens: Optional[torch.Tensor] = None
     weights: Optional[torch.Tensor] = None
     labels: Optional[torch.Tensor] = None
     timestamps: Optional[torch.Tensor] = None
@@ -93,6 +105,10 @@ class SparseNodes(TensorStruct):
     @property
     def cap(self) -> int:
         return self.ids.shape[-1]
+
+    @property
+    def dense_shape(self):
+        return self.ids.shape
 
     def mask(self) -> torch.Tensor:
         """[b, cap] bool: True where a slot holds a neighbour."""
@@ -125,11 +141,14 @@ class Edges(TensorStruct):
     edge_ids: torch.Tensor  # [*] int32 dense edge indices, -1 = none
     src_nodes: Nodes
     dst_nodes: Nodes
+    int_attrs: Optional[torch.Tensor] = None  # [*, n_int] int32
     weights: Optional[torch.Tensor] = None  # [*] f32, 0 where edge_ids < 0
     labels: Optional[torch.Tensor] = None  # [*] int32
     # [*] int32 rebased timestamps (a -1 pad reads edge row 0's)
     timestamps: Optional[torch.Tensor] = None
     float_attrs: Any = None  # [*, nf] f32 edge features: DeferredRows
+    multival_attrs: Optional[torch.Tensor] = None  # [*, n_mv, L] int32
+    multival_lens: Optional[torch.Tensor] = None  # [*, n_mv] int32
     type_name: str = ""
 
     @property
@@ -164,6 +183,32 @@ class SparseEdges(TensorStruct):
         pos = torch.arange(self.edge_ids.shape[-1], dtype=torch.int32,
                            device=self.edge_ids.device)[None, :]
         return pos < self.degrees[:, None]
+
+
+@dataclasses.dataclass
+class SubGraphVal(TensorStruct):
+    """An induced subgraph: ``edge_index`` [2, E_cap] local indices over
+    ``node_ids`` [N_cap], with ``num_edges`` / ``num_nodes`` of them valid;
+    optionally the nodes' payload, the global edge ids and the BFS
+    distances to the src / dst seed (SEAL)."""
+
+    node_ids: torch.Tensor  # [N_cap] int32 dense node indices
+    num_nodes: torch.Tensor  # scalar int32
+    edge_index: torch.Tensor  # [2, E_cap] int32, local indices
+    num_edges: torch.Tensor  # scalar int32
+    nodes: Optional[Nodes] = None  # the node payload, [N_cap]
+    edge_ids: Optional[torch.Tensor] = None  # [E_cap] global edge indices
+    dist_to_src: Optional[torch.Tensor] = None  # [N_cap] int32
+    dist_to_dst: Optional[torch.Tensor] = None  # [N_cap] int32
+    type_name: str = ""
+
+    def node_mask(self) -> torch.Tensor:
+        return torch.arange(self.node_ids.shape[0], dtype=torch.int32,
+                            device=self.node_ids.device) < self.num_nodes
+
+    def edge_mask(self) -> torch.Tensor:
+        return torch.arange(self.edge_index.shape[1], dtype=torch.int32,
+                            device=self.edge_index.device) < self.num_edges
 
 
 @dataclasses.dataclass

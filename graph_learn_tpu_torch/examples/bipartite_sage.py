@@ -122,29 +122,37 @@ def build_query(g: Graph, batch_size: int, nbrs: Sequence[int],
     return seed.values()
 
 
-def tower(decoders: Sequence[Decoder], in_dim: int, out_dim: int,
+def tower(decoders: Sequence[Decoder], in_dim, out_dim: int,
           generator: torch.Generator) -> EgoGNN:
     """One EgoSAGEConv(mean) layer over per-hop FeatureEncoders, its
-    weights drawn from ``generator``."""
-    model = EgoGNN([EgoLayer([EgoSAGEConv((in_dim, in_dim), out_dim,
+    weights drawn from ``generator`` (the encoders' embedding tables
+    first); ``in_dim`` is the encoders' width, or the (src, hop) pair of
+    widths."""
+    if isinstance(in_dim, int):
+        in_dim = (in_dim, in_dim)
+    model = EgoGNN([EgoLayer([EgoSAGEConv(tuple(in_dim), out_dim,
                                           agg_type="mean")])],
-                   hop_encoders=[FeatureEncoder(d) for d in decoders])
+                   hop_encoders=[FeatureEncoder(d, generator=generator)
+                                 for d in decoders])
     for m in model.modules():
         if isinstance(m, nn.Linear):
             init_linear(m, generator)
     return model
 
 
-def towers(udec: Decoder, idec: Decoder, feat_dim: int, out_dim: int,
+def towers(udec: Decoder, idec: Decoder, out_dim: int,
            device: DeviceLike = "cuda",
            generator: Optional[torch.Generator] = None) -> nn.ModuleDict:
     """{"u": user tower, "i": item tower}; weights drawn on the CPU from
-    ``generator`` (default: seeded with 0), then moved to ``device``."""
+    ``generator`` (default: seeded with 0), then moved to ``device``.
+    Each tower's input widths are its encoders' (``FeatureEncoder.out_dim``:
+    the float attributes plus the embedding columns' widths)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    wu, wi = FeatureEncoder.out_dim(udec), FeatureEncoder.out_dim(idec)
     return nn.ModuleDict({
-        "u": tower([udec, idec], feat_dim, out_dim, generator),
-        "i": tower([idec, idec], feat_dim, out_dim, generator),
+        "u": tower([udec, idec], (wu, wi), out_dim, generator),
+        "i": tower([idec, idec], (wi, wi), out_dim, generator),
     }).to(resolve_device(device))
 
 
@@ -239,7 +247,7 @@ def main(argv=None) -> float:
     dev = resolve_device("cpu" if args.cpu else "cuda")
 
     g, udec, idec = build_graph(u2i_arrays(feat_dim=args.feat_dim), dev)
-    model = towers(udec, idec, args.feat_dim, args.out_dim, dev)
+    model = towers(udec, idec, args.out_dim, dev)
     q = build_query(g, args.batch_size, args.nbrs)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
     _, hist = LocalTrainer(device=dev).train(

@@ -296,12 +296,18 @@ def build_graph(cfg: dict, device: DeviceLike = "cuda"
     return g, udec, idec
 
 
-def build_query(g: Graph, b: int, k1: int, n_neg: int) -> Query:
-    """``run_bipartite:208-216``'s query."""
+def build_query(g: Graph, b: int, k1: int, n_neg: int,
+                condition: Optional[dict] = None) -> Query:
+    """``run_bipartite:208-216``'s query; with ``condition`` the negatives
+    are conditional, ``.where("dst", condition)`` over the random base
+    draw (the positive of each row is its ``dst`` item)."""
     seed = g.E("u-i").batch(b).alias("seed")
     src = seed.outV().alias("src")
     dst = seed.inV().alias("dst")
-    neg = src.outNeg("u-i").sample(n_neg).by("random").alias("neg")
+    neg = src.outNeg("u-i").sample(n_neg).by("random")
+    if condition is not None:
+        neg = neg.where("dst", condition)
+    neg = neg.alias("neg")
     src.outV("u-i").sample(k1).by("random").alias("src_h1")
     dst.outV("i-i").sample(k1).by("random").alias("dst_h1")
     neg.outV("i-i").sample(k1).by("random").alias("neg_h1")
@@ -341,12 +347,17 @@ class BipartiteSteps(bench.MultiStep):
 def run_bipartite(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
                   capture: Optional[bool] = None,
                   graph: Optional[Tuple[Graph, Decoder, Decoder]] = None,
-                  seed: int = 0) -> Dict[str, object]:
+                  seed: int = 0,
+                  condition: Optional[dict] = None) -> Dict[str, object]:
     """Build the store (or take ``graph``, a :func:`build_graph` result on
     the same device), put the plan's tables on the device, check the first
     batch through a ``Dataset``, build the towers, make one warm-up call,
     then time ``cfg["steps"] // K`` calls closed by one pull of the loss.
-    ``capture`` defaults to True on the card.
+    ``capture`` defaults to True on the card.  ``condition`` makes the
+    negatives conditional (:func:`build_query`); the towers take the
+    decoders' widths, so an item decoder with embedding columns widens
+    them and its hops are gathered, not reduced (their encoders do not
+    commute with the mean).
 
     Returns edges/s (``b * (2 k1 + n_neg (1 + k1)) * K * rounds / dt``),
     the step wall in ms, the warm-up call's seconds, the host draw, CSR and
@@ -368,10 +379,10 @@ def run_bipartite(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
         graph = build_graph(cfg, dev)
     g, udec, idec = graph
     out["host_draw_s"] = time.perf_counter() - t0
-    q = build_query(g, b, k1, n_neg)
+    q = build_query(g, b, k1, n_neg, condition)
     tables = _device_tables(q, EDGE_TYPES, dev, out)
 
-    model = towers(udec, idec, cfg["feat_dim"], cfg["hidden"], dev)
+    model = towers(udec, idec, cfg["hidden"], dev)
     b0 = Dataset(q, window=1, seed=seed, device=dev).next()
     with torch.no_grad():
         loss0 = tower_loss(model, b0, tables["nodes"]["i"].float_attrs)

@@ -4,9 +4,11 @@
 Counterpart of ``graph_learn_tpu/graph.py:47-321`` for tables built in
 memory, as ``bench.py:84-112`` builds them (``add_node_table`` /
 ``add_edge_table``, and ``add_node_set`` for a masked split, which the JAX
-package registers while it loads a masked source, ``graph.py:117-126``).
-Loading sources from files (``node()``, ``edge()``, ``init()``) needs
-``core/ingest.py`` and is not yet ported.
+package registers while it loads a masked source, ``graph.py:117-126``),
+with the direct APIs of ``:246-287`` (decoders, topology, degrees, node
+and edge lookups).  Loading sources from files (``node()``, ``edge()``,
+``init()``) needs the file part of ``core/ingest.py`` and is not yet
+ported; ``core/ingest.py`` parses attribute strings in memory.
 
 Timestamps: the JAX ``Graph.init`` calls ``unify_ts_bases`` once every
 table is loaded (``graph.py:143-144``).  The port has no ``init``: tables
@@ -82,7 +84,7 @@ class Graph:
             src=et.dst, dst=et.src, num_src_nodes=et.num_dst_nodes,
             num_dst_nodes=et.num_src_nodes, weights=et.weights,
             labels=et.labels, timestamps=_absolute_ts(et),
-            float_attrs=et.float_attrs))
+            **{f: getattr(et, f) for f in _EDGE_ATTRS}))
 
     def add_node_set(self, node_type: str, raw_ids: np.ndarray,
                      mask: Union[Mask, str], weights=None) -> "Graph":
@@ -100,6 +102,21 @@ class Graph:
                                                             np.float32)))
         return self
 
+    # --- decoders / topology ------------------------------------------
+    def get_node_decoder(self, node_type: str) -> Decoder:
+        """The decoder of ``node_type``'s table (an empty one when the
+        store has no such table, as the JAX package answers)."""
+        t = self.store.nodes.get(node_type)
+        return t.decoder if t is not None else Decoder()
+
+    def get_edge_decoder(self, edge_type: str) -> Decoder:
+        t = self.store.edges.get(edge_type)
+        return t.decoder if t is not None else Decoder()
+
+    def topology(self) -> Dict[str, Tuple[str, str]]:
+        """{edge type: (src node type, dst node type)}."""
+        return dict(self.store.topology)
+
     # --- direct (non-GSL) APIs ----------------------------------------
     def get_stats(self) -> Dict[str, Dict[str, int]]:
         return self.store.stats()
@@ -110,6 +127,12 @@ class Graph:
             np.asarray(node_ids, np.int64))
         return et.out_degrees[idx]
 
+    def in_degrees(self, node_ids: np.ndarray, edge_type: str) -> np.ndarray:
+        et = self.store.edge_table(edge_type)
+        idx = self.store.node_table(et.dst_type).index.lookup(
+            np.asarray(node_ids, np.int64))
+        return et.in_degrees[idx]
+
     def lookup_nodes(self, node_type: str, ids: np.ndarray):
         """Attributes of the given raw node ids, on the graph's device."""
         from graph_learn_tpu_torch.ops.lookup import lookup_nodes
@@ -118,6 +141,15 @@ class Graph:
         return lookup_nodes(t.device(self.device),
                             torch.as_tensor(idx, device=self.device),
                             type_name=node_type)
+
+    def lookup_edges(self, edge_type: str, edge_ids: np.ndarray) -> dict:
+        """The payload of the given edge row indices (-1: a pad), on the
+        graph's device: ``ops.lookup.edge_payload``."""
+        from graph_learn_tpu_torch.ops.lookup import edge_payload
+        et = self.store.edge_table(edge_type)
+        return edge_payload(et.device(self.device),
+                            torch.as_tensor(np.asarray(edge_ids, np.int32),
+                                            device=self.device))
 
     # --- GSL entry point ----------------------------------------------
     def V(self, t: str, node_from=None,
@@ -128,6 +160,10 @@ class Graph:
     def E(self, edge_type: str):
         from graph_learn_tpu_torch.gsl.query import e_entry
         return e_entry(self, edge_type)
+
+
+# the attribute columns an edge table's reversed or swapped copy repeats
+_EDGE_ATTRS = ("int_attrs", "float_attrs", "multival_attrs", "multival_lens")
 
 
 def _absolute_ts(et: EdgeTable):
@@ -149,7 +185,7 @@ def _with_swapped_copy(et: EdgeTable) -> EdgeTable:
         num_src_nodes=et.num_src_nodes, num_dst_nodes=et.num_dst_nodes,
         weights=twice(et.weights), labels=twice(et.labels),
         timestamps=twice(_absolute_ts(et)),
-        float_attrs=twice(et.float_attrs))
+        **{f: twice(getattr(et, f)) for f in _EDGE_ATTRS})
 
 
 def synthetic_graph(n_nodes: int, avg_degree: int, feat_dim: int,

@@ -5,7 +5,8 @@ Counterpart of ``graph_learn_tpu/gsl/compile.py`` ``Query:51``,
 ``source_v``, ``source_e`` and ``endpoint_*`` branches of
 ``_exec_node:172``, ``_exec_hop:249`` (``out_v`` / ``in_v`` / ``out_e`` /
 ``in_e``; ``full`` returns ``SparseNodes``, on an edge hop too, as in the
-JAX package) and ``_exec_neg:372`` without its conditional branch, with
+JAX package), ``_exec_neg:372`` with its conditional branch
+(``build_condition_tables:108``, ``_exec_conditional_neg:408``), with
 ``.filter()`` and registered strategies, and the ``walk`` branch
 (``:215-225``: the walks of the parent's ids, -1 where a walker is stuck,
 over the out-adjacency, with the dst node table's payload looked up at
@@ -32,14 +33,17 @@ the time of the row they were drawn for (``:403-405``).
 from __future__ import annotations
 
 import inspect
+import weakref
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.values import Edges, Nodes
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.gsl.dag import Dag, DagNode
+from graph_learn_tpu_torch.ops import conditional as cond_ops
 from graph_learn_tpu_torch.ops import negative as neg_ops
 from graph_learn_tpu_torch.ops import sampling as samp_ops
 from graph_learn_tpu_torch.ops import temporal as temporal_ops
@@ -48,7 +52,7 @@ from graph_learn_tpu_torch.ops.lookup import (edge_field, edge_payload,
                                               lookup_nodes,
                                               lookup_sparse_nodes)
 from graph_learn_tpu_torch.ops.segment import row_bounds
-from graph_learn_tpu_torch.utils.platform import DeviceLike
+from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
 class _Rec:
@@ -75,6 +79,9 @@ class Query:
         if src.kind not in ("source_v", "source_e"):
             raise InvalidArgumentError("query must start at V()/E()")
         self.source = src
+        # {device: (weak references to the store tables they index, the
+        #           condition tables of the query's .where() nodes)}
+        self._cond: Dict[object, tuple] = {}
 
     def source_space(self):
         """(size, kind) of the seed space: (the node set's size, "node")
@@ -93,10 +100,22 @@ class Query:
         return self.graph.store.node_set(self.source.node_type).indices
 
     def device_tables(self, device: Optional[DeviceLike] = None):
-        """The node and edge tables the plan reads, on ``device`` (default:
-        the graph's device)."""
+        """The node and edge tables the plan reads, and the condition
+        tables of its ``.where()`` nodes, on ``device`` (default: the
+        graph's device).  The JAX package rebuilds the condition tables on
+        every call; here they are kept per device and rebuilt only when the
+        store holds another node or edge table than they were built from
+        (``add_node_table`` / ``add_edge_table`` replaced one), so a query
+        run many times sorts its columns once."""
         device = self.graph.device if device is None else device
+        dev = resolve_device(device)
         store = self.graph.store
+        sources = [t for n in self.dag.nodes if n.strategy == "conditional"
+                   for t in _condition_sources(store, n)]
+        kept = self._cond.get(dev)
+        if kept is None or [r() for r in kept[0]] != sources:
+            self._cond[dev] = ([weakref.ref(t) for t in sources],
+                               build_condition_tables(self, device))
         node_types, edge_types = set(), set()
         for n in self.dag.nodes:
             if n.edge_type:
@@ -109,10 +128,47 @@ class Query:
                       for t in node_types},
             "edges": {t: store.edge_table(t).device(device)
                       for t in edge_types},
+            "cond": self._cond[dev][1],
         }
 
     def run(self, seeds: torch.Tensor, generator: torch.Generator):
         return _execute(self, self.device_tables(), seeds, generator)
+
+
+def _condition_sources(store, n: DagNode):
+    """(node table, edge table) that a ``.where()`` node's condition table
+    indexes: the negatives' side of the edge type, and the edge type."""
+    s_t, d_t = store.topology[n.edge_type]
+    return (store.node_table(s_t if n.kind == "in_neg" else d_t),
+            store.edge_table(n.edge_type))
+
+
+def build_condition_tables(query: Query, device: DeviceLike) -> dict:
+    """{str(dag nid): ConditionTable} for every ``.where()`` node: the str
+    columns merged into the int columns (they are hashed int columns in the
+    store), each node weighed by the base strategy (``in_degree``: the
+    in-degree, for ``inNeg`` the out-degree; ``node_weight``: the node
+    table's weights; else uniform)."""
+    store = query.graph.store
+    out = {}
+    for n in query.dag.nodes:
+        if n.strategy != "conditional":
+            continue
+        nt, et = _condition_sources(store, n)
+        cond = n.condition or {}
+        int_cols = list(cond.get("int_cols", [])) + \
+            list(cond.get("str_cols", []))
+        float_cols = list(cond.get("float_cols", []))
+        if n.base_strategy == "in_degree":
+            w = (et.out_degrees if n.kind == "in_neg"
+                 else et.in_degrees).astype(np.float64)
+        elif n.base_strategy == "node_weight":
+            w = nt.weights
+        else:
+            w = None
+        out[str(n.nid)] = cond_ops.ConditionTable.build(
+            nt, int_cols, float_cols, w, device)
+    return out
 
 
 def _execute(query: Query, tables, seeds: torch.Tensor,
@@ -147,9 +203,7 @@ def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
             dst_nodes=lookup_nodes(tables["nodes"][d_t],
                                    edge_field(et, "dst", eidx),
                                    type_name=d_t),
-            weights=pay["weights"], labels=pay["labels"],
-            timestamps=pay["timestamps"], float_attrs=pay["float_attrs"],
-            type_name=node.edge_type)
+            type_name=node.edge_type, **pay)
         return _Rec(src_ids, val, pay["timestamps"])
     parent = recs[node.parent.nid]
     if kind in ("endpoint_src", "endpoint_dst"):
@@ -159,7 +213,7 @@ def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
     if kind in ("out_v", "in_v", "out_e", "in_e"):
         return _exec_hop(query, tables, node, parent, recs, generator)
     if kind in ("out_neg", "in_neg"):
-        return _exec_neg(query, tables, node, parent, generator)
+        return _exec_neg(query, tables, node, parent, recs, generator)
     if kind == "walk":
         et = tables["edges"][node.edge_type]
         d_t = query.graph.store.topology[node.edge_type][1]
@@ -261,9 +315,7 @@ def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, recs,
                                parent.ids[..., None].expand(ids.shape),
                                type_name=src_type),
         dst_nodes=lookup_nodes(nt, ids, type_name=result_type),
-        weights=pay["weights"], labels=pay["labels"],
-        timestamps=pay["timestamps"], float_attrs=pay["float_attrs"],
-        type_name=node.edge_type)
+        type_name=node.edge_type, **pay)
     # an edge hop carries its edges' times whenever the type has them, as
     # the JAX plan's does
     return _Rec(ids, val, pay["timestamps"])
@@ -297,7 +349,8 @@ def _temporal_hop(csr, flat, k: int, strategy: str, generator, t_upper,
     raise InvalidArgumentError("unknown strategy %r" % strategy)
 
 
-def _exec_neg(query: Query, tables, node: DagNode, parent: _Rec, generator):
+def _exec_neg(query: Query, tables, node: DagNode, parent: _Rec, recs,
+              generator):
     shape = tuple(parent.ids.shape)
     flat = parent.ids.reshape(-1)
     if node.edge_type is None:
@@ -313,12 +366,64 @@ def _exec_neg(query: Query, tables, node: DagNode, parent: _Rec, generator):
     reverse = node.kind == "in_neg"
     result_type = s_t if reverse else d_t
     nt = tables["nodes"][result_type]
-    ids = neg_ops.negative_sample(et, flat, node.count, generator,
-                                  strategy=node.strategy, dst_table=nt,
-                                  reverse=reverse)
+    if node.strategy == "conditional":
+        ids = _exec_conditional_neg(query, tables, node, recs, flat, et, nt,
+                                    generator)
+    else:
+        ids = neg_ops.negative_sample(et, flat, node.count, generator,
+                                      strategy=node.strategy, dst_table=nt,
+                                      reverse=reverse)
     ids = ids.reshape(shape + (node.count,))
     # negatives inherit the time of their row: hops below a negative tower
     # stay bounded by the event (reference TGAT train_eval.py:58-78)
     neg_ts = (parent.ts[..., None].expand(ids.shape)
               if parent.ts is not None else None)
     return _Rec(ids, lookup_nodes(nt, ids, type_name=result_type), neg_ts)
+
+
+def _exec_conditional_neg(query: Query, tables, node: DagNode, recs, flat,
+                          et, dst_table, generator) -> torch.Tensor:
+    """``.where(target, condition)`` negatives of the seeds ``flat``: the
+    positive of each row is the target's id there."""
+    cond = node.condition or {}
+    target = query.dag.get_node(node.filter_alias)
+    pos_dst = recs[target.nid].ids.reshape(-1)
+    ct = tables["cond"][str(node.nid)]
+    reverse = node.kind == "in_neg"
+    pool = et.unique_src if reverse else et.unique_dst
+    pool_cdf = (et.unique_src_outdeg_cdf if reverse
+                else et.unique_dst_indeg_cdf)
+    if pool is None:
+        raise InvalidArgumentError(
+            "conditional negative sampling needs the candidate-pool and "
+            "membership tables, which storage_profile='minimal' drops — "
+            "use the default profile for queries with .where()")
+    if node.base_strategy == "in_degree":
+        def base_draw(gen, shape):
+            return neg_ops.cdf_ids(pool, pool_cdf, shape, gen)
+    elif node.base_strategy == "node_weight":
+        all_ids = torch.arange(dst_table.num_nodes, dtype=torch.int32,
+                               device=pool.device)
+
+        def base_draw(gen, shape):
+            return neg_ops.cdf_ids(all_ids, dst_table.cum_weights, shape,
+                                   gen)
+    else:
+        def base_draw(gen, shape):
+            return neg_ops.uniform_ids(pool, shape, gen)
+    int_cols = list(cond.get("int_cols", [])) + list(cond.get("str_cols",
+                                                              []))
+    int_props = list(cond.get("int_props", [])) + list(
+        cond.get("str_props", []))
+    float_cols = list(cond.get("float_cols", []))
+    # the positives' attribute rows, read only where a column asks
+    pos = pos_dst.long()
+    pia = (dst_table.int_attrs[pos]
+           if int_cols and dst_table.int_attrs is not None else None)
+    pfa = (dst_table.float_attrs[pos]
+           if float_cols and dst_table.float_attrs is not None else None)
+    return cond_ops.conditional_negative_sample(
+        et, ct, flat, pos_dst, pia, pfa, node.count, generator,
+        int_cols, int_props, float_cols, list(cond.get("float_props", [])),
+        base_draw, batch_share=bool(cond.get("batch_share", False)),
+        unique=bool(cond.get("unique", False)), reverse=reverse)

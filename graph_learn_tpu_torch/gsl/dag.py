@@ -9,9 +9,10 @@ hops ``outV`` / ``inV`` / ``outE`` / ``inE`` with the strategies
 ``random_without_replacement`` and ``full`` and any strategy added by
 ``ops.sampling.register_sampler``; the negatives ``outNeg`` / ``inNeg`` /
 ``Neg`` with ``random``, ``in_degree``, ``soft_in_degree`` and
-``node_weight``; ``.random_walk(walk_len, p, q, edge_type)``; and
-``.each()``.  Conditional negatives (``.where``) and subgraphs are not yet
-ported and raise when the query is built.
+``node_weight``, and conditional negatives through ``.where(target,
+condition)`` (``.by("conditional")``, ops/conditional.py);
+``.random_walk(walk_len, p, q, edge_type)``; and ``.each()``.  Subgraphs
+are not yet ported and raise when the query is built.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from graph_learn_tpu_torch.ops.sampling import (BUILTIN_STRATEGIES,
 _SOURCES = ("source_v", "source_e")
 _HOPS = ("out_v", "in_v", "out_e", "in_e")
 _NEGS = ("out_neg", "in_neg")
-# the JAX package's _VALID_NEG: "conditional" is refused as not yet ported
 _VALID_NEG = NEGATIVE_STRATEGIES + ("conditional",)
 
 
@@ -65,7 +65,8 @@ class Dag:
 class DagNode:
     """One traversal step: ``source_v`` | ``source_e`` | ``endpoint_src`` |
     ``endpoint_dst`` | ``out_v`` | ``in_v`` | ``out_e`` | ``in_e`` |
-    ``out_neg`` | ``in_neg`` | ``walk``."""
+    ``out_neg`` | ``in_neg`` | ``walk``.  Every attribute that
+    ``gsl/plan.py`` records is set here, as in the JAX package."""
 
     def __init__(self, dag: Dag, kind: str, parent: Optional["DagNode"],
                  edge_type: Optional[str] = None,
@@ -79,7 +80,12 @@ class DagNode:
         self.alias_name: Optional[str] = None
         self.count = 0  # sample fanout
         self.strategy = "by_order" if kind in _SOURCES else "random"
+        self.base_strategy = "random"  # the unconditioned draw of .where()
         self.filter_alias: Optional[str] = None
+        self.condition: Optional[dict] = None
+        self.walk_len = 0
+        self.walk_p = 1.0
+        self.walk_q = 1.0
         dag.add(self)
 
     def alias(self, name: str) -> "DagNode":
@@ -113,8 +119,6 @@ class DagNode:
             if strategy not in _VALID_NEG:
                 raise InvalidArgumentError(
                     "negative strategy %r not in %r" % (strategy, _VALID_NEG))
-            if strategy == "conditional":
-                _unported("conditional negative sampling")
             self.strategy = strategy
             return self
         if self.kind not in _HOPS:
@@ -169,8 +173,26 @@ class DagNode:
         """Negatives from a node set, whatever the topology."""
         return DagNode(self.dag, "out_neg", self, node_type=node_type)
 
+    _WHERE_KEYS = ("batch_share", "unique", "int_cols", "int_props",
+                   "float_cols", "float_props", "str_cols", "str_props")
+
     def where(self, target, condition: Optional[dict] = None) -> "DagNode":
-        _unported("conditional negative sampling (.where)")
+        """Conditional negatives (reference dag_node.py:233): the strategy
+        set by ``.by()`` becomes the base (unconditioned) draw; the quotas
+        come from ``condition``'s int_cols / int_props, float_cols /
+        float_props and str_cols / str_props (str columns are the hashed
+        int columns), ``batch_share`` / ``unique`` set the rejection; the
+        positive of each row is ``target``'s id."""
+        for kk in (condition or {}):
+            if kk not in self._WHERE_KEYS:
+                raise InvalidArgumentError(
+                    "condition %r is not supported." % kk)
+        self.filter_alias = (target if isinstance(target, str)
+                             else target.alias_name)
+        self.condition = dict(condition or {})
+        self.base_strategy = self.strategy
+        self.strategy = "conditional"
+        return self
 
     def random_walk(self, walk_len: int, p: float = 1.0, q: float = 1.0,
                     edge_type: Optional[str] = None) -> "DagNode":

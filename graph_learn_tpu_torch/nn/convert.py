@@ -16,7 +16,9 @@ either package can be compared.  The flax tree is
     params/layers_<i>/convs_0/{trans_x, trans_nbrs, output}/{kernel, bias?}
                      (GIN; trans_x and trans_nbrs only with hetero dims)
     params/encoder/proj/{kernel, bias?}      (only with an output_dim)
-    params/hop_encoders_<i>/proj/{kernel, bias?}
+    params/encoder/{embedding_<a>, embedding_mv_<a>}
+                   (a FeatureEncoder's tables, <a> the attribute's index)
+    params/hop_encoders_<i>/{proj, embedding_<a>, embedding_mv_<a>}
                           (with ``hop_encoders``, in place of ``encoder``)
     params/rgcn_<i>/{weight, coefficient?, bias?, root_weight/kernel}
                   (RGCN; its encoder never projects, so it has no params)
@@ -181,13 +183,27 @@ def _denses(model: nn.Module):
     else:
         encoders = [("encoder", model.encoder)]
     for name, enc in encoders:
-        proj = getattr(enc, "proj", None)
-        if proj is not None:
-            yield (name, "proj"), proj
+        yield from _encoder_items(enc, (name,))
 
 
-def _tgat_items(model: nn.Module, prefix=()):
-    """(flax path, Linear or Parameter) of a temporal model's tree."""
+def _encoder_items(enc: nn.Module, prefix):
+    """(flax path, Linear or Parameter) of a ``FeatureEncoder``'s tree:
+    its ``proj`` and its embedding tables."""
+    if not isinstance(enc, FeatureEncoder):
+        return
+    if enc.proj is not None:
+        yield prefix + ("proj",), enc.proj
+    for name, table in enc.embedding_tables():
+        yield prefix + (name,), table
+
+
+def _tgat_items(model: nn.Module, prefix=(), owned=frozenset()):
+    """(flax path, Linear or Parameter) of a temporal model's tree.
+
+    ``owned`` holds the ids of the modules an enclosing module names (a
+    flax module made in its parent's ``setup``); an EgoTGAT's node and
+    edge encoders that no enclosing module names are its own, under
+    ``encoders_<i>`` / ``edge_encoders_<i>``, as flax adopts them."""
     if isinstance(model, TimeEncoder):
         yield prefix + ("basis_freq",), model.basis_freq
         yield prefix + ("phase",), model.phase
@@ -197,14 +213,24 @@ def _tgat_items(model: nn.Module, prefix=()):
         for lvl, conv in enumerate(model.convs):
             for name, child in conv.named_children():
                 yield prefix + ("tgat_conv_%d" % lvl, name), child
+        seen = set(owned)
+        for name, encs in (("encoders", dict(enumerate(model.encoders))),
+                           ("edge_encoders", {
+                               int(i): enc for i, enc in
+                               model.edge_encoders.items()})):
+            for i, enc in sorted(encs.items()):
+                if id(enc) not in seen:
+                    seen.add(id(enc))
+                    yield from _encoder_items(enc, prefix + (
+                        "%s_%d" % (name, i),))
     elif isinstance(model, FeatureEncoder):
-        if model.proj is not None:
-            yield prefix + ("proj",), model.proj
+        yield from _encoder_items(model, prefix)
     elif isinstance(model, (nn.Linear, nn.GRUCell)):
         yield prefix, model
     else:
+        owned = owned | {id(c) for c in model.children()}
         for name, child in model.named_children():
-            yield from _tgat_items(child, prefix + (name,))
+            yield from _tgat_items(child, prefix + (name,), owned)
 
 
 def _items(model: nn.Module):

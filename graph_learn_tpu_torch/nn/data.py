@@ -57,6 +57,13 @@ class EgoGraph(TensorStruct):
     hops: List[Nodes] = dataclasses.field(default_factory=list)
     nbr_nums: Tuple[int, ...] = ()
 
+    @property
+    def batch_size(self) -> int:
+        return self.src.ids.shape[0]
+
+    def hop_node(self, i: int) -> Nodes:
+        return self.hops[i]
+
     @classmethod
     def from_query_result(cls, result: dict, src_alias: str,
                           hop_aliases: Sequence[str],
@@ -96,6 +103,15 @@ class TemporalGraph(TensorStruct):
     @property
     def batch_size(self) -> int:
         return self.src.ids.shape[0]
+
+    def hop_node(self, i: int) -> Nodes:
+        return self.nbr_nodes[i]
+
+    def hop_edge(self, i: int) -> Edges:
+        return self.nbr_edges[i]
+
+    def hop_t(self, i: int) -> torch.Tensor:
+        return self.nbr_t[i]
 
     @classmethod
     def from_query_result(cls, result: dict, src_alias: str,

@@ -8,7 +8,9 @@ Counterpart of ``graph_learn_tpu/nn/models/ego_gnn.py``
 (``gather_group_agg``) when the conv and the encoder allow it (EgoGIN's
 with a sum, EgoRGCN's with its ``agg_type`` over every deepest hop);
 attention needs every neighbour's row, so under an ``EgoGATConv`` the
-deferred rows are gathered instead (Kernel 1).
+deferred rows are gathered instead (Kernel 1), as they are under an
+encoder with embedding or multi-value columns, which commutes with no
+reduction.
 """
 
 from __future__ import annotations
@@ -34,9 +36,14 @@ def _encoder_commutes(enc, op: str) -> bool:
     """Does ``enc(group_agg(rows)) == group_agg(enc(rows))``?
 
     A float-only FeatureEncoder is a cast or a cast + Linear: mean
-    commutes with any affine map, sum/max only with the plain cast.
+    commutes with any affine map, sum/max only with the plain cast.  An
+    encoder with int-attribute embeddings or multi-value columns commutes
+    with nothing, so its hop is materialised.
     """
     if not isinstance(enc, FeatureEncoder):
+        return False
+    d = enc.decoder
+    if d.int_attr_num or d.multival_attr_num:
         return False
     if op == "mean":
         return True
@@ -83,8 +90,10 @@ class EgoGNN(nn.Module):
             if op != fa.op or not _encoder_commutes(enc, op):
                 raise InvalidArgumentError(
                     "PreAggregatedRows(op=%r) cannot feed %s (deferred_op="
-                    "%r) — pre-aggregate with the conv's op and a float-only "
-                    "affine encoder" % (fa.op, type(conv).__name__, op))
+                    "%r, encoder commutes=%s) — pre-aggregate with the "
+                    "conv's op and a float-only affine encoder"
+                    % (fa.op, type(conv).__name__, op,
+                       _encoder_commutes(enc, op) if op else "-"))
             agg_raw = fa.agg
         elif op is None or not _encoder_commutes(enc, op):
             values[-1] = ego.hops[-1].replace(float_attrs=fa.materialize())
@@ -136,13 +145,14 @@ def _build(make_conv: Callable[[int], nn.Module], n_layers: int,
            generator: Optional[torch.Generator]) -> EgoGNN:
     """One shared conv per layer (``make_conv(i)``) over its hop pairs.
     Weights are drawn on the CPU from ``generator`` (default: seeded with
-    0), then moved to ``device``."""
+    0), the encoder's embedding tables first, then moved to ``device``."""
     dev = resolve_device(device)
-    layers = [EgoLayer([make_conv(i)] * (n_layers - i))
-              for i in range(n_layers)]
-    model = EgoGNN(layers, FeatureEncoder(decoder), act=act, dropout=dropout)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    layers = [EgoLayer([make_conv(i)] * (n_layers - i))
+              for i in range(n_layers)]
+    model = EgoGNN(layers, FeatureEncoder(decoder, generator=generator),
+                   act=act, dropout=dropout)
     for m in model.modules():
         if isinstance(m, nn.Linear):
             init_linear(m, generator)
@@ -220,14 +230,14 @@ class EgoRGCN(nn.Module):
         self.agg_type = agg_type
         self.act = act
         self.dropout = dropout
-        self.encoder = FeatureEncoder(decoder)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.encoder = FeatureEncoder(decoder, generator=generator)
         self.convs = nn.ModuleList([
             EgoRGCNConv(dims[i], dims[i + 1], num_relations,
                         num_bases=num_bases, num_blocks=num_blocks,
                         agg_type=agg_type)
             for i in range(len(dims) - 1)])
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
         for conv in self.convs:
             conv.reset_parameters(generator)
         self.to(dev)

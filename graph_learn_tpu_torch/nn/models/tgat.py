@@ -17,11 +17,11 @@ The flax layer infers its input widths; the port states them (a torch
   flax model marks level 0 hetero with ``in_dim=(1, 2)``);
 - later levels: ``hidden + time`` on both sides.
 
-The widths are the encoders' output widths (``FeatureEncoder``: its
-projection's, else the decoder's float attribute count) and the edge
-features' (``edge_dim``).  The hop edges' raw float attrs are their
-features: the flax model's ``edge_encoders`` option, which no caller
-sets, is not ported.
+The widths are the encoders' output widths (``FeatureEncoder.out_dim``)
+and the edge features': the width of hop i's edge encoder
+(``edge_encoders[i]``, a ``FeatureEncoder`` over the edge type's
+decoder), or, where it has none, ``edge_dim``, the width of the hop
+edges' raw float attrs.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from torch import nn
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.nn.data import TemporalGraph
+from graph_learn_tpu_torch.nn.feature_column import FeatureEncoder
 from graph_learn_tpu_torch.nn.layers.ego import (EgoGATConv, init_linear,
                                                  make_linear)
 from graph_learn_tpu_torch.nn.models.ego_gnn import _dropout
@@ -42,9 +43,7 @@ from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 def _width(enc: nn.Module) -> int:
     """The output width of a ``FeatureEncoder``."""
-    if getattr(enc, "output_dim", None) is not None:
-        return enc.output_dim
-    return enc.decoder.float_attr_num
+    return FeatureEncoder.out_dim(enc.decoder, enc.output_dim)
 
 
 def _init(model: nn.Module, generator: Optional[torch.Generator],
@@ -91,8 +90,11 @@ class EgoTGAT(nn.Module):
     ego_tgat.py:31-97).
 
     ``encoders``: ``num_hops + 1`` node feature encoders (src, then each
-    hop's node type; one width for all); the hop edges' raw float attrs,
-    ``edge_dim`` wide (0: none), join the keys.  ``convs[l]`` is level l's
+    hop's node type; one width for all); the hop edges' features join the
+    keys: ``edge_encoders[i]`` of hop i's ``Edges`` where given (a list
+    of ``num_hops`` modules or None), else their raw float attrs,
+    ``edge_dim`` wide (0: none).  Every hop's edge features need one
+    width, since level 0's conv is shared over the hops.  ``convs[l]`` is level l's
     conv, shared over its hop pairs.  ``act`` (and dropout when training)
     between levels.  Weights are drawn from ``generator`` on the CPU
     (``_init``), then moved to ``device``."""
@@ -102,7 +104,9 @@ class EgoTGAT(nn.Module):
                  edge_dim: int = 0, num_head: int = 1,
                  attn_dropout: float = 0.0, act: Callable = torch.relu,
                  dropout: float = 0.0, device: DeviceLike = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 edge_encoders: Optional[Sequence[Optional[nn.Module]]]
+                 = None):
         super().__init__()
         if len(encoders) != num_hops + 1:
             raise InvalidArgumentError(
@@ -113,7 +117,24 @@ class EgoTGAT(nn.Module):
             raise InvalidArgumentError(
                 "EgoTGAT: the convs are shared over the hop pairs, so every "
                 "encoder needs one width, got %s" % sorted(feat))
-        f, e, T = feat.pop(), edge_dim, time_dim
+        edge_encoders = list(edge_encoders or [None] * num_hops)
+        if len(edge_encoders) != num_hops:
+            raise InvalidArgumentError(
+                "EgoTGAT: %d edge encoders for %d hops"
+                % (len(edge_encoders), num_hops))
+        # the modules by hop position (a hop without one reads raw attrs)
+        self.edge_encoders = nn.ModuleDict(
+            {str(i): enc for i, enc in enumerate(edge_encoders)
+             if enc is not None})
+        widths = {edge_dim if enc is None else _width(enc)
+                  for enc in edge_encoders}
+        if len(widths) > 1:
+            raise InvalidArgumentError(
+                "EgoTGAT: level 0's conv is shared over the hops, so every "
+                "hop's edge features need one width, got %s"
+                % sorted(widths))
+        f, T = feat.pop(), time_dim
+        e = widths.pop() if widths else edge_dim
         self.hidden_dim, self.out_dim, self.time_dim = hidden_dim, out_dim, T
         self.num_hops = num_hops
         self.act, self.dropout = act, dropout
@@ -141,8 +162,12 @@ class EgoTGAT(nn.Module):
         # h^0: [feat, (edge feat,) time emb] per hop position, [n, d] each
         h = [[self.encoders[0](tg.src), time_enc(tg.src_t)]]
         for i in range(K):
-            fa = tg.nbr_edges[i].float_attrs
-            e_feat = None if fa is None else fa.reshape(-1, fa.shape[-1])
+            ev = tg.nbr_edges[i]
+            if str(i) in self.edge_encoders:
+                e_feat = self.edge_encoders[str(i)](ev)
+            else:
+                fa = ev.float_attrs
+                e_feat = None if fa is None else fa.reshape(-1, fa.shape[-1])
             h.append([self.encoders[i + 1](tg.nbr_nodes[i])]
                      + ([e_feat] if e_feat is not None else [])
                      + [time_enc(tg.nbr_t[i])])

@@ -16,8 +16,9 @@ Counterpart of ``graph_learn_tpu/ops/negative.py`` (``negative_sample:88``,
 
 A rejecting strategy draws R = ``conf.sampling_retry_times + 1`` candidate
 rounds per slot, keeps the first round that is not a neighbour of its seed
-and, where every round is one, the last.  ``conditional`` (``.where``)
-is not yet ported and raises.
+and, where every round is one, the last.  ``conditional`` negatives
+(``.where``) are drawn by ops/conditional.py, which takes one of these
+strategies' draws as its base.
 
 As in ops/sampling.py, the draws come from an explicit
 ``torch.Generator`` and the step after them is a plain function of the
@@ -88,7 +89,8 @@ def _node_cdf(nt: Optional[DeviceNodeTable]) -> torch.Tensor:
 def _check(strategy: str):
     if strategy == "conditional":
         raise InvalidArgumentError(
-            "conditional negative sampling (.where) is not yet ported")
+            "conditional negatives need the .where() condition: they are "
+            "drawn by ops/conditional.py conditional_negative_sample")
     if strategy not in NEGATIVE_STRATEGIES:
         raise InvalidArgumentError("unknown negative strategy %r" % strategy)
 

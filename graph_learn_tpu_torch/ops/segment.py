@@ -1,8 +1,9 @@
 """Segment primitives over flat CSR rows.
 
 Counterpart of ``graph_learn_tpu/ops/segment.py`` ``row_bounds:173``,
-``segmented_searchsorted:82``, ``segment_member:123`` and
-``row_member:142``.  The tiled gathers of the JAX package (``flat_gather``,
+``segmented_searchsorted:82``, ``segment_member:123``, ``row_member:142``,
+``set_member:189`` and ``segment_softmax:196`` (the last two in plain
+PyTorch: the JAX ones are XLA).  The tiled gathers of the JAX package (``flat_gather``,
 ``pair_gather``) and ``row_member``'s 128-lane window exist for the TPU's
 layout only; flat tensors index directly here.  Membership bisects the
 row's id-sorted copy where the store has one, and otherwise scans the
@@ -114,3 +115,37 @@ def scan_member(csr, start: torch.Tensor, end: torch.Tensor,
             hit |= ((nbr[:, None, :] == q[:, :, None])
                     & valid[:, None, :]).any(dim=-1)
     return hit.reshape(queries.shape)
+
+
+def set_member(sorted_set: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """Is each query in ``sorted_set`` (one ascending 1-D array, -1
+    padding allowed)?  Bool of ``queries``' shape."""
+    pos = torch.searchsorted(sorted_set, queries.contiguous())
+    pos = torch.clamp(pos, 0, sorted_set.shape[0] - 1)
+    return sorted_set[pos] == queries
+
+
+def segment_softmax(values: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax of ``values`` [N, ...] within the segments ``segment_ids``
+    [N] (each in [0, num_segments)), shifted by each segment's max.
+    Entries where ``mask`` is False get 0 and take no share; a segment
+    with no entry (or none unmasked) is left out, as the JAX package's
+    ``jax.ops.segment_max`` / ``segment_sum`` leave it."""
+    if mask is not None:
+        values = torch.where(mask, values, float("-inf"))
+    seg = segment_ids.long()
+    wide = seg.reshape((-1,) + (1,) * (values.dim() - 1)).expand(
+        values.shape)
+    seg_max = torch.full((num_segments,) + tuple(values.shape[1:]),
+                         float("-inf"), dtype=values.dtype,
+                         device=values.device)
+    seg_max = seg_max.scatter_reduce(0, wide, values, "amax",
+                                     include_self=False)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    ex = torch.exp(values - seg_max[seg])
+    if mask is not None:
+        ex = torch.where(mask, ex, 0.0)
+    seg_sum = torch.zeros_like(seg_max).index_add(0, seg, ex)
+    return ex / torch.clamp(seg_sum[seg], min=1e-16)

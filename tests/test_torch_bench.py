@@ -215,7 +215,7 @@ def test_the_bipartite_plan_makes_no_host_tensor_and_reads_nothing_back(
         graph = fs.build_graph(cfg, "cpu")
         fq = fs.build_query(graph[0], 32, 4, 2)
         ftables = fq.device_tables("cpu")
-    model = fs.towers(graph[1], graph[2], 8, 16, "cpu")
+    model = fs.towers(graph[1], graph[2], 16, "cpu")
     step = fs.BipartiteSteps(fq, ftables, model,
                              tbench.make_optimizer(model,
                                                    torch.device("cpu")),

@@ -219,7 +219,7 @@ def test_the_slice_matches_jax_towers_loss_and_one_step(u2i, monkeypatch):
     s0, d0, n0 = _jax_egos(jb)
     params = {"u": u_tower.init(jax.random.key(0), s0),
               "i": i_tower.init(jax.random.key(1), d0)}
-    model = bs.towers(tudec, tidec, d, out_dim, "cpu")
+    model = bs.towers(tudec, tidec, out_dim, "cpu")
     load_flax_params(model, jax.tree.map(np.asarray, params))
 
     def jax_embs(p):
@@ -260,7 +260,7 @@ def test_the_slice_matches_jax_towers_loss_and_one_step(u2i, monkeypatch):
 
 def test_local_trainer_trains_two_epochs_then_recall(u2i):
     g, udec, idec = bs.build_graph(u2i, "cpu")
-    model = bs.towers(udec, idec, 8, 16, "cpu")
+    model = bs.towers(udec, idec, 16, "cpu")
     q = bs.build_query(g, 16, [4])
     opt = torch.optim.Adam(model.parameters(), lr=0.005)
     _, hist = bs.LocalTrainer(device="cpu").train(

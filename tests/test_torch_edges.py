@@ -256,11 +256,20 @@ def test_unported_kinds_raise_when_the_query_is_built(graphs):
     _, _, tg = graphs
     seed = tg.E("u-i").batch(4).alias("seed")
     src = seed.outV().alias("src")
-    for build in (lambda: src.SubGraph("u-i"),
-                  lambda: src.outNeg("u-i").where("src"),
-                  lambda: src.outNeg("u-i").sample(2).by("conditional")):
-        with pytest.raises(InvalidArgumentError, match="not yet ported"):
-            build()
+    with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        src.SubGraph("u-i")
+    # conditional negatives build (tests/test_torch_conditional.py runs
+    # them): .where makes the set strategy the base draw
+    dst = seed.inV().alias("dst")
+    neg = src.outNeg("u-i").sample(2).by("in_degree").where(
+        "dst", {"int_cols": [0], "int_props": [0.5]})
+    assert (neg.strategy, neg.base_strategy, neg.filter_alias) == (
+        "conditional", "in_degree", "dst")
+    assert neg.condition == {"int_cols": [0], "int_props": [0.5]}
+    bare = src.outNeg("u-i").sample(2).by("conditional")
+    assert (bare.strategy, bare.base_strategy, bare.condition) == (
+        "conditional", "random", None)
+    assert dst.kind == "endpoint_dst"
     with pytest.raises(InvalidArgumentError, match="not in"):
         src.outNeg("u-i").sample(2).by("topk")
     with pytest.raises(InvalidArgumentError, match="edge_type required"):

@@ -286,6 +286,11 @@ def _row(**times):
     (_row(ms=0.025, cold_ms_rgcn=0.003, bound_ms_rgcn=0.004), False),
     (_row(ms=0.025, ms_sum=0.02, bound_ms_sum=0.014), True),
     (_row(ms=0.025, ms_sum=0.013, bound_ms_sum=0.014), False),
+    # the categorical path's item-row shapes
+    (_row(ms=0.025, cold_ms_cond_10240=0.004, bound_ms_cond_10240=0.0013),
+     True),
+    (_row(ms=0.025, cold_ms_cond_1024=0.0001, bound_ms_cond_1024=0.00012),
+     False),
 ])
 def test_chip_smoke_holds_times_to_their_bounds(row, ok):
     """chip_smoke.py fails when a time on its kernels line reads under the
@@ -296,3 +301,58 @@ def test_chip_smoke_holds_times_to_their_bounds(row, ok):
     else:
         with pytest.raises(smoke.SmokeFailure, match="under their bound"):
             smoke.check_bounds([row])
+
+
+def test_chip_smoke_category_draw_follows_one_over_rank():
+    """The categorical items' category: value r with probability
+    proportional to 1 / (r + 1), so the heaviest run holds about a
+    seventh of the items and the lightest a few hundred at the store's
+    size."""
+    smoke = _chip_smoke_module()
+    rng = np.random.default_rng(0)
+    n = 400_000
+    cat = smoke.category_draw(n, 1000, rng)
+    assert cat.min() >= 0 and cat.max() < 1000
+    counts = np.bincount(cat, minlength=1000)
+    p = 1.0 / np.arange(1, 1001)
+    p /= p.sum()
+    assert abs(counts[0] / n - p[0]) < 0.005
+    assert counts[:10].sum() > counts[500:].sum()
+    strs, cats = smoke.categorical_strings(2000, seed=3)
+    assert len(strs) == 2000 and np.array_equal(
+        [int(x.split(":")[0]) for x in strs], cats)
+    tags = [x.split(":")[2] for x in strs]
+    lens = {len(t.split(",")) if t else 0 for t in tags}
+    assert lens == set(range(smoke.CAT_MAX_TAGS + 1))
+    assert all(x.split(":")[1].startswith("brand_") for x in strs)
+
+
+@pytest.mark.parametrize("dof", [1, 9, 99])
+def test_chip_smoke_chi_square_p_tracks_scipy(dof):
+    from scipy import stats
+    smoke = _chip_smoke_module()
+    rng = np.random.default_rng(dof)
+    exp = np.full(dof + 1, 1000.0)
+    for shift in (0.0, 0.02, 0.06):
+        obs = rng.poisson(exp * (1 + shift * np.sign(
+            np.arange(dof + 1) - dof / 2)))
+        obs = obs * exp.sum() / obs.sum()
+        stat = ((obs - exp) ** 2 / exp).sum()
+        want = stats.chi2.sf(stat, dof)
+        got = smoke.chi_square_p(obs, exp)
+        # the normal approximation of the tail, off by a few hundredths of
+        # one at one degree of freedom and by less above
+        assert abs(got - want) < (0.05 if dof == 1 else 0.01), (got, want)
+
+
+def test_chip_smoke_relaxed_rows_are_the_forced_rows():
+    smoke = _chip_smoke_module()
+    bad = np.array([[0, 0], [1, 0], [0, 1], [0, 0]], bool)
+    assert smoke.relaxed_rows(bad, np.array([0, 1, 1, 0], bool)) == (
+        2, 2, True)
+    # a rejected negative in a row that did not have to relax
+    assert smoke.relaxed_rows(bad, np.array([0, 1, 0, 0], bool)) == (
+        2, 1, False)
+    # a row that had to relax but holds no rejected negative
+    assert smoke.relaxed_rows(bad, np.array([1, 1, 1, 0], bool)) == (
+        2, 3, False)

@@ -171,8 +171,7 @@ def test_in_v_is_not_yet_ported(service):
     # JAX query), and so are filters (tests/test_torch_filters.py) and edge
     # sources (tests/test_torch_edges.py), and walks
     # (tests/test_torch_walk.py); what is still refused when a query is
-    # built: strategies nobody registered, subgraphs and conditional
-    # negatives
+    # built: strategies nobody registered and subgraphs
     _, _, q = service
     hop = q.graph.V("item").batch(4).alias("src").inV("rel").sample(2) \
         .by("topk")
@@ -185,8 +184,9 @@ def test_in_v_is_not_yet_ported(service):
     assert seed.outV().random_walk(3).kind == "walk"
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
         seed.outV().SubGraph("rel")
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        seed.outV().outNeg("rel").where("src")
+    # conditional negatives build now (tests/test_torch_conditional.py)
+    neg = seed.outV().outNeg("rel").where("src")
+    assert (neg.strategy, neg.base_strategy) == ("conditional", "random")
     # serving answers V() queries only, as the JAX package's does
     svc = QueryService(q.graph, device="cpu")
     try:

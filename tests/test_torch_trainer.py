@@ -275,15 +275,16 @@ def test_dataset_refuses_unported_tiers():
             glt.Dataset(q, device="cpu")
     finally:
         glt.conf.storage_device = old
-    # E() sources and walks are ported; subgraphs and conditional
-    # negatives are what is still refused
+    # E() sources, walks and conditional negatives are ported; subgraphs
+    # are what is still refused
     seed = tg.E("rel")
     assert seed.kind == "source_e" and seed.edge_type == "rel"
     assert seed.outV().random_walk(3).kind == "walk"
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
         seed.outV().SubGraph("rel")
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        seed.outV().outNeg("rel").where("src")
+    # conditional negatives build now (tests/test_torch_conditional.py)
+    neg = seed.outV().outNeg("rel").where("src")
+    assert (neg.strategy, neg.base_strategy) == ("conditional", "random")
 
 
 @pytest.mark.parametrize("pre", [False, True])

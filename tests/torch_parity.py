@@ -136,6 +136,22 @@ def flax_grad_tree(model) -> Dict:
     return {"params": tree}
 
 
+def grad_tree(model) -> Dict:
+    """The gradients of the port model's parameters as its flax tree:
+    ``to_flax_params`` of a copy that holds them (zeros where a parameter
+    has none), embedding tables included."""
+    import copy
+
+    import torch
+
+    from graph_learn_tpu_torch.nn.convert import to_flax_params
+    clone = copy.deepcopy(model)
+    with torch.no_grad():
+        for p, q in zip(model.parameters(), clone.parameters()):
+            q.copy_(p.grad if p.grad is not None else torch.zeros_like(p))
+    return to_flax_params(clone)
+
+
 def assert_trees_close(got: Dict, want: Dict, path: str = "", **tol):
     """Two nested dicts of arrays: same keys, allclose leaves."""
     assert sorted(got) == sorted(want), (path, sorted(got), sorted(want))
@@ -216,17 +232,66 @@ def u2i_arrays(n_u: int = 60, n_i: int = 50, e_ui: int = 400,
     }
 
 
+# the categorical item columns of cat_u2i_arrays: a bucketed category, a
+# hashed brand string and multi-value hashed tags, each embedded
+CAT_TYPES = [("int", 5), ("string", 37), ("string", 23, True)]
+CAT_DIMS = [4, 3, 5]
+CAT_MV_LEN = 3
+
+
+def cat_u2i_arrays(n_cat: int = 4, **kw) -> Dict[str, np.ndarray]:
+    """``u2i_arrays`` with categorical item attributes: the attribute
+    strings ``"<category>:brand_<j>:<tag>,<tag>,..."`` (categories in
+    [0, n_cat), so one bucket row is never used; 0-4 tags, so rows are
+    empty and rows are cut at ``CAT_MV_LEN``) and their columns as the
+    JAX package's ``_parse_attrs`` makes them (``i_int`` [n_i, 2],
+    ``i_mv`` [n_i, 1, 3], ``i_mv_lens`` [n_i, 1])."""
+    from graph_learn_tpu.core.ingest import _parse_attrs
+    from graph_learn_tpu.core.schema import Decoder
+    a = u2i_arrays(**kw)
+    n_i = a["i_feat"].shape[0]
+    rng = np.random.default_rng(kw.get("seed", 0) + 11)
+    cat = rng.integers(0, n_cat, n_i)
+    strs = []
+    for i in range(n_i):
+        tags = ["tag_%d" % t for t in rng.integers(0, 40, rng.integers(0, 5))]
+        strs.append("%d:brand_%d:%s" % (cat[i], rng.integers(0, 30),
+                                         ",".join(tags)))
+    a["i_attr_strs"] = strs
+    dec = Decoder(attr_types=CAT_TYPES, attr_dims=CAT_DIMS,
+                  multival_max_len=CAT_MV_LEN)
+    a["i_int"], _, a["i_mv"], a["i_mv_lens"] = _parse_attrs(strs, dec)
+    return a
+
+
+def cat_item_decoder(mod, d: int):
+    """The item decoder of ``cat_u2i_arrays`` in ``mod``: ``d`` floats,
+    then the categorical columns."""
+    return mod.Decoder(weighted=True,
+                       attr_types=["float"] * d + CAT_TYPES,
+                       attr_dims=[None] * d + CAT_DIMS,
+                       multival_max_len=CAT_MV_LEN)
+
+
 def _u2i_tables(mod, a):
     """(node tables, edge tables) of ``a`` built with ``mod``'s
-    NodeTable / EdgeTable / Decoder."""
+    NodeTable / EdgeTable / Decoder; with ``cat_u2i_arrays``' columns the
+    items carry them."""
     n_u, d = a["u_feat"].shape
     n_i = a["i_feat"].shape[0]
     udec = mod.Decoder(attr_types=["float"] * d)
-    idec = mod.Decoder(weighted=True, attr_types=["float"] * d)
+    cat = {}
+    if "i_int" in a:
+        idec = cat_item_decoder(mod, d)
+        cat = dict(int_attrs=a["i_int"], multival_attrs=a["i_mv"],
+                   multival_lens=a["i_mv_lens"])
+    else:
+        idec = mod.Decoder(weighted=True, attr_types=["float"] * d)
     nodes = [mod.NodeTable("u", udec, np.arange(n_u, dtype=np.int64) + 100,
                            float_attrs=a["u_feat"]),
              mod.NodeTable("i", idec, np.arange(n_i, dtype=np.int64),
-                           float_attrs=a["i_feat"], weights=a["i_weights"])]
+                           float_attrs=a["i_feat"], weights=a["i_weights"],
+                           **cat)]
     edges = [mod.EdgeTable("u-i", "u", "i",
                            mod.Decoder(weighted=True, labeled=True),
                            src=a["ui_src"], dst=a["ui_dst"],
