@@ -175,7 +175,31 @@ Phases (any failure exits non-zero before the result line):
    K-step form (K = 20) eager and in one CUDA graph, losses bit-equal, 6
    gather_rows per replayed step; Kernel 1 at each of the step's item-row
    counts (1 024, 2 048, 10 240 and 20 480 rows of the item table), cold,
-   exact and against its bound, plain version and index_select.
+   exact and against its bound, plain version and index_select;
+19. SubGraph induction (ops/subgraph.py), in three parts.  (a) After
+   phase 17, examples/seal.py at ogbl-collab's counts and widths: the
+   planted-community link set drawn at 235 868 nodes with 128 f32
+   features and 1 179 052 undirected train pairs, batch 64, 6 neighbours
+   a side, BFS to depth 2, GCN([132, 32]) and LinkPredictor(32), one random
+   negative a pair: one batch of 64 induced subgraphs held exactly to a
+   numpy induction from the edge arrays (host_adjacency, induce_host:
+   node sets, edges, edge ids, BFS distances); one step on Kernel 1
+   against the same step on the plain version, loss and every gradient
+   bit-equal; the K-step form (K = 20) eager and in one CUDA graph from the
+   same state, losses bit-equal, with ms a step, subgraphs/s (2 x 64 a
+   step), device busy, kernels a step and 2 gather_rows a step from the
+   profiler; Kernel 1 cold at the step's 896 rows of the [235 868, 128]
+   table against its bound, plain version and index_select; then the
+   planted 400-node set of tests/test_real_datasets.py for 150 steps,
+   hits@50 at least 0.6.  (b) Inside phase 11, on its weighted 61.25M-edge
+   "minimal" store: V("item").batch(1024).SubGraph("rel", need_dist=True)
+   with the default cap of 100, one answer held exactly to the host
+   induction (the rows cut at the cap counted), its node rows materialised
+   by one gather_rows launch bit-equal to the plain version, and the ms a
+   query.  (c) examples/sage_unsupervised.py at its defaults (cora_like 800
+   nodes, batch 128, 16 full neighbours, 32 wide, 2 epochs x 30 steps
+   through LocalTrainer): every loss finite, 2 gather_rows a step (one per
+   edge-star BatchGraph), link accuracy above 0.5.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -197,7 +221,13 @@ the categorical path's ``cond_launches_per_step`` and
 ``cond_trainer_launches_per_step``, and Kernel 1 its cold times at the
 item rows, ``cold_ms_cond_1024`` / ``_2048`` / ``_10240`` / ``_20480`` with
 ``bound_ms_cond_*``, ``plain_cold_ms_cond_*``, ``library_cold_ms_cond_*``
-and ``kernel_route_cond_*``).
+and ``kernel_route_cond_*``; Kernel 1 phase 19's
+``seal_launches_per_step`` (per replayed SEAL step), ``seal_hits_at_50``,
+``cold_ms_seal_896`` with ``bound_ms_seal_896``,
+``plain_cold_ms_seal_896``, ``library_cold_ms_seal_896`` and
+``kernel_route_seal_896``, ``subgraph_query_launches`` and
+``subgraph_query_ms``, ``sage_unsup_launches_per_step`` and
+``sage_unsup_link_accuracy``).
 """
 
 from __future__ import annotations
@@ -275,11 +305,18 @@ def bound(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profiled_work(torch, fn, calls):
+# seconds a profiled window waits after its work before it closes, when
+# it is profiled again: CUPTI hands kernel records over asynchronously,
+# and windows of a few short kernels closed at once have lost them
+PROFILER_SETTLE_S = 0.2
+
+
+def profiled_work(torch, fn, calls, settle=0.0):
     """[(start, name, us)] of the work on the card (kernels and memsets,
     whoever launches them) in the second of two windows of ``calls`` calls
     of ``fn`` under torch.profiler (the first warms the profiler up), in
-    launch order."""
+    launch order; each window waits ``settle`` seconds after its work
+    before it closes."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
@@ -288,6 +325,8 @@ def profiled_work(torch, fn, calls):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            if settle:
+                time.sleep(settle)
             prof.step()
     return sorted((ev.time_range.start, ev.name,
                    ev.time_range.end - ev.time_range.start)
@@ -297,22 +336,26 @@ def profiled_work(torch, fn, calls):
                       and not ev.name.startswith("ProfilerStep")))
 
 
-def device_work_per_call(torch, fn, calls=10, tries=3):
+def device_work_per_call(torch, fn, calls=10, tries=5):
     """({name: count per call}, {name: mean device ms of one launch}) of the
     work ``fn`` puts on the card (kernels and memsets, whoever launches
     them), under torch.profiler: a first window of ``calls`` calls warms the
     profiler up, a second is counted.  A wrapper launches the same kernels
     at every call, so a counted window whose kernel counts are no whole
-    multiples of ``calls`` lost records (one window recorded nothing at
-    all): it is profiled again, up to ``tries`` times.  Memsets count as
-    recorded (the profiler has dropped one in ten)."""
-    for _ in range(tries):
+    multiples of ``calls``, or that holds no kernel at all, lost records
+    (windows have recorded nothing, or one memset and no kernel): it is
+    profiled again, up to ``tries`` times, each window then left to
+    settle (``PROFILER_SETTLE_S``).  Memsets count as recorded (the
+    profiler has dropped one in ten)."""
+    for attempt in range(tries):
         counts, us = {}, {}
-        for _, name, dur in profiled_work(torch, fn, calls):
+        for _, name, dur in profiled_work(
+                torch, fn, calls, PROFILER_SETTLE_S if attempt else 0.0):
             counts[name] = counts.get(name, 0) + 1
             us[name] = us.get(name, 0.0) + dur
-        if counts and all(n % calls == 0 for name, n in counts.items()
-                          if not name.startswith("Memset")):
+        kernels = {name: n for name, n in counts.items()
+                   if not name.startswith("Memset")}
+        if kernels and all(n % calls == 0 for n in kernels.values()):
             return ({name: n / calls for name, n in counts.items()},
                     {name: us[name] / n / 1e3 for name, n in counts.items()})
         log("torch.profiler recorded %s over %d calls; profiling again"
@@ -359,12 +402,15 @@ def check_bounds(rows):
              ("bar_ms", "bar_bound_ms"), ("cold_ms_62m", "bound_ms_62m"),
              ("ms_sum", "bound_ms_sum"), ("cold_ms_rgcn", "bound_ms_rgcn"))
     pairs += tuple(pair for m in (GATHER_PATH_ROWS + RGCN_GATHER_ROWS
-                                  + WALK_GATHER_ROWS + CAT_GATHER_ROWS)
+                                  + WALK_GATHER_ROWS + CAT_GATHER_ROWS
+                                  + SEAL_GATHER_ROWS)
                    for pair in (("ms_%d" % m, "bound_ms_%d" % m),
                                 ("cold_ms_62m_%d" % m,
                                  "bound_ms_62m_%d" % m),
                                 ("cold_ms_cond_%d" % m,
-                                 "bound_ms_cond_%d" % m)))
+                                 "bound_ms_cond_%d" % m),
+                                ("cold_ms_seal_%d" % m,
+                                 "bound_ms_seal_%d" % m)))
     pairs += tuple(pair for label in GAT_TGAT_SHAPES
                    for pair in (("ms_" + label, "bound_ms_" + label),
                                 ("bwd_ms_" + label, "bwd_bound_ms_" + label)))
@@ -433,9 +479,10 @@ def gather_kernels(torch, calls, where, tries=3):
     must put exactly one kernel named gather_rows on the card, the same at
     every repeat.  Its name says the route, ``bulk`` or the lane groups."""
     n, reps = len(calls), 10
-    for _ in range(tries):
+    for attempt in range(tries):
         names = [name for _, name, _ in profiled_work(
-            torch, lambda: [c() for c in calls], reps)]
+            torch, lambda: [c() for c in calls], reps,
+            PROFILER_SETTLE_S if attempt else 0.0)]
         if len(names) == n * reps:
             check(all(name == names[i % n] and "gather_rows" in name
                       for i, name in enumerate(names)),
@@ -3996,6 +4043,429 @@ def examples_path(torch, card, gather):
                             "tgn_pairwise_auc": auc}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: SubGraph induction, SEAL at ogbl-collab's size, the GSL
+# SubGraph query at the 61.25M-edge store, the edge-star GraphSAGE
+# ---------------------------------------------------------------------------
+
+# SEAL (examples/seal.py defaults): batch, neighbours a side, BFS steps,
+# hidden width, Adam's rate
+SEAL_B, SEAL_NBRS, SEAL_STEPS, SEAL_HIDDEN, SEAL_LR = 64, 6, 2, 32, 0.01
+SEAL_K, SEAL_ROUNDS = 20, 3  # K steps a call; timed calls after one
+SEAL_GATHER_ROWS = (SEAL_B * (2 + 2 * SEAL_NBRS),)  # 896 rows a gather
+SEAL_QUALITY_STEPS, SEAL_HITS_BAR = 150, 0.6  # tests/test_real_datasets.py
+SUBGRAPH_QUERY_BATCH, SUBGRAPH_QUERY_CALLS = 1024, 20
+SAGE_UNSUP_EPOCHS, SAGE_UNSUP_STEPS = 2, 30
+
+
+def host_adjacency(src, dst, weights, nodes):
+    """{node: (neighbour ids, edge ids)} of ``nodes`` from the edge arrays,
+    each row in the store's adjacency order (weight descending where the
+    edge type is weighted, then edge id), found without the CSR."""
+    want = np.asarray(sorted(nodes))
+    eid = np.flatnonzero(np.isin(src, want))
+    s = src[eid]
+    w = (np.zeros(eid.size) if weights is None
+         else -weights[eid].astype(np.float64))
+    order = np.lexsort((eid, w, s))
+    eid, s = eid[order], s[order]
+    starts = np.searchsorted(s, want, side="left")
+    ends = np.searchsorted(s, want, side="right")
+    return {int(v): (dst[eid[a:b]], eid[a:b])
+            for v, a, b in zip(want, starts, ends)}
+
+
+def _host_bfs(n, edges, root, steps):
+    """Hop distances from ``root`` over the undirected local ``edges``, up
+    to ``steps`` hops; ``steps + 1`` where unreached."""
+    nbrs = [[] for _ in range(n)]
+    for a, b in edges:
+        nbrs[a].append(b)
+        nbrs[b].append(a)
+    dist = [steps + 1] * n
+    if root >= n:
+        return dist
+    dist[root], frontier = 0, [root]
+    for d in range(1, steps + 1):
+        nxt = []
+        for v in frontier:
+            for u in nbrs[v]:
+                if dist[u] > d:
+                    dist[u] = d
+                    nxt.append(u)
+        frontier = nxt
+    return dist
+
+
+def induce_host(adj, seeds, cap, steps=None):
+    """The induction of one seed set on the host: (sorted unique seeds,
+    local edges [(i, j)] in (i, slot) order, their edge ids, and with
+    ``steps`` the BFS distances of the padded [len(seeds)] node slots to
+    local nodes 0 and 1), from ``host_adjacency``'s rows."""
+    uniq = sorted(set(int(x) for x in seeds))
+    pos = {v: i for i, v in enumerate(uniq)}
+    edges, eids = [], []
+    for i, v in enumerate(uniq):
+        nbr, eid = adj[v]
+        for u, e in zip(nbr[:cap], eid[:cap]):
+            if int(u) in pos:
+                edges.append((i, pos[int(u)]))
+                eids.append(int(e))
+    dists = None
+    if steps is not None:
+        n = len(seeds)
+        dists = [_host_bfs(n, edges, r, steps) for r in (0, 1)]
+    return uniq, edges, eids, dists
+
+
+def check_induction(torch, sg, adj, seed_sets, cap, steps, what):
+    """Each sample of ``sg`` (``induce_batched`` of ``seed_sets`` [B, S])
+    exactly the host induction: node ids and their fill, counts, the edges,
+    their ids and the padding after them, and the BFS distances.  Returns
+    (rows cut at the cap, edges kept)."""
+    from graph_learn_tpu_torch.ops.subgraph import FILL
+    got = {f: getattr(sg, f).cpu().numpy() for f in (
+        "node_ids", "num_nodes", "edge_index", "num_edges", "edge_ids")}
+    d2s = None if sg.dist_to_src is None else sg.dist_to_src.cpu().numpy()
+    d2d = None if sg.dist_to_dst is None else sg.dist_to_dst.cpu().numpy()
+    cut = kept = 0
+    for i, seeds in enumerate(seed_sets):
+        uniq, edges, eids, dists = induce_host(adj, seeds, cap, steps)
+        n, e, S = len(uniq), len(edges), len(seeds)
+        want_ids = np.asarray(uniq + [FILL] * (S - n))
+        ei = got["edge_index"][i]
+        ok = (np.array_equal(got["node_ids"][i], want_ids)
+              and got["num_nodes"][i] == n and got["num_edges"][i] == e
+              and np.array_equal(ei[:, :e].T, np.asarray(edges).reshape(
+                  -1, 2)) and not ei[:, e:].any()
+              and np.array_equal(got["edge_ids"][i][:e], np.asarray(
+                  eids, dtype=np.int64))
+              and (got["edge_ids"][i][e:] == -1).all())
+        if dists is not None:
+            ok = ok and np.array_equal(d2s[i], dists[0]) and np.array_equal(
+                d2d[i], dists[1])
+        check(ok, "%s: sample %d differs from the host induction" % (what,
+                                                                     i))
+        cut += sum(len(adj[v][0]) > cap for v in uniq)
+        kept += e
+    return cut, kept
+
+
+def seal_path(torch, card, gather):
+    """``examples/seal.py`` at ogbl-collab's counts and widths: the
+    planted-community link set drawn at 235 868 nodes with 128 f32
+    features and 1 179 052 undirected train pairs; one batch of induced
+    subgraphs held exactly to the host induction; one step on Kernel 1
+    against the same step on the plain version (bit for bit: Kernel 1 is a
+    copy and every sum is a sorted reduction); the K-step form (K = 20)
+    eager and in one CUDA graph from the same state, losses bit-equal,
+    with ms a step, subgraphs/s, device busy, kernels and Kernel 1
+    launches per replayed step; Kernel 1 cold at the step's 896 rows; then
+    the planted 400-node set for 150 steps, hits@50 at least 0.6.
+    Returns the kernels line's fields."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.examples import seal
+    from graph_learn_tpu_torch.ops.kernels import dispatch
+    from graph_learn_tpu_torch.ops.sampling import uniform_draw
+    from graph_learn_tpu_torch.ops.subgraph import FILL, induce_batched
+
+    t0 = time.perf_counter()
+    a = seal.planted_collab(seal.COLLAB_NODES, seal.COLLAB_TRAIN_PAIRS, 0, 0,
+                            0, feat_dim=seal.COLLAB_FEAT)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    src, dst = a["train"][:, 0], a["train"][:, 1]
+    g = seal.build_graph(a["feats"], src, dst, "cuda")
+    et = g.store.edge_table("relation").device("cuda")
+    feats = g.store.node_table("item").device("cuda").float_attrs
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    host = g.store.edge_table("relation")
+    check(host.num_edges == 2 * seal.COLLAB_TRAIN_PAIRS
+          and tuple(feats.shape) == (seal.COLLAB_NODES, seal.COLLAB_FEAT)
+          and feats.dtype == torch.float32,
+          "seal store: %d edges, table %s %s" % (host.num_edges,
+                                                  tuple(feats.shape),
+                                                  feats.dtype))
+    log("seal store (planted communities at ogbl-collab's counts: %d nodes, "
+        "%d undirected train pairs = %d edges, [%d, %d] f32 features): host "
+        "draw %.1f s, store and tables onto the card %.1f s"
+        % (seal.COLLAB_NODES, seal.COLLAB_TRAIN_PAIRS, host.num_edges,
+           *feats.shape, draw_s, build_s))
+
+    # 1. one batch of induced subgraphs against the host induction
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    eidx = torch.randint(0, host.num_edges, (SEAL_B,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    s_ids, d_ids = et.src[eidx.long()], et.dst[eidx.long()]
+    u = [torch.rand((SEAL_B, SEAL_NBRS), generator=gen, device="cuda")
+         for _ in range(2)]
+    sn, _ = uniform_draw(et.out, s_ids, u[0])
+    dn, _ = uniform_draw(et.out, d_ids, u[1])
+    seeds = torch.cat([s_ids[:, None], d_ids[:, None], sn, dn], 1)
+    cap = 2 * SEAL_NBRS + 2
+    sg = induce_batched(et.out, seeds, nbr_cap=cap, need_dist=True,
+                        num_bfs_steps=SEAL_STEPS)
+    seed_sets = seeds.cpu().numpy()
+    adj = host_adjacency(host.src, host.dst, host.weights,
+                         set(seed_sets.reshape(-1).tolist()))
+    cut, kept = check_induction(torch, sg, adj, seed_sets, cap, SEAL_STEPS,
+                                "seal batch")
+    log("seal batch (%d pairs, %d neighbours a side, cap %d, BFS %d): node "
+        "sets, edges, edge ids and distances of every subgraph equal the "
+        "host induction from the edge arrays; %d nodes, %d edges kept, %d "
+        "rows cut at the cap"
+        % (SEAL_B, SEAL_NBRS, cap, SEAL_STEPS, int(sg.num_nodes.sum()), kept,
+           cut))
+
+    # 2. one step on Kernel 1 against the same step on the plain version
+    def one_step(plain):
+        model = seal.seal_model(seal.COLLAB_FEAT, SEAL_HIDDEN,
+                                device="cuda")
+        g_ = torch.Generator(device="cuda").manual_seed(37)
+        kernel = dispatch.gather_rows
+        if plain:
+            dispatch.gather_rows = gather.gather_rows_plain
+        try:
+            gather.LAUNCHES.reset()
+            loss, _, _ = seal.seal_loss(model, et, feats, eidx, g_)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            torch.cuda.synchronize()
+            launches = gather.LAUNCHES.count
+        finally:
+            dispatch.gather_rows = kernel
+        return loss.detach(), grads, launches
+
+    loss_k, grads_k, launches_k = one_step(False)
+    loss_p, grads_p, launches_p = one_step(True)
+    check(launches_k == 2 and launches_p == 0, "seal step: %d gather_rows "
+          "launches on the kernels (want 2), %d on the plain versions"
+          % (launches_k, launches_p))
+    check(torch.equal(loss_k, loss_p) and all(
+        torch.equal(x_, y_) for x_, y_ in zip(grads_k, grads_p)),
+          "seal step: loss %r or a gradient differs between Kernel 1 and "
+          "the plain version" % ((loss_k.item(), loss_p.item()),))
+    log("seal step (GCN([%d, %d]) + LinkPredictor(%d), one random negative "
+        "a pair): loss %.6f and all %d gradients bit-equal on Kernel 1 (2 "
+        "gather_rows launches) and on the plain version"
+        % (seal.COLLAB_FEAT + SEAL_STEPS + 2, SEAL_HIDDEN, SEAL_HIDDEN,
+           loss_k.item(), len(grads_k)))
+
+    # 3. the K-step form, eager then captured, from the same state
+    def k_steps(capture):
+        model = seal.seal_model(seal.COLLAB_FEAT, SEAL_HIDDEN,
+                                device="cuda")
+        opt = bench.make_optimizer(model, torch.device("cuda"), SEAL_LR)
+        step = seal.SealSteps(model, opt, et, feats, SEAL_B, SEAL_K,
+                              torch.Generator(device="cuda").manual_seed(41),
+                              capture)
+        gather.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        step()
+        losses = [step.losses.clone()]
+        float(step.losses[-1])
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(SEAL_ROUNDS):
+            step()
+            losses.append(step.losses.clone())
+        float(step.losses[-1])
+        ms = (time.perf_counter() - t0) / (SEAL_K * SEAL_ROUNDS) * 1e3
+        return step, torch.cat(losses).cpu().numpy(), ms, warm_s, \
+            gather.LAUNCHES.count
+
+    e_step, el, e_ms, _, e_launches = k_steps(False)
+    c_step, cl, c_ms, c_warm, _ = k_steps(True)
+    n_steps = (1 + SEAL_ROUNDS) * SEAL_K
+    check(e_launches == 2 * n_steps, "seal K-step eager: %d gather_rows "
+          "launches over %d steps, want 2 a step" % (e_launches, n_steps))
+    check(el.shape == cl.shape == (n_steps,) and bool(np.isfinite(cl).all()),
+          "seal K-step: %s eager and %s graph losses, or one not finite"
+          % (el.shape, cl.shape))
+    check(np.array_equal(el, cl), "seal K-step: the graph's losses differ "
+          "from the eager ones from the same state: max relative %g"
+          % np.max(np.abs(el - cl) / np.abs(el)))
+    rows = {}
+    for label, step, ms, calls in (("eager", e_step, e_ms, 1),
+                                   ("graph", c_step, c_ms, 2)):
+        fn = step.run_eager if label == "eager" else step
+        work, kms = device_work_per_call(torch, fn, calls=calls)
+        kernels = sum(c for n, c in work.items()
+                      if not n.startswith("Memset")) / SEAL_K
+        busy = sum(c * kms[n] for n, c in work.items()) / SEAL_K
+        k1 = sum(c for n, c in work.items() if "gather_rows" in n) / SEAL_K
+        check(k1 == 2.0, "seal K-step %s: %s gather_rows kernels a step from "
+              "the profiler, want 2" % (label, k1))
+        rows[label] = dict(ms=ms, busy=busy, kernels=kernels, k1=k1,
+                           top=sorted(((c * kms[n] / SEAL_K, n)
+                                       for n, c in work.items()),
+                                      reverse=True)[:8])
+    for label in ("eager", "graph"):
+        r = rows[label]
+        log("seal K-step %s (K = %d, %d steps after 1 warm-up call, 2 x %d "
+            "subgraphs a step): %.4f ms a step, %.1f subgraphs/s, device busy "
+            "%.4f ms (%.1f%%), %.1f kernels and %.0f gather_rows a step%s; "
+            "card: %s"
+            % (label, SEAL_K, SEAL_ROUNDS * SEAL_K, SEAL_B, r["ms"],
+               2 * SEAL_B / r["ms"] * 1e3, r["busy"],
+               100.0 * r["busy"] / r["ms"], r["kernels"], r["k1"],
+               "; capture call %.3f s, graph pool %.1f MB, %d losses "
+               "bit-equal eager and captured (%.4f -> %.4f)"
+               % (c_warm, c_step.pool_bytes / 1e6, n_steps, cl[0], cl[-1])
+               if label == "graph" else "", card))
+        for ms_, name in r["top"]:
+            log("  device %.4f ms a %s step: %s" % (ms_, label, name[:90]))
+    del e_step, c_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. Kernel 1 cold at the step's 896 rows of this table: the batch's
+    # node slots, the padding at row 0 (BatchGraph.from_subgraphs)
+    node_ids = torch.where(sg.node_ids == FILL, 0, sg.node_ids).reshape(-1)
+    shapes = gather_shapes(torch, gather, feats, gen, "at the ogbl-collab "
+                           "table", rows=SEAL_GATHER_ROWS,
+                           given={node_ids.numel(): node_ids},
+                           yardsticks=SEAL_GATHER_ROWS)
+
+    # 5. quality: the planted 400-node set, 150 steps, hits@50
+    t0 = time.perf_counter()
+    hits = seal.main(["--planted", "--steps", str(SEAL_QUALITY_STEPS)])
+    log("seal on the planted 400-node set (%d steps of batch 64, as "
+        "tests/test_real_datasets.py runs the JAX example): hits@50 %.4f "
+        "(bar %.2f) in %.1f s; card: %s"
+        % (SEAL_QUALITY_STEPS, hits, SEAL_HITS_BAR,
+           time.perf_counter() - t0, card))
+    check(hits >= SEAL_HITS_BAR, "seal: hits@50 %.4f under %.2f"
+          % (hits, SEAL_HITS_BAR))
+    fields = {"seal_launches_per_step": rows["graph"]["k1"],
+              "seal_hits_at_50": hits}
+    for m, f in shapes.items():
+        fields.update({
+            "cold_ms_seal_%d" % m: f["ms"], "bound_ms_seal_%d" % m:
+            f["bound_ms"], "plain_cold_ms_seal_%d" % m: f["plain_ms"],
+            "library_cold_ms_seal_%d" % m: f["library_ms"],
+            "kernel_route_seal_%d" % m: f["route"]})
+    return {"gather_rows": fields}
+
+
+def subgraph_query_path(torch, card, gather, graph):
+    """``V("item").batch(1024).alias("s").SubGraph("rel",
+    need_dist=True).alias("sg").values()`` (cap
+    ``conf.default_full_nbr_num``) on the weighted 61.25M-edge store that
+    the bench phase built under the "minimal" profile: one answer held
+    exactly to the host induction (the rows cut at the cap counted), the
+    node rows materialised once through their DeferredRows (one gather_rows
+    launch, bit for bit against the plain version), and the ms a query.
+    Returns the kernels line's fields."""
+    from graph_learn_tpu_torch.config import conf
+    from graph_learn_tpu_torch.gsl.compile import _execute
+
+    g, _ = graph
+    host = g.store.edge_table("rel")
+    q = (g.V("item").batch(SUBGRAPH_QUERY_BATCH).alias("s")
+         .SubGraph("rel", need_dist=True).alias("sg").values())
+    tables = q.device_tables()
+    table = tables["nodes"]["item"].float_attrs
+    n = table.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    seeds = torch.randint(0, n, (SUBGRAPH_QUERY_BATCH,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    sg = _execute(q, tables, seeds, gen)["sg"]
+    cap = conf.default_full_nbr_num
+    t0 = time.perf_counter()
+    seed_set = seeds.cpu().numpy()
+    adj = host_adjacency(host.src, host.dst, host.weights,
+                         set(seed_set.tolist()))
+    cut, kept = check_induction(
+        torch, sg.map(lambda x: x[None]), adj, seed_set[None], cap, 3,
+        "subgraph query")
+    host_s = time.perf_counter() - t0
+    gather.LAUNCHES.reset()
+    rows = sg.nodes.float_attrs.materialize()
+    torch.cuda.synchronize()
+    launches = gather.LAUNCHES.count
+    idx = sg.nodes.float_attrs.idx
+    check(launches == 1 and torch.equal(rows, gather.gather_rows_plain(
+        table, torch.clamp(idx, 0, n - 1))), "subgraph query: %d gather_rows "
+          "launches materialising the node rows, or rows not bit-equal to "
+          "gather_rows_plain" % launches)
+
+    def query():
+        return _execute(q, tables, seeds, gen)["sg"].edge_index
+
+    query()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SUBGRAPH_QUERY_CALLS):
+        query()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / SUBGRAPH_QUERY_CALLS * 1e3
+    work, kms = device_work_per_call(torch, query, calls=5)
+    busy = sum(c * kms[k] for k, c in work.items())
+    log("subgraph query (V(\"item\").batch(%d).SubGraph(\"rel\", "
+        "need_dist=True), cap %d, on the weighted 61.25M-edge minimal "
+        "store): %d nodes, %d edges, %d of %d rows cut at the cap; node "
+        "sets, edges, edge ids and distances equal the host induction (%.1f "
+        "s on the host); node rows [%d, %d] %s by 1 gather_rows launch, "
+        "bit-equal to gather_rows_plain; %.4f ms a query on the host clock, "
+        "device busy %.4f ms, %.0f kernels; card: %s"
+        % (SUBGRAPH_QUERY_BATCH, cap, int(sg.num_nodes), kept, cut,
+           int(sg.num_nodes), host_s, rows.shape[0], rows.shape[1],
+           rows.dtype, ms, busy, sum(work.values()), card))
+    return {"gather_rows": {"subgraph_query_launches": launches,
+                            "subgraph_query_ms": ms}}
+
+
+def sage_unsup_path(torch, card, gather):
+    """``examples/sage_unsupervised.py`` at its defaults on the card
+    (cora_like 800 nodes, batch 128, 16 ``full`` neighbours, 32-wide
+    features): LocalTrainer for 2 epochs of 30 steps, every loss finite,
+    Kernel 1 at 2 launches a step (each edge-star BatchGraph gathers its
+    rows once), and the link accuracy above 0.5.  Returns the kernels
+    line's fields."""
+    from graph_learn_tpu_torch.examples import node2vec as n2v
+    from graph_learn_tpu_torch.examples import sage_unsupervised as su
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+
+    g, dec = su.build_graph(n2v.cora_like(n=800, feat_dim=32), "cuda")
+    q = su.build_query(g, 128, 16)
+    model = su.SageLink(dec, 32, 32, 32, device="cuda")
+    tr = LocalTrainer(device="cuda")
+    losses = []
+
+    def loss_fn(m, batch, generator, training):
+        loss = su.link_loss(m, batch, generator, training)
+        losses.append(loss.detach())
+        return loss
+
+    gather.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    _, history = tr.train(q, model, loss_fn,
+                          torch.optim.Adam(model.parameters(), lr=5e-4),
+                          epochs=SAGE_UNSUP_EPOCHS,
+                          steps_per_epoch=SAGE_UNSUP_STEPS, verbose=False)
+    torch.cuda.synchronize()
+    # an epoch of the train edges in batches of 128 may end before 30 steps
+    n_steps = len(losses)
+    step_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    per_step = gather.LAUNCHES.count / n_steps
+    check(per_step == 2.0 and bool(torch.isfinite(torch.stack(losses)).all()),
+          "sage_unsupervised: %s gather_rows launches a step (want 2), "
+          "epoch losses %s" % (per_step, history))
+    acc = tr.evaluate(q, model, su.link_accuracy)
+    log("sage_unsupervised (edge stars, batch 128, 16 full neighbours, "
+        "GraphSAGE [32, 32, 32], %d epochs of at most %d steps: %d steps, "
+        "every loss finite): epoch losses %s, %.3f ms a step on the host "
+        "clock, %.0f gather_rows a step; link accuracy (pos > neg) %.4f; "
+        "card: %s"
+        % (SAGE_UNSUP_EPOCHS, SAGE_UNSUP_STEPS, n_steps,
+           [round(v, 4) for v in history], step_ms, per_step, acc, card))
+    check(acc > 0.5, "sage_unsupervised: link accuracy %.4f not above 0.5"
+          % acc)
+    return {"gather_rows": {"sage_unsup_launches_per_step": per_step,
+                            "sage_unsup_link_accuracy": acc}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4064,6 +4534,8 @@ def main() -> int:
         check(et.weights is not None and et.num_edges == 61_250_000,
               "bench cfg_scale: not the weighted 61.25M-edge graph")
         walks_rows = walks_path(torch, card, gather, scale_graph)
+        # phase 19's GSL SubGraph query, on this store before it is freed
+        query_rows = subgraph_query_path(torch, card, gather, scale_graph)
     del scale_graph, et
     gc.collect()  # the weighted 61.25M-edge graph of the bench phase
     torch.cuda.empty_cache()
@@ -4083,8 +4555,13 @@ def main() -> int:
     with bench.bench_conf(storage_profile="full", feature_dtype="float32"):
         tgat_rows = tgat_path(torch, card, gather, gat)
         example_rows = examples_path(torch, card, gather)
-    for part in (bench_rows, scale_rows, walks_rows, bipartite_rows,
-                 rgcn_rows, temporal_rows, tgat_rows, example_rows):
+        seal_rows = seal_path(torch, card, gather)
+        gc.collect()  # the ogbl-collab-sized store
+        torch.cuda.empty_cache()
+        sage_rows = sage_unsup_path(torch, card, gather)
+    for part in (bench_rows, scale_rows, walks_rows, query_rows,
+                 bipartite_rows, rgcn_rows, temporal_rows, tgat_rows,
+                 example_rows, seal_rows, sage_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

@@ -149,13 +149,14 @@ def sample_one(q: Query, tables, n_nodes: int,
     return seeds, _execute(q, tables, seeds, generator)
 
 
-def make_optimizer(model: torch.nn.Module,
-                   device: torch.device) -> torch.optim.Optimizer:
-    """``optax.adam(1e-3)``'s update (betas 0.9 / 0.999, eps 1e-8); on the
-    card the fused kernel, which a CUDA graph can capture."""
+def make_optimizer(model: torch.nn.Module, device: torch.device,
+                   lr: float = LEARNING_RATE) -> torch.optim.Optimizer:
+    """``optax.adam(lr)``'s update (betas 0.9 / 0.999, eps 1e-8; the
+    bench's rate 1e-3 unless given); on the card the fused kernel, which a
+    CUDA graph can capture."""
     extra = ({"fused": True, "capturable": True} if device.type == "cuda"
              else {})
-    return torch.optim.Adam(model.parameters(), lr=LEARNING_RATE, **extra)
+    return torch.optim.Adam(model.parameters(), lr=lr, **extra)
 
 
 def group_size(cfg: dict) -> int:

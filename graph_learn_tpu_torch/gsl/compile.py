@@ -10,7 +10,10 @@ JAX package), ``_exec_neg:372`` with its conditional branch
 ``.filter()`` and registered strategies, and the ``walk`` branch
 (``:215-225``: the walks of the parent's ids, -1 where a walker is stuck,
 over the out-adjacency, with the dst node table's payload looked up at
-``max(id, 0)``).  PyTorch runs eagerly, so there
+``max(id, 0)``), and the ``subgraph`` branch (``:227-245``: the
+subgraph induced over the edge type's out-adjacency by the parent's ids,
+ops/subgraph.py, with the src node table's payload looked up at the node
+ids, 0 where a slot holds the padding).  PyTorch runs eagerly, so there
 is no jit: ``_execute`` walks the DAG once per call.  Each hop's feature
 rows stay deferred (ops/lookup.py) until a reader gathers or reduces them.
 Randomness comes from one explicit ``torch.Generator``, drawn from in DAG
@@ -46,6 +49,7 @@ from graph_learn_tpu_torch.gsl.dag import Dag, DagNode
 from graph_learn_tpu_torch.ops import conditional as cond_ops
 from graph_learn_tpu_torch.ops import negative as neg_ops
 from graph_learn_tpu_torch.ops import sampling as samp_ops
+from graph_learn_tpu_torch.ops import subgraph as sg_ops
 from graph_learn_tpu_torch.ops import temporal as temporal_ops
 from graph_learn_tpu_torch.ops import walk as walk_ops
 from graph_learn_tpu_torch.ops.lookup import (edge_field, edge_payload,
@@ -225,6 +229,18 @@ def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
                            type_name=d_t)
         # the -1 of a stuck walker stays visible in the ids
         return _Rec(walks, val.replace(ids=walks))
+    if kind == "subgraph":
+        et = tables["edges"][node.edge_type]
+        s_t = query.graph.store.topology[node.edge_type][0]
+        sg = sg_ops.induce_subgraph(et.out, parent.ids.reshape(-1),
+                                    nbr_cap=node.nbr_cap,
+                                    need_dist=node.need_dist)
+        nodes = lookup_nodes(
+            tables["nodes"][s_t],
+            torch.where(sg.node_ids < sg_ops.FILL, sg.node_ids, 0),
+            type_name=s_t)
+        return _Rec(sg.node_ids, sg.replace(nodes=nodes,
+                                            type_name=node.edge_type))
     raise InvalidArgumentError("dag node kind %r is not yet ported" % kind)
 
 

@@ -11,8 +11,9 @@ hops ``outV`` / ``inV`` / ``outE`` / ``inE`` with the strategies
 ``Neg`` with ``random``, ``in_degree``, ``soft_in_degree`` and
 ``node_weight``, and conditional negatives through ``.where(target,
 condition)`` (``.by("conditional")``, ops/conditional.py);
-``.random_walk(walk_len, p, q, edge_type)``; and ``.each()``.  Subgraphs
-are not yet ported and raise when the query is built.
+``.random_walk(walk_len, p, q, edge_type)``; ``.SubGraph(edge_type,
+nbr_cap, need_dist)`` (the subgraph induced by the parent's ids,
+ops/subgraph.py); and ``.each()``.
 """
 
 from __future__ import annotations
@@ -29,10 +30,6 @@ _SOURCES = ("source_v", "source_e")
 _HOPS = ("out_v", "in_v", "out_e", "in_e")
 _NEGS = ("out_neg", "in_neg")
 _VALID_NEG = NEGATIVE_STRATEGIES + ("conditional",)
-
-
-def _unported(what: str):
-    raise InvalidArgumentError("%s is not yet ported" % what)
 
 
 class Dag:
@@ -65,7 +62,7 @@ class Dag:
 class DagNode:
     """One traversal step: ``source_v`` | ``source_e`` | ``endpoint_src`` |
     ``endpoint_dst`` | ``out_v`` | ``in_v`` | ``out_e`` | ``in_e`` |
-    ``out_neg`` | ``in_neg`` | ``walk``.  Every attribute that
+    ``out_neg`` | ``in_neg`` | ``walk`` | ``subgraph``.  Every attribute that
     ``gsl/plan.py`` records is set here, as in the JAX package."""
 
     def __init__(self, dag: Dag, kind: str, parent: Optional["DagNode"],
@@ -86,6 +83,8 @@ class DagNode:
         self.walk_len = 0
         self.walk_p = 1.0
         self.walk_q = 1.0
+        self.nbr_cap: Optional[int] = None  # subgraph neighbour cap
+        self.need_dist = False
         dag.add(self)
 
     def alias(self, name: str) -> "DagNode":
@@ -207,7 +206,14 @@ class DagNode:
 
     def SubGraph(self, edge_type: str, nbr_cap: Optional[int] = None,
                  need_dist: bool = False) -> "DagNode":
-        _unported("SubGraph")
+        """The subgraph induced over ``edge_type`` by this node's ids: each
+        seed's first ``nbr_cap`` neighbours (default
+        ``conf.default_full_nbr_num``) that are also seeds; with
+        ``need_dist`` the BFS distances to local nodes 0 and 1."""
+        n = DagNode(self.dag, "subgraph", self, edge_type=edge_type)
+        n.nbr_cap = nbr_cap
+        n.need_dist = need_dist
+        return n
 
     def filter(self, target) -> "DagNode":
         """Reject samples equal to the ids of ``target`` (an alias or a

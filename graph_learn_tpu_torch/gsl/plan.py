@@ -3,13 +3,11 @@
 
 A port of ``graph_learn_tpu/gsl/plan.py:24-75``: one record per DAG node
 with its kind, types, fanout, strategies, alias, filter or ``.where()``
-target and condition, walk settings, and its parent's id, so that a
-client installs a query without sharing Python objects.  The records are
-the JAX package's, field for field, less its two SubGraph settings
-(``nbr_cap``, ``need_dist``), which wait for SubGraph's port (ROADMAP
-A5): a plan made by either package installs in the other, and a SubGraph
-record is refused as ``.SubGraph()`` is.  A condition key that
-``.where()`` would refuse is refused here too.
+target and condition, walk settings, SubGraph settings and its parent's
+id, so that a client installs a query without sharing Python objects.
+The records are the JAX package's, field for field: a plan made by either
+package installs in the other.  A condition key that ``.where()`` would
+refuse is refused here too.
 """
 
 from __future__ import annotations
@@ -17,12 +15,11 @@ from __future__ import annotations
 from typing import Dict, List
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
-from graph_learn_tpu_torch.gsl.dag import (Dag, DagNode, EndpointNode,
-                                           _unported)
+from graph_learn_tpu_torch.gsl.dag import Dag, DagNode, EndpointNode
 
 _FIELDS = ("kind", "edge_type", "node_type", "alias_name", "count",
            "strategy", "base_strategy", "filter_alias", "condition",
-           "walk_len", "walk_p", "walk_q")
+           "walk_len", "walk_p", "walk_q", "nbr_cap", "need_dist")
 
 
 def query_to_plan(query) -> dict:
@@ -50,8 +47,6 @@ def plan_to_query(graph, plan: dict):
             raise InvalidArgumentError(
                 "plan node %r references unknown parent %r"
                 % (rec["nid"], rec["parent"]))
-        if rec["kind"] == "subgraph":
-            _unported("SubGraph")
         if rec.get("endpoint"):
             kind = "out_v" if rec["kind"] == "endpoint_src" else "in_v"
             node = EndpointNode(dag, kind, parent)

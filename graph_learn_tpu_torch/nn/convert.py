@@ -5,7 +5,12 @@
 (``graph_learn_tpu/nn/models/ego_gnn.py:126, 140, 157, 169``), or of the
 temporal models (``graph_learn_tpu/nn/models/tgat.py``: ``EgoTGAT``,
 ``LinkScorePredict``, and modules built of them such as the ego_tgat
-example's ``TGATLink``), given as the nested dict of numpy arrays that
+example's ``TGATLink``), or of the SubGraph models
+(``graph_learn_tpu/nn/models/sub_models.py``: ``SubGraphStack`` as
+``GraphSAGE`` / ``GCN`` / ``GAT`` make it, ``LinkPredictor``, the convs
+of ``nn/layers/sub.py`` and ``HeteroConv``, and modules built of them
+such as the sage_unsupervised example's ``SageLink``), given as the
+nested dict of numpy arrays that
 ``model.init`` / training produce, into the port's model;
 ``to_flax_params(model)`` is the inverse, so that weights trained in
 either package can be compared.  The flax tree is
@@ -29,6 +34,18 @@ either package can be compared.  The flax tree is
                                                     (LinkScorePredict)
     params/{ir, iz, in, hn}/{kernel, bias}, params/{hr, hz}/kernel
                                           (GRUCell, a torch.nn.GRUCell)
+    params/convs_<i>/{neigh_weights, self_weights?}/kernel, bias?
+    params/convs_<i>/weights/kernel, bias?
+    params/convs_<i>/{w/kernel, attn_src, attn_dst, bias?}
+                  (SubGraphStack: SAGE, GCN or GAT convs; a bare conv is
+                   the tree of one convs_<i>; HeteroConv: convs_<edge type>)
+    params/{sage, gcn, gat}_<i>/...
+                  (a stack built inside another module's setup, as the
+                   sage_unsupervised example's SageLink builds ``sage``:
+                   flax adopts its convs into that module under the names
+                   GraphSAGE / GCN / GAT give them, and the stack's own
+                   name holds nothing)
+    params/{mlp_<i>, out}/{kernel, bias}                 (LinkPredictor)
 
 Any other module maps its named children to subtrees of the same names
 (``TGATLink``: ``u_enc``, ``i_enc`` (a ``FeatureEncoder``'s ``proj``, where
@@ -64,7 +81,10 @@ from torch import nn
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.nn.feature_column import FeatureEncoder
+from graph_learn_tpu_torch.nn.layers.sub import (GATConv, GCNConv,
+                                                 HeteroConv, SAGEConv)
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGNN, EgoRGCN
+from graph_learn_tpu_torch.nn.models.sub_models import SubGraphStack
 from graph_learn_tpu_torch.nn.models.tgat import EgoTGAT, TimeEncoder
 
 
@@ -197,18 +217,36 @@ def _encoder_items(enc: nn.Module, prefix):
         yield prefix + (name,), table
 
 
-def _tgat_items(model: nn.Module, prefix=(), owned=frozenset()):
-    """(flax path, Linear or Parameter) of a temporal model's tree.
+# the conv names GraphSAGE / GCN / GAT give (sub_models.py:38-61)
+_STACK_CONV_NAMES = {SAGEConv: "sage_%d", GCNConv: "gcn_%d", GATConv: "gat_%d"}
+
+
+def _module_items(model: nn.Module, prefix=(), owned=frozenset()):
+    """(flax path, Linear or Parameter) of a temporal or SubGraph model's
+    tree, or of any module made of such parts.
 
     ``owned`` holds the ids of the modules an enclosing module names (a
     flax module made in its parent's ``setup``); an EgoTGAT's node and
     edge encoders that no enclosing module names are its own, under
     ``encoders_<i>`` / ``edge_encoders_<i>``, as flax adopts them."""
-    if isinstance(model, TimeEncoder):
+    if isinstance(model, SubGraphStack):
+        for i, conv in enumerate(model.convs):
+            path = (prefix[:-1] + (_STACK_CONV_NAMES[type(conv)] % i,)
+                    if prefix else ("convs_%d" % i,))
+            yield from _module_items(conv, path)
+    elif isinstance(model, HeteroConv):
+        for et, conv in model.convs.items():
+            yield from _module_items(conv, prefix + ("convs_%s" % et,))
+    elif isinstance(model, (SAGEConv, GCNConv, GATConv)):
+        for name, child in model.named_children():
+            yield prefix + (name,), child
+        for name, param in model.named_parameters(recurse=False):
+            yield prefix + (name,), param
+    elif isinstance(model, TimeEncoder):
         yield prefix + ("basis_freq",), model.basis_freq
         yield prefix + ("phase",), model.phase
     elif isinstance(model, EgoTGAT):
-        yield from _tgat_items(model.time_encoder,
+        yield from _module_items(model.time_encoder,
                                prefix + ("time_encoder",))
         for lvl, conv in enumerate(model.convs):
             for name, child in conv.named_children():
@@ -230,7 +268,7 @@ def _tgat_items(model: nn.Module, prefix=(), owned=frozenset()):
     else:
         owned = owned | {id(c) for c in model.children()}
         for name, child in model.named_children():
-            yield from _tgat_items(child, prefix + (name,), owned)
+            yield from _module_items(child, prefix + (name,), owned)
 
 
 def _items(model: nn.Module):
@@ -240,7 +278,7 @@ def _items(model: nn.Module):
         if isinstance(model, EgoRGCN):
             yield from _rgcn_arrays(model)
     else:
-        yield from _tgat_items(model)
+        yield from _module_items(model)
 
 
 def _towers(model) -> bool:

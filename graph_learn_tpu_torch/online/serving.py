@@ -13,6 +13,13 @@ then complete; ``run`` records them on the caller's current stream so the
 caching allocator does not hand their memory back to the dispatcher while
 the caller's own kernels may still read it.
 
+A query with a ``SubGraph`` node answers values that are not aligned with
+the seeds (the node set is the union over the whole launch), so, as in the
+JAX package (``:86-92``, ``:255-274``), each of its requests gets a launch
+of its own, padded to the micro-batch and not sliced: its ``SubGraphVal``
+keeps the launch's shapes, its other values are cut to the request's ids,
+and a request longer than the micro-batch is refused.
+
 ``refresh()`` after graph updates, the partitioned (graph-sharded) branch
 and ``install_model`` wait for the online slice.
 """
@@ -30,7 +37,8 @@ import numpy as np
 import torch
 
 from graph_learn_tpu_torch.config import conf
-from graph_learn_tpu_torch.core.values import TensorStruct, map_result
+from graph_learn_tpu_torch.core.values import (SubGraphVal, TensorStruct,
+                                              map_result)
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.gsl.compile import Query, _execute
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -59,6 +67,8 @@ class InstalledQuery:
         self.device = service.device
         if query.source.kind != "source_v":
             raise InvalidArgumentError("serving expects a V() query")
+        self._seed_aligned = not any(n.kind == "subgraph"
+                                     for n in query.dag.nodes)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(conf.seed)
         self._stream = (torch.cuda.Stream(device=self.device)
@@ -107,7 +117,9 @@ class InstalledQuery:
             return False
         batch = [first]
         total = first.ids.size
-        while total < self.micro_batch:
+        # a SubGraph query's answers cannot be sliced per caller: one
+        # request a launch
+        while self._seed_aligned and total < self.micro_batch:
             try:
                 nxt = self._queue.get_nowait()
             except queue.Empty:
@@ -122,11 +134,14 @@ class InstalledQuery:
         ok = False
         try:
             out = self._execute_batch(np.concatenate([p.ids for p in batch]))
-            off = 0
-            for p in batch:
-                lo, hi = off, off + p.ids.size
-                p.result = map_result(lambda x: x[lo:hi], out)
-                off = hi
+            if self._seed_aligned:
+                off = 0
+                for p in batch:
+                    lo, hi = off, off + p.ids.size
+                    p.result = map_result(lambda x: x[lo:hi], out)
+                    off = hi
+            else:
+                batch[0].result = out
             ok = True
         except Exception as e:  # deliver to the callers, keep serving
             for p in batch:
@@ -144,6 +159,8 @@ class InstalledQuery:
         idx = self._index.lookup(ids)
         n = idx.size
         mb = self.micro_batch
+        if not self._seed_aligned:
+            return self._execute_unaligned(idx)
         outs = []
         for off in range(0, n, mb):
             chunk = idx[off:off + mb]
@@ -156,6 +173,30 @@ class InstalledQuery:
         out = outs[0] if len(outs) == 1 else {
             a: _cat([o[a] for o in outs]) for a in outs[0]}
         out = map_result(lambda x: x[:n], out)
+        if self._stream is not None:
+            self._stream.synchronize()
+        return out
+
+    def _execute_unaligned(self, idx: np.ndarray) -> dict:
+        """One launch for the whole request of a SubGraph query, padded by
+        repeating its last id (induction is over the seed set)."""
+        n, mb = idx.size, self.micro_batch
+        if n > mb:
+            raise InvalidArgumentError(
+                "subGraph serving request of %d ids exceeds the installed "
+                "micro_batch %d; install with a larger micro_batch or split "
+                "the request" % (n, mb))
+        chunk = np.pad(idx, (0, mb - n), mode="edge") if n < mb else idx
+        out = _execute(self.query, self._tables,
+                       torch.as_tensor(chunk, dtype=torch.int32,
+                                       device=self.device), self._generator)
+        def trim(x):
+            return x[:n] if x.dim() and x.shape[0] >= n else x
+
+        # the padding is cut from the seed-aligned values only
+        out = {a: v if isinstance(v, SubGraphVal) else
+               v.map(trim) if isinstance(v, TensorStruct) else trim(v)
+               for a, v in out.items()}
         if self._stream is not None:
             self._stream.synchronize()
         return out

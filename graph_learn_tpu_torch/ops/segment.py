@@ -3,7 +3,9 @@
 Counterpart of ``graph_learn_tpu/ops/segment.py`` ``row_bounds:173``,
 ``segmented_searchsorted:82``, ``segment_member:123``, ``row_member:142``,
 ``set_member:189`` and ``segment_softmax:196`` (the last two in plain
-PyTorch: the JAX ones are XLA).  The tiled gathers of the JAX package (``flat_gather``,
+PyTorch: the JAX ones are XLA), with ``segment_sum`` and ``take_rows``,
+the deterministic forms of ``jax.ops.segment_sum`` and of row indexing
+that the SubGraph convs and ``segment_softmax`` differentiate through.  The tiled gathers of the JAX package (``flat_gather``,
 ``pair_gather``) and ``row_member``'s 128-lane window exist for the TPU's
 layout only; flat tensors index directly here.  Membership bisects the
 row's id-sorted copy where the store has one, and otherwise scans the
@@ -18,6 +20,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 # row positions compared per pass when a row is scanned (membership here,
 # a filter's excluded slot in ops/sampling.py)
@@ -125,6 +128,46 @@ def set_member(sorted_set: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return sorted_set[pos] == queries
 
 
+class _SegmentSum(torch.autograd.Function):
+    """Rows of ``values`` [N, d] summed into ``n`` segments by the sorted
+    reduction of ``embedding``'s backward (no float atomics, so the same
+    inputs give the same bits on the card); the backward is a row take."""
+
+    @staticmethod
+    def forward(ctx, values, seg, n):
+        ctx.save_for_backward(seg)
+        return torch.ops.aten.embedding_dense_backward(values, seg, n, -1,
+                                                       False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (seg,) = ctx.saved_tensors
+        return grad.index_select(0, seg), None, None
+
+
+def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: ``values`` [N, ...] summed by
+    ``segment_ids`` [N] into [num_segments, ...]; a row whose id lies
+    outside [0, num_segments) is dropped.  Deterministic on the card,
+    forward and backward (``index_add_`` adds with atomics in no fixed
+    order)."""
+    n = num_segments
+    seg = segment_ids.long()
+    seg = torch.where((seg >= 0) & (seg < n), seg, n)
+    flat = values.reshape(values.shape[0], -1)
+    out = _SegmentSum.apply(flat, seg, n + 1)[:n]
+    return out.reshape((n,) + tuple(values.shape[1:]))
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a table [n, ...] that may require a gradient:
+    the rows are taken by ``embedding``, whose backward sums them by a
+    sorted reduction (indexing's backward adds with atomics)."""
+    rows = F.embedding(idx.long(), table.reshape(table.shape[0], -1))
+    return rows.reshape(tuple(idx.shape) + tuple(table.shape[1:]))
+
+
 def segment_softmax(values: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -132,7 +175,10 @@ def segment_softmax(values: torch.Tensor, segment_ids: torch.Tensor,
     [N] (each in [0, num_segments)), shifted by each segment's max.
     Entries where ``mask`` is False get 0 and take no share; a segment
     with no entry (or none unmasked) is left out, as the JAX package's
-    ``jax.ops.segment_max`` / ``segment_sum`` leave it."""
+    ``jax.ops.segment_max`` / ``segment_sum`` leave it.  The shift is
+    held out of the gradient (the softmax does not depend on it), and the
+    sums and takes are :func:`segment_sum` / :func:`take_rows`, so the
+    function and its gradient are deterministic on the card."""
     if mask is not None:
         values = torch.where(mask, values, float("-inf"))
     seg = segment_ids.long()
@@ -141,11 +187,11 @@ def segment_softmax(values: torch.Tensor, segment_ids: torch.Tensor,
     seg_max = torch.full((num_segments,) + tuple(values.shape[1:]),
                          float("-inf"), dtype=values.dtype,
                          device=values.device)
-    seg_max = seg_max.scatter_reduce(0, wide, values, "amax",
+    seg_max = seg_max.scatter_reduce(0, wide, values.detach(), "amax",
                                      include_self=False)
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
     ex = torch.exp(values - seg_max[seg])
     if mask is not None:
         ex = torch.where(mask, ex, 0.0)
-    seg_sum = torch.zeros_like(seg_max).index_add(0, seg, ex)
-    return ex / torch.clamp(seg_sum[seg], min=1e-16)
+    seg_sum = segment_sum(ex, seg, num_segments)
+    return ex / torch.clamp(take_rows(seg_sum, seg), min=1e-16)

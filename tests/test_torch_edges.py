@@ -13,10 +13,12 @@ import torch
 import graph_learn_tpu as gl
 import graph_learn_tpu_torch as glt
 from graph_learn_tpu.core.store import NodeSet as JaxNodeSet
+from graph_learn_tpu.gsl import plan as jplan
 from graph_learn_tpu.gsl.compile import _execute as jax_execute
 from graph_learn_tpu_torch.core.values import Edges, Nodes, SparseNodes
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.gsl import compile as tcompile
+from graph_learn_tpu_torch.gsl import plan as tplan
 from graph_learn_tpu_torch.ops import sampling
 from torch_parity import jax_u2i_graph, torch_u2i_graph, u2i_arrays
 
@@ -252,12 +254,22 @@ def test_node_from_seed_sets_equal_jax(graphs, node_from):
     assert typed not in tg.store.node_sets
 
 
+def _subgraph_plan(g, plan_mod):
+    seed = g.E("u-i").batch(4).alias("seed")
+    seed.outV().alias("src").SubGraph("u-i", nbr_cap=7, need_dist=True)
+    return plan_mod.query_to_plan(seed.values())
+
+
 def test_unported_kinds_raise_when_the_query_is_built(graphs):
-    _, _, tg = graphs
+    _, jg, tg = graphs
     seed = tg.E("u-i").batch(4).alias("seed")
     src = seed.outV().alias("src")
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        src.SubGraph("u-i")
+    # SubGraph builds since the SubGraph slice, with the JAX package's
+    # settings and plan records
+    sub = src.SubGraph("u-i", nbr_cap=7, need_dist=True)
+    assert (sub.kind, sub.edge_type, sub.nbr_cap, sub.need_dist) == (
+        "subgraph", "u-i", 7, True)
+    assert _subgraph_plan(tg, tplan) == _subgraph_plan(jg, jplan)
     # conditional negatives build (tests/test_torch_conditional.py runs
     # them): .where makes the set strategy the base draw
     dst = seed.inV().alias("dst")

@@ -86,20 +86,13 @@ def _query(g):
     return seed.values()
 
 
-def _without_subgraph(plan: dict) -> dict:
-    """``plan`` less the JAX package's SubGraph settings."""
-    return dict(plan, nodes=[
-        {k: v for k, v in r.items() if k not in ("nbr_cap", "need_dist")}
-        for r in plan["nodes"]])
-
-
 def test_plans_are_equal_and_install_in_either_package():
     a = cat_u2i_arrays(seed=1)
     jg, tg = jax_u2i_graph(a)[0], torch_u2i_graph(a)[0]
     jp, tp = jplan.query_to_plan(_query(jg)), tplan.query_to_plan(_query(tg))
     assert json.loads(json.dumps(tp)) == tp
-    # the port records no SubGraph settings until SubGraph is ported
-    assert tp == _without_subgraph(jp)
+    # the records are the JAX package's, SubGraph settings included
+    assert tp == jp
     assert {(r["nbr_cap"], r["need_dist"]) for r in jp["nodes"]} == \
         {(None, False)}
     # each package's plan installs in the other's and records the same
@@ -108,9 +101,9 @@ def test_plans_are_equal_and_install_in_either_package():
     sub = dict(jp, nodes=jp["nodes"] + [dict(
         jp["nodes"][1], nid=len(jp["nodes"]), kind="subgraph", parent=0,
         alias_name=None, endpoint=False, nbr_cap=4)])
-    with pytest.raises(InvalidArgumentError,
-                       match="SubGraph is not yet ported"):
-        tplan.plan_to_query(tg, sub)
+    # a SubGraph record installs in either package too
+    assert tplan.query_to_plan(tplan.plan_to_query(tg, sub)) == sub
+    assert jplan.query_to_plan(jplan.plan_to_query(jg, sub)) == sub
     q = tplan.plan_to_query(tg, jp)
     batch = glt.Dataset(q, window=1, device="cpu").next()
     assert batch["neg"].ids.shape == (8, 3)

@@ -16,8 +16,10 @@ import graph_learn_tpu_torch as glt
 from graph_learn_tpu_torch.errors import (DeviceUnavailableError,
                                           InvalidArgumentError)
 from graph_learn_tpu_torch import bench
-from graph_learn_tpu_torch.examples import scale_demo, sweep_aggregate
+from graph_learn_tpu_torch.examples import (sage_unsupervised, scale_demo,
+                                            seal, sweep_aggregate)
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
+from graph_learn_tpu_torch.nn.models.sub_models import GCN, LinkPredictor
 from graph_learn_tpu_torch.nn.trainer import LocalTrainer
 from graph_learn_tpu_torch.ops.kernels import build
 from torch_parity import numpy_graph, torch_graph, two_hop
@@ -73,7 +75,9 @@ def no_card(monkeypatch):
 @pytest.mark.parametrize("entry", ["graph", "graph_cuda0", "service", "model",
                                    "node_table", "edge_table", "gat_model",
                                    "trainer", "dataset", "scale_demo",
-                                   "sweep_harness", "bench", "bench_main"])
+                                   "sweep_harness", "bench", "bench_main",
+                                   "sub_stack", "link_predictor",
+                                   "seal_model", "sage_link"])
 def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch):
     monkeypatch.delenv("GLT_PLATFORM", raising=False)
     a = numpy_graph(n=30, d=4)
@@ -92,6 +96,10 @@ def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch):
         "sweep_harness": lambda: sweep_aggregate.run(small=True, steps=1),
         "bench": lambda: bench.run_bench(bench.CFG_SMALL),
         "bench_main": bench.main,
+        "sub_stack": lambda: GCN([4, 8]),
+        "link_predictor": lambda: LinkPredictor(8),
+        "seal_model": lambda: seal.seal_model(4, 8),
+        "sage_link": lambda: sage_unsupervised.SageLink(dec, 4, 8, 8),
     }
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         calls[entry]()
@@ -291,6 +299,11 @@ def _row(**times):
      True),
     (_row(ms=0.025, cold_ms_cond_1024=0.0001, bound_ms_cond_1024=0.00012),
      False),
+    # the SEAL step's 896 rows of the ogbl-collab-sized table
+    (_row(ms=0.025, cold_ms_seal_896=0.006, bound_ms_seal_896=0.00028),
+     True),
+    (_row(ms=0.025, cold_ms_seal_896=0.0002, bound_ms_seal_896=0.00028),
+     False),
 ])
 def test_chip_smoke_holds_times_to_their_bounds(row, ok):
     """chip_smoke.py fails when a time on its kernels line reads under the
@@ -356,3 +369,61 @@ def test_chip_smoke_relaxed_rows_are_the_forced_rows():
     # a row that had to relax but holds no rejected negative
     assert smoke.relaxed_rows(bad, np.array([1, 1, 1, 0], bool)) == (
         2, 3, False)
+
+
+@pytest.mark.parametrize("weighted,cap,steps", [(True, 3, 2), (True, 40, 3),
+                                                (False, 5, None)])
+def test_chip_smoke_host_induction_equals_the_port(weighted, cap, steps):
+    """chip_smoke.py's host induction (host_adjacency, induce_host,
+    check_induction) agrees with ops/subgraph.py on the CPU, counts the
+    rows cut at the cap, and fails on an edge moved or a distance off."""
+    from graph_learn_tpu_torch.ops.subgraph import induce_batched
+    smoke = _chip_smoke_module()
+    a = numpy_graph(n=50, avg_degree=5, d=2, isolated=4, seed=8,
+                    weighted=weighted)
+    g, _ = torch_graph(a)
+    host = g.store.edge_table("rel")
+    seeds = np.random.default_rng(1).integers(0, 50, (6, 8))
+    seeds[0] = 7  # one node, all slots the same
+    sg = induce_batched(host.device("cpu").out, torch.from_numpy(seeds),
+                        nbr_cap=cap, need_dist=steps is not None,
+                        num_bfs_steps=steps or 3)
+    adj = smoke.host_adjacency(host.src, host.dst, host.weights,
+                               set(seeds.reshape(-1).tolist()))
+    cut, kept = smoke.check_induction(torch, sg, adj, seeds, cap, steps,
+                                      "case")
+    assert kept == int(sg.num_edges.sum()) and kept > 0
+    want_cut = sum(int((host.src == v).sum()) > cap for row in seeds
+                   for v in set(row.tolist()))
+    assert cut == want_cut and (cut > 0) == (cap < 10)
+    moved = sg.replace(edge_index=sg.edge_index.flip(1))
+    with pytest.raises(smoke.SmokeFailure, match="host induction"):
+        smoke.check_induction(torch, moved, adj, seeds, cap, steps, "case")
+    if steps is not None:
+        off = sg.replace(dist_to_dst=sg.dist_to_dst + 1)
+        with pytest.raises(smoke.SmokeFailure, match="host induction"):
+            smoke.check_induction(torch, off, adj, seeds, cap, steps, "case")
+
+
+def test_chip_smoke_profiles_again_when_a_window_holds_no_kernel(
+        monkeypatch):
+    """A window that recorded nothing, or a memset and no kernel, lost its
+    records: device_work_per_call profiles again rather than report it."""
+    smoke = _chip_smoke_module()
+    windows = [[], [(0, "Memset (Device)", 1.0)],
+               [(i, n, 2.0) for i in range(10)
+                for n in ("gather_rows_kernel", "Memset (Device)")]]
+    settles = []
+
+    def windows_in_turn(torch, fn, calls, settle=0.0):
+        settles.append(settle)
+        return windows.pop(0)
+    monkeypatch.setattr(smoke, "profiled_work", windows_in_turn)
+    work, ms = smoke.device_work_per_call(torch, None, calls=10)
+    assert work == {"gather_rows_kernel": 1.0, "Memset (Device)": 1.0}
+    # the windows profiled again are left to settle before they close
+    assert windows == [] and settles == [0.0] + [smoke.PROFILER_SETTLE_S] * 2
+    monkeypatch.setattr(smoke, "profiled_work", lambda torch, fn, calls,
+                        settle=0.0: [(0, "Memset (Device)", 1.0)])
+    with pytest.raises(smoke.SmokeFailure, match="no whole calls"):
+        smoke.device_work_per_call(torch, None, calls=10)

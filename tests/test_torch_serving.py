@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from graph_learn_tpu.gsl import plan as jplan
 from graph_learn_tpu.online.serving import QueryService as JaxQueryService
 from graph_learn_tpu_torch import QueryService
 from graph_learn_tpu_torch.errors import InvalidArgumentError, NotFoundError
+from graph_learn_tpu_torch.gsl import plan as tplan
 from graph_learn_tpu_torch.nn.data import DeferredRows, EgoGraph
 from torch_parity import jax_graph, numpy_graph, torch_graph, two_hop
 
@@ -166,12 +168,19 @@ def test_from_query_result_gathers_only_what_the_model_reads(service,
         assert torch.equal(deep.idx, ans["hop2"].ids)
 
 
-def test_in_v_is_not_yet_ported(service):
+def _subgraph_plan(g, plan_mod):
+    seed = g.V("item").batch(4).alias("src")
+    seed.SubGraph("rel", nbr_cap=3, need_dist=True).alias("sg")
+    return plan_mod.query_to_plan(seed.values())
+
+
+def test_in_v_is_not_yet_ported(service, graph_arrays):
     # inV is ported now (tests/test_torch_sampling.py holds it against the
-    # JAX query), and so are filters (tests/test_torch_filters.py) and edge
-    # sources (tests/test_torch_edges.py), and walks
-    # (tests/test_torch_walk.py); what is still refused when a query is
-    # built: strategies nobody registered and subgraphs
+    # JAX query), and so are filters (tests/test_torch_filters.py), edge
+    # sources (tests/test_torch_edges.py), walks
+    # (tests/test_torch_walk.py) and subgraphs
+    # (tests/test_torch_subgraph.py); what is still refused when a query is
+    # built: strategies nobody registered
     _, _, q = service
     hop = q.graph.V("item").batch(4).alias("src").inV("rel").sample(2) \
         .by("topk")
@@ -182,8 +191,11 @@ def test_in_v_is_not_yet_ported(service):
     seed = q.graph.E("rel")
     assert seed.kind == "source_e" and seed.edge_type == "rel"
     assert seed.outV().random_walk(3).kind == "walk"
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        seed.outV().SubGraph("rel")
+    sub = seed.outV().SubGraph("rel")
+    assert (sub.kind, sub.nbr_cap, sub.need_dist) == ("subgraph", None,
+                                                      False)
+    assert _subgraph_plan(q.graph, tplan) == _subgraph_plan(
+        jax_graph(graph_arrays)[0], jplan)
     # conditional negatives build now (tests/test_torch_conditional.py)
     neg = seed.outV().outNeg("rel").where("src")
     assert (neg.strategy, neg.base_strategy) == ("conditional", "random")

@@ -13,6 +13,7 @@ import torch
 import graph_learn_tpu as gl
 import graph_learn_tpu_torch as glt
 from graph_learn_tpu.core.schema import Decoder as JaxDecoder
+from graph_learn_tpu.gsl import plan as jplan
 from graph_learn_tpu.nn import data as jdata
 from graph_learn_tpu.nn.loss import \
     supervised_softmax_loss as jax_supervised_softmax_loss
@@ -21,6 +22,7 @@ from graph_learn_tpu.nn.models.ego_gnn import EgoGraphSAGE as JaxEgoGraphSAGE
 from graph_learn_tpu.nn.trainer import LocalTrainer as JaxLocalTrainer
 from graph_learn_tpu_torch.errors import (InvalidArgumentError,
                                           OutOfRangeError)
+from graph_learn_tpu_torch.gsl import plan as tplan
 from graph_learn_tpu_torch.nn import data as tdata
 from graph_learn_tpu_torch.nn.convert import load_flax_params, to_flax_params
 from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
@@ -262,7 +264,8 @@ def test_dataset_iterates_applies_post_func_and_transform():
 
 
 def test_dataset_refuses_unported_tiers():
-    tg, _ = torch_graph(degree_one_graph(n=10, d=4))
+    a = degree_one_graph(n=10, d=4)
+    tg, _ = torch_graph(a)
     q = tg.V("item").batch(4).alias("src").values()
     with pytest.raises(InvalidArgumentError, match="not yet ported"):
         glt.Dataset(q, tier="host", device="cpu")
@@ -275,13 +278,19 @@ def test_dataset_refuses_unported_tiers():
             glt.Dataset(q, device="cpu")
     finally:
         glt.conf.storage_device = old
-    # E() sources, walks and conditional negatives are ported; subgraphs
-    # are what is still refused
+    # E() sources, walks, conditional negatives and subgraphs are ported;
+    # a SubGraph node records the JAX package's settings
     seed = tg.E("rel")
     assert seed.kind == "source_e" and seed.edge_type == "rel"
     assert seed.outV().random_walk(3).kind == "walk"
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        seed.outV().SubGraph("rel")
+    sub = seed.outV().SubGraph("rel", nbr_cap=2, need_dist=True)
+    assert (sub.kind, sub.nbr_cap, sub.need_dist) == ("subgraph", 2, True)
+    plans = []
+    for g, plan_mod in ((tg, tplan), (jax_graph(a)[0], jplan)):
+        src = g.V("item").batch(4).alias("src")
+        src.SubGraph("rel", nbr_cap=2, need_dist=True).alias("sg")
+        plans.append(plan_mod.query_to_plan(src.values()))
+    assert plans[0] == plans[1]
     # conditional negatives build now (tests/test_torch_conditional.py)
     neg = seed.outV().outNeg("rel").where("src")
     assert (neg.strategy, neg.base_strategy) == ("conditional", "random")
