@@ -23,10 +23,10 @@ Phases (any failure exits non-zero before the result line):
    PyTorch call computes the same function, that call, at the main paths'
    shapes (the gather kernel at 1 024, 15 360 and 153 600 rows, the row
    counts the paths launch, with one kernel a call; the segment SpMM
-   kernel's mean and, for EgoGIN, its sum), checking with
-   torch.profiler that one call of the segment SpMM wrapper puts one
+   kernel's mean and, for EgoGIN, its sum), checking on a CUDA graph that
+   captures one call that the gather and segment SpMM wrappers put one
    kernel on the card (the sweep wrapper: one kernel and one memset, each
-   timed from the profiler's events); the GAT block also part by part
+   timed from torch.profiler's events); the GAT block also part by part
    (attention passes, each product on the tensor cores and on the f32 FMA
    route, the forward's also on mma.sync beside wgmma, the tail), and at
    EgoTGAT's three call shapes (depths 20 and 40, not multiples of the
@@ -199,7 +199,41 @@ Phases (any failure exits non-zero before the result line):
    query.  (c) examples/sage_unsupervised.py at its defaults (cora_like 800
    nodes, batch 128, 16 full neighbours, 32 wide, 2 epochs x 30 steps
    through LocalTrainer): every loss finite, 2 gather_rows a step (one per
-   edge-star BatchGraph), link accuracy above 0.5.
+   edge-star BatchGraph), link accuracy above 0.5;
+20. file ingest, the pre-GSL sampler API and k-NN, after phase 19.  (a)
+   The port bench's CFG store (200 000 items with 128 features at five
+   decimals and labels, 3 200 000 weighted edges at nine significant
+   digits, a train split of the first tenth of the ids) written as TSV,
+   vectorised, into a temporary directory and loaded through
+   Graph(device="cuda").node(...).node(..., mask=TRAIN).edge(...).init()
+   on the native loader (csrc/ingest.cpp, built into
+   graph_learn_tpu_torch/_build/; the phase fails on the Python parser's
+   route): ids, labels, weights and both CSRs bit-equal to
+   synthetic_graph's of the same seed, features within 5e-6 plus one
+   float32 ulp, the first 10 000 lines of each file bit-equal on both
+   parse routes; text bytes, write and per-table parse seconds, init and
+   CSR seconds; then 10 LocalTrainer steps of the 2-hop EgoGraphSAGE query
+   on V("item", mask=TRAIN): 2 gather_rows + 1 segment_spmm a step, step
+   wall and device busy.  (b) On that store the sampler objects (batch
+   1 024): node_sampler shuffle; neighbor_sampler [15, 10] for random,
+   topk, edge_weight, in_degree and random_without_replacement, full with
+   cap 16; edge_sampler; negative_sampler in_degree on the edge type and
+   on the node type; subgraph_sampler (cap 100); random_walk_sampler (20,
+   p 0.5, q 2): every draw held to the host's edge arrays (in_degree
+   negatives: pick_negatives of their replayed candidate rounds, a true
+   neighbour only where every round was one; the subgraph equal to the
+   host induction; walks along edges), every answer's rows materialised by
+   one gather_rows launch a hop, bit-equal to the plain version, and the
+   ms a get().  (c) Graph.search at SIFT1M's counts and widths (1 000 000
+   x 128 f32 drawn about 1 000 Gaussian centres, 10 000 queries that are
+   base vectors plus 1% noise, k 100): flat L2 and inner product, ivfflat
+   and ivfpq (nlist 4 096, nprobe 16; ivfpq m 4, ksub 64): flat L2 finds
+   each query's own vector first for at least 99%; the first 256 queries
+   of each index against one unchunked computation (ids where the k-th
+   and (k+1)-th scores are more than 1e-3 apart, distances within 1e-4 of
+   the row's largest); a search's peak device memory under 8 GB; train,
+   add and search times, queries/s, device busy, and the IVF indexes'
+   recall@10 / @100 against flat L2.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -227,7 +261,10 @@ and ``kernel_route_cond_*``; Kernel 1 phase 19's
 ``plain_cold_ms_seal_896``, ``library_cold_ms_seal_896`` and
 ``kernel_route_seal_896``, ``subgraph_query_launches`` and
 ``subgraph_query_ms``, ``sage_unsup_launches_per_step`` and
-``sage_unsup_link_accuracy``).
+``sage_unsup_link_accuracy``; Kernels 1 and 2 phase 20's
+``file_trainer_launches_per_step``, Kernel 1 also ``file_step_ms``,
+``file_parse_s``, ``file_text_bytes``, ``sampler_api_launches`` and
+``sampler_api_ms``).
 """
 
 from __future__ import annotations
@@ -309,6 +346,86 @@ def bound(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
 # it is profiled again: CUPTI hands kernel records over asynchronously,
 # and windows of a few short kernels closed at once have lost them
 PROFILER_SETTLE_S = 0.2
+# seconds a counted window waits before its work and after it: the
+# profiler keeps a kernel only where the card's timestamp, moved onto the
+# host's clock, falls inside the window, and that move has put kernels
+# before their own launch, dropping the first kernels of a short window
+PROFILER_EDGE_S = 0.1
+
+
+def _cu(rc, what):
+    check(rc == 0, "%s: CUresult %d" % (what, rc))
+
+
+def _kernel_node_name(lib, node):
+    """The name of a kernel node's function (mangled, as the module holds
+    it): CUDA_KERNEL_NODE_PARAMS_v2 holds the CUfunction at byte 0 and,
+    where the launch named a CUkernel instead, that at byte 56."""
+    import ctypes
+    params = (ctypes.c_byte * 128)()
+    _cu(lib.cuGraphKernelNodeGetParams_v2(node, params),
+        "cuGraphKernelNodeGetParams")
+    func = ctypes.c_void_p.from_buffer(params, 0).value
+    kern = ctypes.c_void_p.from_buffer(params, 56).value
+    name = ctypes.c_char_p()
+    if func:
+        _cu(lib.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func)),
+            "cuFuncGetName")
+    else:
+        _cu(lib.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(kern)),
+            "cuKernelGetName")
+    return name.value.decode()
+
+
+def kernel_label(name):
+    """The qualified name in a mangled kernel name (``_ZN2at6native6fooE``
+    -> ``at::native::foo``; a file's anonymous namespace left out); any
+    other name as it is."""
+    parts, i = [], 3 if name.startswith("_ZN") else 2
+    if not name.startswith("_Z"):
+        return name
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        n = int(name[i:j])
+        parts.append(name[j:j + n])
+        i = j + n
+        if not name.startswith("_ZN"):
+            break
+    parts = [p for p in parts if not p.startswith("_GLOBAL__N")]
+    return "::".join(parts) or name
+
+
+def captured_work(torch, fn):
+    """{name: count} of the work one call of ``fn`` puts on the card, read
+    from the nodes of a CUDA graph that captures the call: kernels by
+    their (mangled) names, memsets as "Memset (Device)", copies as
+    "Memcpy".  Exact where torch.profiler's records come and go (a window
+    of a few short kernels has lost some or all of them).  The call must
+    be capturable: the current stream only, no host read."""
+    import ctypes
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        fn()
+    lib = ctypes.CDLL("libcuda.so.1")
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _cu(lib.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu(lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    work = {}
+    for node in nodes:
+        node = ctypes.c_void_p(node)
+        kind = ctypes.c_int(-1)
+        _cu(lib.cuGraphNodeGetType(node, ctypes.byref(kind)),
+            "cuGraphNodeGetType")
+        name = {0: None, 1: "Memcpy", 2: "Memset (Device)"}.get(
+            kind.value, "graph node of type %d" % kind.value)
+        name = name or _kernel_node_name(lib, node)
+        work[name] = work.get(name, 0) + 1
+    g.reset()
+    return work
 
 
 def profiled_work(torch, fn, calls, settle=0.0):
@@ -316,17 +433,20 @@ def profiled_work(torch, fn, calls, settle=0.0):
     whoever launches them) in the second of two windows of ``calls`` calls
     of ``fn`` under torch.profiler (the first warms the profiler up), in
     launch order; each window waits ``settle`` seconds after its work
-    before it closes."""
+    before it closes, and the counted one ``PROFILER_EDGE_S`` more, and as
+    long before its work."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
-        for _ in range(2):
+        for counted in (False, True):
+            if counted:
+                time.sleep(PROFILER_EDGE_S)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-            if settle:
-                time.sleep(settle)
+            if settle or counted:
+                time.sleep(settle + (PROFILER_EDGE_S if counted else 0.0))
             prof.step()
     return sorted((ev.time_range.start, ev.name,
                    ev.time_range.end - ev.time_range.start)
@@ -364,26 +484,52 @@ def device_work_per_call(torch, fn, calls=10, tries=5):
           % (tries, counts))
 
 
+def device_ms_per_launch(torch, fn, kernel, parts, calls=10, tries=5):
+    """{"kernel" or "memset": mean device ms of one launch} of ``kernel``
+    and of the memsets among the work of ``calls`` calls of ``fn``, from
+    torch.profiler's records (``profiled_work``).  A mean needs no whole
+    window: a window that holds no record of one of ``parts`` is profiled
+    again, up to ``tries`` times."""
+    for attempt in range(tries):
+        us = {}
+        for _, name, dur in profiled_work(
+                torch, fn, calls, PROFILER_SETTLE_S if attempt else 0.0):
+            part = ("memset" if name.startswith("Memset") else
+                    "kernel" if kernel in name else None)
+            if part:
+                us.setdefault(part, []).append(dur)
+        if set(parts) <= set(us):
+            return {part: sum(us[part]) / len(us[part]) / 1e3
+                    for part in parts}
+        log("torch.profiler recorded %s of %s over %d calls; profiling "
+            "again" % ({p: len(d) for p, d in us.items()}, sorted(parts),
+                       calls))
+    check(False, "torch.profiler recorded no %s in %d windows"
+          % (sorted(set(parts) - set(us)), tries))
+
+
 def check_one_launch(torch, what, fn, kernel, allow_memset=False):
     """One call of ``fn`` puts exactly one ``kernel`` on the card, and at
     most one memset where ``allow_memset``: no clamp, cast or fill kernel
-    beside it.  Returns ({"kernel" or "memset": count per call}, {the same:
-    mean device ms of one})."""
-    work, ms = device_work_per_call(torch, fn)
+    beside it (``captured_work``).  Returns ({"kernel" or "memset": count
+    per call}, {the same: mean device ms of one launch, from
+    ``device_ms_per_launch``})."""
+    work = captured_work(torch, fn)
     kernels = {n: c for n, c in work.items() if kernel in n}
     others = {n: c for n, c in work.items() if kernel not in n}
     memsets = {n: c for n, c in others.items() if n.startswith("Memset")}
-    check(list(kernels.values()) == [1.0] and (
+    check(list(kernels.values()) == [1] and (
         others == {} or (allow_memset and others == memsets
-                         and sum(memsets.values()) <= 1.0)),
+                         and sum(memsets.values()) <= 1)),
           "%s: one call put %s on the card; want one %s%s" % (
-              what, work, kernel, " and at most one memset"
-              if allow_memset else " and nothing else"))
+              what, {kernel_label(n): c for n, c in work.items()}, kernel,
+              " and at most one memset" if allow_memset else
+              " and nothing else"))
 
     def part(n):
         return "memset" if n.startswith("Memset") else "kernel"
-    return ({part(n): c for n, c in work.items()},
-            {part(n): t for n, t in ms.items()})
+    work = {part(n): float(c) for n, c in work.items()}
+    return work, device_ms_per_launch(torch, fn, kernel, work)
 
 
 def check_bounds(rows):
@@ -473,27 +619,20 @@ def check_gather(torch, gather):
 GATHER_PATH_ROWS = (1_024, 15_360)
 
 
-def gather_kernels(torch, calls, where, tries=3):
+def gather_kernels(torch, calls, where):
     """The kernel that each of ``calls`` (gather_rows calls) puts on the
-    card, from one torch.profiler session over all of them in turn: each
-    must put exactly one kernel named gather_rows on the card, the same at
-    every repeat.  Its name says the route, ``bulk`` or the lane groups."""
-    n, reps = len(calls), 10
-    for attempt in range(tries):
-        names = [name for _, name, _ in profiled_work(
-            torch, lambda: [c() for c in calls], reps,
-            PROFILER_SETTLE_S if attempt else 0.0)]
-        if len(names) == n * reps:
-            check(all(name == names[i % n] and "gather_rows" in name
-                      for i, name in enumerate(names)),
-                  "gather_rows %s: a call put %s on the card; want one "
-                  "gather_rows kernel a call" % (where, names[:n]))
-            return names[:n]
-        log("torch.profiler recorded %d kernels over %d x %d gather_rows "
-            "calls; profiling again" % (len(names), reps, n))
-    check(False, "gather_rows %s: torch.profiler recorded %s over %d x %d "
-          "calls, in %d windows; want one gather_rows kernel a call"
-          % (where, names[:3 * n], reps, n, tries))
+    card, from a CUDA graph that captures the call (``captured_work``):
+    each must put exactly one kernel named gather_rows on the card.  Its
+    name says the route, ``bulk`` or the lane groups."""
+    names = []
+    for call in calls:
+        work = captured_work(torch, call)
+        check(list(work.values()) == [1] and "gather_rows" in "".join(work),
+              "gather_rows %s: a call put %s on the card; want one "
+              "gather_rows kernel a call"
+              % (where, {kernel_label(n): c for n, c in work.items()}))
+        names.extend(work)
+    return names
 
 
 def gather_shapes(torch, gather, table, gen, where, rows=GATHER_PATH_ROWS,
@@ -535,7 +674,7 @@ def gather_shapes(torch, gather, table, gen, where, rows=GATHER_PATH_ROWS,
             "%.4f (%.1f%%), one kernel a call on the %s route (%s)%s"
             % (where, m, moved / 1e6, f["ms"], ", %.4f warm" % f["warm_ms"]
                if "warm_ms" in f else "", f["bound_ms"],
-               100 * f["bound_ms"] / f["ms"], f["route"], name[:60],
+               100 * f["bound_ms"] / f["ms"], f["route"], kernel_label(name),
                "; plain %.4f, index_select %.4f, both cold"
                % (f["plain_ms"], f["library_ms"]) if "plain_ms" in f
                else ""))
@@ -1687,15 +1826,16 @@ def training_path(torch, card, g, dec, gather, spmm, gat):
 
 
 def sweep_split(torch, sweep, starts, packed, table, groups, R, where):
-    """Kernel 4's call in parts, from the profiler's events of the same
-    calls: the work one call puts on the card (the kernel and at most one
-    memset), the zero fill's device time (the memset) and the kernel's."""
+    """Kernel 4's call in parts: the work one call puts on the card (the
+    kernel and at most one memset, from a captured call), the zero fill's
+    device time (the memset) and the kernel's, from the profiler's events
+    of the same calls."""
     work, ms = check_one_launch(
         torch, "sweep_aggregate " + where, lambda: sweep.sweep_aggregate(
             starts, packed, table, groups, R), "sweep_aggregate_kernel",
         allow_memset=True)
-    check("memset" in ms, "sweep_aggregate %s: the profiler recorded no "
-          "memset of the output in %s" % (where, work))
+    check("memset" in ms, "sweep_aggregate %s: a call put no memset of "
+          "the output on the card: %s" % (where, work))
     return {"fill_ms": ms["memset"], "kernel_ms": ms["kernel"],
             "work_per_call": work}
 
@@ -4466,6 +4606,676 @@ def sage_unsup_path(torch, card, gather):
                             "sage_unsup_link_accuracy": acc}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: file ingest, the sampler API and k-NN
+# ---------------------------------------------------------------------------
+
+
+# the train split of the TSV store: the first tenth of the ids
+FILE_TRAIN_SHARE = 10
+# lines of each file parsed by both routes, the native loader and Python's
+FILE_CHECK_LINES = 10_000
+FILE_TRAIN_STEPS = 10
+# features written at five decimals: read back within half a unit of the
+# fifth decimal, plus the float32 rounding of the parse (one ulp)
+FILE_FEATURE_TOL = 5e-6
+SAMPLER_BATCH = 1024
+SAMPLER_CALLS = 5
+SAMPLER_NEG_K = 5
+SAMPLER_FULL_CAP = 16
+SAMPLER_SUBGRAPH_CAP = 100
+SAMPLER_WALK = (20, 0.5, 2.0)  # length, p, q
+NEIGHBOR_STRATEGIES = ("random", "topk", "edge_weight", "in_degree",
+                       "random_without_replacement")
+# SIFT1M (ann-benchmarks / INRIA TEXMEX): 1 000 000 base vectors of 128
+# f32, 10 000 queries, L2, neighbours to depth 100.  The vectors are drawn:
+# 1 000 Gaussian centres (spread 4) with unit-spread points about them;
+# each query is a base vector plus noise at 1% of the points' spread
+KNN_BASE, KNN_QUERIES, KNN_DIM, KNN_K = 1_000_000, 10_000, 128, 100
+KNN_CENTRES, KNN_SPREAD, KNN_NOISE, KNN_SEED = 1_000, 4.0, 0.01, 20
+# faiss's rule of thumb for the cells, 4 * sqrt(N); probes
+KNN_NLIST, KNN_NPROBE = 4_096, 16
+KNN_CHECK_QUERIES = 256
+KNN_PEAK_BYTES = 8e9
+KNN_SELF_RECALL = 0.99
+# the chunked search against one unchunked computation: ids where the gap
+# between the k-th and (k+1)-th score exceeds KNN_GAP, distances within
+# KNN_DIST_RTOL of the row's largest distance
+KNN_GAP, KNN_DIST_RTOL = 1e-3, 1e-4
+KNN_CONFIGS = (("flat", 0), ("flat", 1), ("ivfflat", 0), ("ivfpq", 0))
+
+
+def int_text(v, width):
+    """[n] non-negative ints -> [n, width] uint8: the decimal digits
+    right-aligned, 0 bytes (dropped by ``text_rows``) before them."""
+    rest = np.asarray(v, np.int64).copy()
+    check(not (rest < 0).any(), "tsv: a negative id or label")
+    out = np.zeros((rest.size, width), np.uint8)
+    for j in range(width - 1, -1, -1):
+        out[:, j] = np.where((rest > 0) | (j == width - 1), rest % 10 + 48, 0)
+        rest //= 10
+    check(not rest.any(), "tsv: a value wider than %d digits" % width)
+    return out
+
+
+def fixed5_text(x):
+    """[n, d] floats -> [n, d, 9] uint8: each value at five decimals
+    (``-dd.ddddd``, 0 bytes for an absent sign or tens digit)."""
+    scaled = np.rint(np.asarray(x, np.float64) * 1e5).astype(np.int64)
+    a = np.abs(scaled)
+    whole, frac = a // 100_000, a % 100_000
+    check(int(whole.max(initial=0)) < 100, "tsv: a feature of 100 or more")
+    out = np.zeros(scaled.shape + (9,), np.uint8)
+    out[..., 0] = np.where(scaled < 0, ord("-"), 0)
+    out[..., 1] = np.where(whole >= 10, whole // 10 + 48, 0)
+    out[..., 2] = whole % 10 + 48
+    out[..., 3] = ord(".")
+    for j in range(5):
+        out[..., 4 + j] = frac // 10 ** (4 - j) % 10 + 48
+    return out
+
+
+def sci9_text(w):
+    """[n] non-negative floats -> [n, 14] uint8: nine significant digits,
+    ``d.dddddddde-XX`` (``%.8e``'s form; nine digits read back to the same
+    float32)."""
+    w64 = np.asarray(w, np.float64)
+    check(not (w64 < 0).any(), "tsv: a negative weight")
+    pos = w64 > 0
+    e = np.where(pos, np.floor(np.log10(np.where(pos, w64, 1.0))),
+                 0).astype(np.int64)
+    m = np.rint(w64 * 10.0 ** (8 - e)).astype(np.int64)
+    for wrong, step in ((m >= 10 ** 9, 1), (pos & (m < 10 ** 8), -1)):
+        e = np.where(wrong, e + step, e)
+        m = np.where(wrong, np.rint(w64 * 10.0 ** (8 - e)).astype(np.int64),
+                     m)
+    digits = int_text(m, 9)
+    digits[digits == 0] = ord("0")  # a zero weight: 0.00000000e+00
+    out = np.zeros((w64.size, 14), np.uint8)
+    out[:, 0] = digits[:, 0]
+    out[:, 1] = ord(".")
+    out[:, 2:10] = digits[:, 1:]
+    out[:, 10] = ord("e")
+    out[:, 11] = np.where(e < 0, ord("-"), ord("+"))
+    out[:, 12:14] = int_text(np.abs(e), 2)
+    out[:, 12:14][out[:, 12:14] == 0] = ord("0")
+    return out
+
+
+def text_rows(blocks, seps):
+    """One table's records as bytes: the [n, w] uint8 column ``blocks``
+    row by row, each followed by its separator byte (the last by a
+    newline), the 0 bytes dropped."""
+    n = blocks[0].shape[0]
+    parts = []
+    for block, sep in zip(blocks, list(seps) + ["\n"]):
+        parts += [block, np.full((n, 1), ord(sep), np.uint8)]
+    mat = np.concatenate(parts, axis=1)
+    return mat[mat != 0].tobytes()
+
+
+def write_store_tsv(where, nt, et, train_ids):
+    """The store's node table (id, label, float features at five
+    decimals), edge table (src, dst, weight at nine significant digits)
+    and train split (ids) as TSV files under ``where``, written
+    vectorised.  Returns ({name: path}, {name: bytes}, seconds)."""
+    t0 = time.perf_counter()
+    n, d = nt.float_attrs.shape
+    width = len(str(int(nt.raw_ids.max())))
+    feats = np.concatenate(
+        [fixed5_text(nt.float_attrs),
+         np.full((n, d, 1), ord(":"), np.uint8)], axis=2).reshape(n, -1)
+    feats = feats[:, :-1]  # no separator after the last feature
+    texts = {
+        "nodes": b"id:int64\tlabel:int64\tfeature:string\n" + text_rows(
+            [int_text(nt.raw_ids, width), int_text(nt.labels, 4), feats],
+            "\t\t"),
+        "edges": b"src_id:int64\tdst_id:int64\tweight:float\n" + text_rows(
+            [int_text(nt.raw_ids[et.src], width),
+             int_text(nt.raw_ids[et.dst], width),
+             sci9_text(et.weights)], "\t\t"),
+        "train": b"id:int64\n" + text_rows([int_text(train_ids, width)], ""),
+    }
+    paths = {}
+    for name, text in texts.items():
+        paths[name] = os.path.join(where, name)
+        with open(paths[name], "wb") as f:
+            f.write(text)
+    return paths, {k: len(v) for k, v in texts.items()}, \
+        time.perf_counter() - t0
+
+
+def head_file(path, lines, where):
+    """The header and first ``lines`` records of ``path``, as a new file."""
+    with open(path, "rb") as f:
+        head = b"".join(f.readline() for _ in range(lines + 1))
+    out = os.path.join(where, os.path.basename(path) + ".head")
+    with open(out, "wb") as f:
+        f.write(head)
+    return out
+
+
+def check_native_route(native_ingest):
+    """File ingest takes the native loader (csrc/ingest.cpp, built into
+    graph_learn_tpu_torch/_build/); fails where it would take the Python
+    parser."""
+    check(native_ingest.available(), "file ingest: the native loader "
+          "(csrc/ingest.cpp) was not built, so tables would be parsed by "
+          "the Python parser")
+    return str(native_ingest.library_path())
+
+
+def same_columns(a, b):
+    return set(a) == set(b) and all(
+        (a[k] is None and b[k] is None) or (
+            a[k] is not None and b[k] is not None
+            and a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]))
+        for k in a)
+
+
+def file_tier_path(torch, card, gather, spmm):
+    """20a: the port bench's CFG store written as TSV, loaded through
+    Graph(device="cuda").node(...).node(..., mask=TRAIN).edge(...).init()
+    on the native route and held to synthetic_graph of the same seed; the
+    two parse routes held to each other; LocalTrainer steps of the 2-hop
+    EgoGraphSAGE query on the train split.  Returns (the kernels line's
+    fields, the loaded graph, its node decoder)."""
+    import shutil
+    import tempfile
+
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.core import ingest, native_ingest
+    from graph_learn_tpu_torch.nn import data as gdata
+    from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = bench.CFG
+    n, d = cfg["n_nodes"], cfg["feat_dim"]
+    lib = check_native_route(native_ingest)
+    syn, _ = gl.synthetic_graph(n, cfg["avg_degree"], d, cfg["classes"],
+                                seed=0, device="cuda")
+    snt, set_ = syn.store.node_table("item"), syn.store.edge_table("rel")
+    train_ids = snt.raw_ids[:n // FILE_TRAIN_SHARE]
+    where = tempfile.mkdtemp(prefix="glt_tsv_")
+    try:
+        paths, sizes, write_s = write_store_tsv(where, snt, set_, train_ids)
+        node_dec = gl.Decoder(labeled=True, attr_types=["float"] * d)
+        edge_dec = gl.Decoder(weighted=True)
+        decs = {"nodes": (node_dec, ingest.load_node_table),
+                "edges": (edge_dec, ingest.load_edge_table),
+                "train": (gl.Decoder(), ingest.load_node_table)}
+        parse_s = {}
+        for name, (dec, load) in decs.items():
+            t0 = time.perf_counter()
+            load(paths[name], dec)
+            parse_s[name] = time.perf_counter() - t0
+            head = head_file(paths[name], FILE_CHECK_LINES, where)
+            ids = ingest.EDGE_IDS if name == "edges" else ingest.NODE_IDS
+            check(same_columns(load(head, dec),
+                               ingest._parse_records(head, ids, dec)),
+                  "file ingest: the native loader and the Python parser "
+                  "disagree on the first %d lines of %s"
+                  % (FILE_CHECK_LINES, name))
+        t0 = time.perf_counter()
+        g = (gl.Graph(device="cuda").node(paths["nodes"], "item", node_dec)
+             .node(paths["train"], "item", gl.Decoder(), mask=gl.Mask.TRAIN)
+             .edge(paths["edges"], ("item", "item", "rel"), edge_dec).init())
+        init_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    nt, et = g.store.node_table("item"), g.store.edge_table("rel")
+    t0 = time.perf_counter()
+    dev = et.device("cuda")
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    ref = set_.device("cuda")
+    check(np.array_equal(nt.raw_ids, snt.raw_ids)
+          and np.array_equal(nt.labels, snt.labels)
+          and np.array_equal(et.src, set_.src)
+          and np.array_equal(et.dst, set_.dst)
+          and np.array_equal(et.weights, set_.weights),
+          "file ingest: ids, labels, edges or weights differ from "
+          "synthetic_graph's")
+    err = np.abs(nt.float_attrs - snt.float_attrs)
+    tol = FILE_FEATURE_TOL + np.spacing(np.abs(snt.float_attrs))
+    check(bool((err <= tol).all()), "file ingest: features off by %g, more "
+          "than %g plus one float32 ulp" % (err.max(), FILE_FEATURE_TOL))
+    for side in ("out", "inc"):
+        for f in ("row_offsets", "nbr_ids", "nbr_edge_ids", "cum_weights"):
+            check(torch.equal(getattr(getattr(dev, side), f),
+                              getattr(getattr(ref, side), f)),
+                  "file ingest: CSR %s.%s differs from synthetic_graph's"
+                  % (side, f))
+    check(np.array_equal(g.store.node_set("MASK*item").indices,
+                         np.arange(train_ids.size)),
+          "file ingest: the train split is not the first tenth of the ids")
+    del syn, snt, set_, ref
+    gc.collect()
+    log("file ingest (the bench CFG store as TSV: %d nodes with %d float "
+        "features at five decimals, %d weighted edges at nine significant "
+        "digits, a train split of %d ids): %s bytes written in %.3f s "
+        "(vectorised); parsed on the native route (%s) in %s s; "
+        "Graph.node/edge/init %.3f s; CSR build and upload %.3f s (host "
+        "%.3f s); ids, labels, weights and both CSRs bit-equal to "
+        "synthetic_graph's, features within %g + 1 ulp (max %g); the first "
+        "%d lines of each file bit-equal on the Python parser; card: %s"
+        % (n, d, et.num_edges, train_ids.size, sizes, write_s, lib,
+           {k: round(v, 3) for k, v in parse_s.items()}, init_s, csr_s,
+           et.host_build_s, FILE_FEATURE_TOL, err.max(), FILE_CHECK_LINES,
+           card))
+
+    k1, k2 = FANOUT
+    q = (g.V("item", mask=gl.Mask.TRAIN).batch(MICRO_BATCH)
+         .shuffle(traverse=True).alias("src")
+         .outV("rel").sample(k1).by("random").alias("hop1")
+         .outV("rel").sample(k2).by("random").alias("hop2").values())
+    model = EgoGraphSAGE([d, HIDDEN, cfg["classes"]], node_dec,
+                         agg_type="gcn", device="cuda")
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+    tr = LocalTrainer(seed=0, device="cuda")
+    losses = []
+
+    def loss_fn(m, batch, generator, training):
+        ego = gdata.EgoGraph.from_query_result(batch, "src", HOPS)
+        loss = supervised_softmax_loss(m(ego, training=True),
+                                       batch["src"].labels)
+        losses.append(loss.detach())
+        return loss
+
+    def pre_aggregate(batch, tables):
+        return gdata.pre_aggregate_hop(
+            batch, "hop2", tables["nodes"]["item"].float_attrs)
+
+    def train(steps):
+        t0 = time.perf_counter()
+        tr.train(q, model, loss_fn, opt, epochs=1, steps_per_epoch=steps,
+                 verbose=False, batch_transform=pre_aggregate)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    train(2)  # warm-up
+    del losses[:]
+    gather.LAUNCHES.reset()
+    spmm.LAUNCHES.reset()
+    wall = train(FILE_TRAIN_STEPS)
+    per_step = {"gather_rows": gather.LAUNCHES.count / FILE_TRAIN_STEPS,
+                "segment_spmm": spmm.LAUNCHES.count / FILE_TRAIN_STEPS}
+    check(per_step == {"gather_rows": 2.0, "segment_spmm": 1.0}
+          and len(losses) == FILE_TRAIN_STEPS
+          and bool(torch.isfinite(torch.stack(losses)).all()),
+          "file store training: launches a step %s (want 2 gather_rows and "
+          "1 segment_spmm), %d losses" % (per_step, len(losses)))
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_wall = train(n_prof)
+    by_kernel = device_ms_by_kernel(prof)
+    seen = {k: sum(1 for ev in prof.events()
+                   if k in ev.name and str(getattr(
+                       ev, "device_type", "")).endswith("CUDA")) / n_prof
+            for k in per_step}
+    busy = sum(by_kernel.values()) / n_prof
+    step_ms = wall / FILE_TRAIN_STEPS * 1e3
+    log("file store training (V(\"item\", mask=TRAIN).batch(%d), fanout %s, "
+        "EgoGraphSAGE [%d, %d, %d] gcn, deepest hop pre-aggregated): %d "
+        "steps in %.3f s, %.3f ms a step on the host clock, first and last "
+        "loss %.4f / %.4f; launches a step %s (counters), %s (profiler); "
+        "device busy %.3f ms a step (%.1f%% of the step under the "
+        "profiler, %.3f ms); card: %s"
+        % (MICRO_BATCH, list(FANOUT), d, HIDDEN, cfg["classes"],
+           FILE_TRAIN_STEPS, wall, step_ms, losses[0].item(),
+           losses[-1].item(), per_step, seen, busy,
+           100 * busy / (prof_wall / n_prof * 1e3),
+           prof_wall / n_prof * 1e3, card))
+    fields = {"file_trainer_launches_per_step": per_step["gather_rows"],
+              "file_step_ms": step_ms, "file_parse_s": sum(parse_s.values()),
+              "file_text_bytes": sum(sizes.values())}
+    return ({"gather_rows": fields,
+             "segment_spmm": {"file_trainer_launches_per_step":
+                              per_step["segment_spmm"]}}, g, node_dec)
+
+
+def edge_mask(keys, n, rows, vals):
+    """([m, k] bool: is each of ``vals`` [m, k] (numpy) an out-neighbour
+    of its row in the edge ``keys``; [m] out-degrees of ``rows``)."""
+    r = np.asarray(rows, np.int64)
+    key = np.repeat(r, vals.shape[1]) * n + vals.reshape(-1).astype(np.int64)
+    pos = np.minimum(np.searchsorted(keys, key), keys.size - 1)
+    deg = np.searchsorted(keys, (r + 1) * n) - np.searchsorted(keys, r * n)
+    return (keys[pos] == key).reshape(vals.shape), deg
+
+
+def true_edges(keys, n, rows, nbrs, fill, live=None):
+    """Hold [m, k] (numpy) ``nbrs`` of ``rows`` [m] to the edge ``keys``:
+    each (where ``live``) an out-neighbour of its row, or ``fill`` where
+    the row has none."""
+    edge, deg = edge_mask(keys, n, rows, nbrs)
+    ok = np.where(deg[:, None] > 0, edge, nbrs == fill)
+    if live is not None:
+        ok |= ~live
+    check(bool(ok.all()), "samplers: %d draws are neither an out-edge of "
+          "their row nor the fill of an empty row" % int((~ok).sum()))
+
+
+def sampler_api_path(torch, card, gather, g):
+    """20b: the pre-GSL sampler objects on the loaded store: node batches,
+    neighbours by every strategy, edges, negatives, a subgraph and walks,
+    each held to the host's edge arrays; every hop's feature rows
+    materialised by one gather_rows launch, bit-equal to the plain
+    version; ms a get().  Returns the kernels line's fields."""
+    from graph_learn_tpu_torch.config import conf
+    from graph_learn_tpu_torch.ops import negative
+
+    host = g.store.edge_table("rel")
+    n = g.store.node_table("item").num_nodes
+    keys = edge_keys(host.src, host.dst, n)
+    table = g.store.node_table("item").device("cuda").float_attrs
+    fill = conf.default_neighbor_id
+    ms, launches = {}, 0
+
+    def timed(name, fn):
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SAMPLER_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / SAMPLER_CALLS * 1e3
+        return out
+
+    def rows_of(values, what):
+        """Each value's feature rows, one gather_rows launch each, against
+        the plain version."""
+        nonlocal launches
+        gather.LAUNCHES.reset()
+        got = [v.float_attrs.materialize() for v in values]
+        torch.cuda.synchronize()
+        check(gather.LAUNCHES.count == len(values), "%s: %d gather_rows "
+              "launches for %d hops" % (what, gather.LAUNCHES.count,
+                                        len(values)))
+        launches += gather.LAUNCHES.count
+        for v, rows in zip(values, got):
+            idx = torch.clamp(v.float_attrs.idx.reshape(-1), 0, n - 1)
+            check(torch.equal(rows.reshape(-1, table.shape[1]),
+                              gather.gather_rows_plain(table, idx)),
+                  "%s: rows differ from gather_rows_plain" % what)
+
+    nodes = timed("node_sampler", g.node_sampler(
+        "item", SAMPLER_BATCH, "shuffle", seed=20).get)
+    seeds = nodes.raw_ids.cpu().numpy()
+    idx = nodes.ids.cpu().numpy()
+    check(np.array_equal(seeds, idx) and np.unique(idx).size == idx.size,
+          "node_sampler: not a batch of distinct ids")
+    rows_of([nodes], "node_sampler")
+    for s in NEIGHBOR_STRATEGIES:
+        sampler = g.neighbor_sampler("rel", list(FANOUT), s, seed=21)
+        hops = timed("neighbor_sampler/" + s, lambda: sampler.get(seeds))
+        prev = idx
+        for h in hops:
+            ids = h.ids.cpu().numpy().reshape(prev.size, -1)
+            true_edges(keys, n, prev, ids, fill)
+            prev = ids.reshape(-1)
+        rows_of(hops, "neighbor_sampler/" + s)
+    full = g.neighbor_sampler("rel", [SAMPLER_FULL_CAP], "full", seed=21)
+    sp = timed("neighbor_sampler/full", lambda: full.get(seeds))[0]
+    ids, degs = sp.ids.cpu().numpy(), sp.degrees.cpu().numpy()
+    live = np.arange(SAMPLER_FULL_CAP)[None, :] < degs[:, None]
+    true_deg = (np.searchsorted(keys, (idx.astype(np.int64) + 1) * n)
+                - np.searchsorted(keys, idx.astype(np.int64) * n))
+    check(np.array_equal(degs, np.minimum(true_deg, SAMPLER_FULL_CAP))
+          and bool((ids[~live] == fill).all()),
+          "neighbor_sampler/full: degrees or fills wrong")
+    true_edges(keys, n, idx, ids, fill, live)
+    rows_of([sp], "neighbor_sampler/full")
+
+    edges = timed("edge_sampler", g.edge_sampler(
+        "rel", SAMPLER_BATCH, seed=22).get)
+    eid = edges.edge_ids.cpu().numpy()
+    check(np.array_equal(edges.src_nodes.ids.cpu().numpy(), host.src[eid])
+          and np.array_equal(edges.dst_nodes.ids.cpu().numpy(),
+                             host.dst[eid])
+          and np.array_equal(edges.weights.cpu().numpy(), host.weights[eid]),
+          "edge_sampler: endpoints or weights differ from the edge table")
+    rows_of([edges.src_nodes, edges.dst_nodes], "edge_sampler")
+
+    neg_s = g.negative_sampler("rel", SAMPLER_NEG_K, "in_degree", seed=23)
+    state = neg_s.generator.get_state()
+    negs = neg_s.get(seeds)
+    et = g.store.edge_table("rel").device("cuda")
+    replay = torch.Generator(device="cuda")
+    replay.set_state(state)
+    rounds = conf.sampling_retry_times + 1
+    cands = negative.cdf_ids(et.unique_dst, et.unique_dst_indeg_cdf,
+                             (SAMPLER_BATCH, SAMPLER_NEG_K, rounds), replay)
+    check(torch.equal(negative.pick_negatives(
+        et, torch.as_tensor(idx, device="cuda"), cands), negs.ids),
+        "negative_sampler/in_degree: not pick_negatives of its candidates")
+    neg = negs.ids.cpu().numpy()
+    check(bool(np.isin(neg, et.unique_dst.cpu().numpy()).all()),
+          "negative_sampler/in_degree: a negative outside the dst pool")
+    hit = edge_mask(keys, n, idx, neg)[0]
+    all_hit = edge_mask(keys, n, idx, cands.cpu().numpy().reshape(
+        SAMPLER_BATCH, -1))[0].reshape(cands.shape).all(axis=-1)
+    check(not bool((hit & ~all_hit).any()), "negative_sampler/in_degree: a "
+          "true neighbour kept where a candidate round was not one")
+    timed("negative_sampler/in_degree", lambda: neg_s.get(seeds))
+    node_neg = timed("negative_sampler/node", lambda: g.negative_sampler(
+        "item", SAMPLER_NEG_K, seed=24).get(seeds))
+    check(tuple(node_neg.ids.shape) == (SAMPLER_BATCH, SAMPLER_NEG_K)
+          and bool(((node_neg.ids >= 0) & (node_neg.ids < n)).all()),
+          "negative_sampler/node: ids outside the node table")
+    rows_of([negs, node_neg], "negative_sampler")
+
+    sub = g.subgraph_sampler("item", "rel", [SAMPLER_SUBGRAPH_CAP], seed=25)
+    sg = timed("subgraph_sampler", lambda: sub.get(seeds))
+    adj = host_adjacency(host.src, host.dst, host.weights, set(idx.tolist()))
+    cut, kept = check_induction(torch, sg.map(lambda x: x[None]), adj,
+                                idx[None], SAMPLER_SUBGRAPH_CAP, None,
+                                "subgraph_sampler")
+    rows_of([sg.nodes], "subgraph_sampler")
+
+    length, p, qq = SAMPLER_WALK
+    walker = g.random_walk_sampler("rel", length, p, qq, seed=26)
+    walks = timed("random_walk_sampler", lambda: walker.get(seeds))
+    steps, stuck = walk_invariants(walks.cpu().numpy(), idx, keys, n)
+    log("sampler API on the file store (batch %d, card %s): ms a get() %s; "
+        "every neighbour of random / topk / edge_weight / in_degree / "
+        "random_without_replacement [%d, %d] and full (cap %d) an out-edge "
+        "of its row or the fill of an empty row; edges at their table's "
+        "endpoints and weights; in_degree negatives pick_negatives of their "
+        "%d candidate rounds, in the dst pool, a true neighbour kept only "
+        "where every round was one (%d slots); subgraph (cap %d) equal to "
+        "the host induction (%d edges, %d rows cut); walks (len %d, p %g, q "
+        "%g) along edges (%d steps, %d stuck); %d gather_rows launches "
+        "materialising every answer's rows, each bit-equal to "
+        "gather_rows_plain"
+        % (SAMPLER_BATCH, card, {k: round(v, 4) for k, v in ms.items()},
+           FANOUT[0], FANOUT[1], SAMPLER_FULL_CAP, rounds, int(hit.sum()),
+           SAMPLER_SUBGRAPH_CAP, kept, cut, length, p, qq, steps, stuck,
+           launches))
+    return {"gather_rows": {"sampler_api_launches": launches,
+                            "sampler_api_ms": ms}}
+
+
+def knn_peak_bytes(torch, fn):
+    """(``fn()``, the peak device bytes allocated while it ran:
+    ``torch.cuda.max_memory_allocated`` after a reset); fails above
+    ``KNN_PEAK_BYTES``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < KNN_PEAK_BYTES, "k-NN: a search peaked at %.3f GB of "
+          "device memory, over %.1f GB" % (peak / 1e9, KNN_PEAK_BYTES / 1e9))
+    return out, peak
+
+
+def knn_unchunked(torch, index, queries, kk):
+    """(scores [m, kk], rows) of one unchunked computation of ``index``'s
+    search for ``queries``: every data row scored at once, the IVF
+    probes by torch.topk, then torch.topk of the row."""
+    from graph_learn_tpu_torch.ops import knn
+    q = torch.as_tensor(queries, device="cuda")
+    m = q.shape[0]
+    if isinstance(index, knn.FlatIndex):
+        s = knn._scores(q, index._data, index.metric, index._norms)
+    else:
+        coarse = index.coarse if isinstance(index, knn.IVFPQIndex) else index
+        metric = 0 if isinstance(index, knn.IVFPQIndex) else index.metric
+        probe = torch.topk(knn._scores(q, coarse.centroids, metric),
+                           coarse.nprobe, dim=1).indices
+        slot = torch.full((m, coarse.nlist), -1, dtype=torch.long,
+                          device="cuda")
+        slot.scatter_(1, probe, torch.arange(
+            coarse.nprobe, device="cuda").expand(m, -1).contiguous())
+        at = slot[:, index._cell]
+        if isinstance(index, knn.IVFPQIndex):
+            lut = index._lut(q, probe).reshape(
+                m, coarse.nprobe, index.m, index.ksub)
+            rows = torch.arange(m, device="cuda")[:, None]
+            pos = torch.clamp(at, min=0)
+            s = sum(lut[rows, pos, j, index.codes[:, j][None, :]]
+                    for j in range(index.m))
+        else:
+            s = knn._scores(q, index._data, index.metric, index._norms)
+        s = torch.where(at >= 0, s, float("-inf"))
+    vals, rows = torch.topk(s, kk, dim=1)
+    return vals, rows
+
+
+def knn_agree(torch, index, ids, dist, queries, metric, what):
+    """The chunked search's answer for the first KNN_CHECK_QUERIES queries
+    against ``knn_unchunked``: the same id sets where the k-th and (k+1)-th
+    scores are more than KNN_GAP apart, distances within KNN_DIST_RTOL of
+    the row's largest.  Returns the rows held to their ids."""
+    k = ids.shape[1]
+    vals, rows = knn_unchunked(torch, index, queries, k + 1)
+    vals, rows = vals.cpu().numpy(), rows.cpu().numpy()
+    ref_ids = np.where(np.isfinite(vals[:, :k]),
+                       index._ids.cpu().numpy()[rows[:, :k]], -1)
+    ref_dist = -vals[:, :k] if metric == 0 else vals[:, :k]
+    with np.errstate(invalid="ignore"):
+        clear = (vals[:, k - 1] - vals[:, k]) > KNN_GAP
+    for i in np.flatnonzero(clear):
+        check(np.array_equal(np.sort(ids[i]), np.sort(ref_ids[i])),
+              "k-NN %s: query %d's ids differ from the unchunked search"
+              % (what, i))
+    fin = np.isfinite(ref_dist)
+    scale = np.max(np.where(fin, np.abs(ref_dist), 0), axis=1,
+                   keepdims=True)
+    err = np.where(fin, np.abs(dist - ref_dist), 0)
+    check(bool((np.isfinite(dist) == fin).all()
+               and (err <= KNN_DIST_RTOL * scale).all()),
+          "k-NN %s: distances differ from the unchunked search by %g of "
+          "the row's largest" % (what, float((err / scale).max())))
+    check(clear.sum() * 2 >= clear.size, "k-NN %s: only %d of %d rows have "
+          "a gap above %g at k" % (what, clear.sum(), clear.size, KNN_GAP))
+    return int(clear.sum())
+
+
+def recall_at(got, truth, r):
+    """Mean share of each row's first ``r`` true ids among its first
+    ``r`` found ones."""
+    a, b = np.sort(got[:, :r], axis=1), np.sort(truth[:, :r], axis=1)
+    hits = [np.isin(x, y, assume_unique=False).sum() for x, y in zip(a, b)]
+    return float(np.sum(hits)) / (r * got.shape[0])
+
+
+def knn_path(torch, card):
+    """20c: Graph.search at SIFT1M's counts and widths (drawn vectors):
+    flat (L2 and inner product), ivfflat and ivfpq (nlist 4 096, nprobe
+    16) with k 100 over 1 000 000 x 128 f32 for 10 000 queries: Flat L2
+    self-recall, the chunked search against an unchunked one, peak device
+    memory, train / add / search times, queries/s, device busy and the IVF
+    indexes' recall against Flat."""
+    import graph_learn_tpu_torch as gl
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(KNN_SEED)
+    centres = KNN_SPREAD * torch.randn((KNN_CENTRES, KNN_DIM), generator=gen,
+                                       device="cuda")
+    base = centres[torch.randint(0, KNN_CENTRES, (KNN_BASE,), generator=gen,
+                                 device="cuda")]
+    base += torch.randn(base.shape, generator=gen, device="cuda")
+    picks = torch.randperm(KNN_BASE, generator=gen, device="cuda")[
+        :KNN_QUERIES]
+    queries = base[picks] + KNN_NOISE * torch.randn(
+        (KNN_QUERIES, KNN_DIM), generator=gen, device="cuda")
+    data, q, picks = base.cpu().numpy(), queries.cpu().numpy(), \
+        picks.cpu().numpy()
+    del centres, base, queries
+    table = gl.NodeTable("item", gl.Decoder(attr_types=["float"] * KNN_DIM),
+                         np.arange(KNN_BASE), float_attrs=data)
+    draw_s = time.perf_counter() - t0
+    answers, out = {}, {}
+    for kind, metric in KNN_CONFIGS:
+        what = "%s/%s" % (kind, "L2" if metric == 0 else "ip")
+        g = gl.Graph(device="cuda").add_node_table(table)
+        opt = gl.KnnOption(k=KNN_K, index_type=kind, nlist=KNN_NLIST,
+                           nprobe=KNN_NPROBE, metric=metric)
+        t0 = time.perf_counter()
+        g.search("item", q[:1], opt)  # builds the index
+        build_s = time.perf_counter() - t0
+        index = next(iter(g._knn_indexes.values()))
+        (ids, dist), peak = knn_peak_bytes(
+            torch, lambda: g.search("item", q, opt))
+        t0 = time.perf_counter()
+        g.search("item", q, opt)
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            g.search("item", q, opt)
+            prof_wall = time.perf_counter() - t0
+        busy = sum(device_ms_by_kernel(prof).values())
+        clear = knn_agree(torch, index, ids[:KNN_CHECK_QUERIES],
+                          dist[:KNN_CHECK_QUERIES], q[:KNN_CHECK_QUERIES],
+                          0 if kind == "ivfpq" else metric, what)
+        answers[what] = ids
+        out[what] = dict(train_s=index.train_s, add_s=index.add_s,
+                         search_ms=wall * 1e3, qps=KNN_QUERIES / wall,
+                         peak_gb=peak / 1e9,
+                         busy_share=busy / (prof_wall * 1e3))
+        line = ("k-NN %s (%d x %d f32, %d queries, k %d%s): train %.3f s, "
+                "add %.3f s (first search with the build %.3f s); search "
+                "%.3f ms per %d queries, %.1f queries/s on the host clock; "
+                "device busy %.1f%% of a search under the profiler (%.3f "
+                "ms); peak %.3f GB; %d of %d checked rows' ids and every "
+                "distance equal to the unchunked search"
+                % (what, KNN_BASE, KNN_DIM, KNN_QUERIES, KNN_K,
+                   "" if kind == "flat" else ", nlist %d, nprobe %d"
+                   % (KNN_NLIST, KNN_NPROBE), index.train_s, index.add_s,
+                   build_s, wall * 1e3, KNN_QUERIES, KNN_QUERIES / wall,
+                   100 * out[what]["busy_share"], prof_wall * 1e3,
+                   peak / 1e9, clear, KNN_CHECK_QUERIES))
+        if what == "flat/L2":
+            self_share = float(np.mean(ids[:, 0] == picks))
+            check(self_share >= KNN_SELF_RECALL, "k-NN flat/L2: %.4f of the "
+                  "queries find their own base vector first, under %g"
+                  % (self_share, KNN_SELF_RECALL))
+            line += "; %.4f of the queries find their own vector first" % (
+                self_share)
+        elif kind != "flat":
+            truth = answers["flat/L2"]
+            out[what]["recall_at_10"] = recall_at(ids, truth, 10)
+            out[what]["recall_at_100"] = recall_at(ids, truth, KNN_K)
+            line += "; recall@10 %.4f, recall@100 %.4f against flat/L2" % (
+                out[what]["recall_at_10"], out[what]["recall_at_100"])
+        log(line + "; card: %s" % card)
+        del g, index
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("k-NN data: %d base vectors about %d centres, drawn in %.3f s (they "
+        "hold SIFT1M's counts and widths, not its distribution)"
+        % (KNN_BASE, KNN_CENTRES, draw_s))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4559,9 +5369,19 @@ def main() -> int:
         gc.collect()  # the ogbl-collab-sized store
         torch.cuda.empty_cache()
         sage_rows = sage_unsup_path(torch, card, gather)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 20: file ingest and the sampler API on the TSV store, then k-NN
+    with bench.bench_conf(storage_profile="full"):
+        file_rows, file_graph, _ = file_tier_path(torch, card, gather, spmm)
+        sampler_rows = sampler_api_path(torch, card, gather, file_graph)
+    del file_graph
+    gc.collect()  # the TSV store
+    torch.cuda.empty_cache()
+    knn_path(torch, card)
     for part in (bench_rows, scale_rows, walks_rows, query_rows,
                  bipartite_rows, rgcn_rows, temporal_rows, tgat_rows,
-                 example_rows, seal_rows, sage_rows):
+                 example_rows, seal_rows, sage_rows, file_rows, sampler_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

@@ -14,7 +14,11 @@ whose hops sample only edges strictly before the event,
 ``ops/temporal.py``), and categorical attributes (hashed, bucketed and
 multi-value columns, ``core/ingest.py``, with their embedding encoders,
 ``nn/feature_column.py``) with conditional negatives (``.where()``,
-``ops/conditional.py``).
+``ops/conditional.py``), with tables loaded from TSV files through
+``Graph().node(...).edge(...).init()`` (``core/ingest.py``, the native
+loader of ``csrc/ingest.cpp``), the pre-GSL sampler objects
+(``sampler_api.py``: ``g.node_sampler`` ... ``g.random_walk_sampler``) and
+k-NN over a node type's features (``g.search``, ``ops/knn.py``).
 ``bench`` is the counterpart of the repository's ``bench.py``: K sample+train steps a call,
 captured in one CUDA graph on the card.  Entry points run on the card
 unless the caller passes ``device="cpu"``.
@@ -32,6 +36,7 @@ from graph_learn_tpu_torch.config import (conf, set_dataset_capacity,
                                           set_seed, set_storage_device,
                                           set_storage_mode,
                                           set_tape_capacity, set_use_pallas)
+from graph_learn_tpu_torch.core.filesystem import register_filesystem
 from graph_learn_tpu_torch.core.schema import (Decoder, FeatureSpec, Mask,
                                                NodeFrom)
 from graph_learn_tpu_torch.core.store import EdgeTable, NodeTable
@@ -42,12 +47,15 @@ from graph_learn_tpu_torch.errors import (DeviceUnavailableError, GLError,
                                           OutOfRangeError, UnimplementedError)
 from graph_learn_tpu_torch.graph import Graph, synthetic_graph
 from graph_learn_tpu_torch.gsl.dataset import Dataset
+from graph_learn_tpu_torch import sampler_api as _sampler_api  # g.*_sampler
 from graph_learn_tpu_torch.online.serving import QueryService
+from graph_learn_tpu_torch.ops.knn import KnnOption
 from graph_learn_tpu_torch.ops.sampling import register_sampler
 
 __all__ = ["conf", "Decoder", "FeatureSpec", "Mask", "NodeFrom", "EdgeTable",
            "NodeTable", "Graph", "synthetic_graph", "QueryService", "Dataset",
-           "register_sampler", "Nodes", "Edges", "SparseNodes", "SparseEdges",
+           "register_sampler", "register_filesystem", "KnnOption", "Nodes",
+           "Edges", "SparseNodes", "SparseEdges",
            "SubGraphVal", "GLError", "InvalidArgumentError", "NotFoundError",
            "OutOfRangeError", "UnimplementedError", "DeviceUnavailableError",
            "set_dataset_capacity", "set_default_float_attribute",

@@ -6,11 +6,10 @@ reads or that a user sets through a setter (``:112-137``).  There is no
 only path, and CPU tensors take their plain versions, so
 ``set_use_pallas`` raises.  The flags of the parallel store, which is
 not ported yet, have no setter here (``set_graph_shards``,
-``set_partition_routing``).  The setters of flags that no ported code
-reads raise ``UnimplementedError`` instead of storing a value nothing
-looks at: the field delimiter (file ingest, ROADMAP A7), the k-NN metric
-(A6), and the attribute defaults, tape capacity and storage mode, which
-the JAX package stores but never reads either.
+``set_partition_routing``).  The setters of flags that no code reads
+raise ``UnimplementedError`` instead of storing a value nothing looks at:
+the attribute defaults, tape capacity and storage mode, which the JAX
+package stores but never reads either.
 """
 
 from __future__ import annotations
@@ -56,6 +55,12 @@ class _Config:
     # where the graph tables live: only "device" is ported; "host" (tables
     # in host RAM, batches shipped to the card) raises until it is
     storage_device: str = "device"
+    # column separator of the TSV tables that file ingest reads
+    # (reference FieldDelimiter)
+    field_delimiter: str = "\t"
+    # k-NN metric of an index built without one: 0 = L2, 1 = inner product
+    # (reference KnnMetric)
+    knn_metric: int = 0
 
 
 conf = _Config()
@@ -87,9 +92,8 @@ set_default_full_nbr_num = _make_setter("default_full_nbr_num")
 set_dataset_capacity = _make_setter("dataset_capacity")
 set_seed = _make_setter("seed")
 set_storage_device = _make_setter("storage_device")
-set_field_delimiter = _refuse(
-    "set_field_delimiter", "its reader is file ingest (ROADMAP A7)")
-set_knn_metric = _refuse("set_knn_metric", "its reader is k-NN (ROADMAP A6)")
+set_field_delimiter = _make_setter("field_delimiter")
+set_knn_metric = _make_setter("knn_metric")
 set_default_int_attribute = _refuse("set_default_int_attribute", _UNREAD)
 set_default_float_attribute = _refuse("set_default_float_attribute", _UNREAD)
 set_default_string_attribute = _refuse("set_default_string_attribute",

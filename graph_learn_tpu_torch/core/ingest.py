@@ -1,22 +1,33 @@
-"""Attribute strings -> the three column arrays of a node or edge table.
+"""TSV table ingest: files and attribute strings -> host numpy columns.
 
-A copy of the attribute part of ``graph_learn_tpu/core/ingest.py``
-(``hash64:37``, ``hash64_array:51``, ``_parse_attrs:83``): FNV-1a 64-bit
-hashing of string attributes into embedding ids, and the parse of
-``attr_delimiter``-joined attribute strings into int (embedding id),
-float and multi-value columns, for ``NodeTable`` / ``EdgeTable``.
+A copy of ``graph_learn_tpu/core/ingest.py``: FNV-1a 64-bit hashing of
+string attributes into embedding ids (``hash64:37``,
+``hash64_array:51``), the parse of ``attr_delimiter``-joined attribute
+strings into int (embedding id), float and multi-value columns
+(``_parse_attrs:83``), and the tables read from files (``_read_lines:58``,
+``_split_columns:67``, ``load_node_table:146``, ``load_edge_table:178``):
+a typed header line, then one record per line with the columns ``id``
+(an edge: ``src_id``, ``dst_id``), [weight], [label], [timestamp],
+[attribute string], as the decoder says, split by
+``conf.field_delimiter``.  A source path or URL goes through
+``core/filesystem.py resolve_path`` first.
+
 ``hash64_array`` is vectorised in numpy (uint64 arithmetic wraps as the
 hash's does) and bit for bit equal to the JAX package's per-string loop;
 ``_parse_attrs`` hashes a multi-value column's items in one such call.
-Reading tables from files waits for the port of file ingest.
+A table is parsed by the native loader (``core/native_ingest.py``, the
+repository's ``csrc/ingest.cpp``) where it can be built, as
+``_try_native_load:137`` does, and by the Python parser otherwise, which
+then says so once by a warning.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 
@@ -125,3 +136,95 @@ def _parse_attrs(attr_col: List[str], decoder: Decoder):
     multival = np.stack(mv_cols, axis=1) if mv_cols else None
     mv_lens = np.stack(mv_len_cols, axis=1) if mv_len_cols else None
     return int_attrs, float_attrs, multival, mv_lens
+
+
+Columns = Dict[str, Optional[np.ndarray]]
+# the id columns of a node and of an edge record
+NODE_IDS, EDGE_IDS = ("ids",), ("src_ids", "dst_ids")
+
+
+def _read_lines(path: str) -> Tuple[List[str], List[str]]:
+    """(header fields, data lines) of a table file."""
+    with open(path, "r") as f:
+        header = f.readline().rstrip("\n")
+        data = f.read().splitlines()
+    return header.split(conf.field_delimiter), data
+
+
+def _split_columns(lines: List[str], ncols: int) -> List[List[str]]:
+    """Records -> ``ncols`` columns of strings; empty lines are skipped and
+    a record of another width raises."""
+    delim = conf.field_delimiter
+    cols: List[List[str]] = [[] for _ in range(ncols)]
+    for ln in lines:
+        if not ln:
+            continue
+        parts = ln.split(delim)
+        if len(parts) != ncols:
+            raise InvalidArgumentError(
+                "record has %d fields, expected %d: %r"
+                % (len(parts), ncols, ln))
+        for c in range(ncols):
+            cols[c].append(parts[c])
+    return cols
+
+
+def _try_native_load(path: str, n_id_cols: int,
+                     decoder: Decoder) -> Optional[Columns]:
+    """The native loader's columns, or None (after one warning) where it
+    cannot be built."""
+    from graph_learn_tpu_torch.core import native_ingest
+    out = native_ingest.load_table(path, n_id_cols, decoder)
+    if out is None:
+        native_ingest.warn_python_route()
+    return out
+
+
+def _parse_records(path: str, id_names: Sequence[str],
+                   decoder: Decoder) -> Columns:
+    """The Python parser: the id columns ``id_names``, then the decoder's
+    columns, of the local file ``path``."""
+    _, lines = _read_lines(path)
+    n_ids = len(id_names)
+    ncols = (n_ids + decoder.weighted + decoder.labeled
+             + decoder.timestamped + (1 if decoder.attributed else 0))
+    cols = _split_columns(lines, ncols)
+    out: Columns = {name: np.asarray(cols[c], dtype=np.int64)
+                    for c, name in enumerate(id_names)}
+    c = n_ids
+    out["weights"] = (np.asarray(cols[c], np.float32) if decoder.weighted
+                      else None)
+    c += decoder.weighted
+    out["labels"] = (np.asarray(cols[c], np.int64).astype(np.int32)
+                     if decoder.labeled else None)
+    c += decoder.labeled
+    out["timestamps"] = (np.asarray(cols[c], np.int64)
+                         if decoder.timestamped else None)
+    c += decoder.timestamped
+    ia = fa = mv = ml = None
+    if decoder.attributed:
+        ia, fa, mv, ml = _parse_attrs(cols[c], decoder)
+    out["int_attrs"], out["float_attrs"] = ia, fa
+    out["multival_attrs"], out["multival_lens"] = mv, ml
+    return out
+
+
+def _load(path: str, id_names: Sequence[str], decoder: Decoder) -> Columns:
+    from graph_learn_tpu_torch.core.filesystem import resolve_path
+    path = resolve_path(path)
+    out = _try_native_load(path, len(id_names), decoder)
+    return out if out is not None else _parse_records(path, id_names,
+                                                      decoder)
+
+
+def load_node_table(path: str, decoder: Decoder) -> Columns:
+    """A node table file -> {"ids", "weights", "labels", "timestamps",
+    "int_attrs", "float_attrs", "multival_attrs", "multival_lens"} (None
+    where the decoder has no such column)."""
+    return _load(path, NODE_IDS, decoder)
+
+
+def load_edge_table(path: str, decoder: Decoder) -> Columns:
+    """An edge table file -> the columns of :func:`load_node_table` with
+    raw ``src_ids`` / ``dst_ids`` in place of ``ids``."""
+    return _load(path, EDGE_IDS, decoder)

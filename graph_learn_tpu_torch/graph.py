@@ -1,25 +1,38 @@
-"""Graph facade: in-memory table registration, lookups, the ``V()`` and
-``E()`` entries.
+"""Graph facade: sources loaded from files or tables built in memory,
+lookups, k-NN search, the ``V()`` and ``E()`` entries.
 
-Counterpart of ``graph_learn_tpu/graph.py:47-321`` for tables built in
-memory, as ``bench.py:84-112`` builds them (``add_node_table`` /
-``add_edge_table``, and ``add_node_set`` for a masked split, which the JAX
-package registers while it loads a masked source, ``graph.py:117-126``),
-with the direct APIs of ``:246-287`` (decoders, topology, degrees, node
-and edge lookups).  Loading sources from files (``node()``, ``edge()``,
-``init()``) needs the file part of ``core/ingest.py`` and is not yet
-ported; ``core/ingest.py`` parses attribute strings in memory.
+Counterpart of ``graph_learn_tpu/graph.py:28-321``.  ``node()`` and
+``edge()`` register file sources (``_NodeSource`` / ``_EdgeSource``,
+``:28-98``: comma-separated paths, the reversed copies of an undirected
+edge source) and ``init()`` loads them (``:101-216``): the base node
+tables first, a repeated ``node()`` of one type merged into its table
+(``_add_or_extend_node:148``), then the masked node sets resolved into
+their base tables (``:117-126``), then the edge sources grouped by type
+in the order they were registered (``_load_edge_type:181``), then one
+``unify_ts_bases`` over the store (``:143-144``).  Parsing is
+``core/ingest.py``'s.
 
-Timestamps: the JAX ``Graph.init`` calls ``unify_ts_bases`` once every
-table is loaded (``graph.py:143-144``).  The port has no ``init``: tables
-arrive one at a time, so ``add_edge_table`` calls it after each one, and
-the store is in one time domain whenever a caller can reach it.  An
-undirected edge type is ``add_edge_table(table, directed=False)``
-(``Graph.edge(directed=False)``, ``graph.py:72-98``): within one node type
-the table holds its edges and then their swapped copies, with every
-payload repeated in the same order, as the JAX package loads the reversed
-source into the type itself; between two node types it is the table and
-its ``add_reverse_edge_table``.
+The port also keeps an in-memory build, as ``bench.py:84-112`` builds
+its tables: ``add_node_table`` / ``add_edge_table`` and ``add_node_set``
+for a masked split.  Tables arrive one at a time there, so
+``add_edge_table`` calls ``unify_ts_bases`` after each one, and the store
+is in one time domain whenever a caller can reach it.  An undirected
+edge type is ``add_edge_table(table, directed=False)``: within one node
+type the table holds its edges and then their swapped copies, with every
+payload repeated in the same order, as ``init()`` loads an undirected
+source's reversed copy into the type itself; between two node types it
+is the table and its ``add_reverse_edge_table``.  The two builds give the
+same store for the same edges.  ``init()`` follows the registered sources
+as the JAX package does, so a type with directed and undirected sources
+gets the reversed copies of the undirected ones only.
+
+The direct APIs of ``:246-287`` (decoders, topology, degrees, node and
+edge lookups) and ``search`` (``:288-310``, k-NN over a node type's float
+attributes, ``ops/knn.py``) are here; the sampler factories
+(``node_sampler`` ... ``random_walk_sampler``) are attached by
+``sampler_api.py`` when the package is imported.  Snapshots
+(``save`` / ``load``), the locality reorder of ``init(reorder=...)`` and
+the sharded index of ``search(mesh=...)`` are not yet ported.
 
 A ``Graph`` owns the device its views live on: the CUDA card unless the
 caller passes ``device="cpu"``.
@@ -27,22 +40,170 @@ caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from graph_learn_tpu_torch.core import ingest
 from graph_learn_tpu_torch.core.schema import Decoder, Mask, mask_type
 from graph_learn_tpu_torch.core.store import (EdgeTable, GraphStore, NodeSet,
                                               NodeTable, unify_ts_bases)
-from graph_learn_tpu_torch.errors import InvalidArgumentError
+from graph_learn_tpu_torch.errors import (InvalidArgumentError,
+                                          UnimplementedError)
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
+
+
+class _NodeSource:
+    def __init__(self, path: str, node_type: str, decoder: Decoder,
+                 mask: Mask):
+        self.path = path
+        self.node_type = node_type  # the base type
+        self.decoder = decoder
+        self.mask = mask
+
+
+class _EdgeSource:
+    def __init__(self, path: str, src_type: str, dst_type: str,
+                 edge_type: str, decoder: Decoder, reversed_: bool = False):
+        self.path = path
+        self.src_type = src_type
+        self.dst_type = dst_type
+        self.edge_type = edge_type
+        self.decoder = decoder
+        self.reversed = reversed_
+
+
+def _paths(source: str) -> List[str]:
+    return [s.strip() for s in source.split(",")]
 
 
 class Graph:
     def __init__(self, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         self.store = GraphStore()
+        self._node_sources: List[_NodeSource] = []
+        self._edge_sources: List[_EdgeSource] = []
+        self._decoders: Dict[str, Decoder] = {}
+        self._knn_indexes: Dict[tuple, object] = {}
+        self._initialized = False
+
+    # --- file sources (graph.py:47-98) --------------------------------
+    def node(self, source: str, node_type: str, decoder: Decoder,
+             mask: Union[Mask, str, None] = Mask.NONE) -> "Graph":
+        """Register the node table file(s) ``source`` (comma-separated) of
+        ``node_type``; with a ``mask`` the file lists the ids of that split
+        of the type's table."""
+        if not isinstance(decoder, Decoder):
+            raise InvalidArgumentError("decoder must be a Decoder")
+        mask = (Mask[mask.upper()] if isinstance(mask, str)
+                else (mask or Mask.NONE))
+        self._decoders[mask_type(node_type, mask)] = decoder
+        for path in _paths(source):
+            self._node_sources.append(_NodeSource(path, node_type, decoder,
+                                                  mask))
+        return self
+
+    def edge(self, source: str, edge_type: Tuple[str, str, str],
+             decoder: Optional[Decoder] = None,
+             directed: bool = True) -> "Graph":
+        """Register the edge table file(s) ``source`` of ``edge_type`` =
+        (src type, dst type, edge type).  ``directed=False`` also loads
+        each file reversed: into the type itself within one node type, as
+        ``<edge type>_reverse`` between two."""
+        if not (isinstance(edge_type, tuple) and len(edge_type) == 3):
+            raise InvalidArgumentError(
+                "edge_type must be (src_type, dst_type, edge_type)")
+        decoder = decoder or Decoder()
+        src_t, dst_t, e_t = edge_type
+        self._decoders[e_t] = decoder
+        paths = _paths(source)
+        for path in paths:
+            self._edge_sources.append(_EdgeSource(path, src_t, dst_t, e_t,
+                                                  decoder))
+        if not directed:
+            rev_t = e_t if src_t == dst_t else e_t + "_reverse"
+            self._decoders[rev_t] = decoder
+            for path in paths:
+                self._edge_sources.append(_EdgeSource(
+                    path, dst_t, src_t, rev_t, decoder, reversed_=True))
+        return self
+
+    def init(self, **kwargs) -> "Graph":
+        """Load every registered source into the store (once)."""
+        if kwargs.get("reorder"):
+            raise UnimplementedError(
+                "init(reorder=...) is not yet ported (core/reorder.py)")
+        if self._initialized:
+            return self
+        for ns in self._node_sources:
+            if ns.mask == Mask.NONE:
+                self._add_or_extend_node(
+                    ns.node_type, ns.decoder,
+                    ingest.load_node_table(ns.path, ns.decoder))
+        for ns in self._node_sources:
+            if ns.mask != Mask.NONE:
+                cols = ingest.load_node_table(ns.path, ns.decoder)
+                base = self.store.node_table(ns.node_type)
+                self.store.add_node_set(NodeSet(
+                    type_name=mask_type(ns.node_type, ns.mask),
+                    base_type=ns.node_type,
+                    indices=base.index.lookup(cols["ids"]),
+                    weights=cols["weights"]))
+        grouped: Dict[str, List[_EdgeSource]] = {}
+        for es in self._edge_sources:
+            grouped.setdefault(es.edge_type, []).append(es)
+        for sources in grouped.values():
+            self._load_edge_type(sources)
+        unify_ts_bases(self.store)
+        self._initialized = True
+        return self
+
+    def _add_or_extend_node(self, node_type: str, decoder: Decoder, cols):
+        """Create the node table, or append a further source's rows to it
+        (a duplicate id across sources raises)."""
+        if node_type in self.store.nodes:
+            old = self.store.nodes[node_type]
+            merged = {"ids": np.concatenate([old.raw_ids, cols["ids"]])}
+            for f in _PAYLOAD:
+                a, b = getattr(old, f), cols[f]
+                if (a is None) != (b is None):
+                    raise InvalidArgumentError(
+                        "source schemas for node type %r disagree on %s "
+                        "(all sources of one type must share the decoder "
+                        "layout)" % (node_type, f))
+                merged[f] = None if a is None else np.concatenate([a, b])
+            cols = merged
+        self.store.add_node_table(NodeTable(
+            node_type, decoder, cols["ids"],
+            **{f: cols[f] for f in _PAYLOAD}))
+
+    def _load_edge_type(self, sources: List[_EdgeSource]):
+        """One edge table from every source of its type, in order (a
+        reversed source with its ids swapped); a raw id missing from its
+        node table raises NotFoundError."""
+        first = sources[0]
+        src_parts, dst_parts = [], []
+        payload: Dict[str, List[np.ndarray]] = {}
+        for es in sources:
+            cols = ingest.load_edge_table(es.path, es.decoder)
+            s_ids, d_ids = cols["src_ids"], cols["dst_ids"]
+            if es.reversed:
+                s_ids, d_ids = d_ids, s_ids
+            src_parts.append(s_ids)
+            dst_parts.append(d_ids)
+            for f in _PAYLOAD:
+                if cols[f] is not None:
+                    payload.setdefault(f, []).append(cols[f])
+        src_table = self.store.node_table(first.src_type)
+        dst_table = self.store.node_table(first.dst_type)
+        self.store.add_edge_table(EdgeTable(
+            first.edge_type, first.src_type, first.dst_type, first.decoder,
+            src=src_table.index.lookup(np.concatenate(src_parts)),
+            dst=dst_table.index.lookup(np.concatenate(dst_parts)),
+            num_src_nodes=src_table.num_nodes,
+            num_dst_nodes=dst_table.num_nodes,
+            **{f: np.concatenate(v) for f, v in payload.items()}))
 
     # --- in-memory build ----------------------------------------------
     def add_node_table(self, table: NodeTable) -> "Graph":
@@ -104,14 +265,17 @@ class Graph:
 
     # --- decoders / topology ------------------------------------------
     def get_node_decoder(self, node_type: str) -> Decoder:
-        """The decoder of ``node_type``'s table (an empty one when the
-        store has no such table, as the JAX package answers)."""
+        """The decoder registered for ``node_type`` (a masked type too) or
+        of its table (an empty one when there is neither, as the JAX
+        package answers)."""
         t = self.store.nodes.get(node_type)
-        return t.decoder if t is not None else Decoder()
+        return self._decoders.get(
+            node_type, t.decoder if t is not None else Decoder())
 
     def get_edge_decoder(self, edge_type: str) -> Decoder:
         t = self.store.edges.get(edge_type)
-        return t.decoder if t is not None else Decoder()
+        return self._decoders.get(
+            edge_type, t.decoder if t is not None else Decoder())
 
     def topology(self) -> Dict[str, Tuple[str, str]]:
         """{edge type: (src node type, dst node type)}."""
@@ -151,6 +315,31 @@ class Graph:
                             torch.as_tensor(np.asarray(edge_ids, np.int32),
                                             device=self.device))
 
+    # --- k-NN (graph.py:288-310) -----------------------------------------
+    def search(self, node_type: str, inputs: np.ndarray, option, mesh=None):
+        """The ``option.k`` nearest rows of ``node_type``'s float
+        attributes to each row of ``inputs``: (ids [m, k] raw node ids, -1
+        padded; distances [m, k]), numpy.  The index is built on the
+        graph's device at the first call and kept per (node type, index
+        type), as the JAX package keys it: a later call with another
+        ``nlist``, ``nprobe`` or ``metric`` searches the index built
+        first."""
+        from graph_learn_tpu_torch.ops import knn
+        if mesh is not None and dict(mesh.shape).get("graph", 1) > 1:
+            raise UnimplementedError(
+                "search(mesh=...) over graph shards (ShardedIndex) is not "
+                "yet ported: it waits for the parallel store")
+        key = (node_type, option.index_type, False)
+        if key not in self._knn_indexes:
+            t = self.store.node_table(node_type)
+            if t.float_attrs is None:
+                raise InvalidArgumentError(
+                    "node type %r has no float attrs for KNN" % node_type)
+            self._knn_indexes[key] = knn.build_index(
+                t.float_attrs, t.raw_ids, option, device=self.device)
+        return self._knn_indexes[key].search(np.asarray(inputs, np.float32),
+                                             option.k)
+
     # --- GSL entry point ----------------------------------------------
     def V(self, t: str, node_from=None,
           mask: Union[Mask, str, None] = Mask.NONE):
@@ -164,6 +353,8 @@ class Graph:
 
 # the attribute columns an edge table's reversed or swapped copy repeats
 _EDGE_ATTRS = ("int_attrs", "float_attrs", "multival_attrs", "multival_lens")
+# the payload columns of a loaded table, in the order they are merged
+_PAYLOAD = _EDGE_ATTRS + ("weights", "labels", "timestamps")
 
 
 def _absolute_ts(et: EdgeTable):

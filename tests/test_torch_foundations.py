@@ -194,12 +194,13 @@ def test_every_setter_sets_its_flag():
     assert tnames <= jnames
     values = {"padding_mode": 0, "default_neighbor_id": 7,
               "sampling_retry_times": 2, "default_full_nbr_num": 12,
-              "dataset_capacity": 4, "seed": 9, "storage_device": "device"}
+              "dataset_capacity": 4, "seed": 9, "storage_device": "device",
+              "field_delimiter": ";", "knn_metric": 1}
     setters = {"set_retry_times": "sampling_retry_times"}
     # flags no ported code reads: their setters refuse, and the port keeps
-    # no field for them
-    refused = {"set_field_delimiter": "A7", "set_knn_metric": "A6",
-               "set_default_int_attribute": "JAX package either",
+    # no field for them (file ingest reads the field delimiter and k-NN
+    # the metric, so theirs set them)
+    refused = {"set_default_int_attribute": "JAX package either",
                "set_default_float_attribute": "JAX package either",
                "set_default_string_attribute": "JAX package either",
                "set_tape_capacity": "JAX package either",
@@ -224,7 +225,7 @@ def test_every_setter_sets_its_flag():
         glt.set_use_pallas(True)
     for name in ("FeatureSpec", "Nodes", "Edges", "SparseNodes",
                  "SparseEdges", "SubGraphVal", "UnimplementedError",
-                 "register_sampler"):
+                 "register_sampler", "register_filesystem", "KnnOption"):
         assert name in glt.__all__ and hasattr(glt, name), name
 
 

@@ -21,6 +21,7 @@ from graph_learn_tpu_torch.examples import (sage_unsupervised, scale_demo,
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
 from graph_learn_tpu_torch.nn.models.sub_models import GCN, LinkPredictor
 from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+from graph_learn_tpu_torch.ops import knn
 from graph_learn_tpu_torch.ops.kernels import build
 from torch_parity import numpy_graph, torch_graph, two_hop
 
@@ -77,7 +78,8 @@ def no_card(monkeypatch):
                                    "trainer", "dataset", "scale_demo",
                                    "sweep_harness", "bench", "bench_main",
                                    "sub_stack", "link_predictor",
-                                   "seal_model", "sage_link"])
+                                   "seal_model", "sage_link", "knn_index",
+                                   "knn_build"])
 def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch):
     monkeypatch.delenv("GLT_PLATFORM", raising=False)
     a = numpy_graph(n=30, d=4)
@@ -100,6 +102,9 @@ def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch):
         "link_predictor": lambda: LinkPredictor(8),
         "seal_model": lambda: seal.seal_model(4, 8),
         "sage_link": lambda: sage_unsupervised.SageLink(dec, 4, 8, 8),
+        "knn_index": lambda: knn.IVFFlatIndex(4),
+        "knn_build": lambda: knn.build_index(a["feats"], a["raw_ids"],
+                                             glt.KnnOption()),
     }
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         calls[entry]()
@@ -242,11 +247,15 @@ K2 = "void segment_spmm_kernel<float, float, 4, 0>(SpmmArgs)"
 def test_chip_smoke_one_launch_rule(monkeypatch, work, allow_memset, ok):
     """chip_smoke.py's check that one wrapper call puts exactly one of its
     kernels on the card (and at most one memset where the call zeroes its
-    output), on profiler counts per call."""
+    output), on the nodes of a captured call."""
     smoke = _chip_smoke_module()
-    ms = {n: 0.002 if n.startswith("Memset") else 0.03 for n in work}
-    monkeypatch.setattr(smoke, "device_work_per_call",
-                        lambda torch, fn: (dict(work), ms))
+    monkeypatch.setattr(smoke, "captured_work",
+                        lambda torch, fn: {n: int(c)
+                                           for n, c in work.items()})
+    monkeypatch.setattr(smoke, "device_ms_per_launch",
+                        lambda torch, fn, kernel, parts: {
+                            p: 0.002 if p == "memset" else 0.03
+                            for p in parts})
     if ok:
         got, got_ms = smoke.check_one_launch(None, "k", None,
                                              "segment_spmm_kernel",
@@ -427,3 +436,156 @@ def test_chip_smoke_profiles_again_when_a_window_holds_no_kernel(
                         settle=0.0: [(0, "Memset (Device)", 1.0)])
     with pytest.raises(smoke.SmokeFailure, match="no whole calls"):
         smoke.device_work_per_call(torch, None, calls=10)
+
+
+GATHER_BULK = ("_ZN41_GLOBAL__N__84789cab_9_gather_cu_7b05fd7823"
+               "gather_rows_bulk_kernelENS_8BulkArgsE")
+CLAMP = ("_ZN2at6native29vectorized_elementwise_kernelILi4EZZZNS0_"
+         "19launch_clamp_scalarEEEEviT0_T1_")
+
+
+@pytest.mark.parametrize("works,ok", [
+    ([{GATHER_BULK: 1}, {GATHER_BULK: 1}], True),
+    ([{GATHER_BULK: 1}, {GATHER_BULK: 1, CLAMP: 1}], False),  # a clamp
+    ([{GATHER_BULK: 2}], False),
+    ([{}], False),  # no kernel at all
+    ([{CLAMP: 1}], False),  # another kernel in its place
+])
+def test_chip_smoke_gather_kernels_takes_one_kernel_a_call(monkeypatch,
+                                                           works, ok):
+    """Kernel 1's one-kernel-a-call check reads the nodes of each call's
+    capture and answers each call's kernel name (its route)."""
+    smoke = _chip_smoke_module()
+    given = list(works)
+    monkeypatch.setattr(smoke, "captured_work",
+                        lambda torch, fn: dict(given.pop(0)))
+    calls = [None] * len(works)
+    if ok:
+        assert smoke.gather_kernels(None, calls, "here") == [
+            GATHER_BULK] * len(works)
+    else:
+        with pytest.raises(smoke.SmokeFailure, match="want one gather_rows"):
+            smoke.gather_kernels(None, calls, "here")
+
+
+@pytest.mark.parametrize("name,label", [
+    (GATHER_BULK, "gather_rows_bulk_kernel"),
+    ("_ZN41_GLOBAL__N__84789cab_9_gather_cu_7b05fd7818gather_rows_kernelI5"
+     "uint2EEvPKT_PKiPS2_lli", "gather_rows_kernel"),
+    (CLAMP, "at::native::vectorized_elementwise_kernel"),
+    ("_Z10foo_kernelPf", "foo_kernel"),
+    ("Memset (Device)", "Memset (Device)"),
+    ("void segment_spmm_kernel<float>(SpmmArgs)",
+     "void segment_spmm_kernel<float>(SpmmArgs)"),
+])
+def test_chip_smoke_labels_mangled_kernel_names(name, label):
+    assert _chip_smoke_module().kernel_label(name) == label
+
+
+def test_chip_smoke_times_a_launch_from_the_records_that_came(monkeypatch):
+    """A launch's mean device time needs no whole window: a window without
+    a record of the memset is profiled again, and one with some records of
+    each is averaged over them."""
+    smoke = _chip_smoke_module()
+    windows = [[(0, "sweep_aggregate_kernel<f>", 40.0)],
+               [(0, "Memset (Device)", 2.0),
+                (1, "sweep_aggregate_kernel<f>", 30.0),
+                (2, "sweep_aggregate_kernel<f>", 50.0),
+                (3, "at::native::fill", 9.0)]]
+    monkeypatch.setattr(smoke, "profiled_work",
+                        lambda torch, fn, calls, settle=0.0: windows.pop(0))
+    ms = smoke.device_ms_per_launch(None, None, "sweep_aggregate_kernel",
+                                    {"kernel", "memset"})
+    assert windows == [] and ms == {"kernel": 0.04, "memset": 0.002}
+    monkeypatch.setattr(smoke, "profiled_work",
+                        lambda torch, fn, calls, settle=0.0: [])
+    with pytest.raises(smoke.SmokeFailure, match="recorded no"):
+        smoke.device_ms_per_launch(None, None, "k", {"kernel"})
+
+
+def test_chip_smoke_main_runs_phase_20():
+    """main() drives the file tier, the sampler objects and k-NN, and
+    merges the first two's fields into the kernels line."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    main = next(f for f in tree.body
+                if isinstance(f, ast.FunctionDef) and f.name == "main")
+    called = {n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert {"file_tier_path", "sampler_api_path", "knn_path"} <= called
+    merged = {n.id for n in ast.walk(main) if isinstance(n, ast.Name)}
+    assert {"file_rows", "sampler_rows"} <= merged
+
+
+def test_chip_smoke_fails_off_the_native_ingest_route():
+    """The file tier's route check: a loader that could not be built (the
+    Python parser's route) fails the phase."""
+    import types
+    smoke = _chip_smoke_module()
+    missing = types.SimpleNamespace(available=lambda: False,
+                                    library_path=lambda: "none")
+    with pytest.raises(smoke.SmokeFailure, match="Python parser"):
+        smoke.check_native_route(missing)
+    built = types.SimpleNamespace(available=lambda: True,
+                                  library_path=lambda: "/lib.so")
+    assert smoke.check_native_route(built) == "/lib.so"
+
+
+@pytest.mark.parametrize("peak,ok", [(1.9e9, True), (8.5e9, False)])
+def test_chip_smoke_knn_memory_check_reads_the_peak(peak, ok):
+    """k-NN's memory check resets the peak, runs the search and reads
+    ``torch.cuda.max_memory_allocated``."""
+    import types
+    smoke = _chip_smoke_module()
+    calls = []
+    cuda = types.SimpleNamespace(
+        synchronize=lambda: calls.append("sync"),
+        reset_peak_memory_stats=lambda: calls.append("reset"),
+        max_memory_allocated=lambda: calls.append("read") or peak)
+    fake = types.SimpleNamespace(cuda=cuda)
+    if ok:
+        assert smoke.knn_peak_bytes(fake, lambda: "answer") == ("answer",
+                                                                peak)
+    else:
+        with pytest.raises(smoke.SmokeFailure, match="peaked"):
+            smoke.knn_peak_bytes(fake, lambda: "answer")
+    assert calls == ["sync", "reset", "sync", "read"]
+
+
+def test_chip_smoke_tsv_text_reads_back(tmp_path):
+    """The vectorised TSV writer: ids and labels exact, weights at nine
+    significant digits read back to the same float32 (tiny, zero and
+    near-one ones among them), features within half a unit of the fifth
+    decimal plus one ulp; both parse routes agree on the file."""
+    from graph_learn_tpu_torch.core import ingest
+    smoke = _chip_smoke_module()
+    rng = np.random.default_rng(0)
+    n, d, e = 300, 6, 2000
+    nt = glt.NodeTable("item", glt.Decoder(labeled=True,
+                                           attr_types=["float"] * d),
+                       rng.permutation(10_000)[:n],
+                       float_attrs=(rng.standard_normal((n, d)) * 20).astype(
+                           np.float32),
+                       labels=rng.integers(0, 40, n))
+    w = rng.random(e).astype(np.float32)
+    w[:4] = [0.0, 1e-30, 0.99999994, 1.5e-7]
+    et = glt.EdgeTable("rel", "item", "item", glt.Decoder(weighted=True),
+                       src=rng.integers(0, n, e), dst=rng.integers(0, n, e),
+                       num_src_nodes=n, num_dst_nodes=n, weights=w)
+    paths, sizes, _ = smoke.write_store_tsv(str(tmp_path), nt, et,
+                                            nt.raw_ids[:30])
+    assert sizes["nodes"] == (tmp_path / "nodes").stat().st_size
+    for parse in (ingest._load, ingest._parse_records):  # native, Python
+        nodes = parse(paths["nodes"], ingest.NODE_IDS, nt.decoder)
+        edges = parse(paths["edges"], ingest.EDGE_IDS, et.decoder)
+        train = parse(paths["train"], ingest.NODE_IDS, glt.Decoder())
+        np.testing.assert_array_equal(nodes["ids"], nt.raw_ids)
+        np.testing.assert_array_equal(nodes["labels"], nt.labels)
+        err = np.abs(nodes["float_attrs"] - nt.float_attrs)
+        assert (err <= smoke.FILE_FEATURE_TOL
+                + np.spacing(np.abs(nt.float_attrs))).all()
+        np.testing.assert_array_equal(edges["src_ids"], nt.raw_ids[et.src])
+        np.testing.assert_array_equal(edges["dst_ids"], nt.raw_ids[et.dst])
+        np.testing.assert_array_equal(edges["weights"], w)
+        np.testing.assert_array_equal(train["ids"], nt.raw_ids[:30])
+    head = smoke.head_file(paths["edges"], 10, str(tmp_path))
+    assert len(open(head).read().splitlines()) == 11
