@@ -233,7 +233,41 @@ Phases (any failure exits non-zero before the result line):
    and (k+1)-th scores are more than 1e-3 apart, distances within 1e-4 of
    the row's largest); a search's peak device memory under 8 GB; train,
    add and search times, queries/s, device busy, and the IVF indexes'
-   recall@10 / @100 against flat L2.
+   recall@10 / @100 against flat L2;
+21. snapshots, the host tier, the BFS reorder, the TSV examples,
+   checkpoints and the torch bridge.  (a) Inside phase 11, on its weighted
+   61.25M-edge "minimal" store: Graph.save into a temporary directory and
+   Graph.load memory-mapped; raw ids, labels, the f32 host features and
+   the edges' src, dst and weights bit-equal; the restored store's CPU
+   CSR and bf16 table bit-equal to the original's card views; bytes, save,
+   load and CSR seconds beside the bench's build.  (b) On the restored
+   store's CPU views, examples/host_tier_bench.py's shapes through
+   LocalTrainer.train(..., tier="host"): EgoGraphSAGE [100, 256, 47]
+   "gcn", batch 1 024, fanout [15, 10], Adam 1e-3, 20 steps of ``host``
+   with a window of 1 and the default window and of ``host+agg`` (the
+   deepest hop reduced on the CPU): losses finite, parameters moved,
+   gather_rows and segment_spmm launched 0 times; ms a step, edges/s,
+   device busy, bytes shipped a batch, H2D GB/s of one pinned batch, the
+   share of a step the producer thread hides; a topk batch of the host
+   tier bit-equal to the device tier's on the original store, a random
+   one's hops true neighbours of the edge arrays and its rows the
+   table's.  (c) After phase 19, core/reorder.py on the
+   ogbl-collab-sized planted store: the raw-id adjacency, the features
+   and a masked set unchanged, the mean neighbour index distance before
+   and after, Kernel 1 cold over one 2-hop batch's 169 984 rows on each
+   store against its bound, plain version and index_select.  (d) The TSV
+   examples at their defaults, each from its files through
+   Graph.node/edge/init: ego_sage_supervised (2 gather_rows + 1
+   segment_spmm a step), ego_gat_supervised (3 gather_rows and 3
+   gat_block each way), ego_rgcn_supervised (7 gather_rows; its store
+   bit-equal to its in-memory twin), their test accuracies; ego_tgat's
+   store from its files bit-equal to the in-memory one, 5 steps (15
+   gather_rows, 9 gat_block each way) and its test accuracy.  (e) After
+   the bench phase's CFG run, on the 200k graph: EgoGraphSAGE trained 5
+   steps, saved with nn/checkpoint.py, restored into a fresh model and
+   Adam, one more step from both bit-equal; torch_loader over the bench
+   query for a whole epoch on the card and on the host tier (the first
+   20 batches' tensors on the card or the CPU, the last cut to its rows).
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -264,7 +298,14 @@ and ``kernel_route_cond_*``; Kernel 1 phase 19's
 ``sage_unsup_link_accuracy``; Kernels 1 and 2 phase 20's
 ``file_trainer_launches_per_step``, Kernel 1 also ``file_step_ms``,
 ``file_parse_s``, ``file_text_bytes``, ``sampler_api_launches`` and
-``sampler_api_ms``).
+``sampler_api_ms``; phase 21's ``host_tier_launches`` (0) on Kernels 1
+and 2, Kernel 1's ``host_tier_ms_step``, ``host_agg_tier_ms_step``,
+``host_tier_hidden_share``, ``host_tier_h2d_gb_per_s``, the snapshot's
+``snapshot_bytes`` / ``_save_s`` / ``_load_s`` / ``_csr_s``, the
+reorder's ``reorder_cold_ms_before`` / ``_after`` with their bounds,
+plain and library times and mean neighbour distances, and the TSV
+examples' ``tsv_*_launches_per_step`` and ``tsv_*_test_accuracy`` on
+Kernels 1-3).
 """
 
 from __future__ import annotations
@@ -273,6 +314,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -546,7 +588,9 @@ def check_bounds(rows):
     Raises SmokeFailure naming each time that reads under its bound."""
     pairs = (("ms", "bound_ms"), ("bwd_ms", "bwd_bound_ms"),
              ("bar_ms", "bar_bound_ms"), ("cold_ms_62m", "bound_ms_62m"),
-             ("ms_sum", "bound_ms_sum"), ("cold_ms_rgcn", "bound_ms_rgcn"))
+             ("ms_sum", "bound_ms_sum"), ("cold_ms_rgcn", "bound_ms_rgcn"),
+             ("reorder_cold_ms_before", "reorder_bound_ms_before"),
+             ("reorder_cold_ms_after", "reorder_bound_ms_after"))
     pairs += tuple(pair for m in (GATHER_PATH_ROWS + RGCN_GATHER_ROWS
                                   + WALK_GATHER_ROWS + CAT_GATHER_ROWS
                                   + SEAL_GATHER_ROWS)
@@ -2454,6 +2498,8 @@ def bench_path(torch, card, cfg, graph, gather, spmm, sweep, name,
     rows = {k: {"bench_%s_launches_per_step" % name: graph_work[k],
                 "bench_%s_eager_launches" % name: launches[k]}
             for k in ("gather_rows", "segment_spmm")}
+    rows["gather_rows"]["bench_%s_build_s" % name] = (eager["host_build_s"]
+                                                      + eager["tables_s"])
     del eager, captured, step
     if not sorted_route:
         return rows, graph
@@ -5276,6 +5322,727 @@ def knn_path(torch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: snapshots, the host tier, the BFS reorder, the TSV examples,
+# checkpoints and the torch bridge
+# ---------------------------------------------------------------------------
+
+HOST_TIER_STEPS = 20
+HOST_TIER_PROFILED = 5
+HOST_STAGE_STEPS = 10
+H2D_COPIES = 5
+CKPT_STEPS = 5
+LOADER_BATCHES = 20
+TSV_TGAT_STEPS = 5
+# launches of Kernels 1-3 a train step and an evaluated batch of the TSV
+# examples at their defaults: src and hop 1 gathered, the deepest hop
+# reduced by Kernel 2 (EgoGraphSAGE); every hop gathered and three
+# neighbour blocks (EgoGAT); seven hops gathered (EgoRGCN)
+TSV_PER_STEP = {
+    "ego_sage_supervised": {"gather_rows": 2, "segment_spmm": 1},
+    "ego_gat_supervised": {"gather_rows": 3, "gat_block": 3,
+                           "gat_block_bwd": 3},
+    "ego_rgcn_supervised": {"gather_rows": 7}}
+
+
+def tree_tensors(x):
+    """Every tensor of a (nested) dict, list or dataclass."""
+    import dataclasses
+
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in tree_tensors(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in tree_tensors(v)]
+    if dataclasses.is_dataclass(x):
+        return [t for f in dataclasses.fields(x)
+                for t in tree_tensors(getattr(x, f.name))]
+    return []
+
+
+def same_store(torch, a, b, where, device="cuda"):
+    """Two port stores bit for bit: every host array, the node sets, and
+    the CSR and payload views on ``device``."""
+    sa, sb = a.store, b.store
+    check(set(sa.nodes) == set(sb.nodes) and set(sa.edges) == set(sb.edges)
+          and set(sa.node_sets) == set(sb.node_sets),
+          "%s: the stores hold other types" % where)
+
+    def same(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        if isinstance(x, torch.Tensor):
+            return x.dtype == y.dtype and torch.equal(x, y)
+        return x.dtype == y.dtype and np.array_equal(x, y)
+    for t in sa.nodes:
+        x, y = sa.nodes[t], sb.nodes[t]
+        for f in ("raw_ids", "float_attrs", "labels", "weights"):
+            check(same(getattr(x, f), getattr(y, f)),
+                  "%s: node table %s.%s differs" % (where, t, f))
+    for t in sa.node_sets:
+        x, y = sa.node_sets[t], sb.node_sets[t]
+        check(same(x.indices, y.indices) and same(x.weights, y.weights),
+              "%s: node set %s differs" % (where, t))
+    for t in sa.edges:
+        x, y = sa.edges[t], sb.edges[t]
+        check((x.ts_base, x.ts_scale) == (y.ts_base, y.ts_scale)
+              and all(same(getattr(x, f), getattr(y, f)) for f in
+                      ("src", "dst", "weights", "timestamps", "float_attrs")),
+              "%s: edge table %s differs" % (where, t))
+        dx, dy = x.device(device), y.device(device)
+        for f in ("row_offsets", "nbr_ids", "nbr_edge_ids", "cum_weights",
+                  "nbr_ts"):
+            check(same(getattr(dx.out, f), getattr(dy.out, f)),
+                  "%s: CSR %s.%s differs" % (where, t, f))
+
+
+def snapshot_path(torch, card, graph, build_s):
+    """21a: the weighted 61.25M-edge "minimal" store of the bench phase
+    saved (Graph.save) and restored memory-mapped (Graph.load): raw ids,
+    labels, f32 host features, edge src / dst / weights bit for bit; the
+    restored store's CPU views (its host CSR, built once, and its bf16
+    table) equal to the original's card views; bytes, save, load and CSR
+    seconds beside the bench's build.  Returns (the restored graph, the
+    snapshot directory, the kernels line's fields)."""
+    import tempfile
+
+    import graph_learn_tpu_torch as gl
+
+    g, _ = graph
+    where = tempfile.mkdtemp(prefix="glt_snapshot_")
+    t0 = time.perf_counter()
+    g.save(where)
+    save_s = time.perf_counter() - t0
+    nb = sum(os.path.getsize(os.path.join(where, f))
+             for f in os.listdir(where))
+    t0 = time.perf_counter()
+    g2 = gl.Graph.load(where, device="cuda")
+    load_s = time.perf_counter() - t0
+    nt, nt2 = g.store.node_table("item"), g2.store.node_table("item")
+    et, et2 = g.store.edge_table("rel"), g2.store.edge_table("rel")
+    for name, x, y in (("raw ids", nt.raw_ids, nt2.raw_ids),
+                       ("labels", nt.labels, nt2.labels),
+                       ("features", nt.float_attrs, nt2.float_attrs),
+                       ("edge src", et.src, et2.src),
+                       ("edge dst", et.dst, et2.dst),
+                       ("weights", et.weights, et2.weights)):
+        check(x.dtype == y.dtype and np.array_equal(x, y),
+              "snapshot: the restored %s differ" % name)
+    t0 = time.perf_counter()
+    cpu = et2.device("cpu")
+    csr_s = time.perf_counter() - t0
+    ref = et.device("cuda")
+    for f in ("row_offsets", "nbr_ids", "nbr_edge_ids"):
+        check(torch.equal(getattr(cpu.out, f), getattr(ref.out, f).cpu()),
+              "snapshot: the restored CPU CSR's %s differs from the "
+              "original's card view" % f)
+    t0 = time.perf_counter()
+    table = nt2.device("cpu").float_attrs
+    table_s = time.perf_counter() - t0
+    check(torch.equal(table, nt.device("cuda").float_attrs.cpu()),
+          "snapshot: the restored %s table differs from the card's"
+          % table.dtype)
+    log("snapshot (the weighted 61.25M-edge store, %d nodes, [%d, %d] f32 "
+        "host features): %d bytes in %d files, saved in %.2f s, loaded "
+        "memory-mapped in %.2f s; raw ids, labels, features, edges and "
+        "weights bit-equal; the restored store's CPU CSR built in %.2f s "
+        "(%.2f s of host CSR) and its %s table in %.2f s, both bit-equal "
+        "to the original's card views; the bench's draw, CSR build and "
+        "upload took %.1f s; card: %s"
+        % (nt.num_nodes, *nt.float_attrs.shape, nb, len(os.listdir(where)),
+           save_s, load_s, csr_s, et2.host_build_s, table.dtype, table_s,
+           build_s, card))
+    return g2, where, {"snapshot_bytes": nb, "snapshot_save_s": save_s,
+                       "snapshot_load_s": load_s, "snapshot_csr_s": csr_s}
+
+
+def host_steps(torch, q, model, transform, steps, warm=3):
+    """``steps`` host-tier training steps (the trainer's step: loss,
+    backward, Adam) from one Dataset after ``warm``; returns (seconds,
+    bytes of each batch shipped, the dataset)."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.examples import host_tier_bench as htb
+    from graph_learn_tpu_torch.examples.scale_demo import nbytes
+    from graph_learn_tpu_torch.gsl.dataset import Dataset
+
+    ds = Dataset(q, tier="host", device="cuda", seed=2, transform=transform)
+    opt = torch.optim.Adam(model.parameters(), lr=bench.LEARNING_RATE)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sizes = []
+
+    def step():
+        batch = ds.next()
+        sizes.append(nbytes(batch))
+        loss = htb.sage_loss(model, batch, gen, True)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    try:
+        for _ in range(warm):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, sizes[-1]
+    finally:
+        ds.close()
+
+
+def host_stages(torch, g, cfg, dec, transform):
+    """Medians over ``HOST_STAGE_STEPS`` host-tier steps on the caller's
+    thread (after 3), each stage ended by what it needs: the plan on the
+    CPU, the transform, the rows gathered into pinned memory and the rest
+    pinned (``host_batch``), the copy (synchronised) and the training step
+    on the card (synchronised); ms."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.core.values import map_result
+    from graph_learn_tpu_torch.examples import host_tier_bench as htb
+    from graph_learn_tpu_torch.gsl.compile import _execute
+    from graph_learn_tpu_torch.gsl.dataset import host_batch
+
+    q = htb.sage_query(g, cfg)
+    tables = q.device_tables("cpu")
+    gen = torch.Generator().manual_seed(0)
+    model = htb.make_model(cfg, dec, "cuda")
+    opt = torch.optim.Adam(model.parameters(), lr=bench.LEARNING_RATE)
+    names = ("plan", "transform", "gather and pin", "copy", "step")
+    times = {k: [] for k in names}
+    for i in range(HOST_STAGE_STEPS + 3):
+        seeds = torch.randint(0, cfg["n_nodes"], (cfg["batch"],),
+                              dtype=torch.int32, generator=gen)
+        t = [time.perf_counter()]
+        with torch.no_grad():
+            out = _execute(q, tables, seeds, gen)
+            t.append(time.perf_counter())
+            if transform is not None:
+                out = transform(out, tables)
+        t.append(time.perf_counter())
+        pinned = host_batch(out)
+        t.append(time.perf_counter())
+        moved = map_result(lambda x: x.to("cuda", non_blocking=True), pinned)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        loss = htb.sage_loss(model, moved, None, True)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        if i >= 3:
+            for k, a, b in zip(names, t, t[1:]):
+                times[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def host_produce_ms(torch, q, window, n=30):
+    """ms a host-tier batch reaches the card with no training beside it."""
+    from graph_learn_tpu_torch.gsl.dataset import Dataset
+
+    ds = Dataset(q, tier="host", device="cuda", seed=1, window=window)
+    try:
+        ds.next()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ds.next()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+    finally:
+        ds.close()
+
+
+def host_tier_path(torch, card, gather, spmm, graph, restored, cfg):
+    """21b: examples/host_tier_bench.py's shapes on the restored store,
+    through LocalTrainer(device="cuda").train(..., tier="host"):
+    EgoGraphSAGE [100, 256, 47] "gcn", batch 1 024, fanout [15, 10], Adam
+    1e-3, 20 steps, ``host`` with a window of 1 and the default window,
+    and ``host+agg``: every loss finite, the parameters moved, and
+    Kernels 1 and 2 never launched; a topk batch of the host tier
+    bit-equal to the device tier's on the original store; a random one's
+    hops true neighbours of the edge arrays, its rows the table's; ms a
+    step, edges/s, device busy, bytes shipped a batch, H2D GB/s and the
+    share of the step the producer thread hides.  Returns the kernels
+    line's fields."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from graph_learn_tpu_torch.config import conf
+    from graph_learn_tpu_torch.core.values import map_result
+    from graph_learn_tpu_torch.examples import host_tier_bench as htb
+    from graph_learn_tpu_torch.gsl.dataset import Dataset, host_batch
+    from graph_learn_tpu_torch.nn import data as gdata
+
+    g, dec = graph
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES}
+    k1, k2 = cfg["fanout"]
+    edges = cfg["batch"] * (k1 + k1 * k2)
+    runs = {}
+    for label, shape, window in (("host, window 1", "host", 1),
+                                 ("host", "host", None),
+                                 ("host+agg", "host+agg", None)):
+        model = htb.make_model(cfg, dec, "cuda")
+        before = [p.detach().clone() for p in model.parameters()]
+        for c in counters.values():
+            c.reset()
+        r = htb.run_shape(restored, dec, cfg, shape, HOST_TIER_STEPS, "cuda",
+                          window, model)
+        launches = {k: c.count for k, c in counters.items()}
+        check(launches == {"gather_rows": 0, "segment_spmm": 0},
+              "host tier %s: the card's kernels launched %s; the tables "
+              "are in host RAM" % (label, launches))
+        check(r["losses"].numel() == HOST_TIER_STEPS
+              and bool(torch.isfinite(r["losses"]).all())
+              and any(not torch.equal(a, b)
+                      for a, b in zip(before, model.parameters())),
+              "host tier %s: %d losses, finite %s, or no parameter moved"
+              % (label, r["losses"].numel(),
+                 bool(torch.isfinite(r["losses"]).all())))
+        runs[label] = r
+    hidden = 1.0 - runs["host"]["ms_step"] / runs["host, window 1"]["ms_step"]
+
+    # device busy, bytes a batch: the same steps under the profiler
+    busy, shipped = {}, {}
+    for label, transform in (("host", None), ("host+agg", htb.agg_transform)):
+        q = htb.sage_query(restored, cfg)
+        model = htb.make_model(cfg, dec, "cuda")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, shipped[label] = host_steps(torch, q, model, transform,
+                                              HOST_TIER_PROFILED)
+        busy[label] = (sum(device_ms_by_kernel(prof).values())
+                       / (wall * 1e3))
+
+    stages = {label: host_stages(torch, restored, cfg, dec, transform)
+              for label, transform in (("host", None),
+                                       ("host+agg", htb.agg_transform))}
+    produce = {w: host_produce_ms(torch, htb.sage_query(restored, cfg), w)
+               for w in (1, conf.dataset_capacity)}
+
+    # H2D: one host batch as the tier ships it, then copied
+    q = htb.sage_query(restored, cfg)
+    ds = Dataset(q, tier="host", device="cpu", seed=3, window=1)
+    pinned = host_batch(ds.next())
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_tensors(pinned))
+    copy_ms = []
+    for _ in range(H2D_COPIES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        moved = map_result(lambda x: x.to("cuda", non_blocking=True), pinned)
+        end.record()
+        end.synchronize()
+        copy_ms.append(start.elapsed_time(end))
+        del moved
+    h2d_ms = float(np.median(copy_ms))
+
+    # a topk batch: the host tier's on the restored store, the device
+    # tier's on the original, bit for bit
+    def topk_query(gg):
+        return (gg.V("item").batch(cfg["batch"]).alias("src")
+                .outV("rel").sample(k1).by("topk").alias("hop1")
+                .outV("rel").sample(k2).by("topk").alias("hop2").values())
+    hds = Dataset(topk_query(restored), tier="host", device="cuda", seed=5,
+                  window=2)
+    hb = hds.next()
+    hds.close()
+    db = Dataset(topk_query(g), device="cuda", seed=5, window=1).next()
+    for a in ("src", "hop1", "hop2"):
+        check(hb[a].ids.device.type == "cuda"
+              and torch.equal(hb[a].ids, db[a].ids)
+              and torch.equal(gdata.materialized(hb[a]).float_attrs,
+                              gdata.materialized(db[a]).float_attrs),
+              "host tier: the topk batch's %s differs from the device "
+              "tier's" % a)
+    # a random batch: true neighbours of the edge arrays, the table's rows
+    rds = Dataset(htb.sage_query(restored, cfg), tier="host", device="cuda",
+                  seed=7, window=1)
+    rb = rds.next()
+    et, n = g.store.edge_table("rel"), cfg["n_nodes"]
+    seeds = rb["src"].ids.cpu().numpy()
+    h1 = rb["hop1"].ids.cpu().numpy()
+    h2 = rb["hop2"].ids.cpu().numpy()
+    rows = np.unique(np.concatenate([seeds, h1.reshape(-1)]))
+    m = np.isin(et.src, rows)
+    keys = np.sort(et.src[m] * n + et.dst[m])
+    true_edges(keys, n, seeds, h1, conf.default_neighbor_id)
+    true_edges(keys, n, h1.reshape(-1), h2.reshape(-1, k2),
+               conf.default_neighbor_id)
+    table = g.store.node_table("item").device("cuda").float_attrs
+    for a in ("src", "hop1", "hop2"):
+        check(torch.equal(gdata.materialized(rb[a]).float_attrs,
+                          table[rb[a].ids.long()]),
+              "host tier: the %s rows shipped are not the table's" % a)
+
+    for label, r in runs.items():
+        log("host tier %s (the restored store's CPU views, %s, batch %d, "
+            "fanout [%d, %d], EgoGraphSAGE [%d, %d, %d] gcn, Adam 1e-3, "
+            "LocalTrainer.train): %d steps in %.3f s, %.3f ms a step, %.4g "
+            "edges/s, loss %.4f -> %.4f; gather_rows and segment_spmm "
+            "launched 0 times; card: %s"
+            % (label, "the deepest hop reduced on the CPU" if "agg" in label
+               else "every row gathered on the CPU", cfg["batch"], k1, k2,
+               cfg["feat_dim"], cfg["hidden"], cfg["classes"],
+               HOST_TIER_STEPS, r["seconds"], r["ms_step"], r["edges_per_s"],
+               r["losses"][0].item(), r["losses"][-1].item(), card))
+    for label, st in stages.items():
+        log("host tier %s, where a step goes (medians of %d steps on the "
+            "caller's thread, ms): %s; card: %s"
+            % (label, HOST_STAGE_STEPS,
+               ", ".join("%s %.3f" % kv for kv in st.items()), card))
+    log("host tier: batches alone (no training) %.3f ms each with a window "
+        "of 1, %.3f with the producer thread (window %d); card: %s"
+        % (produce[1], produce[conf.dataset_capacity],
+           conf.dataset_capacity, card))
+    log("host tier: the producer thread hides %.1f%% of a step (%.3f ms a "
+        "step with a window of 1, %.3f with the default %d); device busy "
+        "%.1f%% of a step (host), %.1f%% (host+agg); %d bytes shipped a "
+        "batch (host), %d (host+agg); one host batch's %d bytes copied in "
+        "%.3f ms (median of %d), %.2f GB/s host to device; the topk batch "
+        "bit-equal to the device tier's on the original store; a random "
+        "batch's hops true neighbours and its rows the table's; card: %s"
+        % (100 * hidden, runs["host, window 1"]["ms_step"],
+           runs["host"]["ms_step"], conf.dataset_capacity,
+           100 * busy["host"], 100 * busy["host+agg"], shipped["host"],
+           shipped["host+agg"], n_bytes, h2d_ms, H2D_COPIES,
+           n_bytes / h2d_ms / 1e6, card))
+    return {"gather_rows": {
+        "host_tier_launches": 0, "host_tier_ms_step": runs["host"]["ms_step"],
+        "host_agg_tier_ms_step": runs["host+agg"]["ms_step"],
+        "host_tier_hidden_share": hidden,
+        "host_tier_h2d_gb_per_s": n_bytes / h2d_ms / 1e6,
+        "host_tier_stage_ms": stages["host"],
+        "host_agg_tier_stage_ms": stages["host+agg"]},
+        "segment_spmm": {"host_tier_launches": 0}}
+
+
+def reorder_path(torch, card, gather):
+    """21c: core/reorder.py on phase 19's planted-community store
+    (ogbl-collab's 235 868 nodes and 1 179 052 undirected train pairs,
+    128 f32 features): reorder_store with the raw-id adjacency, the
+    payloads and a masked set unchanged; the mean neighbour index distance
+    before and after; Kernel 1 cold over one 2-hop batch's rows (1 024
+    seeds, [15, 10]) on each store, against its bound, plain version and
+    index_select.  A measurement, not a claim.  Returns the kernels line's
+    fields."""
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch.core.reorder import reorder_store
+    from graph_learn_tpu_torch.core.schema import mask_type
+    from graph_learn_tpu_torch.examples import seal
+    from graph_learn_tpu_torch.gsl.dataset import Dataset
+
+    a = seal.planted_collab(seal.COLLAB_NODES, seal.COLLAB_TRAIN_PAIRS, 0, 0,
+                            0, feat_dim=seal.COLLAB_FEAT)
+    src, dst = a["train"][:, 0], a["train"][:, 1]
+    n = seal.COLLAB_NODES
+    test_raw = np.arange(0, n, 97)
+    graphs = []
+    for _ in range(2):
+        g = seal.build_graph(a["feats"], src, dst, "cuda")
+        g.add_node_set("item", test_raw, gl.Mask.TEST)
+        graphs.append(g)
+    g0, g1 = graphs
+    t0 = time.perf_counter()
+    reorder_store(g1.store)
+    reorder_s = time.perf_counter() - t0
+    nt0, nt1 = g0.store.node_table("item"), g1.store.node_table("item")
+    et0, et1 = g0.store.edge_table("relation"), g1.store.edge_table(
+        "relation")
+
+    def raw_edges(nt, et):
+        key = nt.raw_ids[et.src] * n + nt.raw_ids[et.dst]
+        order = np.lexsort((et.weights, key))
+        return key[order], et.weights[order]
+    k0, w0 = raw_edges(nt0, et0)
+    k1_, w1 = raw_edges(nt1, et1)
+    check(np.array_equal(k0, k1_) and np.array_equal(w0, w1),
+          "reorder: the raw-id adjacency changed")
+    check(np.array_equal(nt1.float_attrs, nt0.float_attrs[nt1.raw_ids])
+          and not np.array_equal(nt1.raw_ids, nt0.raw_ids),
+          "reorder: a node's features did not follow it, or nothing moved")
+    check(np.array_equal(
+        np.sort(nt1.raw_ids[g1.store.node_set(
+            mask_type("item", gl.Mask.TEST)).indices]),
+        test_raw), "reorder: the masked set covers other raw ids")
+    dist = [float(np.abs(et.src - et.dst).mean()) for et in (et0, et1)]
+    kf1, kf2 = FANOUT
+    fields, rows = {}, MICRO_BATCH * (1 + kf1 + kf1 * kf2)
+    for label, g in (("before", g0), ("after", g1)):
+        q = (g.V("item").batch(MICRO_BATCH).alias("src")
+             .outV("relation").sample(kf1).by("random").alias("hop1")
+             .outV("relation").sample(kf2).by("random").alias("hop2")
+             .values())
+        b = Dataset(q, device="cuda", seed=3, window=1).next()
+        ids = torch.cat([b[h].ids.reshape(-1) for h in ("src", "hop1",
+                                                         "hop2")]).to(
+                                                             torch.int32)
+        table = g.store.node_table("item").device("cuda").float_attrs
+        check(ids.numel() == rows and torch.equal(
+            gather.gather_rows(table, ids),
+            gather.gather_rows_plain(table, ids)),
+            "reorder: gather_rows over the batch's rows differs from "
+            "table[idx]")
+        name = gather_kernels(torch, [lambda: gather.gather_rows(table, ids)],
+                              "the reordered store")[0]
+        # the rows repeat within a batch: each distinct row is read once,
+        # every row written once
+        distinct = int(torch.unique(ids).numel())
+        row_bytes = table.shape[1] * table.element_size()
+        f = {"cold_ms": time_cold_ms(lambda: gather.gather_rows(table, ids)),
+             "bound_ms": bound((distinct + rows) * row_bytes + 4 * rows,
+                               0)[0],
+             "plain_ms": time_cold_ms(
+                 lambda: gather.gather_rows_plain(table, ids)),
+             "library_ms": time_cold_ms(
+                 lambda: torch.index_select(table, 0, ids))}
+        log("gather_rows on the ogbl-collab store %s the reorder, one 2-hop "
+            "batch's %d rows (%d distinct): %.4f ms cold, bound %.4f "
+            "(%.1f%%), one kernel a call (%s); plain %.4f, index_select "
+            "%.4f, both cold"
+            % (label, rows, distinct, f["cold_ms"], f["bound_ms"],
+               100 * f["bound_ms"] / f["cold_ms"], kernel_label(name),
+               f["plain_ms"], f["library_ms"]))
+        for k, v in f.items():
+            fields["reorder_%s_%s" % (k, label)] = v
+        fields["reorder_distinct_rows_%s" % label] = distinct
+    log("reorder (bfs on the ogbl-collab-sized store: %d nodes, %d edges) "
+        "in %.2f s: raw-id adjacency, features and the masked set "
+        "unchanged; mean neighbour index distance %.1f before, %.1f after; "
+        "Kernel 1 over one 2-hop batch's %d rows cold %.4f ms before, %.4f "
+        "after (bound %.4f); card: %s"
+        % (n, et1.num_edges, reorder_s, dist[0], dist[1], rows,
+           fields["reorder_cold_ms_before"], fields["reorder_cold_ms_after"],
+           fields["reorder_bound_ms_before"], card))
+    fields.update(reorder_mean_nbr_distance_before=dist[0],
+                  reorder_mean_nbr_distance_after=dist[1])
+    return {"gather_rows": fields}
+
+
+def tsv_examples_path(torch, card, gather, spmm, gat):
+    """21d: the TSV examples at their defaults on the card, each loading
+    its files through Graph.node/edge/init: ego_sage_supervised (2
+    gather_rows + 1 segment_spmm a step), ego_gat_supervised (3
+    gather_rows and 3 gat_block forwards and backwards a step),
+    ego_rgcn_supervised (7 gather_rows a step; its store bit-equal to the
+    in-memory twin of the same draws), each a test accuracy; and ego_tgat's
+    store from its files bit-equal to the in-memory one, a few steps (15
+    gather_rows, 9 gat_block each way) and the test accuracy.  Returns the
+    kernels line's fields."""
+    import tempfile
+
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch.core.schema import mask_type
+    from graph_learn_tpu_torch.examples import (common, ego_gat_supervised,
+                                                ego_rgcn_supervised,
+                                                ego_sage_supervised, ego_tgat)
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
+                "gat_block": gat.LAUNCHES_FWD,
+                "gat_block_bwd": gat.LAUNCHES_BWD}
+    where = tempfile.mkdtemp(prefix="glt_tsv_examples_")
+    fields = {"gather_rows": {}, "segment_spmm": {}, "gat_block": {}}
+    try:
+        for mod in (ego_sage_supervised, ego_gat_supervised,
+                    ego_rgcn_supervised):
+            name = mod.__name__.rsplit(".", 1)[1]
+            args = mod.build_parser().parse_args(
+                ["--data_dir", os.path.join(where, "cora")])
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            out = mod.run(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: c.count for k, c in counters.items()}
+            store = out["graph"].store
+            b = args.batch_size
+            steps = args.epochs * -(-store.node_set(mask_type(
+                "item", gl.Mask.TRAIN)).size // b)
+            evals = -(-store.node_set(mask_type("item", gl.Mask.TEST)).size
+                      // b)
+            per = TSV_PER_STEP[name]
+            want = {k: per.get(k, 0) * steps
+                    + (per.get(k, 0) * evals if k != "gat_block_bwd" else 0)
+                    for k in counters}
+            check(got == want and np.isfinite(out["history"]).all()
+                  and 0.0 <= out["acc"] <= 1.0,
+                  "%s: launches %s, want %s (%d steps, %d evaluated "
+                  "batches); history %s, accuracy %s"
+                  % (name, got, want, steps, evals, out["history"],
+                     out["acc"]))
+            if name == "ego_rgcn_supervised":
+                twin, _ = common.cora_like_twin(two_relations=True,
+                                                device="cuda")
+                same_store(torch, out["graph"], twin, name)
+            log("%s (cora_like TSV files through Graph.node/edge/init, its "
+                "defaults: %d epochs, batch %d, %d steps): %.2f s, loss "
+                "%.4f -> %.4f, test accuracy %.4f; launches a step %s "
+                "(counters over the steps and %d evaluated batches)%s; "
+                "card: %s"
+                % (name, args.epochs, b, steps, wall, out["history"][0],
+                   out["history"][-1], out["acc"], per, evals,
+                   "; the store bit-equal to its in-memory twin"
+                   if name == "ego_rgcn_supervised" else "", card))
+            key = name.replace("_supervised", "").replace("ego_", "tsv_")
+            fields["gather_rows"][key + "_launches_per_step"] = per[
+                "gather_rows"]
+            fields["gather_rows"][key + "_test_accuracy"] = out["acc"]
+            if "segment_spmm" in per:
+                fields["segment_spmm"][key + "_launches_per_step"] = per[
+                    "segment_spmm"]
+            if "gat_block" in per:
+                fields["gat_block"][key + "_launches_per_step"] = per[
+                    "gat_block"]
+                fields["gat_block"][key + "_bwd_launches_per_step"] = per[
+                    "gat_block_bwd"]
+            del out
+        # ego_tgat from its files
+        d = os.path.join(where, "tgat")
+        t0 = time.perf_counter()
+        g, udec, idec, edec = ego_tgat.load(d, device="cuda")
+        load_s = time.perf_counter() - t0
+        twin = ego_tgat.build_graph(ego_tgat.temporal_u2i(text=True),
+                                    "cuda")[0]
+        same_store(torch, g, twin, "ego_tgat")
+        nhops = len(TGAT_NBRS)
+        q = ego_tgat.build_query(g, TGAT_BATCH, TGAT_NBRS, "train")
+        model = ego_tgat.TGATLink(udec, idec, 32, 16, 8, nhops,
+                                  edec.float_attr_num, device="cuda")
+        tr = LocalTrainer(device="cuda")
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+
+        def loss_fn(m, batch, generator, training):
+            return ego_tgat.tgat_loss(m, batch, nhops, training, generator)
+        tr.train(q, model, loss_fn, opt, steps_per_epoch=2, verbose=False)
+        for c in counters.values():
+            c.reset()
+        _, hist = tr.train(q, model, loss_fn, opt,
+                           steps_per_epoch=TSV_TGAT_STEPS, verbose=False)
+        per = {k: c.count / TSV_TGAT_STEPS for k, c in counters.items()}
+        want = {k: float(v) for k, v in TGAT_PER_STEP.items()}
+        check({k: per[k] for k in want} == want and per["segment_spmm"] == 0
+              and np.isfinite(hist).all(),
+              "ego_tgat from its files: launches a step %s, want %s; "
+              "losses %s" % (per, want, hist))
+        acc = tr.evaluate(ego_tgat.build_query(g, TGAT_BATCH, TGAT_NBRS,
+                                               "test"), model,
+                          lambda m, b: ego_tgat.link_accuracy(m, b, nhops))
+        log("ego_tgat from its TSV files (Graph.node/edge/init in %.2f s, "
+            "bit-equal to the in-memory store of the same draws read back "
+            "from their text): %d steps, loss %.4f, launches a step %s, "
+            "test link-pred accuracy %.4f after them; card: %s"
+            % (load_s, TSV_TGAT_STEPS, hist[-1], want, acc, card))
+        fields["gather_rows"]["tsv_tgat_launches_per_step"] = want[
+            "gather_rows"]
+        fields["gat_block"]["tsv_tgat_launches_per_step"] = want["gat_block"]
+        fields["gat_block"]["tsv_tgat_bwd_launches_per_step"] = want[
+            "gat_block_bwd"]
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    return fields
+
+
+def checkpoint_bridge_path(torch, card, g, dec):
+    """21e: EgoGraphSAGE [128, 256, 32] trained 5 steps on the card and
+    saved (nn/checkpoint.py), restored into a fresh model and a fresh Adam
+    on the card, one more step on the same batch from both: every
+    parameter bit-equal; then torch_loader over the bench query for a
+    whole epoch (the first 20 batches' tensors on the card, or on the CPU
+    with tier="host", and the last batch cut to its true rows)."""
+    import tempfile
+
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch.nn import data as gdata
+    from graph_learn_tpu_torch.nn.checkpoint import Checkpointer
+    from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+    from graph_learn_tpu_torch.nn.torch_bridge import torch_loader
+
+    q = two_hop_query(g)
+    ds = gl.Dataset(q, device="cuda", seed=4, window=2)
+    batches = [ds.next() for _ in range(CKPT_STEPS + 1)]
+    table = g.store.node_table("item").device("cuda").float_attrs
+
+    def model_opt(seed):
+        m = EgoGraphSAGE([FEAT_DIM, HIDDEN, CLASSES], dec, agg_type="gcn",
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(seed))
+        return m, torch.optim.Adam(m.parameters(), lr=LEARNING_RATE)
+
+    def step(m, opt, batch):
+        ego = gdata.EgoGraph.from_query_result(batch, "src", HOPS,
+                                               defer_last_table=table)
+        loss = supervised_softmax_loss(m(ego, training=True),
+                                       batch["src"].labels)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    model, opt = model_opt(0)
+    for b in batches[:CKPT_STEPS]:
+        step(model, opt, b)
+    where = tempfile.mkdtemp(prefix="glt_ckpt_")
+    try:
+        ck = Checkpointer(where, device="cuda")
+        t0 = time.perf_counter()
+        ck.save(CKPT_STEPS, {"model": model.state_dict(),
+                             "optimizer": opt.state_dict(),
+                             "step": CKPT_STEPS})
+        save_s = time.perf_counter() - t0
+        fresh, fresh_opt = model_opt(1)
+        t0 = time.perf_counter()
+        state = ck.restore()
+        restore_s = time.perf_counter() - t0
+        fresh.load_state_dict(state["model"])
+        fresh_opt.load_state_dict(state["optimizer"])
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    la = step(model, opt, batches[CKPT_STEPS])
+    lb = step(fresh, fresh_opt, batches[CKPT_STEPS])
+    diff = max(float((p - r).detach().abs().max())
+               for p, r in zip(model.parameters(), fresh.parameters()))
+    check(state["step"] == CKPT_STEPS and torch.equal(la, lb)
+          and all(torch.equal(p, r) for p, r in zip(model.parameters(),
+                                                    fresh.parameters())),
+          "checkpoint: the resumed step differs (loss %r vs %r, largest "
+          "parameter difference %g)" % (la.item(), lb.item(), diff))
+    log("checkpoint (EgoGraphSAGE [%d, %d, %d], Adam, %d steps on the card, "
+        "saved in %.3f s, restored onto the card in %.3f s into a fresh "
+        "model and Adam): one more step on the same batch from both, loss "
+        "and every parameter bit-equal (largest difference %g); card: %s"
+        % (FEAT_DIM, HIDDEN, CLASSES, CKPT_STEPS, save_s, restore_s, diff,
+           card))
+    n_batches = -(-g.store.node_set("item").size // MICRO_BATCH)
+    last_rows = g.store.node_set("item").size - (n_batches - 1) * MICRO_BATCH
+    for tier, dev_type in ((None, "cuda"), ("host", "cpu")):
+        t0 = time.perf_counter()
+        n, last = 0, None
+        for b in torch_loader(q, window=4, tier=tier, device="cuda"):
+            if n < LOADER_BATCHES:
+                ts = tree_tensors(b)
+                check(ts and all(t.device.type == dev_type for t in ts),
+                      "torch_loader (tier %s): a tensor of batch %d is not "
+                      "on the %s" % (tier, n, dev_type))
+            n, last = n + 1, b
+        wall = time.perf_counter() - t0
+        check(n == n_batches and all(
+            last[a]["ids"].shape[0] == last_rows for a in last)
+              and last["hop2"]["float_attrs"].shape[:3] == (
+                  last_rows, *FANOUT),
+              "torch_loader (tier %s): %d batches, the last %s"
+              % (tier, n, {a: tuple(v["ids"].shape) for a, v in
+                           last.items()}))
+        log("torch_loader over the bench query (tier %s): %d batches in "
+            "%.2f s, the first %d with every tensor on the %s, the last cut "
+            "to its %d true rows; card: %s"
+            % (tier or "device", n, wall, LOADER_BATCHES, dev_type,
+               last_rows, card))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5326,6 +6093,8 @@ def main() -> int:
     from graph_learn_tpu_torch import bench
     bench_rows, _ = bench_path(torch, card, bench.CFG, (g, dec), gather,
                                spmm, sweep, "cfg", sorted_route=True)
+    # phase 21e on the same graph: checkpoints and the torch bridge
+    checkpoint_bridge_path(torch, card, g, dec)
     del g, dec
     gc.collect()  # the 200k graph's tables (Graph, Dag and Query form cycles)
     rows["sweep_aggregate"], rows["stream_sum"], bar = sweep_rows(
@@ -5346,6 +6115,19 @@ def main() -> int:
         walks_rows = walks_path(torch, card, gather, scale_graph)
         # phase 19's GSL SubGraph query, on this store before it is freed
         query_rows = subgraph_query_path(torch, card, gather, scale_graph)
+        # phase 21a-b: the snapshot of this store, then the host tier on
+        # the restored store's CPU views
+        restored, snap_dir, snap_rows = snapshot_path(
+            torch, card, scale_graph,
+            scale_rows["gather_rows"]["bench_cfg_scale_build_s"])
+        try:
+            host_rows = host_tier_path(torch, card, gather, spmm, scale_graph,
+                                       restored, bench.CFG_SCALE)
+        finally:
+            del restored
+            gc.collect()
+            shutil.rmtree(snap_dir, ignore_errors=True)
+        host_rows["gather_rows"].update(snap_rows)
     del scale_graph, et
     gc.collect()  # the weighted 61.25M-edge graph of the bench phase
     torch.cuda.empty_cache()
@@ -5369,6 +6151,14 @@ def main() -> int:
         gc.collect()  # the ogbl-collab-sized store
         torch.cuda.empty_cache()
         sage_rows = sage_unsup_path(torch, card, gather)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phase 21c-d: the BFS reorder on the ogbl-collab-sized store, the
+        # TSV examples
+        reorder_rows = reorder_path(torch, card, gather)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tsv_rows = tsv_examples_path(torch, card, gather, spmm, gat)
     gc.collect()
     torch.cuda.empty_cache()
     # phase 20: file ingest and the sampler API on the TSV store, then k-NN
@@ -5381,7 +6171,8 @@ def main() -> int:
     knn_path(torch, card)
     for part in (bench_rows, scale_rows, walks_rows, query_rows,
                  bipartite_rows, rgcn_rows, temporal_rows, tgat_rows,
-                 example_rows, seal_rows, sage_rows, file_rows, sampler_rows):
+                 example_rows, seal_rows, sage_rows, file_rows, sampler_rows,
+                 host_rows, reorder_rows, tsv_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

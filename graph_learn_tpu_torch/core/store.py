@@ -132,12 +132,25 @@ class DeviceEdgeTable(TensorStruct):
 
 
 def _put(x, dev: torch.device, dtype: Optional[torch.dtype] = None):
+    """``x`` as a tensor on ``dev`` that never aliases a read-only array:
+    a snapshot's memory-mapped arrays (``core/snapshot.py``) are copied,
+    so no write through a view can reach them."""
     if x is None:
         return None
-    t = torch.from_numpy(np.ascontiguousarray(x))
+    a = np.ascontiguousarray(x)
+    if a.flags.writeable:
+        t = torch.from_numpy(a)
+    else:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                    "writable", UserWarning)
+            t = torch.from_numpy(a)
     if dtype is not None:
         t = t.to(dtype)
-    return t.to(dev)
+    out = t.to(dev)
+    if not a.flags.writeable and out.data_ptr() == a.ctypes.data:
+        out = out.clone()
+    return out
 
 
 # ---------------------------------------------------------------------------

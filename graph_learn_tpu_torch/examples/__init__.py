@@ -1,2 +1,3 @@
-"""Runnable examples and measurement harnesses of the port; each module is
-importable and has ``run`` and ``main``."""
+"""Runnable examples and measurement harnesses of the port; each runnable
+module has ``main`` (most also ``run``); ``common`` and ``data`` hold the
+pieces the supervised examples share."""

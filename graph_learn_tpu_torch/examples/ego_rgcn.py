@@ -7,9 +7,9 @@ relations and two levels) and ``make_ego:42-44``, then ``EgoRGCN`` with
 basis (or block) decomposition, the softmax cross-entropy and Adam through
 ``LocalTrainer.train``, and the test accuracy through
 ``LocalTrainer.evaluate``.  The JAX example loads its Cora-like TSV files
-through ``graph.node()`` / ``init()``, which the port has not yet (file
-ingest is a later item); the store here is built in memory instead, by
-:func:`build_rgcn_graph`: the two-relation store of
+through ``graph.node()`` / ``init()``, as the port's
+``examples/ego_rgcn_supervised.py`` does; the store here is built in
+memory instead, by :func:`build_rgcn_graph`: the two-relation store of
 ``examples/family_scale.py run_rgcn:69-88`` (the same generator,
 ``np.random.default_rng(0)``, and the same draws in the same order), with
 its relations named ``rel0`` and ``rel1`` as there, and the first 80% of
@@ -73,17 +73,18 @@ def build_rgcn_graph(cfg: dict, device: DeviceLike = "cuda"
     return g, dec
 
 
-def rgcn_query(g: Graph, mask, batch_size: int, nbrs: Sequence[int]
-               ) -> Tuple[Query, List[str]]:
+def rgcn_query(g: Graph, mask, batch_size: int, nbrs: Sequence[int],
+               rels: Sequence[str] = RELS) -> Tuple[Query, List[str]]:
     """The hop tree: at level l every group of level l - 1 samples
-    ``nbrs[l - 1]`` ``random`` neighbours over each relation."""
+    ``nbrs[l - 1]`` ``random`` neighbours over each relation of ``rels``
+    (the TSV form's are ``relation`` and ``relation2``)."""
     src = g.V("item", mask=mask).batch(batch_size).alias("src")
     aliases: List[str] = []
     frontier = [("", src)]
     for level, k in enumerate(nbrs):
         nxt = []
         for prefix, node in frontier:
-            for r, rel in enumerate(RELS):
+            for r, rel in enumerate(rels):
                 alias = "%sr%d_h%d" % (prefix, r, level + 1)
                 hop = node.outV(rel).sample(k).by("random").alias(alias)
                 aliases.append(alias)

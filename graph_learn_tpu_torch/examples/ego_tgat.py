@@ -12,22 +12,25 @@ neighbour block on Kernel 3), ``LinkScorePredict`` scores (src, dst) and
 ``LocalTrainer.train``, and the test accuracy is the mean of ``pos > 0.5``
 and ``neg < 0.5`` over the held-out events.
 
-The JAX example writes ``examples/data/synthetic.py temporal_u2i:122``'s
-event stream as TSV files (features to five decimals) and loads them
-through ``Graph.init``; file ingest is not ported, so
-:func:`temporal_u2i` makes the same draws in memory (the same generator,
-seed and defaults, in the same order) and :func:`build_graph` puts them in
-the store: ``interaction`` (every event, undirected: with its
+As the JAX example does, :func:`load` reads ``temporal_u2i``'s TSV files
+(``examples/data/synthetic.py``; written first when ``--data_dir`` has
+none, features to five decimals) through ``Graph.node/edge/init``:
+``interaction`` (every event, undirected: with its
 ``interaction_reverse`` table), and the chronological ``train`` (first
-70%) and ``test`` (last 15%) event tables.
+70%) and ``test`` (last 15%) event tables.  :func:`build_graph` builds
+the same store in memory from the generator's draws
+(:func:`temporal_u2i`); given the draws as their text reads back
+(``synthetic.as_read``) it is the TSV store bit for bit.
 
 Usage:  python -m graph_learn_tpu_torch.examples.ego_tgat [--cpu]
-            [--epochs N] [--batch_size B] [--nbrs K1 K2 ...]
+            [--data_dir D] [--epochs N] [--batch_size B] [--nbrs K1 K2 ...]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,6 +39,7 @@ from torch import nn
 
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.core.store import EdgeTable, NodeTable
+from graph_learn_tpu_torch.examples.data import synthetic
 from graph_learn_tpu_torch.graph import Graph
 from graph_learn_tpu_torch.gsl.compile import Query
 from graph_learn_tpu_torch.nn.data import TemporalGraph
@@ -46,40 +50,48 @@ from graph_learn_tpu_torch.nn.trainer import LocalTrainer
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 TOWERS = ("src", "dst", "neg")
-# the first absolute timestamp and the step between events
-TS0, TS_STEP = 1_600_000_000, 60
 
 
 def temporal_u2i(n_users: int = 300, n_items: int = 200,
                  n_clusters: int = 4, events: int = 6000, feat_dim: int = 8,
-                 edge_feat_dim: int = 4, seed: int = 0
+                 edge_feat_dim: int = 4, seed: int = 0, text: bool = False
                  ) -> Dict[str, np.ndarray]:
-    """``temporal_u2i:122``'s JODIE-style event stream as arrays: users and
-    items in clusters with float features around their cluster's centre,
-    and ``events`` (user, item of the user's cluster, ts, edge features)
-    one minute apart."""
-    rng = np.random.default_rng(seed)
-    cu = rng.integers(0, n_clusters, n_users)
-    ci = rng.integers(0, n_clusters, n_items)
-    centers = rng.normal(0, 2.0, (n_clusters, feat_dim))
-    u_feat = centers[cu] + rng.normal(0, 0.6, (n_users, feat_dim))
-    i_feat = centers[ci] + rng.normal(0, 0.6, (n_items, feat_dim))
-    item_by_cluster = [np.where(ci == c)[0] for c in range(n_clusters)]
-    src = np.empty(events, np.int64)
-    dst = np.empty(events, np.int64)
-    ef = np.empty((events, edge_feat_dim))
-    for t in range(events):
-        u = int(rng.integers(0, n_users))
-        pool = item_by_cluster[cu[u]]
-        dst[t] = (int(pool[rng.integers(0, pool.size)]) if pool.size
-                  else int(rng.integers(0, n_items)))
-        src[t] = u
-        ef[t] = rng.normal(0, 1, edge_feat_dim)
-    return {"u_feat": u_feat.astype(np.float32),
-            "i_feat": i_feat.astype(np.float32),
-            "src": src, "dst": dst,
-            "ts": TS0 + np.arange(events, dtype=np.int64) * TS_STEP,
-            "edge_feat": ef.astype(np.float32)}
+    """``temporal_u2i:122``'s JODIE-style event stream as arrays
+    (``synthetic.temporal_u2i_arrays``), float32; with ``text`` the float
+    columns as the loader reads back their five-decimal text."""
+    a = synthetic.temporal_u2i_arrays(n_users, n_items, n_clusters, events,
+                                      feat_dim, edge_feat_dim, seed)
+    cast = synthetic.as_read if text else (lambda x: x.astype(np.float32))
+    return {**a, **{k: cast(a[k]) for k in ("u_feat", "i_feat",
+                                            "edge_feat")}}
+
+
+def load(data_dir: str, feat_dim: int = 8, edge_feat_dim: int = 4,
+         events: int = 6000, device: DeviceLike = "cuda"
+         ) -> Tuple[Graph, Decoder, Decoder, Decoder]:
+    """The example's store from ``temporal_u2i``'s TSV files in
+    ``data_dir`` (written first if they are missing), through
+    ``Graph.node/edge/init``, as the JAX example's ``load`` does."""
+    if not os.path.exists(os.path.join(data_dir, "user_table")):
+        synthetic.temporal_u2i(data_dir, events=events, feat_dim=feat_dim,
+                               edge_feat_dim=edge_feat_dim)
+    udec, idec, edec = _decoders(feat_dim, edge_feat_dim)
+    g = (Graph(device=device)
+         .node(os.path.join(data_dir, "user_table"), "u", udec)
+         .node(os.path.join(data_dir, "item_table"), "i", idec)
+         .edge(os.path.join(data_dir, "interaction_table"),
+               ("u", "i", "interaction"), edec, directed=False)
+         .edge(os.path.join(data_dir, "train_table"), ("u", "i", "train"),
+               edec)
+         .edge(os.path.join(data_dir, "test_table"), ("u", "i", "test"),
+               edec))
+    return g.init(), udec, idec, edec
+
+
+def _decoders(d: int, e: int) -> Tuple[Decoder, Decoder, Decoder]:
+    return (Decoder(attr_types=["float"] * d),
+            Decoder(attr_types=["float"] * d),
+            Decoder(attr_types=["float"] * e, timestamped=True))
 
 
 def build_graph(a: Dict[str, np.ndarray], device: DeviceLike = "cuda"
@@ -90,10 +102,7 @@ def build_graph(a: Dict[str, np.ndarray], device: DeviceLike = "cuda"
     n_u, d = a["u_feat"].shape
     n_i = a["i_feat"].shape[0]
     n = a["src"].size
-    udec = Decoder(attr_types=["float"] * d)
-    idec = Decoder(attr_types=["float"] * d)
-    edec = Decoder(attr_types=["float"] * a["edge_feat"].shape[1],
-                   timestamped=True)
+    udec, idec, edec = _decoders(d, a["edge_feat"].shape[1])
     g = Graph(device=device)
     g.add_node_table(NodeTable("u", udec, np.arange(n_u, dtype=np.int64),
                                float_attrs=a["u_feat"]))
@@ -214,14 +223,15 @@ def main(argv=None) -> float:
     ap.add_argument("--nbrs", type=int, nargs="+", default=[8, 4])
     ap.add_argument("--events", type=int, default=6000)
     ap.add_argument("--steps_per_epoch", type=int, default=None)
+    ap.add_argument("--data_dir",
+                    default=os.path.join(tempfile.gettempdir(), "glt_tgat"))
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the card)")
     args = ap.parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else "cuda")
 
-    g, udec, idec, _ = build_graph(temporal_u2i(
-        events=args.events, feat_dim=args.feat_dim,
-        edge_feat_dim=args.edge_feat_dim), dev)
+    g, udec, idec, _ = load(args.data_dir, args.feat_dim,
+                            args.edge_feat_dim, args.events, dev)
     nhops = len(args.nbrs)
     q = build_query(g, args.batch_size, args.nbrs, "train")
     model = TGATLink(udec, idec, args.hidden, args.out_dim, args.time_dim,

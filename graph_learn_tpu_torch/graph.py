@@ -30,9 +30,12 @@ The direct APIs of ``:246-287`` (decoders, topology, degrees, node and
 edge lookups) and ``search`` (``:288-310``, k-NN over a node type's float
 attributes, ``ops/knn.py``) are here; the sampler factories
 (``node_sampler`` ... ``random_walk_sampler``) are attached by
-``sampler_api.py`` when the package is imported.  Snapshots
-(``save`` / ``load``), the locality reorder of ``init(reorder=...)`` and
-the sharded index of ``search(mesh=...)`` are not yet ported.
+``sampler_api.py`` when the package is imported.  ``init(reorder="bfs")``
+relabels the nodes after the edges are loaded and before the time bases
+are unified (``:133-145``, ``core/reorder.py``).  ``save`` / ``load``
+(``:221-244``, ``core/snapshot.py``) write and restore the built store in
+the JAX package's format.  The sharded index of ``search(mesh=...)`` is
+not yet ported.
 
 A ``Graph`` owns the device its views live on: the CUDA card unless the
 caller passes ``device="cpu"``.
@@ -46,7 +49,10 @@ import numpy as np
 import torch
 
 from graph_learn_tpu_torch.core import ingest
+from graph_learn_tpu_torch.core.reorder import (REORDER_STRATEGIES,
+                                                reorder_store)
 from graph_learn_tpu_torch.core.schema import Decoder, Mask, mask_type
+from graph_learn_tpu_torch.core.snapshot import load_store, save_store
 from graph_learn_tpu_torch.core.store import (EdgeTable, GraphStore, NodeSet,
                                               NodeTable, unify_ts_bases)
 from graph_learn_tpu_torch.errors import (InvalidArgumentError,
@@ -130,10 +136,13 @@ class Graph:
         return self
 
     def init(self, **kwargs) -> "Graph":
-        """Load every registered source into the store (once)."""
-        if kwargs.get("reorder"):
-            raise UnimplementedError(
-                "init(reorder=...) is not yet ported (core/reorder.py)")
+        """Load every registered source into the store (once);
+        ``reorder="bfs"`` relabels each node type with edges within itself
+        before the time bases are unified (``core/reorder.py``); another
+        strategy raises before anything is loaded."""
+        reorder = kwargs.get("reorder")
+        if reorder and reorder not in REORDER_STRATEGIES:
+            raise ValueError("unknown reorder strategy %r" % reorder)
         if self._initialized:
             return self
         for ns in self._node_sources:
@@ -155,6 +164,8 @@ class Graph:
             grouped.setdefault(es.edge_type, []).append(es)
         for sources in grouped.values():
             self._load_edge_type(sources)
+        if reorder:
+            reorder_store(self.store, reorder)
         unify_ts_bases(self.store)
         self._initialized = True
         return self
@@ -262,6 +273,29 @@ class Graph:
             weights=None if weights is None else np.asarray(weights,
                                                             np.float32)))
         return self
+
+    # --- snapshots (graph.py:221-244) -----------------------------------
+    def save(self, path: str) -> "Graph":
+        """Write the built store to ``path/`` (``core/snapshot.py``); a
+        later :meth:`load` restores it without the source files.  A graph
+        built in memory can be saved at any time; one with file sources
+        only after ``init()``, as the JAX package requires."""
+        if (self._node_sources or self._edge_sources) and \
+                not self._initialized:
+            raise InvalidArgumentError("save() requires an initialized graph")
+        save_store(self.store, path)
+        return self
+
+    @classmethod
+    def load(cls, path: str, mmap: bool = True,
+             device: DeviceLike = "cuda") -> "Graph":
+        """A graph whose store is the snapshot at ``path`` (either
+        package's), its arrays memory-mapped unless ``mmap=False``; its
+        device views are built on ``device`` when first used."""
+        g = cls(device=device)
+        g.store = load_store(path, mmap=mmap)
+        g._initialized = True
+        return g
 
     # --- decoders / topology ------------------------------------------
     def get_node_decoder(self, node_type: str) -> Decoder:

@@ -13,8 +13,15 @@ sequence on the card:
 ``batch_transform`` is the place for work that needs no gradient, such as
 :func:`graph_learn_tpu_torch.nn.data.pre_aggregate_hop` (Kernel 2 reduces
 the deepest hop outside the differentiated part).  Losses stay on the
-device and are pulled once per epoch.  Only the device tier is ported:
-``tier="host"`` raises.
+device and are pulled once per epoch.
+
+``tier="host"`` (default ``conf.storage_device``) keeps the graph in host
+RAM, following the JAX package's ``_train_host:129-175`` and
+``evaluate:177-225``: a host-tier :class:`~graph_learn_tpu_torch.gsl.
+dataset.Dataset` samples (and runs ``batch_transform``) on the CPU and
+ships each batch to the trainer's device, and the step there is the same
+loss / backward / optimizer sequence as the device tier's, its dropout
+drawn from a generator on that device.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.traversal import Traverser
 from graph_learn_tpu_torch.errors import OutOfRangeError
 from graph_learn_tpu_torch.gsl.compile import Query, _execute
-from graph_learn_tpu_torch.gsl.dataset import check_tier
+from graph_learn_tpu_torch.gsl.dataset import Dataset, check_tier
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -82,13 +89,36 @@ class LocalTrainer:
         the plan, outside the gradient.  ``log_every`` steps a verbose run
         prints the step count and rate (no loss: that would wait for the
         device)."""
-        check_tier(tier)
-        tables = query.device_tables(self.device)
+        host = check_tier(tier) == "host"
         generator = self._generator(self.seed)
-        trav, seeds_of = self._seed_stream(query)
-        if trav.strategy == "random" and steps_per_epoch is None:
+        if query.source.strategy == "random" and steps_per_epoch is None:
             raise ValueError("a 'random' (shuffle()) source never exhausts an "
                              "epoch; pass steps_per_epoch")
+        if host:
+            ds = Dataset(query, seed=self.seed, transform=batch_transform,
+                         tier="host", device=self.device)
+            next_batch = lambda: ds.next_with_count()[0]  # noqa: E731
+        else:
+            tables = query.device_tables(self.device)
+            trav, seeds_of = self._seed_stream(query)
+
+            def next_batch():
+                pos, _ = trav.next()
+                return self._batch(query, tables, seeds_of(pos), generator,
+                                   batch_transform)
+        try:
+            return model, self._loop(model, loss_fn, optimizer, next_batch,
+                                     generator, epochs, steps_per_epoch,
+                                     log_every, verbose,
+                                     ", host tier" if host else "")
+        finally:
+            if host:
+                ds.close()
+
+    def _loop(self, model, loss_fn, optimizer, next_batch, generator,
+              epochs, steps_per_epoch, log_every, verbose, what):
+        """The epochs: ``next_batch()`` until OutOfRangeError or
+        ``steps_per_epoch``; returns the mean loss of each epoch."""
         history = []
         it = 0
         t0 = time.time()
@@ -96,11 +126,9 @@ class LocalTrainer:
             losses = []
             while steps_per_epoch is None or len(losses) < steps_per_epoch:
                 try:
-                    pos, _ = trav.next()
+                    batch = next_batch()
                 except OutOfRangeError:
                     break
-                batch = self._batch(query, tables, seeds_of(pos), generator,
-                                    batch_transform)
                 loss = loss_fn(model, batch, generator, True)
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
@@ -115,9 +143,9 @@ class LocalTrainer:
             history.append(mean_loss)
             if verbose:
                 dt = time.time() - t0
-                print("epoch %d loss %.4f (%.1f steps/s)"
-                      % (epoch, mean_loss, it / max(dt, 1e-9)))
-        return model, history
+                print("epoch %d loss %.4f (%.1f steps/s%s)"
+                      % (epoch, mean_loss, it / max(dt, 1e-9), what))
+        return history
 
     def evaluate(self, query: Query, model: torch.nn.Module,
                  metric_fn: Callable,
@@ -128,25 +156,38 @@ class LocalTrainer:
 
         A padded final batch only counts its first n_valid rows (the
         Traverser pads circularly, so the tail rows are duplicates)."""
-        check_tier(tier)
-        tables = query.device_tables(self.device)
-        generator = self._generator(self.seed + 1)
-        trav, seeds_of = self._seed_stream(query)
-        if trav.strategy == "random":
+        host = check_tier(tier) == "host"
+        if query.source.strategy == "random":
             raise ValueError("a 'random' (shuffle()) source never exhausts an "
                              "epoch; evaluate over a by_order or "
                              "shuffle(traverse=True) source")
+        if host:
+            ds = Dataset(query, seed=self.seed + 1,
+                         transform=batch_transform, tier="host",
+                         device=self.device)
+            next_batch = ds.next_with_count
+        else:
+            tables = query.device_tables(self.device)
+            generator = self._generator(self.seed + 1)
+            trav, seeds_of = self._seed_stream(query)
+
+            def next_batch():
+                pos, n_valid = trav.next()
+                return self._batch(query, tables, seeds_of(pos), generator,
+                                   batch_transform), n_valid
         total = torch.zeros((), dtype=torch.float64, device=self.device)
         count = 0
-        with torch.no_grad():
-            while True:
-                try:
-                    pos, n_valid = trav.next()
-                except OutOfRangeError:
-                    break
-                batch = self._batch(query, tables, seeds_of(pos), generator,
-                                    batch_transform)
-                vals = metric_fn(model, batch)
-                total += vals[:n_valid].double().sum()
-                count += n_valid
+        try:
+            with torch.no_grad():
+                while True:
+                    try:
+                        batch, n_valid = next_batch()
+                    except OutOfRangeError:
+                        break
+                    vals = metric_fn(model, batch)
+                    total += vals[:n_valid].double().sum()
+                    count += n_valid
+        finally:
+            if host:
+                ds.close()
         return float(total) / max(count, 1)

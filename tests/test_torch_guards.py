@@ -20,6 +20,8 @@ from graph_learn_tpu_torch.examples import (sage_unsupervised, scale_demo,
                                             seal, sweep_aggregate)
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
 from graph_learn_tpu_torch.nn.models.sub_models import GCN, LinkPredictor
+from graph_learn_tpu_torch.nn import torch_bridge
+from graph_learn_tpu_torch.nn.checkpoint import Checkpointer
 from graph_learn_tpu_torch.nn.trainer import LocalTrainer
 from graph_learn_tpu_torch.ops import knn
 from graph_learn_tpu_torch.ops.kernels import build
@@ -47,6 +49,35 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package(path):
             continue
         for name in names:
             assert name.split(".")[0] not in BANNED, (path, name)
+
+
+def _root_module_names():
+    """The names the repository's root modules and examples import by
+    (``bench``, ``examples``, ``data``, ``common``, each example ...)."""
+    ex = REPO / "examples"
+    return ({p.stem for p in REPO.glob("*.py")} | {"examples"}
+            | {p.stem for p in ex.glob("*.py")}
+            | {p.name for p in ex.iterdir() if p.is_dir()}) - {"chip_smoke"}
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_source_of_the_port_imports_the_root_examples(path):
+    """The port keeps its own copies (``examples/data/synthetic.py``,
+    ``examples/common.py``, the bench): no import reaches the JAX side's
+    root modules or examples."""
+    root = _root_module_names()
+    assert {"bench", "examples", "data", "common", "synthetic"} & root
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in root, (path, name)
 
 
 def test_importing_every_module_of_the_port_loads_no_jax():
@@ -79,8 +110,11 @@ def no_card(monkeypatch):
                                    "sweep_harness", "bench", "bench_main",
                                    "sub_stack", "link_predictor",
                                    "seal_model", "sage_link", "knn_index",
-                                   "knn_build"])
-def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch):
+                                   "knn_build", "graph_load", "host_dataset",
+                                   "host_trainer", "torch_dataset",
+                                   "torch_loader", "checkpointer"])
+def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
+                                           tmp_path):
     monkeypatch.delenv("GLT_PLATFORM", raising=False)
     a = numpy_graph(n=30, d=4)
     g, dec = torch_graph(a)  # device="cpu" works without a card
@@ -105,7 +139,20 @@ def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch):
         "knn_index": lambda: knn.IVFFlatIndex(4),
         "knn_build": lambda: knn.build_index(a["feats"], a["raw_ids"],
                                              glt.KnnOption()),
+        "graph_load": lambda: glt.Graph.load(str(snap)),
+        "host_dataset": lambda: glt.Dataset(two_hop(g, 2, 2, batch=8),
+                                            tier="host"),
+        "host_trainer": lambda: LocalTrainer().train(
+            two_hop(g, 2, 2, batch=8), None, None, None, tier="host"),
+        "torch_dataset": lambda: torch_bridge.TorchDataset(
+            two_hop(g, 2, 2, batch=8)),
+        "torch_loader": lambda: torch_bridge.torch_loader(
+            two_hop(g, 2, 2, batch=8)),
+        "checkpointer": lambda: Checkpointer(str(tmp_path / "ck")),
     }
+    snap = tmp_path / "snap"
+    if entry == "graph_load":
+        g.save(str(snap))  # a real snapshot: the device is what fails
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         calls[entry]()
 
@@ -133,15 +180,30 @@ def test_cpu_trainer_and_dataset_work_without_a_card(no_card):
 
 @pytest.mark.parametrize("call", ["train", "evaluate"])
 def test_the_host_tier_is_refused_until_it_is_ported(call):
+    """The host tier is ported: ``tier="host"`` runs on the CPU (its own
+    tests in test_torch_host_tier.py) and only an unknown tier is
+    refused."""
     g, dec = torch_graph(numpy_graph(n=30, d=4))
     q = two_hop(g, 2, 2, batch=8)
     model = EgoGraphSAGE([4, 8, 4], dec, device="cpu")
     tr = LocalTrainer(device="cpu")
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        if call == "train":
-            tr.train(q, model, None, None, tier="host")
-        else:
-            tr.evaluate(q, model, None, tier="host")
+    if call == "train":
+        def loss_fn(m, batch, generator, training):
+            from graph_learn_tpu_torch.nn.data import EgoGraph
+            return m(EgoGraph.from_query_result(
+                batch, "src", ["hop1", "hop2"])).sum()
+        _, hist = tr.train(q, model, loss_fn,
+                           torch.optim.SGD(model.parameters(), lr=0.0),
+                           verbose=False, tier="host")
+        assert len(hist) == 1 and np.isfinite(hist[0])
+        with pytest.raises(InvalidArgumentError, match="tier must be"):
+            tr.train(q, model, loss_fn, None, tier="gpu")
+    else:
+        ids = tr.evaluate(q, model, lambda m, b: b["src"].ids.float(),
+                          tier="host")
+        assert ids == pytest.approx(14.5)  # the mean of 0..29
+        with pytest.raises(InvalidArgumentError, match="tier must be"):
+            tr.evaluate(q, model, None, tier="gpu")
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -21,7 +21,7 @@ from graph_learn_tpu.core import ingest as jingest
 from graph_learn_tpu_torch.core import filesystem, ingest, native_ingest
 from graph_learn_tpu_torch.errors import (InvalidArgumentError,
                                           NotFoundError, UnimplementedError)
-from torch_parity import both_confs
+from torch_parity import both_confs, store_equal as _store_equal
 
 COLUMNS = ("weights", "labels", "timestamps", "int_attrs", "float_attrs",
            "multival_attrs", "multival_lens")
@@ -179,54 +179,6 @@ def test_bad_records_raise_the_jax_errors(tmp_path, native):
 # --- Graph.node / edge / init --------------------------------------------
 
 
-def _store_equal(tg, jg):
-    """Node tables, node sets, edge tables, both CSRs and the candidate
-    pools of two stores, bit for bit."""
-    ts, js = tg.store, jg.store
-    assert set(ts.nodes) == set(js.nodes)
-    assert set(ts.edges) == set(js.edges)
-    assert set(ts.node_sets) == set(js.node_sets)
-    assert ts.topology == js.topology
-    for t in js.nodes:
-        a, b = ts.nodes[t], js.nodes[t]
-        np.testing.assert_array_equal(a.raw_ids, b.raw_ids)
-        for f in COLUMNS:
-            if getattr(b, f) is None:
-                assert getattr(a, f) is None, f
-            else:
-                np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
-                                              err_msg=t + "." + f)
-    for t in js.node_sets:
-        a, b = ts.node_sets[t], js.node_sets[t]
-        assert a.base_type == b.base_type
-        np.testing.assert_array_equal(a.indices, b.indices)
-    for t in js.edges:
-        a, b = ts.edges[t], js.edges[t]
-        assert (a.src_type, a.dst_type, a.ts_base, a.ts_scale) == (
-            b.src_type, b.dst_type, b.ts_base, b.ts_scale)
-        for f in ("src", "dst") + COLUMNS:
-            if getattr(b, f) is None:
-                assert getattr(a, f) is None, f
-            else:
-                np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
-                                              err_msg=t + "." + f)
-        ad, bd = a.device("cpu"), b.device()
-        for direction in ("out", "inc"):
-            ac, bc = getattr(ad, direction), getattr(bd, direction)
-            for f in ("row_offsets", "nbr_ids", "nbr_edge_ids",
-                      "nbr_ids_sorted", "cum_weights", "cum_in_degrees"):
-                av, bv = getattr(ac, f), getattr(bc, f)
-                if bv is None:
-                    assert av is None
-                else:
-                    np.testing.assert_array_equal(av.numpy(), np.asarray(bv),
-                                                  err_msg=t + direction + f)
-        for f in ("unique_dst", "unique_dst_indeg_cdf", "unique_src",
-                  "unique_src_outdeg_cdf"):
-            np.testing.assert_array_equal(getattr(ad, f).numpy(),
-                                          np.asarray(getattr(bd, f)))
-
-
 def _two_type_files(tmp_path, delim="\t"):
     """Users and items, each node type in two files, a train split, a
     weighted u-i file, two i-i files."""
@@ -376,12 +328,20 @@ def test_init_raises_the_jax_errors(tmp_path):
 
 
 def test_init_reorder_is_refused(tmp_path):
+    """An unknown reorder strategy is refused before anything loads (the
+    JAX package raises the same ValueError after loading); ``"bfs"``
+    relabels the nodes and keeps the raw-id store (tests of its own in
+    test_torch_reorder.py)."""
     f = _two_type_files(tmp_path)
     g = glt.Graph(device="cpu").node(f["ua"], "u", glt.Decoder(
         weighted=True, attr_types=["float", "float"]))
-    with pytest.raises(UnimplementedError, match="not yet ported"):
-        g.init(reorder="bfs")
-    assert g.init().store.node_table("u").num_nodes == 15
+    with pytest.raises(ValueError, match="unknown reorder strategy"):
+        g.init(reorder="metis")
+    assert not g.store.nodes
+    tg = _register(glt, glt.Graph(device="cpu"), f).init(reorder="bfs")
+    jg = _register(gl, gl.Graph(), f).init(reorder="bfs")
+    _store_equal(tg, jg)
+    assert tg.store.node_table("u").num_nodes == 15 + 15
 
 
 def test_the_loaded_graph_answers_a_query_on_its_train_split(tmp_path):

@@ -267,14 +267,17 @@ def test_dataset_refuses_unported_tiers():
     a = degree_one_graph(n=10, d=4)
     tg, _ = torch_graph(a)
     q = tg.V("item").batch(4).alias("src").values()
-    with pytest.raises(InvalidArgumentError, match="not yet ported"):
-        glt.Dataset(q, tier="host", device="cpu")
+    # the host tier is ported (test_torch_host_tier.py); only unknown tiers
+    # are refused, whether given or read from conf.storage_device
+    host = glt.Dataset(q, tier="host", device="cpu")
+    assert host.tier == "host" and host.next()["src"].ids.shape == (4,)
+    host.close()
     with pytest.raises(InvalidArgumentError, match="tier must be"):
         glt.Dataset(q, tier="disk", device="cpu")
     old = glt.conf.storage_device
-    glt.conf.storage_device = "host"
+    glt.conf.storage_device = "disk"
     try:
-        with pytest.raises(InvalidArgumentError, match="not yet ported"):
+        with pytest.raises(InvalidArgumentError, match="tier must be"):
             glt.Dataset(q, device="cpu")
     finally:
         glt.conf.storage_device = old

@@ -398,3 +398,56 @@ def torch_temporal_graph(a: Dict[str, np.ndarray], events=None):
     if events is not None:
         g.add_edge_table(temporal_table(glt, a, "ev", events))
     return g, dec
+
+
+STORE_COLUMNS = ("weights", "labels", "timestamps", "int_attrs",
+                 "float_attrs", "multival_attrs", "multival_lens")
+
+
+def store_equal(tg, jg):
+    """Node tables, node sets, edge tables, both CSRs and the candidate
+    pools of a port graph ``tg`` (views on the CPU) and a JAX graph ``jg``,
+    bit for bit."""
+    ts, js = tg.store, jg.store
+    assert set(ts.nodes) == set(js.nodes)
+    assert set(ts.edges) == set(js.edges)
+    assert set(ts.node_sets) == set(js.node_sets)
+    assert ts.topology == js.topology
+    for t in js.nodes:
+        a, b = ts.nodes[t], js.nodes[t]
+        np.testing.assert_array_equal(a.raw_ids, b.raw_ids)
+        for f in STORE_COLUMNS:
+            if getattr(b, f) is None:
+                assert getattr(a, f) is None, f
+            else:
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                              err_msg=t + "." + f)
+    for t in js.node_sets:
+        a, b = ts.node_sets[t], js.node_sets[t]
+        assert a.base_type == b.base_type
+        np.testing.assert_array_equal(a.indices, b.indices)
+    for t in js.edges:
+        a, b = ts.edges[t], js.edges[t]
+        assert (a.src_type, a.dst_type, a.ts_base, a.ts_scale) == (
+            b.src_type, b.dst_type, b.ts_base, b.ts_scale)
+        for f in ("src", "dst") + STORE_COLUMNS:
+            if getattr(b, f) is None:
+                assert getattr(a, f) is None, f
+            else:
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                              err_msg=t + "." + f)
+        ad, bd = a.device("cpu"), b.device()
+        for direction in ("out", "inc"):
+            ac, bc = getattr(ad, direction), getattr(bd, direction)
+            for f in ("row_offsets", "nbr_ids", "nbr_edge_ids",
+                      "nbr_ids_sorted", "cum_weights", "cum_in_degrees"):
+                av, bv = getattr(ac, f), getattr(bc, f)
+                if bv is None:
+                    assert av is None
+                else:
+                    np.testing.assert_array_equal(av.numpy(), np.asarray(bv),
+                                                  err_msg=t + direction + f)
+        for f in ("unique_dst", "unique_dst_indeg_cdf", "unique_src",
+                  "unique_src_outdeg_cdf"):
+            np.testing.assert_array_equal(getattr(ad, f).numpy(),
+                                          np.asarray(getattr(bd, f)))
