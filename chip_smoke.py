@@ -267,7 +267,34 @@ Phases (any failure exits non-zero before the result line):
    steps, saved with nn/checkpoint.py, restored into a fresh model and
    Adam, one more step from both bit-equal; torch_loader over the bench
    query for a whole epoch on the card and on the host tier (the first
-   20 batches' tensors on the card or the CPU, the last cut to its rows).
+   20 batches' tensors on the card or the CPU, the last cut to its rows);
+22. the online tier on the card, after phase 20, at the bench store's
+   width.  (a) The CFG store written as TSV again, served by
+   online/serve_main.py serve(device="cuda") from those files with a
+   2-partition FileTopic and its update pump (polled every 0.2 s); the
+   2-hop [15, 10] random query installed over HTTP with the unchanged
+   clients/py/gsl_client.py; 8 concurrent HTTP clients x 32 requests of
+   1..4 ids (each JSON answer carries every alias's feature rows, about
+   0.25 MB of text a seed): p50 / p99 / max ms and seeds/s.  (b) With the
+   clients running again, 1 000 new nodes with features and then 5
+   batches of 10 000 weighted edges streamed with StreamProducer: each
+   ingest's apply_updates, host CSR and upload seconds, the staleness
+   from put_edges to the first answer of a topk probe query that reaches
+   the batch's heaviest edge, the p99 during the stream against the
+   quiet one; the streamed store's flat CSR views bit-equal to an
+   in-memory build from the original and the streamed rows in the
+   pump's order, and every served hop1 id a true neighbour of the newest
+   snapshot live during its request.  (c) The EgoGraphSAGE [128, 256,
+   32] "gcn" serving function (sample + lookup + forward, batch 1 024)
+   exported on the card with online/export.py: 2 glt::gather_rows and 1
+   glt::segment_spmm in the program, installed by bytes through POST
+   /admin/model, one /predict launching Kernel 1 twice and Kernel 2 once
+   and equal to the forward run in the process on the same seed within
+   1e-5, a JAX StableHLO artifact (tests/fixtures/jax_serving.stablehlo)
+   refused; bytes, export and load seconds, /predict p50 / p99.  (d) A
+   ServingRouter over that worker and a second in-process worker on a
+   replica of its store: a topk answer stitched over both owners equal to
+   one worker's, an update fanned out to both and served by both.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -6043,6 +6070,504 @@ def checkpoint_bridge_path(torch, card, g, dec):
                last_rows, card))
 
 
+ONLINE_CLIENTS, ONLINE_REQUESTS = 8, 32
+# ids a served HTTP request carries: the JSON answer of one seed of the
+# 2-hop [15, 10] query is 166 feature rows of 128 floats, about 0.25 MB of
+# text whose encode and decode hold the interpreter lock for about 30 ms
+ONLINE_MAX_IDS = 4
+ONLINE_NEW_NODES = 1_000
+ONLINE_EDGE_BATCHES, ONLINE_EDGE_BATCH = 5, 10_000
+ONLINE_POLL_S = 0.2
+ONLINE_THINK_S = 0.02  # a streaming-phase client's pause between requests
+ONLINE_PROBE_WEIGHT = 10.0  # above every drawn weight (uniform in [0, 1))
+ONLINE_PREDICT_CALLS = 20
+ONLINE_PREDICT_SEED = 11
+# the exported forward against the same forward run in the process: the
+# same kernels on the same draws, so equal up to the f32 JSON round trip
+ONLINE_PREDICT_TOL = 1e-5
+ONLINE_STABLEHLO = os.path.join("tests", "fixtures", "jax_serving.stablehlo")
+
+
+def load_gsl_client(root):
+    """clients/py/gsl_client.py, imported by path as a user does."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "gsl_client", os.path.join(root, "clients", "py", "gsl_client.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def replica_graph(gl, graph):
+    """A second Graph over the same host tables (and their device views)
+    as ``graph``: a worker of its own whose updates replace its own tables
+    only (apply_updates never edits a table in place)."""
+    g = gl.Graph(device=graph.device)
+    for t in graph.store.nodes.values():
+        g.store.add_node_table(t)
+    for t in graph.store.edges.values():
+        g.store.add_edge_table(t)
+    g._initialized = True
+    return g
+
+
+def edge_key_sets(src, dst, n):
+    """Sorted unique src * n + dst keys."""
+    return np.unique(src.astype(np.int64) * n + dst.astype(np.int64))
+
+
+def online_path(torch, card, gather, spmm, n_nodes=None, feat_dim=None,
+                device="cuda", max_ids=ONLINE_MAX_IDS,
+                edge_batch=ONLINE_EDGE_BATCH, new_nodes=ONLINE_NEW_NODES):
+    """22: the online tier on one card at the bench store's width (module
+    note, phase 22); the sizes and the device are arguments so that the
+    phase can be rehearsed small on the CPU.  Returns the launches of one
+    /predict and the counts after the phase."""
+    import base64
+    import tempfile
+    import urllib.error
+
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.gsl.compile import _execute
+    from graph_learn_tpu_torch.nn.data import EgoGraph
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+    from graph_learn_tpu_torch.online import export, http, router, stream
+    from graph_learn_tpu_torch.online.serve_main import serve
+
+    cfg = bench.CFG
+    n = n_nodes or cfg["n_nodes"]
+    d = feat_dim or cfg["feat_dim"]
+    k1, k2 = FANOUT
+    root = os.path.dirname(os.path.abspath(__file__))
+    client_mod = load_gsl_client(root)
+    t_phase = time.perf_counter()
+    syn, _ = gl.synthetic_graph(n, cfg["avg_degree"], d, cfg["classes"],
+                                seed=0, device=device)
+    snt, set_ = syn.store.node_table("item"), syn.store.edge_table("rel")
+    orig_src, orig_dst = set_.src.copy(), set_.dst.copy()
+    orig_w = set_.weights.copy()
+    where = tempfile.mkdtemp(prefix="glt_online_")
+    servers, stops = [], []
+    real_apply = stream.apply_updates
+    try:
+        paths, sizes, write_s = write_store_tsv(where, snt, set_,
+                                                snt.raw_ids[:1])
+        del syn, snt, set_
+        topic_root = os.path.join(where, "topic")
+        stream.FileTopic(topic_root, num_partitions=2)
+        node_dec = {"labeled": True, "attr_types": ["float"] * d}
+        conf = {"host": "127.0.0.1", "port": 0, "device": device,
+                "nodes": [{"source": paths["nodes"], "type": "item",
+                           "decoder": node_dec}],
+                "edges": [{"source": paths["edges"],
+                           "type": ["item", "item", "rel"],
+                           "decoder": {"weighted": True}}],
+                "update_topic": {"root": topic_root,
+                                 "poll_interval_s": ONLINE_POLL_S}}
+        # --- (a) serve_main from the files, the query over HTTP ---------
+        applied, refreshes = [], []
+
+        def timed_apply(graph, buf):
+            batch = {"nodes": [dict(b) for bs in buf.node_updates.values()
+                               for b in bs],
+                     "edges": [dict(b) for bs in buf.edge_updates.values()
+                               for b in bs]}
+            t0 = time.perf_counter()
+            real_apply(graph, buf)
+            applied.append((batch, time.perf_counter() - t0))
+
+        stream.apply_updates = timed_apply
+        t0 = time.perf_counter()
+        server, stop = serve(conf, block=False)
+        servers.append(server)
+        stops.append(stop)
+        g, svc = server.graph, server.service
+        serve_s = time.perf_counter() - t0
+        real_refresh = svc.refresh
+
+        def timed_refresh():
+            t0 = time.perf_counter()
+            real_refresh()
+            sync(torch, device)
+            # a request that ends after the refresh starts may already be
+            # served from the new snapshot: it is checked against it
+            refreshes.append({
+                "t": t0, "s": time.perf_counter() - t0,
+                "csr_s": g.store.edge_table("rel").host_build_s,
+                "edges": g.store.edge_table("rel").num_edges})
+
+        svc.refresh = timed_refresh
+        base = "http://%s:%d" % (server.host, server.port)
+        cg = client_mod.Graph(server.host, server.port, timeout=600.0)
+        t0 = time.perf_counter()
+        qid = cg.install(cg.V("item").batch(MICRO_BATCH).alias("src")
+                         .outV("rel").sample(k1).by("random").alias("hop1")
+                         .outV("rel").sample(k2).by("random").alias("hop2"),
+                         micro_batch=MICRO_BATCH)
+        install_s = time.perf_counter() - t0
+        probe_qid = cg.install(cg.V("item").batch(1).alias("src")
+                               .outV("rel").sample(k1).by("topk")
+                               .alias("top"), micro_batch=16)
+        check(cg.schema()["nodes"]["item"] == n, "online: schema")
+        log("online store (the bench CFG store as TSV, %s bytes written in "
+            "%.3f s): serve_main.serve on %s from the files with a "
+            "2-partition FileTopic in %.3f s, the 2-hop [%d, %d] query "
+            "installed through clients/py/gsl_client.py in %.3f s (CSR "
+            "host %.3f s); card: %s"
+            % (sizes, write_s, device, serve_s, k1, k2, install_s,
+               g.store.edge_table("rel").host_build_s, card))
+
+        rng = np.random.default_rng(22)
+        records, errors = [], []
+        lock = threading.Lock()
+
+        def client(c, count, stop_evt, think):
+            cc = client_mod.Graph(server.host, server.port, timeout=600.0)
+            r = np.random.default_rng(100 + c)
+            done = 0
+            try:
+                while (count is None and not stop_evt.is_set()) or \
+                        (count is not None and done < count):
+                    ids = r.integers(0, n, int(r.integers(1, max_ids + 1)))
+                    t0 = time.perf_counter()
+                    ans = cc.run(qid, ids.tolist())
+                    t1 = time.perf_counter()
+                    with lock:
+                        records.append((t0, t1, ids, ans["src"]["ids"],
+                                        ans["hop1"]["ids"]))
+                    done += 1
+                    if think:
+                        time.sleep(think)
+            except Exception as e:  # reported below; fails the run
+                errors.append(e)
+
+        def run_clients(count=None, stop_evt=None, think=0.0):
+            ts = [threading.Thread(target=client,
+                                   args=(c, count, stop_evt, think))
+                  for c in range(ONLINE_CLIENTS)]
+            for t in ts:
+                t.start()
+            return ts
+
+        def join(ts):
+            for t in ts:
+                t.join(timeout=600)
+            check(not any(t.is_alive() for t in ts), "online: clients hung")
+            if errors:
+                raise errors[0]
+
+        cg.run(qid, [0])  # warm-up, not counted
+        gather.LAUNCHES.reset()
+        spmm.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        join(run_clients(count=ONLINE_REQUESTS))
+        wall = time.perf_counter() - t0
+        quiet = list(records)
+        lat = np.array([(r[1] - r[0]) * 1e3 for r in quiet])
+        seeds = sum(r[2].size for r in quiet)
+        log("online HTTP serving, %d clients x %d requests of 1..%d ids "
+            "(the JSON answer carries every alias's feature rows): p50 "
+            "%.3f ms, p99 %.3f ms, max %.3f ms, %.1f seeds/s, %.1f "
+            "requests/s on the clients' clock; DGS's north star is a 20 ms "
+            "p99; card: %s"
+            % (ONLINE_CLIENTS, ONLINE_REQUESTS, max_ids,
+               np.percentile(lat, 50), np.percentile(lat, 99), lat.max(),
+               seeds / wall, len(quiet) / wall, card))
+
+        # --- (b) the stream, with the clients running --------------------
+        producer = stream.StreamProducer(
+            stream.FileTopic(topic_root, create=False))
+        new_ids = np.arange(n, n + new_nodes, dtype=np.int64)
+        new_feats = rng.standard_normal((new_nodes, d)).astype(np.float32)
+        new_labels = rng.integers(0, cfg["classes"], new_nodes).astype(
+            np.int32)
+        stop_evt = threading.Event()
+        records.clear()
+        streaming = run_clients(stop_evt=stop_evt, think=ONLINE_THINK_S)
+        t_stream = time.perf_counter()
+        stale, put = [], []
+        try:
+            producer.put_nodes("item", new_ids, labels=new_labels,
+                               float_attrs=new_feats)
+            deadline = time.time() + 300
+            while len(refreshes) < 1 and time.time() < deadline:
+                time.sleep(0.01)
+            check(len(refreshes) >= 1, "online: the new nodes never landed")
+            for b in range(ONLINE_EDGE_BATCHES):
+                src = rng.integers(0, n, edge_batch)
+                dst = rng.integers(0, n + new_nodes, edge_batch)
+                w = rng.random(edge_batch).astype(np.float32)
+                # the probe: its source's heaviest edge, newer probes
+                # heavier still
+                w[0] = ONLINE_PROBE_WEIGHT + b
+                put.append((src, dst, w))
+                t_put = time.perf_counter()
+                producer.put_edges("rel", src, dst, weights=w)
+                while time.perf_counter() - t_put < 300:
+                    top = cg.run(probe_qid, [int(src[0])])["top"]["ids"][0]
+                    if top[0] == int(dst[0]):
+                        break
+                    time.sleep(0.005)
+                check(top[0] == int(dst[0]), "online: batch %d never served"
+                      % b)
+                stale.append(time.perf_counter() - t_put)
+            # the pump may take a batch in two polls: wait for the rest
+            total = ONLINE_EDGE_BATCHES * edge_batch
+            while time.perf_counter() - t_stream < 600:
+                landed = sum(b["src_ids"].size for batch, _ in applied
+                             for b in batch["edges"])
+                if landed == total and len(refreshes) == len(applied):
+                    break
+                time.sleep(0.05)
+            check(landed == total and len(refreshes) == len(applied),
+                  "online: %d of %d streamed edges applied" % (landed, total))
+        finally:
+            stop_evt.set()
+            join(streaming)
+        stream_wall = time.perf_counter() - t_stream
+        counts = {"http_serving": {"gather_rows": gather.LAUNCHES.count,
+                                   "segment_spmm": spmm.LAUNCHES.count}}
+        busy = list(records)
+        slat = np.array([(r[1] - r[0]) * 1e3 for r in busy])
+        parts = [(a[1], r["csr_s"], r["s"] - r["csr_s"])
+                 for a, r in zip(applied, refreshes)]
+        log("online stream (%d new nodes with features, then %d batches of "
+            "%d weighted edges, through StreamProducer -> FileTopic -> the "
+            "update pump, polled every %.1f s): %d ingests in %.3f s; each "
+            "ingest: apply_updates / host CSR / upload s %s; staleness "
+            "from put_edges to the first answer that reaches the batch's "
+            "heaviest edge %s s; HTTP p99 during the stream %.3f ms (p50 "
+            "%.3f, max %.3f, %d requests) against %.3f ms without it; "
+            "card: %s"
+            % (new_nodes, ONLINE_EDGE_BATCHES, edge_batch, ONLINE_POLL_S,
+               len(applied), stream_wall,
+               [tuple(round(x, 3) for x in p) for p in parts],
+               [round(s, 3) for s in stale], np.percentile(slat, 99),
+               np.percentile(slat, 50), slat.max(), slat.size,
+               np.percentile(lat, 99), card))
+
+        # the streamed store against one built in memory from the same
+        # rows, in the order the pump applied them
+        got_edges = [b for batch, _ in applied for b in batch["edges"]]
+        src_all = np.concatenate([b["src_ids"] for b in got_edges])
+        dst_all = np.concatenate([b["dst_ids"] for b in got_edges])
+        w_all = np.concatenate([b["weights"] for b in got_edges])
+        want = np.concatenate([np.stack([s, t, w.view(np.int32)], 1)
+                               for s, t, w in put])
+        have = np.stack([src_all, dst_all, w_all.view(np.int32)], 1)
+        check(np.array_equal(want[np.lexsort(want.T[::-1])],
+                             have[np.lexsort(have.T[::-1])]),
+              "online: the streamed edges are not the produced ones")
+        got_nodes = [b for batch, _ in applied for b in batch["nodes"]]
+        node_ids = np.concatenate([b["ids"] for b in got_nodes])
+        check(np.array_equal(np.sort(node_ids), new_ids),
+              "online: the streamed nodes are not the produced ones")
+        nt = g.store.node_table("item")
+        live = svc._queries[qid]._snap.tables["edges"]["rel"]
+        mine = gl.EdgeTable(
+            "rel", "item", "item", g.store.edge_table("rel").decoder,
+            src=np.concatenate([orig_src, nt.index.lookup(src_all)]),
+            dst=np.concatenate([orig_dst, nt.index.lookup(dst_all)]),
+            num_src_nodes=nt.num_nodes, num_dst_nodes=nt.num_nodes,
+            weights=np.concatenate([orig_w, w_all])).device(device)
+        for side in ("out", "inc"):
+            for f in ("row_offsets", "nbr_ids", "nbr_edge_ids",
+                      "cum_weights"):
+                check(torch.equal(getattr(getattr(live, side), f),
+                                  getattr(getattr(mine, side), f)),
+                      "online: the streamed store's %s.%s differs from the "
+                      "in-memory build" % (side, f))
+        check(np.array_equal(nt.raw_ids[n:], node_ids)
+              and np.array_equal(nt.raw_ids[:n], np.arange(n)),
+              "online: new node rows out of order")
+        del mine
+        # every served hop1 id is a true neighbour of the newest snapshot
+        # live during its request (snapshots only grow); a fill is allowed
+        # only where the seed had no edge when the request started
+        n_all = n + new_nodes
+        cum = [edge_key_sets(orig_src, orig_dst, n_all)]
+        s_parts, d_parts = [orig_src], [orig_dst]
+        for batch, _ in applied:
+            if batch["edges"]:
+                s_parts += [nt.index.lookup(b["src_ids"])
+                            for b in batch["edges"]]
+                d_parts += [nt.index.lookup(b["dst_ids"])
+                            for b in batch["edges"]]
+            cum.append(edge_key_sets(np.concatenate(s_parts),
+                                     np.concatenate(d_parts), n_all))
+        swaps = np.array([r["t"] for r in refreshes])
+        out_deg0 = np.bincount(orig_src, minlength=n_all)
+        checked = 0
+        for t0, t1, ids, src_ids, hop1 in quiet + busy:
+            keys = cum[int(np.searchsorted(swaps, t1))]
+            s = np.repeat(np.asarray(src_ids, np.int64), k1)
+            h = np.asarray(hop1, np.int64).reshape(-1)
+            pos = np.clip(np.searchsorted(keys, s * n_all + h), 0,
+                          keys.size - 1)
+            ok = (keys[pos] == s * n_all + h) | ((out_deg0[s] == 0)
+                                                 & (h == 0))
+            check(bool(ok.all()) and np.array_equal(np.asarray(src_ids),
+                                                     ids),
+                  "online: a served hop1 id is no neighbour in any live "
+                  "snapshot")
+            checked += h.size
+        log("online: the streamed store's flat CSR views (row_offsets, "
+            "nbr_ids, nbr_edge_ids, cum_weights, out and in) bit-equal to "
+            "an in-memory build from the original and streamed rows; %d "
+            "served hop1 ids of %d requests each a true neighbour of the "
+            "newest snapshot live during its request" % (checked,
+                                                         len(quiet + busy)))
+
+        # --- (c) the exported EgoGraphSAGE through /admin/model ----------
+        q = server.service._queries[qid].query
+        tables = svc._queries[qid]._snap.tables
+        table = tables["nodes"]["item"].float_attrs
+        torch.manual_seed(22)
+        model = EgoGraphSAGE([d, HIDDEN, CLASSES],
+                             g.get_node_decoder("item"), agg_type="gcn",
+                             device=device).eval()
+
+        def serve_fn(seeds, generator):
+            ans = _execute(q, tables, seeds, generator)
+            return model(EgoGraph.from_query_result(
+                ans, "src", ["hop1", "hop2"], defer_last_table=table))
+
+        t0 = time.perf_counter()
+        blob = export.export_serving_fn(serve_fn, (np.arange(MICRO_BATCH),
+                                                   0), device=device)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = export.load_serving_exported(blob)
+        load_s = time.perf_counter() - t0
+        ops = [str(x.target) for x in loaded.program.graph.nodes
+               if x.op == "call_function"]
+        check(ops.count("glt.gather_rows.default") == 2
+              and ops.count("glt.segment_spmm.default") == 1,
+              "online: the exported program holds %d gather_rows and %d "
+              "segment_spmm operators (want 2 and 1)"
+              % (ops.count("glt.gather_rows.default"),
+                 ops.count("glt.segment_spmm.default")))
+        del loaded
+        t0 = time.perf_counter()
+        r = cg.install_model("sage", blob)
+        install_model_s = time.perf_counter() - t0
+        check(r == {"name": "sage", "batch": MICRO_BATCH},
+              "online: install_model answered %s" % r)
+        with open(os.path.join(root, ONLINE_STABLEHLO), "rb") as f:
+            jax_blob = f.read()
+        try:
+            cg.install_model("jax", jax_blob)
+            refused = False
+        except urllib.error.HTTPError as e:
+            refused = "torch.export" in e.read().decode()
+        check(refused, "online: a JAX StableHLO artifact was not refused")
+        ids = rng.integers(0, n, MICRO_BATCH)
+        gather.LAUNCHES.reset()
+        spmm.LAUNCHES.reset()
+        got = np.asarray(cg.predict("sage", ids.tolist(),
+                                    seed=ONLINE_PREDICT_SEED), np.float32)
+        launches = {"gather_rows": gather.LAUNCHES.count,
+                    "segment_spmm": spmm.LAUNCHES.count}
+        on_card = torch.device(device).type == "cuda"
+        check(launches == {"gather_rows": 2 * on_card,
+                           "segment_spmm": 1 * on_card},
+              "online: one /predict launched %s (want 2 gather_rows and 1 "
+              "segment_spmm)" % launches)
+        devs = [torch.device(device)] if on_card else []
+        with torch.random.fork_rng(devices=devs), torch.no_grad():
+            torch.manual_seed(ONLINE_PREDICT_SEED)
+            want = serve_fn(torch.as_tensor(ids, dtype=torch.int32,
+                                            device=device), None)
+        want = want.float().cpu().numpy()
+        err = float(np.abs(got - want).max())
+        check(got.shape == (MICRO_BATCH, CLASSES)
+              and np.isfinite(got).all()
+              and np.allclose(got, want, rtol=ONLINE_PREDICT_TOL,
+                              atol=ONLINE_PREDICT_TOL),
+              "online: /predict differs from the forward: %g" % err)
+        plat = []
+        for i in range(ONLINE_PREDICT_CALLS):
+            part = rng.integers(0, n, int(rng.integers(1, MICRO_BATCH + 1)))
+            t0 = time.perf_counter()
+            out = cg.predict("sage", part.tolist(), seed=i)
+            plat.append((time.perf_counter() - t0) * 1e3)
+            check(len(out) == part.size, "online: /predict rows")
+        plat = np.array(plat)
+        counts["predict"] = {"gather_rows": gather.LAUNCHES.count,
+                             "segment_spmm": spmm.LAUNCHES.count}
+        log("online export (sample + lookup + EgoGraphSAGE [%d, %d, %d] "
+            "gcn, batch %d, traced on %s): %d bytes, exported in %.3f s, "
+            "loaded in %.3f s (installed by bytes through POST "
+            "/admin/model in %.3f s); the program holds 2 glt::gather_rows "
+            "and 1 glt::segment_spmm and one /predict launched %s; "
+            "/predict equals the forward run in the process on the same "
+            "seed within %g (max abs err %g); a JAX StableHLO artifact is "
+            "refused; /predict of 1..%d ids over HTTP, %d calls: p50 %.3f "
+            "ms, p99 %.3f ms; card: %s"
+            % (d, HIDDEN, CLASSES, MICRO_BATCH, device, len(blob), export_s,
+               load_s, install_model_s, launches, ONLINE_PREDICT_TOL, err,
+               MICRO_BATCH, ONLINE_PREDICT_CALLS, np.percentile(plat, 50),
+               np.percentile(plat, 99), card))
+        del blob
+        svc._models.clear()
+        gather.LAUNCHES.reset()
+        spmm.LAUNCHES.reset()
+
+        # --- (d) the router over two in-process workers --------------------
+        twin = http.ServingServer(replica_graph(gl, g), device=device).start()
+        servers.append(twin)
+        stops.append(twin.stop)
+        urls = [base, "http://%s:%d" % (twin.host, twin.port)]
+        rt = router.ServingRouter(urls)
+        plan = (cg.V("item").batch(8).alias("src").outV("rel").sample(k1)
+                .by("topk").alias("top")).plan()
+        rqid = rt.install(plan, micro_batch=64)
+        ids = rng.integers(0, n, 64)
+        check(set((ids % 2).tolist()) == {0, 1}, "online: one owner only")
+        stitched = rt.run(rqid, ids)
+        single = rt.workers[0].run(rt._qids[rqid][0], ids)
+        check(json.dumps(stitched, sort_keys=True)
+              == json.dumps(single, sort_keys=True),
+              "online: the router's stitched answer differs from one "
+              "worker's")
+        svc.refresh = real_refresh
+        t0 = time.perf_counter()
+        v = int(ids[0])
+        r = rt.update(edges={"rel": {"src_ids": [v], "dst_ids": [n + 1],
+                                     "weights": [2 * ONLINE_PROBE_WEIGHT]}})
+        rt.refresh()
+        fan_s = time.perf_counter() - t0
+        check(r["applied"], "online: the router refused the update")
+        want_top = int(nt.index.lookup(np.array([n + 1]))[0])
+        for w, wq in zip(rt.workers, rt._qids[rqid]):
+            check(w.run(wq, [v])["top"]["ids"][0][0] == want_top,
+                  "online: the update did not reach every worker")
+        log("online router over 2 in-process workers (one a replica of the "
+            "streamed store): a topk answer of 64 ids over both owners "
+            "stitched equal to one worker's; one update fanned out, "
+            "applied and refreshed on both in %.3f s, its edge served by "
+            "both; card: %s" % (fan_s, card))
+    finally:
+        stream.apply_updates = real_apply
+        for stop in reversed(stops):
+            stop()
+        shutil.rmtree(where, ignore_errors=True)
+    counts["router"] = {"gather_rows": gather.LAUNCHES.count,
+                        "segment_spmm": spmm.LAUNCHES.count}
+    log("glt_online launches: %s (HTTP serving: the answers' feature rows; "
+        "predict: %d /predict calls; router: the answers' rows); phase 22 "
+        "in %.1f s" % (counts, ONLINE_PREDICT_CALLS + 1,
+                       time.perf_counter() - t_phase))
+    counts["one_predict"] = launches
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6169,6 +6694,13 @@ def main() -> int:
     gc.collect()  # the TSV store
     torch.cuda.empty_cache()
     knn_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 22: the online tier from the bench store's files
+    with bench.bench_conf(storage_profile="full"):
+        online_path(torch, card, gather, spmm)
+    gc.collect()
+    torch.cuda.empty_cache()
     for part in (bench_rows, scale_rows, walks_rows, query_rows,
                  bipartite_rows, rgcn_rows, temporal_rows, tgat_rows,
                  example_rows, seal_rows, sage_rows, file_rows, sampler_rows,

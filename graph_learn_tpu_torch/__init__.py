@@ -19,6 +19,9 @@ multi-value columns, ``core/ingest.py``, with their embedding encoders,
 loader of ``csrc/ingest.cpp``), the pre-GSL sampler objects
 (``sampler_api.py``: ``g.node_sampler`` ... ``g.random_walk_sampler``) and
 k-NN over a node type's features (``g.search``, ``ops/knn.py``).
+The online tier (``online/``: streaming updates, copy-on-write refresh,
+exported serving programs, the HTTP worker, router, ``serve_main`` and
+``loader_main``) serves from one device.
 ``bench`` is the counterpart of the repository's ``bench.py``: K sample+train steps a call,
 captured in one CUDA graph on the card.  Entry points run on the card
 unless the caller passes ``device="cpu"``.

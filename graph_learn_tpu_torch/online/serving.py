@@ -20,8 +20,23 @@ of its own, padded to the micro-batch and not sliced: its ``SubGraphVal``
 keeps the launch's shapes, its other values are cut to the request's ids,
 and a request longer than the micro-batch is refused.
 
-``refresh()`` after graph updates, the partitioned (graph-sharded) branch
-and ``install_model`` wait for the online slice.
+Every round reads one immutable ``_Snapshot`` (the id index and the
+device tables, captured together) and serves its whole batch from it, as
+``graph_learn_tpu/online/serving.py:46-61`` does.  ``refresh()`` (after
+``online/update.py apply_updates``) drops the tables' device views,
+builds the next snapshot on the calling thread (the update pump's) while
+rounds keep serving the current one, waits for its uploads to finish,
+then swaps it in.  A round keeps its snapshot until its stream is
+synchronised, so the old tables outlive every launch that reads them;
+a caller's answer that still holds a table (its deferred feature rows)
+records that table on the caller's stream too.
+
+``install_model`` / ``predict`` serve an exported sample+forward program
+(``online/export.py``, a ``torch.export`` program) by name:
+``InstalledModel`` pads a request to the program's batch with its first
+id and trims every output whose leading axis is that batch, as
+``:327-342`` does.  The partitioned (graph-sharded) branch is not yet
+ported: ``graph_shards > 1`` raises.
 """
 
 from __future__ import annotations
@@ -39,11 +54,24 @@ import torch
 from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.values import (SubGraphVal, TensorStruct,
                                               map_result)
-from graph_learn_tpu_torch.errors import InvalidArgumentError
+from graph_learn_tpu_torch.errors import (InvalidArgumentError,
+                                          NotFoundError, UnimplementedError)
 from graph_learn_tpu_torch.gsl.compile import Query, _execute
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 _SHUTDOWN = object()
+
+
+class _Snapshot:
+    """What one round serves from: the host id index and the device tables
+    of one state of the store, captured together so that a refresh can
+    never remap rows under a request in flight."""
+
+    __slots__ = ("index", "tables")
+
+    def __init__(self, index, tables):
+        self.index = index
+        self.tables = tables
 
 
 class _Pending:
@@ -73,9 +101,7 @@ class InstalledQuery:
         self._generator.manual_seed(conf.seed)
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == "cuda" else None)
-        ns = query.graph.store.node_set(query.source.node_type)
-        self._index = query.graph.store.node_table(ns.base_type).index
-        self._tables = query.device_tables(self.device)
+        self._snap = self._build_snapshot()
         self.latencies: List[float] = []
         self.served = 0
         self._first_t: Optional[float] = None
@@ -84,6 +110,25 @@ class InstalledQuery:
         self._worker = threading.Thread(
             target=self._serve_loop, name="glt-serve-q%d" % qid, daemon=True)
         self._worker.start()
+
+    # -- snapshot lifecycle ------------------------------------------------
+    def _build_snapshot(self) -> _Snapshot:
+        """The store's current state on the device; returns once its uploads
+        have finished, so a round on another stream may read it at once."""
+        store = self.query.graph.store
+        ns = store.node_set(self.query.source.node_type)
+        snap = _Snapshot(store.node_table(ns.base_type).index,
+                         self.query.device_tables(self.device))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return snap
+
+    def refresh(self):
+        """Pick up applied graph updates: drop every table's device views,
+        build the next snapshot while rounds keep serving the current one,
+        then swap it in (rounds in flight keep theirs)."""
+        _drop_device_views(self.query.graph.store)
+        self._snap = self._build_snapshot()
 
     def close(self):
         self._queue.put(_SHUTDOWN)
@@ -101,6 +146,8 @@ class InstalledQuery:
         if self._stream is not None:
             caller = torch.cuda.current_stream(self.device)
             map_result(lambda x: x.record_stream(caller), p.result)
+            for table in _static_tensors(p.result):
+                table.record_stream(caller)
         return p.result
 
     def _serve_loop(self):
@@ -156,11 +203,12 @@ class InstalledQuery:
         return True
 
     def _execute_batch(self, ids: np.ndarray) -> dict:
-        idx = self._index.lookup(ids)
+        snap = self._snap  # one snapshot for the whole round
+        idx = snap.index.lookup(ids)
         n = idx.size
         mb = self.micro_batch
         if not self._seed_aligned:
-            return self._execute_unaligned(idx)
+            return self._execute_unaligned(snap, idx)
         outs = []
         for off in range(0, n, mb):
             chunk = idx[off:off + mb]
@@ -168,7 +216,7 @@ class InstalledQuery:
                 chunk = np.pad(chunk, (0, mb - chunk.size), mode="edge")
             seeds = torch.as_tensor(chunk, dtype=torch.int32,
                                     device=self.device)
-            outs.append(_execute(self.query, self._tables, seeds,
+            outs.append(_execute(self.query, snap.tables, seeds,
                                  self._generator))
         out = outs[0] if len(outs) == 1 else {
             a: _cat([o[a] for o in outs]) for a in outs[0]}
@@ -177,7 +225,7 @@ class InstalledQuery:
             self._stream.synchronize()
         return out
 
-    def _execute_unaligned(self, idx: np.ndarray) -> dict:
+    def _execute_unaligned(self, snap: _Snapshot, idx: np.ndarray) -> dict:
         """One launch for the whole request of a SubGraph query, padded by
         repeating its last id (induction is over the seed set)."""
         n, mb = idx.size, self.micro_batch
@@ -187,7 +235,7 @@ class InstalledQuery:
                 "micro_batch %d; install with a larger micro_batch or split "
                 "the request" % (n, mb))
         chunk = np.pad(idx, (0, mb - n), mode="edge") if n < mb else idx
-        out = _execute(self.query, self._tables,
+        out = _execute(self.query, snap.tables,
                        torch.as_tensor(chunk, dtype=torch.int32,
                                        device=self.device), self._generator)
         def trim(x):
@@ -229,14 +277,91 @@ def _cat(values):
     return first.replace(**changes)
 
 
+def _drop_device_views(store):
+    """Forget every table's device views, so the next ``device()`` call
+    builds them from the host tables as they are now."""
+    for t in list(store.nodes.values()) + list(store.edges.values()):
+        t._device = {}
+
+
+def _static_tensors(result: dict):
+    """The whole tables an answer still points at (``static`` fields, such
+    as a ``DeferredRows``' table), nested values included."""
+    stack = [v for v in result.values() if isinstance(v, TensorStruct)]
+    while stack:
+        v = stack.pop()
+        for f in dataclasses.fields(v):
+            x = getattr(v, f.name)
+            if isinstance(x, TensorStruct):
+                stack.append(x)
+            elif f.metadata.get("static") and isinstance(x, torch.Tensor):
+                yield x
+
+
+class InstalledModel:
+    """An exported sample+forward program served by name (the counterpart
+    of ``graph_learn_tpu/online/serving.py InstalledModel:308``): one
+    ``torch.export`` program (online/export.py) with signature
+    ``call(seeds: int32[batch], seed)``, so the worker answers model
+    predictions without the model's Python code."""
+
+    def __init__(self, name: str, artifact, device: torch.device):
+        from graph_learn_tpu_torch.online.export import load_serving_exported
+        self.name = name
+        exp = load_serving_exported(artifact)
+        seeds = exp.example_seeds
+        if seeds.device.type != device.type:
+            raise InvalidArgumentError(
+                "model %r was exported for %s; this service runs on %s"
+                % (name, seeds.device, device))
+        self._call = exp.call
+        self.batch = int(seeds.shape[0])
+
+    def predict(self, ids, seed: int = 0):
+        """Outputs for 1..batch raw seed ids: the request padded with its
+        first id, then every output whose leading axis is the batch cut
+        back to the request (numpy)."""
+        ids = np.asarray(ids, np.int32)
+        if ids.size == 0 or ids.size > self.batch:
+            raise InvalidArgumentError(
+                "predict takes 1..%d ids (the exported batch size), got %d"
+                % (self.batch, ids.size))
+        n = ids.size
+        padded = np.concatenate(
+            [ids, np.full(self.batch - n, ids[0], np.int32)])
+        out = self._call(padded, seed)
+
+        def trim(x):
+            a = _numpy(x)
+            return a[:n] if a.ndim >= 1 and a.shape[0] == self.batch else a
+
+        return torch.utils._pytree.tree_map(trim, out)
+
+
+def _numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype in (torch.bfloat16, torch.float16):
+            x = x.float()
+        return x.numpy()
+    return np.asarray(x)
+
+
 class QueryService:
     """Install/run surface of the serving tier, on one device (the card
-    unless ``device="cpu"``)."""
+    unless ``device="cpu"``).  ``graph_shards > 1`` (the partitioned
+    store over a mesh) is not yet ported."""
 
-    def __init__(self, graph, device: DeviceLike = "cuda"):
+    def __init__(self, graph, device: DeviceLike = "cuda",
+                 graph_shards: int = 1):
+        if graph_shards > 1:
+            raise UnimplementedError(
+                "QueryService(graph_shards=%d): partitioned serving is not "
+                "yet ported (A3)" % graph_shards)
         self.graph = graph
         self.device = resolve_device(device)
         self._queries: Dict[int, InstalledQuery] = {}
+        self._models: Dict[str, InstalledModel] = {}
         self._next = 0
 
     def install(self, query: Query, micro_batch: int = 256) -> int:
@@ -245,8 +370,28 @@ class QueryService:
         self._queries[qid] = InstalledQuery(self, qid, query, micro_batch)
         return qid
 
+    def install_model(self, name: str, artifact) -> InstalledModel:
+        """Serve the exported program ``artifact`` (a path or its bytes) as
+        ``name``."""
+        m = InstalledModel(name, artifact, self.device)
+        self._models[name] = m
+        return m
+
+    def predict(self, name: str, ids, seed: int = 0):
+        if name not in self._models:
+            raise NotFoundError("unknown model %r" % name)
+        return self._models[name].predict(ids, seed=seed)
+
     def run(self, qid: int, ids) -> dict:
         return self._queries[qid].run(ids)
+
+    def refresh(self):
+        """Every installed query picks up applied updates: the device views
+        are dropped once, then each query builds and swaps its snapshot
+        (queries over the same tables share one upload)."""
+        _drop_device_views(self.graph.store)
+        for q in self._queries.values():
+            q._snap = q._build_snapshot()
 
     def stats(self, qid: int) -> Dict[str, float]:
         return self._queries[qid].stats()

@@ -46,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
-from graph_learn_tpu_torch.ops.kernels.build import LaunchCounter, library
+from graph_learn_tpu_torch.ops.kernels.build import (LaunchCounter, library,
+                                                 refuse_export)
 
 LAUNCHES_FWD = LaunchCounter("gat_block")
 LAUNCHES_BWD = LaunchCounter("gat_block_bwd")
@@ -325,6 +326,7 @@ def gat_block(nbr: torch.Tensor, wn: torch.Tensor, ar: torch.Tensor,
               ba: Optional[torch.Tensor] = None,
               drop: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fused neighbour block (shapes in the module note) -> [H, b, W]."""
+    refuse_export("gat_block")
     if nbr.dim() != 3 or wn.dim() != 3 or wn.shape[1] != nbr.shape[2]:
         raise InvalidArgumentError(
             "gat_block: want nbr [b, e, Din] and wn [H, Din, W], got %s and "

@@ -23,6 +23,13 @@ before :func:`segment_spmm_plain` on the CPU.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor takes :func:`segment_spmm_plain`.  Like
 the Pallas kernel it has no backward: ``feats`` that require a gradient
 are refused rather than silently cut out of the graph.
+
+Both routes sit behind one operator, ``torch.ops.glt.segment_spmm``
+(``torch.library.custom_op``): its CUDA implementation is the kernel's
+launch, its CPU implementation the clip and the plain version, and its
+fake gives the output's shape and dtype, so ``torch.export`` keeps the
+reduction as one node of the exported program (online/export.py).
+:func:`segment_spmm` checks its inputs, then calls the operator.
 """
 
 from __future__ import annotations
@@ -80,6 +87,35 @@ def _lib():
     return fn
 
 
+@torch.library.custom_op("glt::segment_spmm", mutates_args=(),
+                         device_types="cpu")
+def _segment_spmm_op(feats: torch.Tensor, ids: torch.Tensor,
+                     degrees: torch.Tensor, agg: str, out_dtype: torch.dtype,
+                     raw_extrema: bool) -> torch.Tensor:
+    ids, degrees = clip(ids, degrees, feats.shape[0])
+    return segment_spmm_plain(feats, ids, degrees, agg, out_dtype,
+                              raw_extrema)
+
+
+@_segment_spmm_op.register_fake
+def _segment_spmm_fake(feats, ids, degrees, agg, out_dtype, raw_extrema):
+    return feats.new_empty((ids.shape[0], feats.shape[1]), dtype=out_dtype)
+
+
+@_segment_spmm_op.register_kernel("cuda")
+def _segment_spmm_cuda(feats, ids, degrees, agg, out_dtype, raw_extrema):
+    out = torch.empty((ids.shape[0], feats.shape[1]), dtype=out_dtype,
+                      device=feats.device)
+    if out.numel() == 0:
+        return out
+    args = kernel_args(feats, ids, degrees, agg, out, raw_extrema)
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        launch(_lib(), args, stream)
+    LAUNCHES.add()
+    return out
+
+
 def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
                  degrees: torch.Tensor, agg: str = "sum",
                  out_dtype: Optional[torch.dtype] = None,
@@ -100,9 +136,8 @@ def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
                             tuple(degrees.shape)))
     if feats.device.type == "cpu" and ids.device.type == "cpu" \
             and degrees.device.type == "cpu":
-        ids, degrees = clip(ids, degrees, feats.shape[0])
-        return segment_spmm_plain(feats, ids, degrees, agg, out_dtype,
-                                  raw_extrema)
+        return _segment_spmm_op(feats, ids, degrees, agg, out_dtype,
+                                raw_extrema)
     if not feats.is_cuda or ids.device != feats.device \
             or degrees.device != feats.device:
         raise InvalidArgumentError(
@@ -114,10 +149,7 @@ def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
             % (feats.dtype, out_dtype))
     if not feats.is_contiguous():
         raise InvalidArgumentError("segment_spmm: feats must be contiguous")
-    out = torch.empty((ids.shape[0], feats.shape[1]), dtype=out_dtype,
-                      device=feats.device)
-    if out.numel() == 0:
-        return out
+    return _segment_spmm_op(feats, ids, degrees, agg, out_dtype, raw_extrema)
     args = kernel_args(feats, ids, degrees, agg, out, raw_extrema)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream

@@ -32,7 +32,8 @@ from typing import Tuple
 import torch
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
-from graph_learn_tpu_torch.ops.kernels.build import LaunchCounter, library
+from graph_learn_tpu_torch.ops.kernels.build import (LaunchCounter, library,
+                                                 refuse_export)
 
 LAUNCHES_SWEEP = LaunchCounter("sweep_aggregate")
 LAUNCHES_STREAM = LaunchCounter("stream_sum")
@@ -134,6 +135,7 @@ def sweep_aggregate(starts: torch.Tensor, packed: torch.Tensor,
 
     On the card the adds of one group arrive in an order that changes from
     run to run, so two runs may differ in the last bits."""
+    refuse_export("sweep_aggregate")
     _check_table("sweep_aggregate", table)
     check_slab_rows(R)
     n_slabs = -(-table.shape[0] // R)
@@ -183,6 +185,7 @@ def sweep_aggregate(starts: torch.Tensor, packed: torch.Tensor,
 def stream_sum(table: torch.Tensor) -> torch.Tensor:
     """The whole table summed over its rows -> [1, D] f32: what reading
     the table once costs."""
+    refuse_export("stream_sum")
     _check_table("stream_sum", table)
     if table.device.type == "cpu":
         return stream_sum_plain(table)

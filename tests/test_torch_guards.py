@@ -3,6 +3,7 @@ entry points never fall back to the CPU on their own, and chip_smoke.py
 refuses to report without a card."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -25,6 +26,9 @@ from graph_learn_tpu_torch.nn.checkpoint import Checkpointer
 from graph_learn_tpu_torch.nn.trainer import LocalTrainer
 from graph_learn_tpu_torch.ops import knn
 from graph_learn_tpu_torch.ops.kernels import build
+from graph_learn_tpu_torch.online import loader_main, serve_main
+from graph_learn_tpu_torch.online.export import export_serving_fn
+from graph_learn_tpu_torch.online.http import ServingServer
 from torch_parity import numpy_graph, torch_graph, two_hop
 
 REPO = Path(__file__).resolve().parents[1]
@@ -112,7 +116,9 @@ def no_card(monkeypatch):
                                    "seal_model", "sage_link", "knn_index",
                                    "knn_build", "graph_load", "host_dataset",
                                    "host_trainer", "torch_dataset",
-                                   "torch_loader", "checkpointer"])
+                                   "torch_loader", "checkpointer",
+                                   "serve", "serve_main", "serving_server",
+                                   "install_model", "export_serving_fn"])
 def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
                                            tmp_path):
     monkeypatch.delenv("GLT_PLATFORM", raising=False)
@@ -149,12 +155,46 @@ def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
         "torch_loader": lambda: torch_bridge.torch_loader(
             two_hop(g, 2, 2, batch=8)),
         "checkpointer": lambda: Checkpointer(str(tmp_path / "ck")),
+        "serve": lambda: serve_main.serve(cfg, block=False),
+        "serve_main": lambda: serve_main.main(["--config", str(cfg_path)]),
+        "serving_server": lambda: ServingServer(g),
+        "install_model": lambda: glt.QueryService(g).install_model(
+            "m", b"PK\x03\x04"),
+        "export_serving_fn": lambda: export_serving_fn(
+            lambda seeds, generator: seeds, (np.arange(4), 0)),
     }
+    cfg = {"nodes": [], "edges": [], "port": 0}  # "device" defaults to cuda
+    cfg_path = tmp_path / "serve.json"
+    cfg_path.write_text(json.dumps(cfg))
     snap = tmp_path / "snap"
     if entry == "graph_load":
         g.save(str(snap))  # a real snapshot: the device is what fails
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         calls[entry]()
+
+
+ONLINE_MODULES = ("update", "serving", "export", "stream", "http", "router",
+                  "serve_main", "loader_main")
+
+
+def test_the_online_modules_are_in_the_guards_scope():
+    sources = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for name in ONLINE_MODULES:
+        assert "graph_learn_tpu_torch/online/%s.py" % name in sources
+    assert "graph_learn_tpu_torch/examples/serving_demo.py" in sources
+
+
+def test_the_loader_needs_no_card(no_card, monkeypatch, tmp_path, capsys):
+    """loader_main is the dataloader's host work (parse, partition,
+    publish): it runs where there is no card, as the JAX loader does."""
+    monkeypatch.delenv("GLT_PLATFORM", raising=False)
+    nodes = tmp_path / "nodes"
+    nodes.write_text("id:int64\n1\n2\n3\n")
+    topic = str(tmp_path / "topic")
+    assert loader_main.main(["load", "--topic", topic, "--partitions", "2",
+                             "--nodes", "item=%s" % nodes]) == 0
+    assert loader_main.main(["offsets", "--topic", topic]) == 0
+    assert "published 3 rows" in capsys.readouterr().out
 
 
 def test_cpu_service_works_without_a_card(no_card):
@@ -576,6 +616,44 @@ def test_chip_smoke_main_runs_phase_20():
     assert {"file_tier_path", "sampler_api_path", "knn_path"} <= called
     merged = {n.id for n in ast.walk(main) if isinstance(n, ast.Name)}
     assert {"file_rows", "sampler_rows"} <= merged
+
+
+def test_chip_smoke_main_runs_phase_22():
+    """main() drives the online tier after phase 20."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    main = next(f for f in tree.body
+                if isinstance(f, ast.FunctionDef) and f.name == "main")
+    called = [n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert "online_path" in called
+    assert called.index("online_path") > called.index("knn_path")
+
+
+def test_chip_smoke_online_path_rehearses_on_the_cpu(capsys):
+    """Phase 22 at a small size on the CPU: the worker from its TSV files,
+    HTTP clients through clients/py, the stream with the live-snapshot
+    and CSR checks, the export through /admin/model (the StableHLO
+    fixture refused), the router; on the CPU no kernel launches."""
+    from graph_learn_tpu_torch.ops.kernels import gather, spmm
+    smoke = _chip_smoke_module()
+    old = glt.conf.feature_dtype
+    glt.conf.feature_dtype = "bfloat16"
+    try:
+        with bench.bench_conf(storage_profile="full"):
+            counts = smoke.online_path(torch, "the CPU", gather, spmm,
+                                       n_nodes=1500, feat_dim=8,
+                                       device="cpu", edge_batch=300,
+                                       new_nodes=40)
+    finally:
+        glt.conf.feature_dtype = old
+    zero = {"gather_rows": 0, "segment_spmm": 0}
+    assert counts == {"http_serving": zero, "predict": zero,
+                      "router": zero, "one_predict": zero}
+    out = capsys.readouterr().out
+    for line in ("online store", "online HTTP serving", "online stream",
+                 "bit-equal to an in-memory build", "online export",
+                 "online router", "glt_online launches"):
+        assert line in out, line
 
 
 def test_chip_smoke_fails_off_the_native_ingest_route():

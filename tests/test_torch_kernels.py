@@ -299,3 +299,73 @@ def test_kernel_args_at_the_main_path_shapes(d, dtype, out_dtype):
     # launch still
     raw = spmm.kernel_args(feats, ids, deg, "max", out, raw_extrema=True)
     assert raw[:10] == args[:10] and raw[10:] == (spmm.AGGS.index("max"), 1)
+
+
+# --- Kernels 1-2 as torch.library operators --------------------------------
+
+def test_the_operators_give_the_plain_result_on_the_cpu():
+    feats, ids, deg = _spmm_inputs(8, seed=11)
+    table = torch.from_numpy(feats)
+    idx = torch.from_numpy(ids[:, 0].copy())
+    assert torch.equal(torch.ops.glt.gather_rows(table, idx),
+                       gather.gather_rows_plain(table, idx))
+    bad = torch.from_numpy(ids).long()
+    bad[0, 0] = 10_000  # clipped into the table, as the wrapper clips
+    for agg in AGGS:
+        got = torch.ops.glt.segment_spmm(table, bad, torch.from_numpy(deg),
+                                         agg, torch.bfloat16, False)
+        want = spmm.segment_spmm_plain(
+            table, *spmm.clip(bad, torch.from_numpy(deg), 60), agg,
+            torch.bfloat16)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_the_operators_fakes_give_the_real_shape_and_dtype(dtype):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    feats, ids, deg = _spmm_inputs(8)
+    real = (torch.from_numpy(feats).to(dtype), torch.from_numpy(ids),
+            torch.from_numpy(deg))
+    want_g = torch.ops.glt.gather_rows(real[0], real[1][:, 0].contiguous())
+    want_s = torch.ops.glt.segment_spmm(*real, "mean", torch.float32, False)
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(t) for t in real]
+        got_g = torch.ops.glt.gather_rows(fake[0], fake[1][:, 0].contiguous())
+        got_s = torch.ops.glt.segment_spmm(*fake, "mean", torch.float32,
+                                           False)
+    assert (got_g.shape, got_g.dtype) == (want_g.shape, want_g.dtype)
+    assert (got_s.shape, got_s.dtype) == (want_s.shape, want_s.dtype)
+    # the checks the library runs on an operator's fake and its kernels
+    torch.library.opcheck(torch.ops.glt.gather_rows.default,
+                          (real[0], real[1][:, 0].contiguous()))
+    torch.library.opcheck(torch.ops.glt.segment_spmm.default,
+                          (*real, "sum", torch.float32, True))
+
+
+@pytest.mark.parametrize("call", ["gather", "spmm"])
+def test_the_wrappers_go_through_the_operators(call, monkeypatch):
+    """One wrapper call is one operator call (on the card: one launch),
+    and a table that requires a gradient never reaches it."""
+    seen = []
+    name = "gather_rows" if call == "gather" else "segment_spmm"
+    mod = gather if call == "gather" else spmm
+    op = getattr(mod, "_%s_op" % name)
+    monkeypatch.setattr(mod, "_%s_op" % name,
+                        lambda *a: (seen.append(a), op(*a))[1])
+    table = torch.zeros((10, 4))
+    idx = torch.zeros((3, 2), dtype=torch.int32)
+    deg = torch.ones(3, dtype=torch.int32)
+
+    def run(t):
+        if call == "gather":
+            return gather.gather_rows(t, idx[:, 0].contiguous())
+        return spmm.segment_spmm(t, idx, deg, agg="mean")
+
+    run(table)
+    assert len(seen) == 1
+    with pytest.raises(InvalidArgumentError, match="gradient"):
+        run(table.requires_grad_())
+    assert len(seen) == 1
+    before = (gather.LAUNCHES.count, spmm.LAUNCHES.count)
+    run(table.detach())
+    assert (gather.LAUNCHES.count, spmm.LAUNCHES.count) == before
