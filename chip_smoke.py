@@ -150,9 +150,11 @@ Phases (any failure exits non-zero before the result line):
    feature rows materialised once through its DeferredRows (one
    gather_rows launch, bit-equal to the plain version) and Kernel 1 timed
    cold at those 20 480 rows;
-17. run the node2vec, UltraGCN and TGN examples at their defaults (node2vec
-   walks on the example's undirected store held to its edges and to their
-   step shares first): the label coherence above 1/7, Recall@20 above that
+17. run the node2vec, UltraGCN and TGN examples at their defaults, each
+   from the TSV files it writes (its store bit-equal to its in-memory twin
+   of the same draws read back from their text; node2vec walks on the
+   example's undirected store held to its edges and to their step shares
+   first): the label coherence above 1/7, Recall@20 above that
    of random scores, the pairwise AUC above 0.5, and TGN's item features
    on Kernel 1, two launches a step;
 18. (run inside phase 12, on its store, before that store is freed)
@@ -190,14 +192,17 @@ Phases (any failure exits non-zero before the result line):
    step), device busy, kernels a step and 2 gather_rows a step from the
    profiler; Kernel 1 cold at the step's 896 rows of the [235 868, 128]
    table against its bound, plain version and index_select; then the
-   planted 400-node set of tests/test_real_datasets.py for 150 steps,
-   hits@50 at least 0.6.  (b) Inside phase 11, on its weighted 61.25M-edge
-   "minimal" store: V("item").batch(1024).SubGraph("rel", need_dist=True)
-   with the default cap of 100, one answer held exactly to the host
+   planted 400-node set of tests/test_real_datasets.py written as
+   ogbl-collab tables, 150 steps through --collab_dir (the store
+   bit-equal to its in-memory twin), hits@50 at least 0.6.  (b) Inside
+   phase 11, on its weighted 61.25M-edge "minimal" store:
+   V("item").batch(1024).SubGraph("rel", need_dist=True) with the
+   default cap of 100, one answer held exactly to the host
    induction (the rows cut at the cap counted), its node rows materialised
    by one gather_rows launch bit-equal to the plain version, and the ms a
    query.  (c) examples/sage_unsupervised.py at its defaults (cora_like 800
-   nodes, batch 128, 16 full neighbours, 32 wide, 2 epochs x 30 steps
+   nodes from its TSV files, the store bit-equal to its in-memory twin;
+   batch 128, 16 full neighbours, 32 wide, 2 epochs x 30 steps
    through LocalTrainer): every loss finite, 2 gather_rows a step (one per
    edge-star BatchGraph), link accuracy above 0.5;
 20. file ingest, the pre-GSL sampler API and k-NN, after phase 19.  (a)
@@ -273,10 +278,10 @@ Phases (any failure exits non-zero before the result line):
    online/serve_main.py serve(device="cuda") from those files with a
    2-partition FileTopic and its update pump (polled every 0.2 s); the
    2-hop [15, 10] random query installed over HTTP with the unchanged
-   clients/py/gsl_client.py; 8 concurrent HTTP clients x 32 requests of
+   clients/py/gsl_client.py; 8 concurrent HTTP clients x 16 requests of
    1..4 ids (each JSON answer carries every alias's feature rows, about
    0.25 MB of text a seed): p50 / p99 / max ms and seeds/s.  (b) With the
-   clients running again, 1 000 new nodes with features and then 5
+   clients running again, 1 000 new nodes with features and then 3
    batches of 10 000 weighted edges streamed with StreamProducer: each
    ingest's apply_updates, host CSR and upload seconds, the staleness
    from put_edges to the first answer of a topk probe query that reaches
@@ -294,7 +299,35 @@ Phases (any failure exits non-zero before the result line):
    refused; bytes, export and load seconds, /predict p50 / p99.  (d) A
    ServingRouter over that worker and a second in-process worker on a
    replica of its store: a topk answer stitched over both owners equal to
-   one worker's, an update fanned out to both and served by both.
+   one worker's, an update fanned out to both and served by both;
+23. the examples on the reference's file layouts, after phase 21d, f32.
+   (a) The reference Cora configuration (tests/test_real_datasets.py:
+   249-275) at full width: cora_like(2 708, 7 classes, 1 433 features)
+   files through examples/ego_sage_supervised.py (fanout [25, 10], gcn,
+   hidden 128, batch 140, Adam 0.05, dropout 0.5, 40 epochs): test
+   accuracy at least 0.88, 2 gather_rows + 1 segment_spmm a step over the
+   steps and the evaluated batches, ms a step; then one training batch's
+   rows: Kernel 1 at its 140 src and 3 500 hop-1 rows of the [2 708,
+   1 433] f32 table (rows of 5 732 bytes: the lane groups' 4-byte route)
+   and Kernel 2 at its [3 500, 10] hop-2 means, each against its plain
+   version, one kernel a call, cold against its bound, plain version and
+   index_select / embedding_bag, with the route the kernel's name says.
+   (b) Cora's raw layout: cora.content / cora.cites drawn at Cora's
+   counts (2 708 papers with ids that are not contiguous, 5 429
+   citations, 1 433 binary words, the 7 class names), through
+   examples/data/cora.py prepare_cora and ego_sage_supervised.load_graph:
+   ids, row-normalised features, the uniform cum_weights of the zero
+   weights and the 140 / 300 / 1 000 splits held to the raw files; 2
+   epochs, losses finite, launches as in (a).  (c) SEAL through
+   --collab_dir at ogbl-collab's counts: seal.planted_collab(235 868,
+   1 179 052, 60 084, 46 329, 100 000) 128 wide, written by
+   examples/data/ogbl_collab.py write_collab_tables (bytes, seconds; in a
+   child process started with phase 15, while the card runs phases
+   15-21d), then
+   seal.run for 150 steps of batch 64: the loaded store bit-equal to
+   build_graph of the same draws, 2 gather_rows a step and 1 a scored
+   batch, init / train / scoring seconds, hits@50 finite and above that
+   of random scores on the same pairs.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -332,7 +365,13 @@ and 2, Kernel 1's ``host_tier_ms_step``, ``host_agg_tier_ms_step``,
 reorder's ``reorder_cold_ms_before`` / ``_after`` with their bounds,
 plain and library times and mean neighbour distances, and the TSV
 examples' ``tsv_*_launches_per_step`` and ``tsv_*_test_accuracy`` on
-Kernels 1-3).
+Kernels 1-3; phase 23's ``cora_ref_launches_per_step``,
+``cora_ref_test_accuracy`` and ``cora_ref_ms_step`` on Kernels 1 and 2,
+Kernel 1's ``cold_ms_cora_140`` / ``_3500`` and Kernel 2's
+``cold_ms_cora_spmm``, each with its ``bound_ms_cora_*``,
+``plain_cold_ms_cora_*``, ``library_cold_ms_cora_*`` and
+``kernel_route_cora_*``, and Kernel 1's ``collab_files_hits_at_50`` and
+``collab_files_launches_per_step``).
 """
 
 from __future__ import annotations
@@ -607,7 +646,9 @@ def check_bounds(rows):
     cold call at the 62M table, Kernel 1's cold calls at the row counts
     the paths launch (``ms_1024`` under ``bound_ms_1024``,
     ``cold_ms_62m_15360`` under ``bound_ms_62m_15360``, ...) and Kernel
-    2's cold sum (``ms_sum``) and rgcn means (``cold_ms_rgcn``).  The bounds
+    2's cold sum (``ms_sum``), rgcn means (``cold_ms_rgcn``) and Cora means
+    (``cold_ms_cora_spmm``), and Kernel 1 at the Cora rows
+    (``cold_ms_cora_140``, ``cold_ms_cora_3500``).  The bounds
     count device-memory bytes, so the times held to them are those of
     calls whose rows come from device memory: cold where the rows fit the
     L2 (Kernels 1 and 2 at the 200k table), and the warm figures
@@ -617,7 +658,8 @@ def check_bounds(rows):
              ("bar_ms", "bar_bound_ms"), ("cold_ms_62m", "bound_ms_62m"),
              ("ms_sum", "bound_ms_sum"), ("cold_ms_rgcn", "bound_ms_rgcn"),
              ("reorder_cold_ms_before", "reorder_bound_ms_before"),
-             ("reorder_cold_ms_after", "reorder_bound_ms_after"))
+             ("reorder_cold_ms_after", "reorder_bound_ms_after"),
+             ("cold_ms_cora_spmm", "bound_ms_cora_spmm"))
     pairs += tuple(pair for m in (GATHER_PATH_ROWS + RGCN_GATHER_ROWS
                                   + WALK_GATHER_ROWS + CAT_GATHER_ROWS
                                   + SEAL_GATHER_ROWS)
@@ -628,6 +670,8 @@ def check_bounds(rows):
                                  "bound_ms_cond_%d" % m),
                                 ("cold_ms_seal_%d" % m,
                                  "bound_ms_seal_%d" % m)))
+    pairs += tuple(("cold_ms_cora_%d" % m, "bound_ms_cora_%d" % m)
+                   for m in CORA_GATHER_ROWS)
     pairs += tuple(pair for label in GAT_TGAT_SHAPES
                    for pair in (("ms_" + label, "bound_ms_" + label),
                                 ("bwd_ms_" + label, "bwd_bound_ms_" + label)))
@@ -707,14 +751,16 @@ def gather_kernels(torch, calls, where):
 
 
 def gather_shapes(torch, gather, table, gen, where, rows=GATHER_PATH_ROWS,
-                  warm_rows=(), given=None, yardsticks=()):
+                  warm_rows=(), given=None, yardsticks=(), distinct=False):
     """Kernel 1 at ``rows`` random rows of ``table`` (the ids in ``given``
     [m] where it has them): exact against the plain version, one kernel a
     call (``gather_kernels``; its route, ``bulk`` or ``lanes``), the cold
     time (L2 flushed, stream held) and its bound (each row read once and
     written once, plus the ids); warm (50 calls on the same ids) where
     ``m`` is in ``warm_rows``; the plain version and ``index_select`` cold
-    where it is in ``yardsticks``.  Returns {m: fields}."""
+    where it is in ``yardsticks``; with ``distinct`` the bound reads each
+    distinct row once (a table that the L2 holds serves the repeats).
+    Returns {m: fields}, the kernel's (mangled) name under ``kernel``."""
     n, d = table.shape
     ids = {}
     for m in rows:
@@ -731,9 +777,10 @@ def gather_shapes(torch, gather, table, gen, where, rows=GATHER_PATH_ROWS,
     for m, name in zip(rows, kernels):
         def call(i=ids[m]):
             return gather.gather_rows(table, i)
-        moved = 2 * m * d * table.element_size() + 4 * m
+        reads = int(torch.unique(ids[m]).numel()) if distinct else m
+        moved = (reads + m) * d * table.element_size() + 4 * m
         f = dict(ms=time_cold_ms(call), bound_ms=bound(moved, 0)[0],
-                 route="bulk" if "bulk" in name else "lanes")
+                 route="bulk" if "bulk" in name else "lanes", kernel=name)
         if m in warm_rows:
             f["warm_ms"] = time_ms(call, hold=True)
         if m in yardsticks:
@@ -1374,11 +1421,12 @@ def spmm_work(torch, spmm, where, table, ids, deg):
     return {"work_per_call": work}
 
 
-def spmm_shape(torch, spmm, table, ids, op, where):
+def spmm_shape(torch, spmm, table, ids, op, where, distinct=False):
     """Kernel 2 at one shape, ids [G, k] of ``table`` reduced with ``op``
     into f32: against the plain version (rtol = atol = 1e-5: f32 sums in
     other orders), cold (L2 flushed) with its bound (each row read once,
-    the ids and degrees, the f32 output written once), and the plain
+    the ids and degrees, the f32 output written once; with ``distinct``
+    each distinct row once, where the L2 holds the table), and the plain
     version and ``embedding_bag`` cold."""
     import torch.nn.functional as F
     g, k = ids.shape
@@ -1390,7 +1438,8 @@ def spmm_shape(torch, spmm, table, ids, op, where):
     check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
           "segment_spmm %s, [%d, %d] %s: max err %g" % (where, g, k, op, err))
     nnz = g * k
-    b, by = bound(nnz * d * table.element_size() + nnz * 4 + g * 4
+    reads = int(torch.unique(ids).numel()) if distinct else nnz
+    b, by = bound(reads * d * table.element_size() + nnz * 4 + g * 4
                   + g * d * 4, nnz * d + (g * d if op == "mean" else 0))
     f = dict(
         ms=time_cold_ms(lambda: spmm.segment_spmm(table, ids, deg, op,
@@ -4179,81 +4228,104 @@ N2V_SHARE_WALKS = 512
 
 def examples_path(torch, card, gather):
     """``examples/node2vec.py``, ``ultra_gcn.py`` and ``tgn.py`` at their
-    defaults on the card, each quality number above chance: the label
-    coherence above 1/7, Recall@20 above that of random scores, the
-    pairwise AUC above 0.5; TGN's item features on Kernel 1, two launches
-    a step.  Before them, node2vec walks (the example's p = q = 0.25) on
-    the example's undirected store, held to its edges and to their step
-    shares.  Returns the kernels line's fields."""
+    defaults on the card, each from the TSV files it writes into a
+    temporary ``--data_dir`` (its store from them bit-equal to its
+    in-memory twin of the same draws read back from their text), each
+    quality number above chance: the label coherence above 1/7, Recall@20
+    above that of random scores, the pairwise AUC above 0.5; TGN's item
+    features on Kernel 1, two launches a step.  Before them, node2vec
+    walks (the example's p = q = 0.25) on the example's undirected store,
+    held to its edges and to their step shares.  Returns the kernels
+    line's fields."""
+    import tempfile
+
+    from graph_learn_tpu_torch.examples import bipartite_sage
     from graph_learn_tpu_torch.examples import node2vec as n2v
     from graph_learn_tpu_torch.examples import tgn, ultra_gcn
     from graph_learn_tpu_torch.examples.bipartite_sage import u2i_arrays
     from graph_learn_tpu_torch.ops import walk as walk_ops
 
-    a = n2v.cora_like()
-    g, _ = n2v.build_graph(a, "cuda")
-    et = g.store.edge_table("relation")
-    n = g.store.node_table("item").num_nodes
-    keys = edge_keys(et.src, et.dst, n)
-    gen = torch.Generator(device="cuda").manual_seed(29)
-    seeds = torch.randint(0, n, (N2V_SHARE_WALKS,), generator=gen,
-                          device="cuda", dtype=torch.int32)
-    walks = walk_ops.node2vec_walk(et.device("cuda").out, seeds, 10, gen,
-                                   p=0.25, q=0.25).cpu().numpy()
-    steps, stuck = walk_invariants(walks, seeds.cpu().numpy(), keys, n)
-    obs, exp = node2vec_shares(walks, keys, n, 0.25, 0.25,
-                               walk_ops.NUM_TRIES)
-    pv = share_p_value(obs, exp)
-    check(pv > WALK_SHARE_P and obs[0] > 0 and obs[1] > 0,
-          "node2vec shares on the example store: %s, expected %s (p = %g)"
-          % (obs, exp, pv))
-    log("node2vec walks on the example's undirected store (%d nodes, %d "
-        "edges both ways; %d walks of 10, p = q = 0.25): %d steps are "
-        "edges, %d walkers stuck; steps returning / to a neighbour of the "
-        "previous node / elsewhere %s, expected %s (chi-square p %.3g)"
-        % (n, et.num_edges, N2V_SHARE_WALKS, steps, stuck,
-           obs.astype(int).tolist(), [round(float(x), 1) for x in exp], pv))
+    where = tempfile.mkdtemp(prefix="glt_examples_")
+    try:
+        dirs = {k: os.path.join(where, k) for k in ("cora_like", "u2i", "tgn")}
+        g, _ = n2v.load(dirs["cora_like"], device="cuda")
+        same_store(torch, g, n2v.build_graph(n2v.cora_like(text=True),
+                                             "cuda")[0], "node2vec files")
+        et = g.store.edge_table("relation")
+        n = g.store.node_table("item").num_nodes
+        keys = edge_keys(et.src, et.dst, n)
+        gen = torch.Generator(device="cuda").manual_seed(29)
+        seeds = torch.randint(0, n, (N2V_SHARE_WALKS,), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        walks = walk_ops.node2vec_walk(et.device("cuda").out, seeds, 10, gen,
+                                       p=0.25, q=0.25).cpu().numpy()
+        steps, stuck = walk_invariants(walks, seeds.cpu().numpy(), keys, n)
+        obs, exp = node2vec_shares(walks, keys, n, 0.25, 0.25,
+                                   walk_ops.NUM_TRIES)
+        pv = share_p_value(obs, exp)
+        check(pv > WALK_SHARE_P and obs[0] > 0 and obs[1] > 0,
+              "node2vec shares on the example store: %s, expected %s (p = %g)"
+              % (obs, exp, pv))
+        log("node2vec walks on the example's undirected store from its TSV "
+            "files (bit-equal to its in-memory twin; %d nodes, %d edges both "
+            "ways; %d walks of 10, p = q = 0.25): %d steps are "
+            "edges, %d walkers stuck; steps returning / to a neighbour of the "
+            "previous node / elsewhere %s, expected %s (chi-square p %.3g)"
+            % (n, et.num_edges, N2V_SHARE_WALKS, steps, stuck,
+               obs.astype(int).tolist(), [round(float(x), 1) for x in exp],
+               pv))
 
-    t0 = time.perf_counter()
-    coherence = n2v.main([])
-    log("node2vec example (5 epochs, batch 128, walks of 10, window 5, 5 "
-        "negatives; nothing cut): label coherence %.3f (chance %.3f) in "
-        "%.1f s; card: %s" % (coherence, 1.0 / n2v.CLASSES,
-                              time.perf_counter() - t0, card))
-    check(coherence > 1.0 / n2v.CLASSES, "node2vec: label coherence %.3f "
-          "not above chance" % coherence)
+        t0 = time.perf_counter()
+        coherence = n2v.main(["--data_dir", dirs["cora_like"]])
+        log("node2vec example (5 epochs, batch 128, walks of 10, window 5, 5 "
+            "negatives; nothing cut): label coherence %.3f (chance %.3f) in "
+            "%.1f s; card: %s" % (coherence, 1.0 / n2v.CLASSES,
+                                  time.perf_counter() - t0, card))
+        check(coherence > 1.0 / n2v.CLASSES, "node2vec: label coherence %.3f "
+              "not above chance" % coherence)
 
-    t0 = time.perf_counter()
-    recall = ultra_gcn.main([])
-    u2i = u2i_arrays(feat_dim=16)
-    rng = np.random.default_rng(0)
-    chance = ultra_gcn.recall_at(
-        rng.standard_normal((u2i["u_feat"].shape[0], 64)),
-        rng.standard_normal((u2i["i_feat"].shape[0], 64)),
-        u2i["ui_src"], u2i["ui_dst"])
-    log("ultra_gcn example (400 steps of batch 512, 20 negatives; nothing "
-        "cut): Recall@20 %.4f, random scores %.4f, in %.1f s; card: %s"
-        % (recall, chance, time.perf_counter() - t0, card))
-    check(recall > chance, "ultra_gcn: Recall@20 %.4f not above random "
-          "scores' %.4f" % (recall, chance))
+        t0 = time.perf_counter()
+        recall = ultra_gcn.main(["--data_dir", dirs["u2i"]])
+        twin = bipartite_sage.build_graph(u2i_arrays(feat_dim=16, text=True),
+                                          "cuda")[0]
+        same_store(torch, bipartite_sage.load(dirs["u2i"], 16, "cuda")[0],
+                   twin, "ultra_gcn files")
+        u2i = u2i_arrays(feat_dim=16)
+        rng = np.random.default_rng(0)
+        chance = ultra_gcn.recall_at(
+            rng.standard_normal((u2i["u_feat"].shape[0], 64)),
+            rng.standard_normal((u2i["i_feat"].shape[0], 64)),
+            u2i["ui_src"], u2i["ui_dst"])
+        log("ultra_gcn example (its u2i TSV files, the store bit-equal to its "
+            "in-memory twin; 400 steps of batch 512, 20 negatives; nothing "
+            "cut): Recall@20 %.4f, random scores %.4f, in %.1f s; card: %s"
+            % (recall, chance, time.perf_counter() - t0, card))
+        check(recall > chance, "ultra_gcn: Recall@20 %.4f not above random "
+              "scores' %.4f" % (recall, chance))
 
-    gather.LAUNCHES.reset()
-    t0 = time.perf_counter()
-    auc = tgn.main([])
-    launches = gather.LAUNCHES.count
-    # 3 epochs of 31 batches of 128 of the 4 000 events, 2 gathers a step
-    tgn_steps = 3 * len(range(0, 4000 - 128, 128))
-    log("tgn example (3 epochs, batch 128, 5 recency neighbours; nothing "
-        "cut): pairwise AUC of the last quarter %.3f in %.1f s; %d "
-        "gather_rows launches over %d steps; card: %s"
-        % (auc, time.perf_counter() - t0, launches, tgn_steps, card))
-    check(auc > 0.5, "tgn: pairwise AUC %.3f not above 0.5" % auc)
-    check(launches == 2 * tgn_steps, "tgn: %d gather_rows launches, want "
-          "2 a step over %d steps" % (launches, tgn_steps))
-    return {"gather_rows": {"tgn_launches_per_step": launches / tgn_steps,
-                            "node2vec_coherence": coherence,
-                            "ultra_gcn_recall_at_20": recall,
-                            "tgn_pairwise_auc": auc}}
+        gather.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        auc = tgn.main(["--data_dir", dirs["tgn"]])
+        launches = gather.LAUNCHES.count
+        same_store(torch, tgn.load(dirs["tgn"]),
+                   tgn.build_graph(tgn.gen_temporal_u2i(), "cuda"),
+                   "tgn files")
+        # 3 epochs of 31 batches of 128 of the 4 000 events, 2 gathers a step
+        tgn_steps = 3 * len(range(0, 4000 - 128, 128))
+        log("tgn example (its TSV files, the store bit-equal to its in-memory "
+            "twin; 3 epochs, batch 128, 5 recency neighbours; nothing "
+            "cut): pairwise AUC of the last quarter %.3f in %.1f s; %d "
+            "gather_rows launches over %d steps; card: %s"
+            % (auc, time.perf_counter() - t0, launches, tgn_steps, card))
+        check(auc > 0.5, "tgn: pairwise AUC %.3f not above 0.5" % auc)
+        check(launches == 2 * tgn_steps, "tgn: %d gather_rows launches, want "
+              "2 a step over %d steps" % (launches, tgn_steps))
+        return {"gather_rows": {"tgn_launches_per_step": launches / tgn_steps,
+                                "node2vec_coherence": coherence,
+                                "ultra_gcn_recall_at_20": recall,
+                                "tgn_pairwise_auc": auc}}
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4374,8 +4446,9 @@ def seal_path(torch, card, gather):
     eager and in one CUDA graph from the same state, losses bit-equal,
     with ms a step, subgraphs/s, device busy, kernels and Kernel 1
     launches per replayed step; Kernel 1 cold at the step's 896 rows; then
-    the planted 400-node set for 150 steps, hits@50 at least 0.6.
-    Returns the kernels line's fields."""
+    the planted 400-node set written as ogbl-collab tables, 150 steps
+    through ``--collab_dir`` (the store bit-equal to its in-memory twin),
+    hits@50 at least 0.6.  Returns the kernels line's fields."""
     from graph_learn_tpu_torch import bench
     from graph_learn_tpu_torch.examples import seal
     from graph_learn_tpu_torch.ops.kernels import dispatch
@@ -4540,14 +4613,31 @@ def seal_path(torch, card, gather):
                            given={node_ids.numel(): node_ids},
                            yardsticks=SEAL_GATHER_ROWS)
 
-    # 5. quality: the planted 400-node set, 150 steps, hits@50
-    t0 = time.perf_counter()
-    hits = seal.main(["--planted", "--steps", str(SEAL_QUALITY_STEPS)])
-    log("seal on the planted 400-node set (%d steps of batch 64, as "
-        "tests/test_real_datasets.py runs the JAX example): hits@50 %.4f "
-        "(bar %.2f) in %.1f s; card: %s"
-        % (SEAL_QUALITY_STEPS, hits, SEAL_HITS_BAR,
-           time.perf_counter() - t0, card))
+    # 5. quality: the planted 400-node set written as ogbl-collab tables,
+    # 150 steps through --collab_dir, hits@50
+    import tempfile
+
+    from graph_learn_tpu_torch.examples.data import ogbl_collab
+    p = seal.planted_collab()
+    where = tempfile.mkdtemp(prefix="glt_seal_collab_")
+    try:
+        ogbl_collab.write_collab_tables(
+            where, p["train"], np.ones(len(p["train"])), p["valid"],
+            p["valid_neg"], p["test"], p["test_neg"], p["feats"])
+        t0 = time.perf_counter()
+        hits = seal.main(["--collab_dir", where, "--steps",
+                          str(SEAL_QUALITY_STEPS)])
+        wall = time.perf_counter() - t0
+        same_store(torch, seal.load_collab(where), seal.build_graph(
+            p["feats"], p["train"][:, 0], p["train"][:, 1], "cuda"),
+            "seal collab files")
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    log("seal --collab_dir on the planted 400-node set written as "
+        "ogbl-collab tables (the store bit-equal to its in-memory twin; %d "
+        "steps of batch 64, as tests/test_real_datasets.py runs the JAX "
+        "example): hits@50 %.4f (bar %.2f) in %.1f s; card: %s"
+        % (SEAL_QUALITY_STEPS, hits, SEAL_HITS_BAR, wall, card))
     check(hits >= SEAL_HITS_BAR, "seal: hits@50 %.4f under %.2f"
           % (hits, SEAL_HITS_BAR))
     fields = {"seal_launches_per_step": rows["graph"]["k1"],
@@ -4631,16 +4721,26 @@ def subgraph_query_path(torch, card, gather, graph):
 
 def sage_unsup_path(torch, card, gather):
     """``examples/sage_unsupervised.py`` at its defaults on the card
-    (cora_like 800 nodes, batch 128, 16 ``full`` neighbours, 32-wide
-    features): LocalTrainer for 2 epochs of 30 steps, every loss finite,
-    Kernel 1 at 2 launches a step (each edge-star BatchGraph gathers its
-    rows once), and the link accuracy above 0.5.  Returns the kernels
-    line's fields."""
+    (cora_like 800 nodes from the TSV files ``load`` writes, its store
+    bit-equal to the in-memory twin; batch 128, 16 ``full`` neighbours,
+    32-wide features): LocalTrainer for 2 epochs of 30 steps, every loss
+    finite, Kernel 1 at 2 launches a step (each edge-star BatchGraph
+    gathers its rows once), and the link accuracy above 0.5.  Returns the
+    kernels line's fields."""
+    import tempfile
+
     from graph_learn_tpu_torch.examples import node2vec as n2v
     from graph_learn_tpu_torch.examples import sage_unsupervised as su
     from graph_learn_tpu_torch.nn.trainer import LocalTrainer
 
-    g, dec = su.build_graph(n2v.cora_like(n=800, feat_dim=32), "cuda")
+    where = tempfile.mkdtemp(prefix="glt_sage_unsup_")
+    try:
+        g, dec = su.load(where, 32, "cuda")
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    same_store(torch, g, su.build_graph(n2v.cora_like(
+        n=su.NODES, feat_dim=32, text=True), "cuda")[0],
+        "sage_unsupervised files")
     q = su.build_query(g, 128, 16)
     model = su.SageLink(dec, 32, 32, 32, device="cuda")
     tr = LocalTrainer(device="cuda")
@@ -4666,7 +4766,8 @@ def sage_unsup_path(torch, card, gather):
           "sage_unsupervised: %s gather_rows launches a step (want 2), "
           "epoch losses %s" % (per_step, history))
     acc = tr.evaluate(q, model, su.link_accuracy)
-    log("sage_unsupervised (edge stars, batch 128, 16 full neighbours, "
+    log("sage_unsupervised (from its TSV files, the store bit-equal to its "
+        "in-memory twin; edge stars, batch 128, 16 full neighbours, "
         "GraphSAGE [32, 32, 32], %d epochs of at most %d steps: %d steps, "
         "every loss finite): epoch losses %s, %.3f ms a step on the host "
         "clock, %.0f gather_rows a step; link accuracy (pos > neg) %.4f; "
@@ -5891,9 +5992,7 @@ def tsv_examples_path(torch, card, gather, spmm, gat):
             evals = -(-store.node_set(mask_type("item", gl.Mask.TEST)).size
                       // b)
             per = TSV_PER_STEP[name]
-            want = {k: per.get(k, 0) * steps
-                    + (per.get(k, 0) * evals if k != "gat_block_bwd" else 0)
-                    for k in counters}
+            want = expected_launches(per, counters, steps, evals)
             check(got == want and np.isfinite(out["history"]).all()
                   and 0.0 <= out["acc"] <= 1.0,
                   "%s: launches %s, want %s (%d steps, %d evaluated "
@@ -6070,13 +6169,15 @@ def checkpoint_bridge_path(torch, card, g, dec):
                last_rows, card))
 
 
-ONLINE_CLIENTS, ONLINE_REQUESTS = 8, 32
+# 16 requests a client and 3 edge batches: cut from 32 and 5 to keep the
+# whole smoke inside its time (each batch's host CSR rebuild is about 8 s)
+ONLINE_CLIENTS, ONLINE_REQUESTS = 8, 16
 # ids a served HTTP request carries: the JSON answer of one seed of the
 # 2-hop [15, 10] query is 166 feature rows of 128 floats, about 0.25 MB of
 # text whose encode and decode hold the interpreter lock for about 30 ms
 ONLINE_MAX_IDS = 4
 ONLINE_NEW_NODES = 1_000
-ONLINE_EDGE_BATCHES, ONLINE_EDGE_BATCH = 5, 10_000
+ONLINE_EDGE_BATCHES, ONLINE_EDGE_BATCH = 3, 10_000
 ONLINE_POLL_S = 0.2
 ONLINE_THINK_S = 0.02  # a streaming-phase client's pause between requests
 ONLINE_PROBE_WEIGHT = 10.0  # above every drawn weight (uniform in [0, 1))
@@ -6568,6 +6669,396 @@ def online_path(torch, card, gather, spmm, n_nodes=None, feat_dim=None,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the file-backed examples on real layouts: the reference Cora
+# configuration at 1 433 features, Cora's raw layout through prepare_cora,
+# SEAL's --collab_dir at ogbl-collab's counts
+# ---------------------------------------------------------------------------
+
+# tests/test_real_datasets.py:249-275: cora_like at Cora's size, the
+# reference's EgoSAGE configuration (the example's other defaults:
+# fanout [25, 10], gcn, hidden 128, batch 140, Adam 0.05, dropout 0.5)
+CORA_REF = dict(nodes=2708, features=1433, classes=7, epochs=40, bar=0.88)
+CORA_BATCH, CORA_NBRS = 140, (25, 10)
+# Kernel 1's rows and Kernel 2's means in one step of that configuration
+CORA_GATHER_ROWS = (CORA_BATCH, CORA_BATCH * CORA_NBRS[0])
+# Cora's published counts: 2 708 papers, 5 429 citations, 1 433 binary
+# words, 7 classes (their names); the raw files are drawn, their ids not
+# contiguous, about 18 words a paper
+RAW_CORA = dict(papers=2708, cites=5429, words=1433, epochs=2,
+                density=18.0 / 1433, id_range=1_200_000, seed=23)
+CORA_CLASSES = ("Case_Based", "Genetic_Algorithms", "Neural_Networks",
+                "Probabilistic_Methods", "Reinforcement_Learning",
+                "Rule_Learning", "Theory")
+# Cora's splits (examples/data/cora.py): rows 0:140, 200:500, 500:1500
+CORA_SPLITS = (("MASK*item", 0, 140), ("MASK**item", 200, 500),
+               ("MASK***item", 500, 1500))
+# ogbl-collab's published counts (seal.COLLAB_*), 150 steps of batch 64
+COLLAB_FILES = dict(nodes=235_868, train=1_179_052, valid=60_084,
+                    test=46_329, neg=100_000, steps=150, batch=64)
+COLLAB_WRITE_TIMEOUT_S = 600
+
+
+# 23(c)'s tables are written by a child process started with phase 15,
+# while the card runs phases 15-21d: the writer is Python text
+# formatting, one core for about 40 s
+COLLAB_WRITER = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from graph_learn_tpu_torch.examples import seal
+from graph_learn_tpu_torch.examples.data import ogbl_collab
+where, c = sys.argv[2], json.loads(sys.argv[3])
+a = seal.planted_collab(c["nodes"], c["train"], c["valid"], c["test"],
+                        c["neg"], feat_dim=seal.COLLAB_FEAT)
+t0 = time.perf_counter()
+ogbl_collab.write_collab_tables(
+    where, a["train"], np.ones(len(a["train"])), a["valid"], a["valid_neg"],
+    a["test"], a["test_neg"], a["feats"])
+print(json.dumps({"write_s": time.perf_counter() - t0}))
+"""
+
+
+def start_collab_writer(collab):
+    """A child process that draws ``seal.planted_collab`` at ``collab``'s
+    counts and writes its six tables into a new temporary directory with
+    ``write_collab_tables``.  Returns (the process, the directory); a
+    process left running is killed at exit."""
+    import atexit
+    import tempfile
+    where = tempfile.mkdtemp(prefix="glt_collab_tables_")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", COLLAB_WRITER,
+         os.path.dirname(os.path.abspath(__file__)), where,
+         json.dumps(collab)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    writer = (proc, where)
+    atexit.register(stop_collab_writer, writer)
+    return writer
+
+
+def stop_collab_writer(writer):
+    """Kill the writer if it still runs, reap it, remove its tables."""
+    proc, where = writer
+    if proc.poll() is None:
+        proc.kill()
+    proc.communicate()
+    shutil.rmtree(where, ignore_errors=True)
+
+
+def expected_launches(per, names, steps, evals):
+    """{kernel: launches} of ``steps`` training steps and ``evals``
+    evaluated batches at ``per`` launches a step; a backward
+    (``gat_block_bwd``) runs in training only."""
+    return {k: per.get(k, 0) * steps
+            + (per.get(k, 0) * evals if not k.endswith("_bwd") else 0)
+            for k in names}
+
+
+def vector_route(name):
+    """The route a mangled Kernel 1 or 2 name says: ``bulk``; ``lanes,
+    N-byte words`` (the lane groups' vector type); ``vec N`` (Kernel 2's
+    elements a load)."""
+    import re
+    if "bulk" in name:
+        return "bulk"
+    m = re.search(r"segment_spmm_kernelI.*?Li(\d+)E", name) or re.search(
+        r"segment_spmm_kernel<[^>]*?(\d+)>", name)
+    if "segment_spmm" in name:
+        return "vec %s" % (m.group(1) if m else "?")
+    m = re.search(r"gather_rows_kernelI(5uint4|5uint2|j|t|h)E", name)
+    size = {"5uint4": 16, "5uint2": 8, "j": 4, "t": 2, "h": 1}.get(
+        m.group(1) if m else "", 0)
+    return "lanes, %d-byte words" % size if size else "lanes"
+
+
+def draw_raw_cora(where, papers, cites, words, density, id_range, seed,
+                  **_):
+    """cora.content (id, ``words`` 0/1 flags, class name) and cora.cites
+    (cited, citing) in Cora's raw format, drawn from ``seed``: ids
+    distinct and not contiguous, classes round the 7 names, citations
+    between two distinct papers.  Returns (ids, flags [papers, words])."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(np.arange(1, id_range), papers, replace=False)
+    flags = (rng.random((papers, words)) < density).astype(np.int8)
+    labels = rng.integers(0, len(CORA_CLASSES), papers)
+    text = np.where(flags == 1, "1", "0")
+    with open(os.path.join(where, "cora.content"), "w") as f:
+        for i in range(papers):
+            f.write("%d\t%s\t%s\n" % (ids[i], "\t".join(text[i]),
+                                      CORA_CLASSES[labels[i]]))
+    a = rng.integers(0, papers, cites)
+    b = (a + rng.integers(1, papers, cites)) % papers
+    with open(os.path.join(where, "cora.cites"), "w") as f:
+        f.write("".join("%d\t%d\n" % (ids[x], ids[y])
+                        for x, y in zip(a, b)))
+    return ids, flags
+
+
+def uniform_cum_weights(torch, csr):
+    """The cum_weights of rows whose weights are all zero: uniform, 1/deg,
+    2/deg, ... 1 along each row."""
+    off = csr.row_offsets.cpu().numpy()
+    deg = np.diff(off)
+    rows = np.repeat(np.arange(deg.size), deg)
+    rank = np.arange(rows.size) - off[:-1][rows] + 1
+    return torch.equal(csr.cum_weights.cpu(),
+                       torch.from_numpy((rank / np.maximum(deg[rows], 1))
+                                        .astype(np.float32)))
+
+
+def cora_step_shapes(torch, card, gather, spmm, g):
+    """Kernels 1 and 2 at one training batch of the Cora configuration:
+    Kernel 1 at its src (140) and hop-1 (3 500) rows of the [2 708, 1 433]
+    f32 table, Kernel 2 at its [3 500, 10] hop-2 means, each exact or
+    within 1e-5 of its plain version, one kernel a call (``captured_work``)
+    on the route its name says, cold against its bound (each distinct
+    row read once: the 15.5 MB table fits the L2), plain version and
+    library call.  Returns the kernels line's fields."""
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch.examples import common
+    from graph_learn_tpu_torch.gsl.dataset import Dataset
+
+    q = common.supervised_query(g, gl.Mask.TRAIN, CORA_BATCH, CORA_NBRS)
+    batch = Dataset(q, window=1, device="cuda").next()
+    table = batch["hop2"].float_attrs.table
+    n = table.shape[0]
+
+    def ids(alias):
+        idx = batch[alias].float_attrs.idx
+        return torch.clamp(idx, 0, n - 1).to(torch.int32)
+    given = {CORA_GATHER_ROWS[0]: ids("src").reshape(-1),
+             CORA_GATHER_ROWS[1]: ids("hop1").reshape(-1)}
+    check(tuple(table.shape) == (CORA_REF["nodes"], CORA_REF["features"])
+          and table.dtype == torch.float32
+          and sorted(given) == sorted(v.numel() for v in given.values()),
+          "cora batch: table %s %s, rows %s" % (
+              tuple(table.shape), table.dtype,
+              [v.numel() for v in given.values()]))
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    shapes = gather_shapes(torch, gather, table, gen, "at the Cora table",
+                           rows=CORA_GATHER_ROWS, given=given,
+                           yardsticks=CORA_GATHER_ROWS, distinct=True)
+    fields = {"gather_rows": {}, "segment_spmm": {}}
+    for m, f in shapes.items():
+        fields["gather_rows"].update({
+            "cold_ms_cora_%d" % m: f["ms"], "bound_ms_cora_%d" % m:
+            f["bound_ms"], "plain_cold_ms_cora_%d" % m: f["plain_ms"],
+            "library_cold_ms_cora_%d" % m: f["library_ms"],
+            "kernel_route_cora_%d" % m: vector_route(f["kernel"])})
+    hop2 = ids("hop2").reshape(-1, CORA_NBRS[1])
+    deg = torch.full((hop2.shape[0],), CORA_NBRS[1], dtype=torch.int32,
+                     device="cuda")
+    def mean():
+        return spmm.segment_spmm(table, hop2, deg, "mean", torch.float32)
+    work, _ = check_one_launch(torch, "segment_spmm at the Cora table", mean,
+                               "segment_spmm_kernel")
+    name = next(n_ for n_ in captured_work(torch, mean)
+                if "segment_spmm" in n_)
+    f = spmm_shape(torch, spmm, table, hop2, "mean", "at the Cora table",
+                   distinct=True)
+    fields["segment_spmm"].update(
+        cold_ms_cora_spmm=f["ms"], bound_ms_cora_spmm=f["bound_ms"],
+        plain_cold_ms_cora_spmm=f["plain_ms"],
+        library_cold_ms_cora_spmm=f["library_ms"],
+        kernel_route_cora_spmm=vector_route(name))
+    log("Kernels at the Cora shapes ([%d, %d] f32, rows of %d bytes): "
+        "gather_rows %s; segment_spmm [%d, %d] mean on %s (%s a call); "
+        "card: %s"
+        % (n, table.shape[1], 4 * table.shape[1],
+           {m: fields["gather_rows"]["kernel_route_cora_%d" % m]
+            for m in CORA_GATHER_ROWS}, hop2.shape[0], hop2.shape[1],
+           fields["segment_spmm"]["kernel_route_cora_spmm"], work, card))
+    return fields
+
+
+def real_layout_path(torch, card, gather, spmm, device="cuda",
+                     cora_ref=CORA_REF, raw_cora=RAW_CORA,
+                     collab=COLLAB_FILES, writer=None):
+    """23: the file-backed examples on real layouts (module note, phase
+    23); ``writer`` is ``start_collab_writer(collab)``'s (started here
+    where it is None); the sizes and the device are arguments so that the
+    phase can be rehearsed small on the CPU, where no kernel launches and
+    none is timed.  Returns the kernels line's fields."""
+    import tempfile
+
+    from graph_learn_tpu_torch.examples import ego_sage_supervised, seal
+    from graph_learn_tpu_torch.examples.data import cora, synthetic
+
+    on_card = torch.device(device).type == "cuda"
+    counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES}
+    per = TSV_PER_STEP["ego_sage_supervised"]
+    fields = {"gather_rows": {}, "segment_spmm": {}}
+    where = tempfile.mkdtemp(prefix="glt_real_layout_")
+    t_phase = time.perf_counter()
+    writer = writer or start_collab_writer(collab)
+
+    def train_cora(d, epochs, graph, what):
+        argv = ["--data_dir", d, "--features_num", str(cora_ref["features"]),
+                "--nodes", str(cora_ref["nodes"]), "--classes",
+                str(cora_ref["classes"]), "--epochs", str(epochs)]
+        args = ego_sage_supervised.build_parser().parse_args(
+            argv + (["--cpu"] if not on_card else []))
+        for c in counters.values():
+            c.reset()
+        out = ego_sage_supervised.run(args, graph)
+        store = out["graph"].store
+        steps = epochs * -(-store.node_set(CORA_SPLITS[0][0]).size
+                           // args.batch_size)
+        evals = -(-store.node_set(CORA_SPLITS[2][0]).size
+                  // args.batch_size)
+        got = {k: c.count for k, c in counters.items()}
+        want = {k: v * on_card for k, v in expected_launches(
+            per, counters, steps, evals).items()}
+        check(got == want and bool(np.isfinite(out["history"]).all()),
+              "%s: launches %s, want %s (%d steps, %d evaluated batches); "
+              "losses %s" % (what, got, want, steps, evals, out["history"]))
+        return out, steps, evals
+
+    try:
+        # (a) the reference Cora configuration at full width
+        d = os.path.join(where, "cora_ref")
+        t0 = time.perf_counter()
+        synthetic.cora_like(d, n=cora_ref["nodes"],
+                            classes=cora_ref["classes"],
+                            feat_dim=cora_ref["features"])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, steps, evals = train_cora(d, cora_ref["epochs"], None,
+                                       "cora reference configuration")
+        wall = time.perf_counter() - t0
+        ms_step = out["train_s"] / steps * 1e3
+        log("cora reference configuration (cora_like %d nodes x %d f32 "
+            "features, %d classes, written in %.2f s; fanout %s, gcn, hidden "
+            "128, batch %d, Adam 0.05, dropout 0.5, %d epochs = %d steps): "
+            "%.1f s in all, %.3f ms a step on the host clock, loss %.4f -> "
+            "%.4f, test accuracy %.4f (bar %.2f); launches a step %s over "
+            "the steps and %d evaluated batches; card: %s"
+            % (cora_ref["nodes"], cora_ref["features"], cora_ref["classes"],
+               write_s, list(CORA_NBRS), CORA_BATCH, cora_ref["epochs"],
+               steps, wall, ms_step, out["history"][0], out["history"][-1],
+               out["acc"], cora_ref["bar"], per, evals, card))
+        check(out["acc"] >= cora_ref["bar"], "cora reference configuration: "
+              "test accuracy %.4f under %.2f" % (out["acc"],
+                                                 cora_ref["bar"]))
+        for k in fields:
+            fields[k].update(cora_ref_launches_per_step=float(per[k]),
+                             cora_ref_test_accuracy=out["acc"],
+                             cora_ref_ms_step=ms_step)
+        if on_card:
+            for k, v in cora_step_shapes(torch, card, gather, spmm,
+                                         out["graph"]).items():
+                fields[k].update(v)
+        del out
+        gc.collect()
+
+        # (b) Cora's raw layout through prepare_cora and load_graph
+        raw, prepared = os.path.join(where, "raw"), os.path.join(where,
+                                                                  "cora")
+        os.makedirs(raw)
+        t0 = time.perf_counter()
+        ids, flags = draw_raw_cora(raw, **raw_cora)
+        draw_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cora.prepare_cora(raw, prepared)
+        prep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g, dec = ego_sage_supervised.load_graph(prepared, raw_cora["words"],
+                                                device=device)
+        load_s = time.perf_counter() - t0
+        nt, et = g.store.node_table("item"), g.store.edge_table("relation")
+        x = flags.astype(np.float32)
+        s = x.sum(axis=1, keepdims=True)
+        x = (x / np.where(s == 0, 1.0, s)).astype(np.float32)
+        n = raw_cora["papers"]
+        splits = {name: g.store.node_set(name).size
+                  for name, _, _ in CORA_SPLITS}
+        check(np.array_equal(nt.raw_ids, ids)
+              and nt.float_attrs.dtype == x.dtype
+              and np.array_equal(nt.float_attrs, x)
+              and bool(np.all(et.weights == 0))
+              and uniform_cum_weights(torch, et.device(device).out)
+              and splits == {name: max(min(hi, n) - min(lo, n), 0)
+                             for name, lo, hi in CORA_SPLITS},
+              "raw cora: ids, row-normalised features, zero weights, "
+              "uniform cum_weights or splits %s differ from the raw files"
+              % splits)
+        t0 = time.perf_counter()
+        out, steps, evals = train_cora(prepared, raw_cora["epochs"],
+                                       (g, dec), "raw cora")
+        log("raw cora (drawn at Cora's counts: %d papers with ids up to %d, "
+            "%d citations, %d words, 7 class names; drawn in %.2f s, "
+            "prepare_cora %.2f s, load_graph %.2f s): ids, row-normalised "
+            "features bit-equal to the raw flags' read back, %d zero-weight "
+            "edges with uniform cum_weights, splits %s; %d epochs = %d steps "
+            "in %.2f s, losses %s, launches a step %s; card: %s"
+            % (n, int(ids.max()), raw_cora["cites"], raw_cora["words"],
+               draw_s, prep_s, load_s, et.num_edges, splits,
+               raw_cora["epochs"], steps, time.perf_counter() - t0,
+               [round(v, 4) for v in out["history"]], per, card))
+        del out, g
+        gc.collect()
+
+        # (c) SEAL through --collab_dir at ogbl-collab's counts, on the
+        # tables the writer process has written meanwhile
+        t0 = time.perf_counter()
+        a = seal.planted_collab(collab["nodes"], collab["train"],
+                                collab["valid"], collab["test"],
+                                collab["neg"], feat_dim=seal.COLLAB_FEAT)
+        draw_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc, d = writer
+        w_out, w_err = proc.communicate(timeout=COLLAB_WRITE_TIMEOUT_S)
+        wait_s = time.perf_counter() - t0
+        check(proc.returncode == 0, "the collab writer process failed "
+              "(%s): %s" % (proc.returncode, w_err[-2000:]))
+        write_s = json.loads(w_out.splitlines()[-1])["write_s"]
+        n_bytes = sum(os.path.getsize(os.path.join(d, f))
+                      for f in os.listdir(d))
+        b = collab["batch"]
+        for c in counters.values():
+            c.reset()
+        out = seal.run(["--collab_dir", d, "--steps", str(collab["steps"]),
+                        "--batch_size", str(b)]
+                       + (["--cpu"] if not on_card else []))
+        got = gather.LAUNCHES.count
+        scored = -(-len(a["test"]) // b) + -(-len(a["test_neg"]) // b)
+        want = (2 * collab["steps"] + scored) * on_card
+        twin = seal.build_graph(a["feats"], a["train"][:, 0],
+                                a["train"][:, 1], device)
+        same_store(torch, out["graph"], twin, "collab files", device)
+        rng = np.random.default_rng(0)
+        chance = seal.hits_at(rng.standard_normal(len(a["test"])),
+                              rng.standard_normal(len(a["test_neg"])))
+        hits = out["hits"]
+        log("seal --collab_dir (planted communities at ogbl-collab's "
+            "counts: %d nodes x %d f32, %d train, %d valid, %d test pairs, "
+            "%d negatives each; drawn in %.1f s, %d bytes of tables written "
+            "by write_collab_tables in %.1f s in a child process while the "
+            "earlier phases ran, %.1f s waited for): init %.1f s, the store bit-equal to build_graph of "
+            "the same draws; %d steps of batch %d in %.1f s; %d + %d pairs "
+            "scored in %.1f s; hits@50 %.4f (random scores %.4f); %d "
+            "gather_rows launches (2 a step and 1 a scored batch); card: %s"
+            % (collab["nodes"], seal.COLLAB_FEAT, collab["train"],
+               collab["valid"], collab["test"], collab["neg"], draw_s,
+               n_bytes, write_s, wait_s, out["load_s"], collab["steps"], b,
+               out["train_s"], len(a["test"]), len(a["test_neg"]),
+               out["score_s"], hits, chance, got, card))
+        check(got == want and np.isfinite(hits) and hits > chance,
+              "seal --collab_dir: %d gather_rows launches, want %d; hits@50 "
+              "%r against random scores' %.4f" % (got, want, hits, chance))
+        fields["gather_rows"].update(
+            collab_files_hits_at_50=hits,
+            collab_files_launches_per_step=2.0 if on_card else 0.0)
+        del out, twin, a
+        gc.collect()
+    finally:
+        stop_collab_writer(writer)
+        shutil.rmtree(where, ignore_errors=True)
+    log("phase 23 (real layouts) in %.1f s" % (time.perf_counter() - t_phase))
+    return fields
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6668,6 +7159,8 @@ def main() -> int:
         temporal_rows = temporal_path(torch, card, gather, spmm, sweep)
     gc.collect()  # the temporal store
     torch.cuda.empty_cache()
+    # phase 23's ogbl-collab-sized tables, written meanwhile on the host
+    collab_writer = start_collab_writer(COLLAB_FILES)
     # the example's own feature dtype
     with bench.bench_conf(storage_profile="full", feature_dtype="float32"):
         tgat_rows = tgat_path(torch, card, gather, gat)
@@ -6684,6 +7177,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tsv_rows = tsv_examples_path(torch, card, gather, spmm, gat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phase 23: the examples on real layouts (the reference Cora
+        # configuration, Cora's raw files, SEAL's --collab_dir)
+        real_rows = real_layout_path(torch, card, gather, spmm,
+                                     writer=collab_writer)
     gc.collect()
     torch.cuda.empty_cache()
     # phase 20: file ingest and the sampler API on the TSV store, then k-NN
@@ -6704,7 +7203,7 @@ def main() -> int:
     for part in (bench_rows, scale_rows, walks_rows, query_rows,
                  bipartite_rows, rgcn_rows, temporal_rows, tgat_rows,
                  example_rows, seal_rows, sage_rows, file_rows, sampler_rows,
-                 host_rows, reorder_rows, tsv_rows):
+                 host_rows, reorder_rows, tsv_rows, real_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

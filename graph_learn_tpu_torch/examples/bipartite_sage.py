@@ -5,20 +5,25 @@ user tower over ``u -> u-i`` items and an item tower over ``i -> i-i``
 items, two ``outNeg`` negatives per edge, the in-batch softmax loss
 (``unsupervised_softmax_cross_entropy_loss``), trained through
 ``LocalTrainer.train``; then recall@20 over every user and item embedded
-through ``V("u")`` / ``V("i")`` batches.  The JAX example writes the
-synthetic u2i tables as TSV files and loads them; file ingest is not
-ported, so :func:`u2i_arrays` makes the same arrays (the same generator,
-the same draws as ``examples/data/synthetic.py u2i``) and
-:func:`build_graph` puts them in the store.  Every hop's rows are gathered
-(Kernel 1 on the card), as in the JAX example.
+through ``V("u")`` / ``V("i")`` batches.  As the JAX example does,
+:func:`load` reads ``examples/data/synthetic.py u2i``'s TSV files
+(``user_table``, ``item_table``, ``u2i_table`` and the weighted
+``i2i_table``; written first when ``--data_dir`` has none) through
+``Graph.node/edge/init``.  :func:`build_graph` builds the same store in
+memory from the generator's draws (:func:`u2i_arrays`); given the
+features as their five-decimal text reads back (``text=True``) it is the
+files' store bit for bit.  Every hop's rows are gathered (Kernel 1 on
+the card), as in the JAX example.
 
 Usage:  python -m graph_learn_tpu_torch.examples.bipartite_sage [--cpu]
-            [--epochs N] [--batch_size B] [--steps_per_epoch S]
+            [--data_dir D] [--epochs N] [--batch_size B] [--steps_per_epoch S]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +33,7 @@ from torch import nn
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.core.store import EdgeTable, NodeTable
 from graph_learn_tpu_torch.errors import OutOfRangeError
+from graph_learn_tpu_torch.examples.data import synthetic
 from graph_learn_tpu_torch.graph import Graph
 from graph_learn_tpu_torch.gsl.compile import Query
 from graph_learn_tpu_torch.gsl.dataset import Dataset
@@ -42,12 +48,17 @@ from graph_learn_tpu_torch.nn.trainer import LocalTrainer
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
+DEFAULT_DIR = os.path.join(tempfile.gettempdir(), "glt_u2i_ex")
+
+
 def u2i_arrays(n_users: int = 500, n_items: int = 300, n_clusters: int = 5,
                edges_per_user: int = 10, feat_dim: int = 16,
-               seed: int = 0) -> Dict[str, np.ndarray]:
+               seed: int = 0, text: bool = False) -> Dict[str, np.ndarray]:
     """The bipartite user-item graph of ``examples/data/synthetic.py u2i``
     as arrays: users and items in clusters, each user linked to items of
-    its cluster, items linked within their cluster; every weight 1."""
+    its cluster, items linked within their cluster; every weight 1.
+    Features float32, or with ``text`` as the loader reads back their
+    five-decimal text."""
     rng = np.random.default_rng(seed)
     u_cluster = rng.integers(0, n_clusters, n_users)
     i_cluster = rng.integers(0, n_clusters, n_items)
@@ -76,12 +87,32 @@ def u2i_arrays(n_users: int = 500, n_items: int = 300, n_clusters: int = 5,
                 if i != j:
                     ii_src.append(i)
                     ii_dst.append(j)
-    return {"u_feat": u_feat.astype(np.float32),
-            "i_feat": i_feat.astype(np.float32),
+    cast = synthetic.as_read if text else (lambda x: x.astype(np.float32))
+    return {"u_feat": cast(u_feat), "i_feat": cast(i_feat),
             "ui_src": np.asarray(srcs, np.int64),
             "ui_dst": np.asarray(dsts, np.int64),
             "ii_src": np.asarray(ii_src, np.int64),
             "ii_dst": np.asarray(ii_dst, np.int64)}
+
+
+def load(data_dir: str, feat_dim: int = 16, device: DeviceLike = "cuda"
+         ) -> Tuple[Graph, Decoder, Decoder]:
+    """(graph, user decoder, item decoder) from ``synthetic.u2i``'s files
+    in ``data_dir`` (written first if they are missing), through
+    ``Graph.node/edge/init`` as the JAX example's ``load:30-41`` reads
+    them."""
+    if not os.path.exists(os.path.join(data_dir, "user_table")):
+        synthetic.u2i(data_dir, feat_dim=feat_dim)
+    udec = Decoder(attr_types=["float"] * feat_dim)
+    idec = Decoder(attr_types=["float"] * feat_dim)
+    g = (Graph(device=device)
+         .node(os.path.join(data_dir, "user_table"), "u", udec)
+         .node(os.path.join(data_dir, "item_table"), "i", idec)
+         .edge(os.path.join(data_dir, "u2i_table"), ("u", "i", "u-i"),
+               Decoder(weighted=True))
+         .edge(os.path.join(data_dir, "i2i_table"), ("i", "i", "i-i"),
+               Decoder(weighted=True)))
+    return g.init(), udec, idec
 
 
 def build_graph(a: Dict[str, np.ndarray], device: DeviceLike = "cuda"
@@ -234,6 +265,7 @@ def eval_recall(g: Graph, model: nn.ModuleDict, nbrs: Sequence[int],
 
 def main(argv=None) -> float:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--data_dir", default=DEFAULT_DIR)
     ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--batch_size", type=int, default=128)
     ap.add_argument("--feat_dim", type=int, default=16)
@@ -246,7 +278,7 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else "cuda")
 
-    g, udec, idec = build_graph(u2i_arrays(feat_dim=args.feat_dim), dev)
+    g, udec, idec = load(args.data_dir, args.feat_dim, dev)
     model = towers(udec, idec, args.out_dim, dev)
     q = build_query(g, args.batch_size, args.nbrs)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)

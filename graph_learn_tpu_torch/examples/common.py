@@ -36,11 +36,22 @@ def load_cora_like(data_dir: str, feat_dim: int = 64, nodes: int = 1000,
                    device: DeviceLike = "cuda"):
     """(graph, node decoder): the Cora-like tables in ``data_dir``
     (written by ``cora_like`` first if they are missing) through
-    ``Graph.node/edge/init``: "item" nodes, the undirected weighted
-    ``relation`` (and, with ``two_relations``, ``relation2`` over the same
-    file), and the train / val / test splits."""
+    :func:`read_cora_layout`."""
     if not os.path.exists(os.path.join(data_dir, "node_table")):
         cora_like(data_dir, n=nodes, classes=classes, feat_dim=feat_dim)
+    return read_cora_layout(data_dir, feat_dim, two_relations, device)
+
+
+def read_cora_layout(data_dir: str, feat_dim: int,
+                     two_relations: bool = False,
+                     device: DeviceLike = "cuda"):
+    """(graph, node decoder): the reference's Cora table layout in
+    ``data_dir`` (``cora_like``'s files, or real Cora, ogbn-products or
+    any other data the ``examples/data`` writers prepare) through
+    ``Graph.node/edge/init``, writing nothing: "item" nodes with labels
+    and ``feat_dim`` float features, the undirected weighted ``relation``
+    (and, with ``two_relations``, ``relation2`` over the same file), and
+    the train / val / test splits."""
     node_decoder = Decoder(labeled=True, attr_types=["float"] * feat_dim)
     g = Graph(device=device).node(os.path.join(data_dir, "node_table"),
                                   "item", node_decoder)

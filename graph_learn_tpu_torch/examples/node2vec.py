@@ -9,20 +9,24 @@ first 200 nodes' nearest embedding (chance about 1/7).  The embedding
 tables ``emb`` and ``ctx`` are parameters, so they are indexed plainly
 (Kernel 1 refuses a table that requires a gradient).
 
-The JAX example writes ``examples/data/synthetic.py cora_like:24``'s
-graph as TSV files (features to five decimals) and loads it with
-``directed=False``; file ingest is not ported, so :func:`cora_like` makes
-the same draws in memory (the same generator, seed and defaults, in the
-same order) and :func:`build_graph` puts them in the store with
-``add_edge_table(..., directed=False)``.
+As the JAX example does, :func:`load` reads ``examples/data/synthetic.py
+cora_like:24``'s TSV files (written first when ``--data_dir`` has none;
+features to five decimals) through ``Graph.node/edge/init`` with the
+``relation`` edges undirected.  :func:`build_graph` builds the same store
+in memory from the generator's draws (:func:`cora_like`); given the
+features as their text reads back (``text=True``) it is the files' store
+bit for bit.
 
 Usage:  python -m graph_learn_tpu_torch.examples.node2vec [--cpu]
-            [--epochs N] [--batch_size B] [--walk_len L] [--p P] [--q Q]
+            [--data_dir D] [--epochs N] [--batch_size B] [--walk_len L]
+            [--p P] [--q Q]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 from typing import Dict, Tuple
 
 import numpy as np
@@ -33,37 +37,52 @@ from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.core.store import EdgeTable, NodeTable
 from graph_learn_tpu_torch.core.traversal import Traverser
 from graph_learn_tpu_torch.errors import OutOfRangeError
+from graph_learn_tpu_torch.examples.data import synthetic
 from graph_learn_tpu_torch.graph import Graph
 from graph_learn_tpu_torch.gsl.compile import Query, _execute
 from graph_learn_tpu_torch.ops.walk import skipgram_pairs
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
-CLASSES, FEAT_DIM = 7, 64
+CLASSES, FEAT_DIM, NODES = 7, 64, 1000
+DEFAULT_DIR = os.path.join(tempfile.gettempdir(), "glt_cora_like")
 
 
-def cora_like(n: int = 1000, classes: int = CLASSES,
+def cora_like(n: int = NODES, classes: int = CLASSES,
               feat_dim: int = FEAT_DIM, avg_degree: int = 8,
               homophily: float = 0.85, feat_noise: float = 2.0,
-              seed: int = 0) -> Dict[str, np.ndarray]:
-    """``cora_like:24``'s homophilous graph as arrays: labels, unit-norm
-    features around each class's centre, and ``n * avg_degree // 2``
+              seed: int = 0, text: bool = False) -> Dict[str, np.ndarray]:
+    """``cora_like:24``'s homophilous graph as arrays
+    (``synthetic.cora_like_arrays``): int32 labels, unit-norm float32
+    features around each class's centre (with ``text``, as the loader
+    reads back their five-decimal text), and ``n * avg_degree // 2``
     edges, most of them within a class."""
-    rng = np.random.default_rng(seed)
-    labels = rng.integers(0, classes, n)
-    centers = rng.normal(0, 1, (classes, feat_dim))
-    feats = centers[labels] + rng.normal(0, feat_noise, (n, feat_dim))
-    feats = feats / np.linalg.norm(feats, axis=1, keepdims=True)
-    m = n * avg_degree // 2
-    src = rng.integers(0, n, 4 * m)
-    dst = rng.integers(0, n, 4 * m)
-    same = labels[src] == labels[dst]
-    keep_same = same & (rng.random(4 * m) < homophily)
-    keep_diff = (~same) & (rng.random(4 * m)
-                           < (1 - homophily) / max(classes - 1, 1))
-    keep = (keep_same | keep_diff) & (src != dst)
-    return {"labels": labels.astype(np.int32),
-            "feats": feats.astype(np.float32),
-            "src": src[keep][:m], "dst": dst[keep][:m]}
+    a = synthetic.cora_like_arrays(n, classes, feat_dim, avg_degree,
+                                   homophily, feat_noise, seed=seed)
+    feats = (synthetic.as_read(a["feats"]) if text
+             else a["feats"].astype(np.float32))
+    return {"labels": a["labels"].astype(np.int32), "feats": feats,
+            "src": a["src"], "dst": a["dst"]}
+
+
+def load(data_dir: str, feat_dim: int = FEAT_DIM, n: int = NODES,
+         edge_type: str = "relation", node_type: str = "item",
+         device: DeviceLike = "cuda") -> Tuple[Graph, Decoder]:
+    """(graph, node decoder) from ``cora_like``'s ``node_table`` and
+    ``edge_table`` in ``data_dir`` (written first, ``n`` nodes of
+    ``feat_dim`` features, if they are missing) through
+    ``Graph.node/edge/init``: ``node_type`` with labels and float
+    features, the undirected weighted ``edge_type`` edges
+    (``examples/node2vec.py:39-46``; ``sage_unsupervised.py load``)."""
+    if not os.path.exists(os.path.join(data_dir, "node_table")):
+        synthetic.cora_like(data_dir, n=n, classes=CLASSES,
+                            feat_dim=feat_dim)
+    dec = Decoder(labeled=True, attr_types=["float"] * feat_dim)
+    g = (Graph(device=device)
+         .node(os.path.join(data_dir, "node_table"), node_type, dec)
+         .edge(os.path.join(data_dir, "edge_table"),
+               (node_type, node_type, edge_type), Decoder(weighted=True),
+               directed=False))
+    return g.init(), dec
 
 
 def build_graph(a: Dict[str, np.ndarray], device: DeviceLike = "cuda"
@@ -120,6 +139,7 @@ def label_coherence(emb: np.ndarray, labels: np.ndarray,
 
 def main(argv=None) -> float:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--data_dir", default=DEFAULT_DIR)
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--batch_size", type=int, default=128)
     ap.add_argument("--walk_len", type=int, default=10)
@@ -134,8 +154,7 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else "cuda")
 
-    a = cora_like()
-    g, _ = build_graph(a, dev)
+    g, _ = load(args.data_dir, device=dev)
     q = build_query(g, args.batch_size, args.walk_len, args.p, args.q)
     n = g.store.node_table("item").num_nodes
     tables = q.device_tables()

@@ -10,20 +10,26 @@ the sigmoid cross-entropy and Adam at 5e-4 through ``LocalTrainer``;
 then the link accuracy (pos > neg) over one epoch.  Each BatchGraph
 gathers its node rows once (Kernel 1): two launches a step.
 
-The JAX example writes ``examples/data/synthetic.py cora_like``'s 800-node
-graph as TSV files (features to five decimals) and loads it; file ingest
-is not ported, so the node2vec example's :func:`cora_like` makes the same
-draws in memory and :func:`build_graph` puts them in the store (node type
-"i", the undirected ``train`` edges of weight 1), features as drawn.
+As the JAX example's ``load`` does, :func:`load` reads
+``examples/data/synthetic.py cora_like``'s 800-node TSV files (written
+first when ``--data_dir`` has none; features to five decimals) through
+``Graph.node/edge/init``: node type "i", the undirected weighted
+``train`` edges.  :func:`build_graph` builds the same store in memory
+from the draws (``node2vec.cora_like``); given the features as their
+text reads back (``text=True``) it is the files' store bit for bit.
+The JAX example spells its flags with dashes (``--data-dir``); the
+port's, with underscores, as its other examples do.
 
 Usage:  python -m graph_learn_tpu_torch.examples.sage_unsupervised [--cpu]
-            [--batch_size B] [--epochs N] [--steps_per_epoch S]
+            [--data_dir D] [--batch_size B] [--epochs N] [--steps_per_epoch S]
             [--feat_dim D] [--hidden H] [--out_dim O] [--nbrs_num K]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -32,7 +38,7 @@ from torch import nn
 
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.core.store import EdgeTable, NodeTable
-from graph_learn_tpu_torch.examples.node2vec import cora_like
+from graph_learn_tpu_torch.examples import node2vec
 from graph_learn_tpu_torch.graph import Graph
 from graph_learn_tpu_torch.gsl.compile import Query
 from graph_learn_tpu_torch.nn.data import materialized
@@ -42,6 +48,19 @@ from graph_learn_tpu_torch.nn.models.sub_models import GraphSAGE
 from graph_learn_tpu_torch.nn.subgraph_data import BatchGraph
 from graph_learn_tpu_torch.nn.trainer import LocalTrainer
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
+
+
+DEFAULT_DIR = os.path.join(tempfile.gettempdir(), "glt_sage_unsup")
+NODES = 800
+
+
+def load(data_dir: str, feat_dim: int, device: DeviceLike = "cuda"
+         ) -> Tuple[Graph, Decoder]:
+    """(graph, node decoder) from ``cora_like(n=800)``'s files in
+    ``data_dir`` (written first if they are missing), as the JAX
+    example's ``load:32-40`` reads them."""
+    return node2vec.load(data_dir, feat_dim, NODES, edge_type="train",
+                         node_type="i", device=device)
 
 
 def build_graph(a: Dict[str, np.ndarray], device: DeviceLike = "cuda"
@@ -124,6 +143,7 @@ def link_accuracy(model: SageLink, batch: dict) -> torch.Tensor:
 
 def main(argv=None) -> float:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--data_dir", default=DEFAULT_DIR)
     ap.add_argument("--batch_size", type=int, default=128)
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--steps_per_epoch", type=int, default=30)
@@ -136,7 +156,7 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else "cuda")
 
-    g, dec = build_graph(cora_like(n=800, feat_dim=args.feat_dim), dev)
+    g, dec = load(args.data_dir, args.feat_dim, dev)
     q = build_query(g, args.batch_size, args.nbrs_num)
     model = SageLink(dec, args.feat_dim, args.hidden, args.out_dim,
                      device=dev)

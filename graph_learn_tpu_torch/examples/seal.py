@@ -25,24 +25,35 @@ conv's input width, ``feat_dim + steps + 2`` (68 by default, 132 with
 ogbl-collab's 128 features); a torch ``Linear`` needs it, so the port's
 model states it (:func:`seal_model`).
 
-Data, made in memory (file ingest is not ported): by default
-``examples/data/synthetic.py cora_like``'s 1 000-node graph (the same
-draws as the node2vec example, features as drawn); with ``--planted`` the
-planted-community link set of ``tests/test_real_datasets.py:284-305``
-(400 nodes in 8 communities, 1 200 train pairs, 200 test pairs and 200
-test negatives across communities, 128 features), the data on which the
-JAX example's ``--collab_dir`` path reaches hits@50 >= 0.6, and the
-hits@50 of the test pairs against the test negatives.
+Data, from files through ``Graph.node/edge/init``, as the JAX example
+loads it: by default ``examples/data/synthetic.py cora_like``'s 1 000-node
+TSV files in ``--data_dir`` (written first when it has none; the node2vec
+example's files, ``node2vec.load``); with ``--collab_dir`` the six
+ogbl-collab tables that ``examples/data/ogbl_collab.py
+write_collab_tables`` writes (:func:`load_collab`: the nodes' 128 float
+features and the undirected weighted train edges), and then the hits@50
+of the test pairs against the test negatives (``score_edges:159-191``:
+raw ids through the node index, batches of ``--batch_size`` padded with
+the first pair, the share of positives above the 50th-highest negative).
+With ``--planted`` the planted-community link set of
+``tests/test_real_datasets.py:284-305`` (400 nodes in 8 communities, 1 200
+train pairs, 200 test pairs and 200 test negatives across communities,
+128 features; the set on which the JAX example's ``--collab_dir`` path
+reaches hits@50 >= 0.6) is built in memory (:func:`build_graph`): the twin
+of its collab tables' store, and the hits@50 likewise.
 :func:`planted_collab` draws that set at any counts: ``chip_smoke.py``
-draws it at ogbl-collab's node and train-edge counts and widths.
+draws it at ogbl-collab's counts and widths.
 
-Usage:  python -m graph_learn_tpu_torch.examples.seal [--cpu] [--planted]
-            [--steps N] [--batch_size B] [--hidden H] [--feat_dim D]
+Usage:  python -m graph_learn_tpu_torch.examples.seal [--cpu]
+            [--data_dir D | --collab_dir C | --planted] [--steps N]
+            [--batch_size B] [--hidden H] [--feat_dim D]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -53,7 +64,7 @@ from graph_learn_tpu_torch import bench
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.core.store import (DeviceEdgeTable, EdgeTable,
                                               NodeTable)
-from graph_learn_tpu_torch.examples.node2vec import cora_like
+from graph_learn_tpu_torch.examples import node2vec
 from graph_learn_tpu_torch.graph import Graph
 from graph_learn_tpu_torch.nn.loss import sigmoid_cross_entropy_loss
 from graph_learn_tpu_torch.nn.models.sub_models import GCN, LinkPredictor
@@ -66,8 +77,16 @@ from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 NBRS, STEPS = 6, 2  # build_pair_subgraphs' defaults
 # ogbl-collab's counts and widths (OGB's ogbl-collab: 235 868 authors,
-# 1 179 052 train collaborations, 128-wide features)
+# 1 179 052 train, 60 084 valid and 46 329 test collaborations, 100 000
+# valid and test negatives, 128-wide features)
 COLLAB_NODES, COLLAB_TRAIN_PAIRS, COLLAB_FEAT = 235_868, 1_179_052, 128
+COLLAB_VALID_PAIRS, COLLAB_TEST_PAIRS, COLLAB_NEGATIVES = (60_084, 46_329,
+                                                           100_000)
+# the six tables of examples/data/ogbl_collab.py write_collab_tables
+COLLAB_NODE_TABLE, COLLAB_TRAIN_TABLE = ("ogbl_collab_node",
+                                         "ogbl_collab_train_edge")
+COLLAB_TEST_TABLE, COLLAB_TEST_NEG_TABLE = ("ogbl_collab_test_edge",
+                                            "ogbl_collab_test_edge_neg")
 
 
 def _pairs(rng: np.random.Generator, n: int, count: int, keep,
@@ -140,6 +159,25 @@ def build_graph(feats: np.ndarray, src: np.ndarray, dst: np.ndarray,
         dst=dst, num_src_nodes=n, num_dst_nodes=n,
         weights=np.ones(src.size, np.float32)), directed=False)
     return g
+
+
+def load_collab(collab_dir: str, device: DeviceLike = "cuda") -> Graph:
+    """The ogbl-collab tables of ``collab_dir`` through
+    ``Graph.node/edge/init`` (``examples/seal.py:61-69``): node type
+    "item" with 128 float features, the undirected weighted ``relation``
+    edges of the train table."""
+    return (Graph(device=device)
+            .node(os.path.join(collab_dir, COLLAB_NODE_TABLE), "item",
+                  Decoder(attr_types=["float"] * COLLAB_FEAT))
+            .edge(os.path.join(collab_dir, COLLAB_TRAIN_TABLE),
+                  ("item", "item", "relation"), Decoder(weighted=True),
+                  directed=False)).init()
+
+
+def _read_edge_tsv(path: str) -> np.ndarray:
+    """The (src, dst) raw ids [n, 2] of an edge table, header skipped."""
+    return np.loadtxt(path, skiprows=1, usecols=(0, 1), dtype=np.int64,
+                      ndmin=2)
 
 
 def pair_graph(et: DeviceEdgeTable, feats: torch.Tensor, src: torch.Tensor,
@@ -265,7 +303,7 @@ def score_pairs(model: nn.ModuleDict, et: DeviceEdgeTable,
                 feats: torch.Tensor, pairs: np.ndarray, b: int,
                 generator: torch.Generator) -> np.ndarray:
     """The logits of ``pairs`` [n, 2] (dense ids), in batches of ``b``, the
-    last padded with the first pair."""
+    last padded with the first pair (``score_edges:175-188``)."""
     dev = feats.device
     pad = (-len(pairs)) % b
     ep = np.concatenate([pairs, pairs[:1].repeat(pad, 0)]) if pad else pairs
@@ -286,11 +324,19 @@ def hits_at(pos: np.ndarray, neg: np.ndarray, k: int = 50) -> float:
     return float((pos > kth).mean())
 
 
-def main(argv=None) -> float:
+def run(argv=None) -> dict:
+    """Load, train and score as :func:`main` does, printing the same
+    lines.  Returns {"graph", "auc" (the last step's pairwise AUC),
+    "hits" (None without test pairs), "load_s", "train_s", "score_s"},
+    seconds on the host clock."""
     ap = argparse.ArgumentParser()
+    ap.add_argument("--data_dir", default=node2vec.DEFAULT_DIR)
+    ap.add_argument("--collab_dir", default=None,
+                    help="ogbl-collab tables from examples/data/"
+                         "ogbl_collab.py; enables the hits@50 eval")
     ap.add_argument("--planted", action="store_true",
-                    help="the planted-community link set with hits@50 "
-                         "(the JAX example's --collab_dir path)")
+                    help="the planted-community link set in memory, with "
+                         "hits@50")
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--batch_size", type=int, default=64)
     ap.add_argument("--hidden", type=int, default=32)
@@ -301,23 +347,32 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else "cuda")
 
-    test = None
-    if args.planted:
+    test, score_s = None, 0.0
+    t0 = time.perf_counter()
+    if args.collab_dir:
+        d = args.collab_dir
+        args.feat_dim = COLLAB_FEAT
+        g = load_collab(d, dev)
+        index = g.store.node_table("item").index
+        test = tuple(index.lookup(_read_edge_tsv(os.path.join(d, name)))
+                     for name in (COLLAB_TEST_TABLE, COLLAB_TEST_NEG_TABLE))
+    elif args.planted:
         a = planted_collab()
         args.feat_dim = a["feats"].shape[1]
         g = build_graph(a["feats"], a["train"][:, 0], a["train"][:, 1], dev)
         test = (a["test"], a["test_neg"])
     else:
-        a = cora_like(feat_dim=args.feat_dim)
-        g = build_graph(a["feats"], a["src"], a["dst"], dev)
+        g, _ = node2vec.load(args.data_dir, args.feat_dim, device=dev)
     et = g.store.edge_table("relation").device(dev)
     feats = g.store.node_table("item").device(dev).float_attrs
+    load_s = time.perf_counter() - t0
     model = seal_model(args.feat_dim, args.hidden, device=dev)
     opt = bench.make_optimizer(model, dev, args.lr)
 
     gen = torch.Generator(device=dev).manual_seed(5)
     rng = np.random.default_rng(0)
     n_edges = et.src.shape[0]
+    t0 = time.perf_counter()
     for i in range(args.steps):
         eidx = torch.as_tensor(rng.integers(0, n_edges, args.batch_size),
                                dtype=torch.int32, device=dev)
@@ -325,14 +380,26 @@ def main(argv=None) -> float:
         if i % 30 == 0 or i == args.steps - 1:
             print("step %d loss %.4f pairwise-auc %.3f"
                   % (i, float(loss), float(auc)))
-    if test is None:
-        return float(auc)
-    gen = torch.Generator(device=dev).manual_seed(77)
-    ps = score_pairs(model, et, feats, test[0], args.batch_size, gen)
-    ns = score_pairs(model, et, feats, test[1], args.batch_size, gen)
-    hits = hits_at(ps, ns)
-    print("hits@50: %.4f" % hits)
-    return hits
+    auc = float(auc)
+    train_s = time.perf_counter() - t0
+    hits = None
+    if test is not None:
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(77)
+        ps = score_pairs(model, et, feats, test[0], args.batch_size, gen)
+        ns = score_pairs(model, et, feats, test[1], args.batch_size, gen)
+        hits = hits_at(ps, ns)
+        score_s = time.perf_counter() - t0
+        print("hits@50: %.4f" % hits)
+    return {"graph": g, "auc": auc, "hits": hits, "load_s": load_s,
+            "train_s": train_s, "score_s": score_s}
+
+
+def main(argv=None) -> float:
+    """The hits@50 with test pairs (``--collab_dir``, ``--planted``), else
+    the last step's pairwise AUC."""
+    out = run(argv)
+    return out["auc"] if out["hits"] is None else out["hits"]
 
 
 if __name__ == "__main__":

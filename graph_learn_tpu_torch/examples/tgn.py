@@ -20,20 +20,24 @@ gives the input projections the biases and the hidden ones only ``hn``'s,
 so the torch cell's ``b_hr`` and ``b_hz`` start at zero and a gradient
 hook keeps them there; ``nn/convert.py`` carries the weights across.
 
-The JAX example writes ``gen_temporal_u2i``'s stream as TSV files (features
-to three decimals, items' raw ids from 100 000) and loads them; file ingest
-is not ported, so :func:`gen_temporal_u2i` makes the same draws in memory
-(the same generator, seed and defaults, in the same order), with each
-feature read back from its three-decimal text as the loader reads it, and
-:func:`build_graph` puts them in the store.
+As the JAX example does, the stream is ``gen_temporal_u2i``'s TSV files
+(:func:`write_temporal_u2i`, the port's copy of ``examples/tgn.py:27``:
+the same draws and bytes, features to three decimals, items' raw ids
+from 100 000, timestamps from 1 000; written first when ``--data_dir``
+has none), loaded by :func:`load` through ``Graph.node/edge/init``.
+:func:`build_graph` builds the same store in memory from the same draws
+(:func:`gen_temporal_u2i`), each feature read back from its text as the
+loader reads it: the files' store bit for bit.
 
 Usage:  python -m graph_learn_tpu_torch.examples.tgn [--cpu]
-            [--epochs N] [--batch_size B] [--nbrs K]
+            [--data_dir D] [--epochs N] [--batch_size B] [--nbrs K]
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 from typing import Dict, Tuple
 
 import numpy as np
@@ -53,27 +57,27 @@ from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 FEAT_DIM, N_CLUSTERS = 8, 4
 # raw id of the first item, and the first event's timestamp
 ITEM_ID0, TS0 = 100_000, 1000
+DEFAULT_DIR = os.path.join(tempfile.gettempdir(), "glt_tgn")
 
 
 def _three_decimals(x: np.ndarray) -> np.ndarray:
-    """``x`` as the JAX loader reads it back from its ``%.3f`` text."""
+    """``x`` as the loader reads it back from its ``%.3f`` text."""
     return np.asarray(["%.3f" % v for v in x], dtype=np.float32)
 
 
-def gen_temporal_u2i(n_u: int = 200, n_i: int = 150, events: int = 4000,
-                     seed: int = 0) -> Dict[str, np.ndarray]:
-    """``tgn.py gen_temporal_u2i:27``'s stream as arrays: users and items
-    in four clusters with features around their cluster's centre, and
-    ``events`` (user, item of its cluster, ts) one time unit apart."""
+def temporal_draws(n_u: int = 200, n_i: int = 150, events: int = 4000,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """``tgn.py gen_temporal_u2i:27``'s draws, in its order: users and
+    items in four clusters with float64 features around their cluster's
+    centre, and ``events`` (user, item of its cluster) one time unit
+    apart from ``TS0``."""
     rng = np.random.default_rng(seed)
     cu = rng.integers(0, N_CLUSTERS, n_u)
     ci = rng.integers(0, N_CLUSTERS, n_i)
     centers = rng.normal(0, 1.5, (N_CLUSTERS, FEAT_DIM))
-    u_feat = np.stack([_three_decimals(centers[cu[i]]
-                                       + rng.normal(0, 0.5, FEAT_DIM))
+    u_feat = np.stack([centers[cu[i]] + rng.normal(0, 0.5, FEAT_DIM)
                        for i in range(n_u)])
-    i_feat = np.stack([_three_decimals(centers[ci[i]]
-                                       + rng.normal(0, 0.5, FEAT_DIM))
+    i_feat = np.stack([centers[ci[i]] + rng.normal(0, 0.5, FEAT_DIM)
                        for i in range(n_i)])
     src = np.empty(events, np.int64)
     dst = np.empty(events, np.int64)
@@ -85,6 +89,54 @@ def gen_temporal_u2i(n_u: int = 200, n_i: int = 150, events: int = 4000,
                   else rng.integers(0, n_i))
     return {"u_feat": u_feat, "i_feat": i_feat, "src": src, "dst": dst,
             "ts": TS0 + np.arange(events, dtype=np.int64)}
+
+
+def gen_temporal_u2i(n_u: int = 200, n_i: int = 150, events: int = 4000,
+                     seed: int = 0) -> Dict[str, np.ndarray]:
+    """:func:`temporal_draws` with each feature as the loader reads back
+    its three-decimal text (float32)."""
+    a = temporal_draws(n_u, n_i, events, seed)
+    for k in ("u_feat", "i_feat"):
+        a[k] = np.stack([_three_decimals(row) for row in a[k]])
+    return a
+
+
+def write_temporal_u2i(path: str, n_u: int = 200, n_i: int = 150,
+                       events: int = 4000, seed: int = 0):
+    """``tgn.py gen_temporal_u2i:27``'s files, byte for byte:
+    ``user_table`` and ``item_table`` (``id:int64\tfeature:string``,
+    ``%.3f`` features, items from raw id ``ITEM_ID0``) and the
+    ``event_table`` (``src_id dst_id timestamp``).  Returns (n_u, n_i)."""
+    a = temporal_draws(n_u, n_i, events, seed)
+    os.makedirs(path, exist_ok=True)
+    for name, feats, id0 in (("user_table", a["u_feat"], 0),
+                             ("item_table", a["i_feat"], ITEM_ID0)):
+        with open(os.path.join(path, name), "w") as f:
+            f.write("id:int64\tfeature:string\n")
+            for i, feat in enumerate(feats):
+                f.write("%d\t%s\n" % (i + id0,
+                                      ":".join("%.3f" % x for x in feat)))
+    with open(os.path.join(path, "event_table"), "w") as f:
+        f.write("src_id:int64\tdst_id:int64\ttimestamp:int64\n")
+        for u, i, ts in zip(a["src"], a["dst"], a["ts"]):
+            f.write("%d\t%d\t%d\n" % (u, i + ITEM_ID0, ts))
+    return n_u, n_i
+
+
+def load(data_dir: str, device: DeviceLike = "cuda") -> Graph:
+    """The example's store from ``gen_temporal_u2i``'s files in
+    ``data_dir`` (written first if they are missing) through
+    ``Graph.node/edge/init`` (``tgn.py:81-89``): node types "u" and "i"
+    with float features, the timestamped ``ev`` edges."""
+    if not os.path.exists(os.path.join(data_dir, "event_table")):
+        write_temporal_u2i(data_dir)
+    return (Graph(device=device)
+            .node(os.path.join(data_dir, "user_table"), "u",
+                  Decoder(attr_types=["float"] * FEAT_DIM))
+            .node(os.path.join(data_dir, "item_table"), "i",
+                  Decoder(attr_types=["float"] * FEAT_DIM))
+            .edge(os.path.join(data_dir, "event_table"), ("u", "i", "ev"),
+                  Decoder(timestamped=True))).init()
 
 
 def build_graph(a: Dict[str, np.ndarray], device: DeviceLike = "cuda"
@@ -202,6 +254,7 @@ def tgn_step(model: nn.ModuleDict, opt: torch.optim.Optimizer, tables,
 
 def main(argv=None) -> float:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--data_dir", default=DEFAULT_DIR)
     ap.add_argument("--batch_size", type=int, default=128)
     ap.add_argument("--mem_dim", type=int, default=32)
     ap.add_argument("--nbrs", type=int, default=5)
@@ -212,7 +265,7 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else "cuda")
 
-    g = build_graph(gen_temporal_u2i(), dev)
+    g = load(args.data_dir, dev)
     host = g.store.edge_table("ev")
     et = host.device(dev)
     i_feat = g.store.node_table("i").device(dev).float_attrs

@@ -9,13 +9,14 @@ sqrt((d_u + 1) / (d_i + 1))``, an item-item constraint towards the first
 ``ii_k`` ``i-i`` neighbours of the positive item (``topk``), and Adam;
 then Recall@20 over every user.
 
-The JAX example writes ``examples/data/synthetic.py u2i:72``'s tables as
-TSV files and loads them; file ingest is not ported, so the store is built
-in memory from the same draws (``bipartite_sage.u2i_arrays`` and
-``build_graph``).
+As the JAX example does, the store is ``examples/data/synthetic.py
+u2i:72``'s TSV files at 16 features (written first when ``--data_dir``
+has none) loaded through ``Graph.node/edge/init``
+(``bipartite_sage.load``); ``bipartite_sage.build_graph`` of the same
+draws read back from their text is its in-memory twin.
 
 Usage:  python -m graph_learn_tpu_torch.examples.ultra_gcn [--cpu]
-            [--steps N] [--batch_size B]
+            [--data_dir D] [--steps N] [--batch_size B]
 """
 
 from __future__ import annotations
@@ -27,8 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from graph_learn_tpu_torch.examples.bipartite_sage import (build_graph,
-                                                          u2i_arrays)
+from graph_learn_tpu_torch.examples.bipartite_sage import DEFAULT_DIR, load
 from graph_learn_tpu_torch.ops.negative import negative_sample
 from graph_learn_tpu_torch.ops.sampling import topk_sample
 from graph_learn_tpu_torch.utils.platform import resolve_device
@@ -82,6 +82,7 @@ def recall_at(u: np.ndarray, i: np.ndarray, src: np.ndarray,
 
 def main(argv=None) -> float:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--data_dir", default=DEFAULT_DIR)
     ap.add_argument("--steps", type=int, default=400)
     ap.add_argument("--batch_size", type=int, default=512)
     ap.add_argument("--emb_dim", type=int, default=64)
@@ -94,7 +95,7 @@ def main(argv=None) -> float:
     args = ap.parse_args(argv)
     dev = resolve_device("cpu" if args.cpu else "cuda")
 
-    g, _, _ = build_graph(u2i_arrays(feat_dim=16), dev)
+    g, _, _ = load(args.data_dir, 16, dev)
     et = g.store.edge_table("u-i")
     ui = et.device(dev)
     ii_csr = g.store.edge_table("i-i").device(dev).out

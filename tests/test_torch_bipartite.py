@@ -271,10 +271,11 @@ def test_local_trainer_trains_two_epochs_then_recall(u2i):
     assert 0.0 <= recall <= 1.0
 
 
-def test_the_example_runs_on_the_cpu():
+def test_the_example_runs_on_the_cpu(tmp_path):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        recall = bs.main(["--cpu", "--epochs", "1", "--steps_per_epoch",
+        recall = bs.main(["--cpu", "--data_dir", str(tmp_path), "--epochs",
+                          "1", "--steps_per_epoch",
                           "3"])
     assert re.search(r"^recall@20: [01]\.\d{4}$", out.getvalue(), re.M)
     assert 0.0 <= recall <= 1.0

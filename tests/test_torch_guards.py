@@ -17,8 +17,13 @@ import graph_learn_tpu_torch as glt
 from graph_learn_tpu_torch.errors import (DeviceUnavailableError,
                                           InvalidArgumentError)
 from graph_learn_tpu_torch import bench
-from graph_learn_tpu_torch.examples import (sage_unsupervised, scale_demo,
-                                            seal, sweep_aggregate)
+from graph_learn_tpu_torch.examples import (bipartite_sage,
+                                            ego_sage_supervised, node2vec,
+                                            sage_unsupervised, scale_demo,
+                                            seal, sweep_aggregate, tgn,
+                                            ultra_gcn)
+from graph_learn_tpu_torch.examples.data import (cora, ogbl_collab,
+                                                 ogbn_products, synthetic)
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
 from graph_learn_tpu_torch.nn.models.sub_models import GCN, LinkPredictor
 from graph_learn_tpu_torch.nn import torch_bridge
@@ -118,7 +123,13 @@ def no_card(monkeypatch):
                                    "host_trainer", "torch_dataset",
                                    "torch_loader", "checkpointer",
                                    "serve", "serve_main", "serving_server",
-                                   "install_model", "export_serving_fn"])
+                                   "install_model", "export_serving_fn",
+                                   "cora_load_graph", "node2vec_load",
+                                   "node2vec_main", "sage_unsup_load",
+                                   "sage_unsup_main", "tgn_load", "tgn_main",
+                                   "u2i_load", "ultra_gcn_main",
+                                   "bipartite_main", "collab_load",
+                                   "seal_collab_main", "seal_main"])
 def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
                                            tmp_path):
     monkeypatch.delenv("GLT_PLATFORM", raising=False)
@@ -162,7 +173,29 @@ def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
             "m", b"PK\x03\x04"),
         "export_serving_fn": lambda: export_serving_fn(
             lambda seeds, generator: seeds, (np.arange(4), 0)),
+        "cora_load_graph": lambda: ego_sage_supervised.load_graph(
+            str(files), 8),
+        "node2vec_load": lambda: node2vec.load(str(files), 8),
+        "node2vec_main": lambda: node2vec.main(["--data_dir", str(files)]),
+        "sage_unsup_load": lambda: sage_unsupervised.load(str(files), 8),
+        "sage_unsup_main": lambda: sage_unsupervised.main(
+            ["--data_dir", str(files)]),
+        "tgn_load": lambda: tgn.load(str(tmp_path / "tgn")),
+        "tgn_main": lambda: tgn.main(["--data_dir", str(tmp_path / "tgn")]),
+        "u2i_load": lambda: bipartite_sage.load(str(tmp_path / "u2i")),
+        "ultra_gcn_main": lambda: ultra_gcn.main(
+            ["--data_dir", str(tmp_path / "u2i")]),
+        "bipartite_main": lambda: bipartite_sage.main(
+            ["--data_dir", str(tmp_path / "u2i")]),
+        "collab_load": lambda: seal.load_collab(str(tmp_path / "collab")),
+        "seal_collab_main": lambda: seal.main(
+            ["--collab_dir", str(tmp_path / "collab")]),
+        "seal_main": lambda: seal.main(["--data_dir", str(files)]),
     }
+    files = tmp_path / "cora_like"
+    if entry in ("cora_load_graph", "node2vec_load", "sage_unsup_load"):
+        # the files exist: the device is what fails
+        synthetic.cora_like(str(files), n=20, feat_dim=8)
     cfg = {"nodes": [], "edges": [], "port": 0}  # "device" defaults to cuda
     cfg_path = tmp_path / "serve.json"
     cfg_path.write_text(json.dumps(cfg))
@@ -182,6 +215,26 @@ def test_the_online_modules_are_in_the_guards_scope():
     for name in ONLINE_MODULES:
         assert "graph_learn_tpu_torch/online/%s.py" % name in sources
     assert "graph_learn_tpu_torch/examples/serving_demo.py" in sources
+
+
+def test_the_data_writers_need_no_card(no_card, monkeypatch, tmp_path):
+    """Preparing data is host work: the writers run where there is no
+    card, and the examples' generators write their files there too."""
+    monkeypatch.delenv("GLT_PLATFORM", raising=False)
+    raw = tmp_path / "raw"
+    raw.mkdir()
+    (raw / "cora.content").write_text("31\t1\t0\tA\n7\t0\t1\tB\n")
+    (raw / "cora.cites").write_text("31\t7\n")
+    cora.prepare_cora(str(raw), str(tmp_path / "cora"))
+    e = np.array([[0, 1]])
+    ogbl_collab.write_collab_tables(str(tmp_path / "collab"), e,
+                                    np.ones(1), e, e, e, e, np.ones((2, 3)))
+    ogbn_products.write_products_tables(str(tmp_path / "products"),
+                                        np.ones((2, 3)), [0, 1], e, [0],
+                                        [1], [1])
+    tgn.write_temporal_u2i(str(tmp_path / "tgn"), 4, 3, 10)
+    for d, n in (("cora", 5), ("collab", 6), ("products", 5), ("tgn", 3)):
+        assert len(os.listdir(tmp_path / d)) == n, d
 
 
 def test_the_loader_needs_no_card(no_card, monkeypatch, tmp_path, capsys):
@@ -414,6 +467,14 @@ def _row(**times):
     (_row(ms=0.025, cold_ms_seal_896=0.006, bound_ms_seal_896=0.00028),
      True),
     (_row(ms=0.025, cold_ms_seal_896=0.0002, bound_ms_seal_896=0.00028),
+     False),
+    # the reference Cora configuration's rows of the 1 433-wide f32 table
+    # and its hop-2 means
+    (_row(ms=0.025, cold_ms_cora_3500=0.03, bound_ms_cora_3500=0.012),
+     True),
+    (_row(ms=0.025, cold_ms_cora_140=0.0004, bound_ms_cora_140=0.0005),
+     False),
+    (_row(ms=0.025, cold_ms_cora_spmm=0.05, bound_ms_cora_spmm=0.06),
      False),
 ])
 def test_chip_smoke_holds_times_to_their_bounds(row, ok):
@@ -654,6 +715,84 @@ def test_chip_smoke_online_path_rehearses_on_the_cpu(capsys):
                  "bit-equal to an in-memory build", "online export",
                  "online router", "glt_online launches"):
         assert line in out, line
+
+
+def test_chip_smoke_main_runs_phase_23():
+    """main() drives the examples on real layouts after the TSV examples
+    (phase 21d) and merges their fields into the kernels line."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    main = next(f for f in tree.body
+                if isinstance(f, ast.FunctionDef) and f.name == "main")
+    called = [n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert "real_layout_path" in called
+    assert called.index("real_layout_path") > called.index(
+        "tsv_examples_path")
+    assert "real_rows" in {n.id for n in ast.walk(main)
+                           if isinstance(n, ast.Name)}
+
+
+def test_chip_smoke_real_layout_path_rehearses_on_the_cpu(capsys):
+    """Phase 23 at a small size on the CPU, 1 433 features wide: the
+    reference Cora configuration from cora_like files, Cora's raw layout
+    through prepare_cora (its store held to the raw files), SEAL through
+    --collab_dir (its store held to the in-memory twin); on the CPU no
+    kernel launches and none is timed."""
+    from graph_learn_tpu_torch.ops.kernels import gather, spmm
+    smoke = _chip_smoke_module()
+    with bench.bench_conf(storage_profile="full", feature_dtype="float32"):
+        fields = smoke.real_layout_path(
+            torch, "the CPU", gather, spmm, device="cpu",
+            cora_ref=dict(nodes=300, features=1433, classes=7, epochs=2,
+                          bar=0.0),
+            raw_cora=dict(smoke.RAW_CORA, papers=700, cites=1400,
+                          epochs=1),
+            collab=dict(nodes=2000, train=6000, valid=50, test=300,
+                        neg=400, steps=3, batch=64))
+    g, s = fields["gather_rows"], fields["segment_spmm"]
+    assert g["cora_ref_launches_per_step"] == 2.0
+    assert s["cora_ref_launches_per_step"] == 1.0
+    assert 0.0 <= g["cora_ref_test_accuracy"] <= 1.0
+    assert g["collab_files_launches_per_step"] == 0.0
+    assert np.isfinite(g["collab_files_hits_at_50"])
+    assert "cold_ms_cora_140" not in g  # nothing timed off the card
+    out = capsys.readouterr().out
+    for line in ("cora reference configuration", "raw cora",
+                 "seal --collab_dir", "phase 23"):
+        assert line in out, line
+
+
+@pytest.mark.parametrize("per,steps,evals,want", [
+    ({"gather_rows": 2, "segment_spmm": 1}, 240, 10,
+     {"gather_rows": 500, "segment_spmm": 250}),
+    ({"gather_rows": 3, "gat_block": 3, "gat_block_bwd": 3}, 16, 4,
+     {"gather_rows": 60, "gat_block": 60, "gat_block_bwd": 48}),
+    ({"gather_rows": 7}, 5, 2, {"gather_rows": 49, "segment_spmm": 0}),
+])
+def test_chip_smoke_counts_launches_over_steps_and_evaluations(
+        per, steps, evals, want):
+    """The launches a TSV example or phase 23 is held to: ``per`` a step
+    over the training steps and the evaluated batches; a backward only in
+    training."""
+    smoke = _chip_smoke_module()
+    assert smoke.expected_launches(per, want, steps, evals) == want
+
+
+@pytest.mark.parametrize("name,route", [
+    (GATHER_BULK, "bulk"),
+    ("_ZN41_GLOBAL__N__84789cab_9_gather_cu_7b05fd7818gather_rows_kernelI5"
+     "uint2EEvPKT_PKiPS2_lli", "lanes, 8-byte words"),
+    ("_ZN41_GLOBAL__N__84789cab_9_gather_cu_7b05fd7818gather_rows_kernelI5"
+     "uint4EEvPKT_PKiPS2_lli", "lanes, 16-byte words"),
+    ("_ZN41_GLOBAL__N__84789cab_9_gather_cu_7b05fd7818gather_rows_kernelIj"
+     "EEvPKT_PKiPS1_lli", "lanes, 4-byte words"),
+    ("_ZN41_GLOBAL__N__5ab_7_spmm_cu_1c2d3e4f19segment_spmm_kernelIffLi1E"
+     "EEvNS_8SpmmArgsE", "vec 1"),
+    ("_ZN41_GLOBAL__N__5ab_7_spmm_cu_1c2d3e4f19segment_spmm_kernelI13__nv_"
+     "bfloat16fLi8EEEvNS_8SpmmArgsE", "vec 8"),
+])
+def test_chip_smoke_reads_the_route_from_a_kernel_name(name, route):
+    assert _chip_smoke_module().vector_route(name) == route
 
 
 def test_chip_smoke_fails_off_the_native_ingest_route():

@@ -394,11 +394,12 @@ def test_one_edge_star_sage_step_equals_the_jax_example(sage_stores,
     assert_trees_close(to_flax_params(tm), jnew, rtol=G_RTOL, atol=G_ATOL)
 
 
-def test_the_seal_example_runs_eagerly_on_the_cpu(monkeypatch):
+def test_the_seal_example_runs_eagerly_on_the_cpu(monkeypatch, tmp_path):
     calls = _count_gathers(monkeypatch)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        auc = seal.main(["--cpu", "--steps", "2", "--batch_size", "8"])
+        auc = seal.main(["--cpu", "--data_dir", str(tmp_path), "--steps",
+                         "2", "--batch_size", "8"])
     lines = out.getvalue().splitlines()
     assert [ln.split()[:2] for ln in lines] == [["step", "0"],
                                                 ["step", "1"]]
@@ -414,11 +415,13 @@ def test_the_planted_seal_example_prints_hits_at_50():
     assert 0.0 <= hits <= 1.0
 
 
-def test_the_sage_unsupervised_example_runs_eagerly_on_the_cpu(monkeypatch):
+def test_the_sage_unsupervised_example_runs_eagerly_on_the_cpu(monkeypatch,
+                                                               tmp_path):
     calls = _count_gathers(monkeypatch)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        acc = sage.main(["--cpu", "--epochs", "1", "--steps_per_epoch", "2",
+        acc = sage.main(["--cpu", "--data_dir", str(tmp_path), "--epochs",
+                         "1", "--steps_per_epoch", "2",
                          "--batch_size", "32"])
     assert out.getvalue().splitlines()[-1] == \
         "link accuracy (pos>neg): %.4f" % acc

@@ -202,10 +202,11 @@ def test_one_step_equals_jax_from_the_same_weights_and_draws(example, off):
                                    atol=ATOL)
 
 
-def test_the_example_runs_on_the_cpu():
+def test_the_example_runs_on_the_cpu(tmp_path):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        auc = tgn.main(["--cpu", "--epochs", "1", "--batch_size", "512"])
+        auc = tgn.main(["--cpu", "--data_dir", str(tmp_path), "--epochs", "1",
+                         "--batch_size", "512"])
     assert re.search(r"^epoch 0 loss [0-9.]+ pairwise-auc [01]\.\d{3} "
                      r"\(last quarter [01]\.\d{3}\)$", out.getvalue(), re.M)
     assert 0.0 <= auc <= 1.0

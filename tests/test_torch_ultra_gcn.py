@@ -171,10 +171,11 @@ def test_recall_at_k_counts_hits_over_the_truth():
     assert ug.recall_at(u, i, src, dst, k=3) == pytest.approx(1.0)
 
 
-def test_the_example_runs_on_the_cpu():
+def test_the_example_runs_on_the_cpu(tmp_path):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        recall = ug.main(["--cpu", "--steps", "3", "--batch_size", "64"])
+        recall = ug.main(["--cpu", "--data_dir", str(tmp_path), "--steps", "3",
+                          "--batch_size", "64"])
     assert re.search(r"^step 0 loss [0-9.]+$", out.getvalue(), re.M)
     assert re.search(r"^recall@20: [01]\.\d{4}$", out.getvalue(), re.M)
     assert 0.0 <= recall <= 1.0

@@ -500,10 +500,11 @@ def test_run_walks_counts_its_transitions():
         "cpu").out.nbr_ids_sorted is None
 
 
-def test_the_node2vec_example_runs_on_the_cpu():
+def test_the_node2vec_example_runs_on_the_cpu(tmp_path):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        coherence = n2v.main(["--cpu", "--epochs", "1", "--walk_len", "4"])
+        coherence = n2v.main(["--cpu", "--data_dir", str(tmp_path), "--epochs",
+                              "1", "--walk_len", "4"])
     assert re.search(r"^epoch 0 loss [0-9.]+$", out.getvalue(), re.M)
     assert re.search(r"^nn label coherence: [01]\.\d{3} \(chance ~0\.143\)$",
                      out.getvalue(), re.M)
