@@ -329,6 +329,32 @@ Phases (any failure exits non-zero before the result line):
    batch, init / train / scoring seconds, hits@50 finite and above that
    of random scores on the same pairs.
 
+24. the parallel store and training on torch.distributed, last, on the
+   bench CFG store (200 000 nodes, 3.2M weighted edges, 128 bf16
+   features; fan-out [15, 10], batch 1 024, EgoGraphSAGE [128, 256, 32]
+   "gcn", Adam).  (a) DistTrainer at mesh (1, 1) on NCCL in this process
+   (parallel/bootstrap.py init_cluster with a file store): 2 warm and 10
+   timed steps, its mean loss LocalTrainer's on the same seeds within
+   rtol 1e-5, step wall and edges/s, 2 gather_rows + 1 segment_spmm a
+   step.  Then two gloo ranks that share the card (parallel/launch.py
+   spawn; NCCL refuses two ranks on one device), each building the store
+   itself: (b) mesh (1, 2), each rank placing only its block of the
+   range-partitioned store: the ids and feature rows of three topk
+   batches bit-equal to the one-rank plan's; DistTrainer partitioned
+   (partition_above_bytes=0) in owner and then psum routing: step wall,
+   payload bytes over the graph axis per step, gather_rows launches per
+   step (> 0: the owners' row gathers), the device bytes each rank holds
+   against one rank's whole store.  (c) Mesh (2, 1): DistTrainer
+   data-parallel for 10 steps, 2 gather_rows + 1 segment_spmm a step on
+   each rank, the parameters of both ranks bit-equal after them.  (d)
+   ShardedGCN [256, 32] full-batch over mesh (1, 2): sharded_spmm's mean
+   equal to a one-rank mean within rtol 1e-5, 5 steps with the loss
+   falling, ms a step and the halo rows a rank receives.  (e)
+   examples/routing_bytes.py's rank function on the same two ranks:
+   bytes over the graph axis of the 1-hop plan, psum against owner.
+   Times of the gloo ranks are of two processes sharing one card over
+   gloo, not of NVLink collectives; every line says so.
+
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
 just before them (Kernels 1 and 2 carry the bipartite path's
@@ -371,7 +397,11 @@ Kernel 1's ``cold_ms_cora_140`` / ``_3500`` and Kernel 2's
 ``cold_ms_cora_spmm``, each with its ``bound_ms_cora_*``,
 ``plain_cold_ms_cora_*``, ``library_cold_ms_cora_*`` and
 ``kernel_route_cora_*``, and Kernel 1's ``collab_files_hits_at_50`` and
-``collab_files_launches_per_step``).
+``collab_files_launches_per_step``; phase 24's ``parallel_*`` fields on
+Kernels 1-2: launches a step at mesh (1, 1) on NCCL, in each routing of
+the partitioned step and data-parallel, the steps' ms (``*_shared_card``
+for the two gloo ranks), the bytes over the graph axis a step, and the
+launches a ``sharded_spmm`` of the full-graph GCN (0: plain torch)).
 """
 
 from __future__ import annotations
@@ -7059,6 +7089,544 @@ def real_layout_path(torch, card, gather, spmm, device="cuda",
     return fields
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the parallel store and training on torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_WARM, PAR_STEPS = 2, 10  # (a), (c): warm steps, then timed steps
+PAR_PART_STEPS = 5  # (b): timed steps a routing, after PAR_WARM
+PAR_TOPK_BATCHES = 3  # (b): topk batches held to the one-rank plan
+PAR_GCN_DIMS, PAR_GCN_STEPS = (256, 32), 5  # (d)
+PAR_RTOL = 1e-5
+# (d): the largest difference of a summed gradient from the one-rank dense
+# GCN's, over the gradient's largest entry, both in float64.  In float32
+# the two sum in different orders, so a hidden unit within rounding of 0
+# can fall on the other side of the ReLU in one and not the other, and
+# one such unit moves the first layer's weight gradient by about
+# 1/sqrt(nodes) of its largest entry.  The line reports both.
+PAR_GRAD_RTOL = 1e-9
+SHARED_CARD = "2 gloo ranks sharing one card, not NVLink collectives"
+PARALLEL_TIMEOUT_S = 300
+# the bench CFG store and step (graph_learn_tpu_torch/bench.py CFG)
+PAR_CFG = dict(n_nodes=N_NODES, avg_degree=AVG_DEGREE, feat_dim=FEAT_DIM,
+               hidden=HIDDEN, classes=CLASSES, batch=MICRO_BATCH,
+               fanout=FANOUT, device="cuda")
+
+
+def _par_query(g, cfg, strategy="random"):
+    k1, k2 = cfg["fanout"]
+    return (g.V("item").batch(cfg["batch"]).alias("src")
+            .outV("rel").sample(k1).by(strategy).alias("hop1")
+            .outV("rel").sample(k2).by(strategy).alias("hop2").values())
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_model(torch, dec, cfg):
+    """EgoGraphSAGE [128, 256, 32] "gcn", weights from seed 0."""
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+    torch.manual_seed(0)
+    return EgoGraphSAGE([cfg["feat_dim"], cfg["hidden"], cfg["classes"]],
+                        dec, agg_type="gcn", device=cfg["device"])
+
+
+def _par_loss(model, batch, generator, training):
+    from graph_learn_tpu_torch.nn.data import EgoGraph
+    from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+    ego = EgoGraph.from_query_result(batch, "src", HOPS)
+    return supervised_softmax_loss(model(ego, training=training,
+                                         generator=generator),
+                                   batch["src"].labels)
+
+
+def _pre_aggregate(batch, tables):
+    """The deepest hop's mean by Kernel 2, outside the gradient."""
+    from graph_learn_tpu_torch.nn.data import pre_aggregate_hop
+    return pre_aggregate_hop(batch, "hop2",
+                             tables["nodes"]["item"].float_attrs, "mean")
+
+
+class _StepClock:
+    """Stamps the card-synchronised host clock at the end of each of
+    ``optimizer``'s steps (a step post-hook).  ``step_ms(warm)`` divides
+    the wall from the end of the last warm step to now by the steps in
+    it, so each timed step is in the window whole: its seeds, plan,
+    batch transform, forward, backward and update."""
+
+    def __init__(self, torch, device, optimizer):
+        self.torch, self.device, self.stamps = torch, device, []
+        self.hook = optimizer.register_step_post_hook(self._stamp)
+
+    def _stamp(self, optimizer, args, kwargs):
+        _sync(self.torch, self.device)
+        self.stamps.append(time.perf_counter())
+
+    def step_ms(self, warm):
+        _sync(self.torch, self.device)
+        end = time.perf_counter()
+        self.hook.remove()
+        return (end - self.stamps[warm - 1]) / (len(self.stamps) - warm) * 1e3
+
+
+def parallel_one_rank(torch, card, gather, spmm, g, dec, cfg):
+    """24a: DistTrainer at mesh (1, 1) on NCCL in this process against
+    LocalTrainer on the same seeds."""
+    import tempfile
+
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+    from graph_learn_tpu_torch.parallel import bootstrap
+    from graph_learn_tpu_torch.parallel.mesh import make_mesh
+    from graph_learn_tpu_torch.parallel.train import DistTrainer
+
+    k1, k2 = cfg["fanout"]
+    dev, on_card = cfg["device"], cfg["device"] == "cuda"
+    q = _par_query(g, cfg)
+    steps = PAR_WARM + PAR_STEPS
+    where = tempfile.mkdtemp(prefix="glt_nccl_")
+    check(bootstrap.init_cluster("file://" + os.path.join(where, "store"),
+                                 1, 0, device=dev),
+          "init_cluster did not start")
+    try:
+        import torch.distributed as dist
+        check(dist.get_backend() == ("nccl" if on_card else "gloo"),
+              "one rank a card: not NCCL")
+        mesh = make_mesh(1, 1)
+        model = _par_model(torch, dec, cfg)
+        opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+        clock = _StepClock(torch, dev, opt)
+        gather.LAUNCHES.reset()
+        spmm.LAUNCHES.reset()
+        _, hist = DistTrainer(mesh, seed=0).train(
+            q, model, _par_loss, opt, steps_per_epoch=steps, verbose=False,
+            batch_transform=_pre_aggregate)
+        step_ms = clock.step_ms(PAR_WARM)
+        launches = {"gather_rows": gather.LAUNCHES.count / steps,
+                    "segment_spmm": spmm.LAUNCHES.count / steps}
+    finally:
+        bootstrap.shutdown()
+        shutil.rmtree(where, ignore_errors=True)
+    ref = _par_model(torch, dec, cfg)
+    _, ref_hist = LocalTrainer(seed=0, device=dev).train(
+        q, ref, _par_loss, torch.optim.Adam(ref.parameters(),
+                                            lr=LEARNING_RATE),
+        steps_per_epoch=steps, verbose=False, batch_transform=_pre_aggregate)
+    check(abs(hist[0] - ref_hist[0]) <= PAR_RTOL * abs(ref_hist[0]),
+          "24a: DistTrainer (1, 1) mean loss %r, LocalTrainer %r"
+          % (hist[0], ref_hist[0]))
+    check(launches == ({"gather_rows": 2.0, "segment_spmm": 1.0} if on_card
+                       else {"gather_rows": 0.0, "segment_spmm": 0.0}),
+          "24a: launches a step %r, not 2 gather_rows + 1 segment_spmm"
+          % launches)
+    eps = cfg["batch"] * (k1 + k1 * k2) / (step_ms / 1e3)
+    log("parallel (a) DistTrainer mesh (1, 1) on %s, one rank: %d + %d "
+        "steps of batch %d, mean loss %.6f (LocalTrainer %.6f, same seeds), "
+        "%.3f ms a step (host clock, card synchronised each step), %.0f "
+        "edges/s, %s gather_rows + %s segment_spmm a step; card: %s"
+        % ("NCCL" if on_card else "gloo", PAR_WARM, PAR_STEPS, cfg["batch"],
+           hist[0], ref_hist[0], step_ms, eps, launches["gather_rows"],
+           launches["segment_spmm"], card))
+    return {"step_ms": step_ms, "edges_per_s": eps, "launches": launches}
+
+
+def _same_bits(torch, a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def parallel_ranks(rank, world, card, cfg):
+    """24b-e on each of two gloo ranks that share the card."""
+    import torch
+
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.core.sharding import (COLLECTIVES,
+                                                     GRAPH_AXIS)
+    from graph_learn_tpu_torch.examples import routing_bytes
+    from graph_learn_tpu_torch.examples.scale_demo import nbytes
+    from graph_learn_tpu_torch.gsl.compile import _execute
+    from graph_learn_tpu_torch.ops.kernels import gather, spmm
+    from graph_learn_tpu_torch.parallel.mesh import make_mesh
+    from graph_learn_tpu_torch.parallel.sharded_store import (
+        build_sharded_tables)
+    from graph_learn_tpu_torch.parallel.train import (DistTrainer,
+                                                      make_partitioned_plan)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gl.conf.feature_dtype = "bfloat16"
+    dev, on_card = cfg["device"], cfg["device"] == "cuda"
+    out = {}
+    t0 = time.perf_counter()
+    g, dec = bench.build_graph(cfg, dev)
+    k1, k2 = cfg["fanout"]
+    q = _par_query(g, cfg)
+    m12, m21 = make_mesh(1, world), make_mesh(world, 1)
+    out["build_s"] = time.perf_counter() - t0
+
+    # (b) the partitioned store: this rank's block only, first on the card
+    _sync(torch, dev)
+    alloc = torch.cuda.memory_allocated if on_card else (lambda: 0)
+    base = alloc()
+    st = build_sharded_tables(q, world, shard=rank).place(m12)
+    _sync(torch, dev)
+    out["block_alloc"] = alloc() - base
+    out["block_bytes"] = st.device_bytes()
+    del st
+    steps = PAR_WARM + PAR_PART_STEPS
+    for routing in ("owner", "psum"):
+        gl.conf.partition_routing = routing
+        model = _par_model(torch, dec, cfg)
+        opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+        clock = _StepClock(torch, dev, opt)
+        trainer = DistTrainer(m12, seed=0, partition_above_bytes=0)
+        gather.LAUNCHES.reset()
+        spmm.LAUNCHES.reset()
+        COLLECTIVES.reset()
+        _, hist = trainer.train(q, model, _par_loss, opt,
+                                steps_per_epoch=steps, verbose=False)
+        check(trainer.partitioned, "24b: the partitioned store was not used")
+        out[routing] = dict(
+            loss=hist[0], step_ms=clock.step_ms(PAR_WARM),
+            graph_bytes=COLLECTIVES.total_bytes(GRAPH_AXIS) / steps,
+            ops={op: [c / steps, b / steps] for op, (c, b)
+                 in COLLECTIVES.by_op(GRAPH_AXIS).items()},
+            gather=gather.LAUNCHES.count / steps,
+            spmm=spmm.LAUNCHES.count / steps)
+        del trainer, model
+    gl.conf.partition_routing = "owner"
+    # the ids and rows of three topk batches against the one-rank plan
+    qt = _par_query(g, cfg, "topk")
+    st = build_sharded_tables(qt, world, shard=rank).place(m12)
+    plan = make_partitioned_plan(qt, m12, st)
+    full = qt.device_tables(dev)
+    out["store_bytes"] = nbytes(full)
+    same = []
+    for i in range(PAR_TOPK_BATCHES):
+        seeds = (torch.arange(cfg["batch"], device=dev, dtype=torch.int32)
+                 * 7 + i * 50_021) % cfg["n_nodes"]
+        got = plan(seeds, torch.Generator(dev).manual_seed(i))
+        want = _execute(qt, full, seeds, torch.Generator(dev).manual_seed(i))
+        for a in ("src", "hop1", "hop2"):
+            same.append(_same_bits(torch, got[a].ids, want[a].ids))
+            same.append(_same_bits(torch, got[a].float_attrs,
+                                   want[a].float_attrs.materialize()))
+    out["topk_same"] = all(same)
+    del plan, st, full
+
+    # (c) data parallelism: the single-device plan on each data slice
+    model = _par_model(torch, dec, cfg)
+    opt = torch.optim.Adam(model.parameters(), lr=LEARNING_RATE)
+    clock = _StepClock(torch, dev, opt)
+    gather.LAUNCHES.reset()
+    spmm.LAUNCHES.reset()
+    steps = PAR_WARM + PAR_STEPS
+    _, hist = DistTrainer(m21, seed=0).train(
+        q, model, _par_loss, opt, steps_per_epoch=steps, verbose=False,
+        batch_transform=_pre_aggregate)
+    out["dp"] = dict(loss=hist[0], step_ms=clock.step_ms(PAR_WARM),
+                     gather=gather.LAUNCHES.count / steps,
+                     spmm=spmm.LAUNCHES.count / steps,
+                     params=torch.cat([p.detach().reshape(-1)
+                                       for p in model.parameters()]))
+    del model
+
+    # (d) ShardedGCN full-batch over the partitioned edges
+    out["gcn"] = _parallel_gcn(torch, gather, spmm, g, m12, rank, world, cfg)
+    # (e) examples/routing_bytes.py's rank function on these two ranks
+    out["routing"] = routing_bytes.rank_bytes(rank, world)
+    return out
+
+
+def _dense_gcn(torch, model, feats, src, dst, labels):
+    """The loss, the gradients of ShardedGCN's parameters and the first
+    layer's pre-activations on one rank that holds the whole graph: each
+    layer's mean over in-neighbours by ``index_add``, the mean
+    cross-entropy over every node."""
+    n = feats.shape[0]
+    deg = torch.clamp(torch.bincount(dst, minlength=n), min=1)[:, None]
+    h, pre = feats, None
+    for i, layer in enumerate(model.dense):
+        agg = torch.zeros_like(h).index_add(0, dst, h[src]) / deg.to(h.dtype)
+        h = layer(torch.cat([h, agg], dim=-1))
+        if i < len(model.dense) - 1:
+            pre = h.detach()
+            h = model.act(h)
+    loss = torch.nn.functional.cross_entropy(h, labels)
+    return (float(loss.detach()),
+            torch.autograd.grad(loss, list(model.parameters())), pre)
+
+
+def _grad_err(model, ref_grads):
+    """The largest difference of each gradient from its reference, over
+    the reference's largest entry."""
+    return max(float((q.grad - r).abs().max() / r.abs().max())
+               for q, r in zip(model.parameters(), ref_grads))
+
+
+def _parallel_gcn(torch, gather, spmm, g, mesh, rank, world, cfg):
+    """24d on one rank: the mean aggregation against a one-rank mean, the
+    first step's summed gradients in float64 against a one-rank dense GCN
+    in float64 (on rank 0), then PAR_GCN_STEPS float32 steps of
+    ShardedGCN, the first step's loss against the dense one.  The float32
+    gradients' difference from a float32 dense GCN's, and the hidden units
+    on the other side of the ReLU in the two, are only reported.  Kernels
+    1-2 are counted over every ``sharded_spmm`` and step of the case."""
+    from graph_learn_tpu_torch.ops.segment import segment_sum
+    from graph_learn_tpu_torch.parallel.full_graph import (
+        ShardedGCN, gather_rows_over_graph, make_full_graph_train_step)
+    from graph_learn_tpu_torch.parallel.halo import sharded_spmm
+    from graph_learn_tpu_torch.parallel.partition import (partition_edges,
+                                                          shard_features)
+
+    et = g.store.edge_table("rel")
+    nt = g.store.node_table("item")
+    t0 = time.perf_counter()
+    sg = partition_edges(et, world)
+    part_s = time.perf_counter() - t0
+    rows = sg.rows_per_shard
+    feats = nt.float_attrs  # the host f32 table
+    dev = cfg["device"]
+    x = torch.as_tensor(shard_features(feats, world)[rank], device=dev)
+    src = torch.as_tensor(et.src, device=dev).long()
+    dst = torch.as_tensor(et.dst, device=dev).long()
+    full = torch.as_tensor(feats, device=dev)
+    n = nt.num_nodes
+    labels = torch.as_tensor(np.pad(nt.labels, (0, world * rows - n))
+                             .reshape(world, rows), device=dev).long()
+    mask = torch.as_tensor(np.pad(np.ones(n, np.float32),
+                                  (0, world * rows - n))
+                           .reshape(world, rows), device=dev)
+    torch.manual_seed(0)
+    model = ShardedGCN(list(PAR_GCN_DIMS), sg, mesh, in_dim=cfg["feat_dim"],
+                       device=dev)
+    # the same parameters in float64, for the gradient check
+    model64 = ShardedGCN(list(PAR_GCN_DIMS), sg, mesh,
+                         in_dim=cfg["feat_dim"], device=dev).double()
+    model64.load_state_dict(model.state_dict())
+    dense64 = dense32 = None
+    if rank == 0:  # no collective inside: the other rank does not wait
+        all_labels = torch.as_tensor(nt.labels, device=dev).long()
+        dense64 = _dense_gcn(torch, model64, full.double(), src, dst,
+                             all_labels)
+        dense32 = _dense_gcn(torch, model, full, src, dst, all_labels)
+
+    def loss_fn(logits, lab, msk):
+        ls = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), lab.reshape(-1),
+            reduction="none")
+        m = msk.reshape(-1)
+        return (ls * m).sum() / m.sum()
+
+    step = make_full_graph_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=LEARNING_RATE), mesh,
+        loss_fn)
+    _sync(torch, dev)
+    gather.LAUNCHES.reset()
+    spmm.LAUNCHES.reset()
+    agg = sharded_spmm(sg, x, mesh, agg="mean")
+    # one rank's mean over the whole table: this rank's dst rows
+    lo = rank * rows
+    mine = (dst >= lo) & (dst < lo + rows)
+    ref = segment_sum(full[src[mine]], (dst[mine] - lo), rows)
+    deg = torch.bincount(dst[mine] - lo, minlength=rows)
+    ref = ref / torch.clamp(deg, min=1).to(ref.dtype)[:, None]
+    err = float(((agg - ref).abs() - PAR_RTOL * ref.abs()).max())
+    # the first layer's pre-activations of every row, for the record
+    with torch.no_grad():
+        pre = gather_rows_over_graph(model.dense[0](torch.cat(
+            [x, sharded_spmm(sg, x, mesh, agg="mean")], dim=-1)), mesh)
+    # the first step's summed gradients in float64, through the same step
+    # with a rate of 0, against the dense ones
+    make_full_graph_train_step(
+        model64, torch.optim.SGD(model64.parameters(), lr=0.0), mesh,
+        loss_fn)(x.double(), labels, mask.double())
+    losses = [float(step(x, labels, mask))]  # warm
+    ref_loss = grad_err = grad_err32 = flips = None
+    if rank == 0:
+        ref_loss, grad_err = dense64[0], _grad_err(model64, dense64[1])
+        grad_err32 = _grad_err(model, dense32[1])
+        flips = int(((pre.reshape(-1, pre.shape[-1])[:n] > 0)
+                     != (dense32[2] > 0)).sum())
+    del model64, dense64, dense32, pre
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(PAR_GCN_STEPS - 1):
+        losses.append(step(x, labels, mask))
+    losses = [float(v) for v in losses]
+    _sync(torch, dev)
+    step_ms = (time.perf_counter() - t0) / (PAR_GCN_STEPS - 1) * 1e3
+    # sharded_spmm calls: the mean, the pre-activations, the float64 step
+    # and the steps
+    calls = 2 + (1 + PAR_GCN_STEPS) * len(PAR_GCN_DIMS)
+    return dict(losses=losses, step_ms=step_ms,
+                halo_rows=int(sg.recv_offsets[rank, -1]),
+                halo_max=sg.halo_max, rows=rows, partition_s=part_s,
+                mean_excess=err, ref_loss=ref_loss,
+                grad_err=grad_err, grad_err32=grad_err32, flips=flips,
+                units=n * PAR_GCN_DIMS[0],
+                gather=gather.LAUNCHES.count / calls,
+                spmm=spmm.LAUNCHES.count / calls)
+
+
+def parallel_path(torch, card, gather, spmm, cfg=None):
+    """24: the parallel store and training; returns the kernels line's
+    fields of phase 24.  ``cfg`` (default ``PAR_CFG``) sets the store,
+    the step and the device, so that the phase rehearses small on the
+    CPU, where no kernel launches."""
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.examples import routing_bytes
+    from graph_learn_tpu_torch.parallel.launch import spawn
+
+    cfg = dict(PAR_CFG, **(cfg or {}))
+    dev, on_card = cfg["device"], cfg["device"] == "cuda"
+    t_phase = time.perf_counter()
+    k1, k2 = cfg["fanout"]
+    g, dec = bench.build_graph(cfg, dev)
+    a = parallel_one_rank(torch, card, gather, spmm, g, dec, cfg)
+    del g, dec
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    r0, r1 = spawn(parallel_ranks, 2, device=dev, backend="gloo",
+                   args=(card, cfg), timeout_s=PARALLEL_TIMEOUT_S,
+                   threads=None if on_card else 2)
+    spawn_s = time.perf_counter() - t0
+    edges = cfg["batch"] * (k1 + k1 * k2)
+    # (b)
+    for r in (r0, r1):
+        check(r["topk_same"], "24b: a topk batch of the partitioned plan is "
+              "not the one-rank plan's, bit for bit")
+        for routing in ("owner", "psum"):
+            b = r[routing]
+            check(math.isfinite(b["loss"]), "24b: %s loss %r"
+                  % (routing, b["loss"]))
+            check(b["gather"] > 0 or not on_card, "24b: gather_rows never "
+                  "launched in %s routing" % routing)
+        check(r["block_bytes"] < r["store_bytes"],
+              "24b: a block of %d bytes for a store of %d"
+              % (r["block_bytes"], r["store_bytes"]))
+    check(r0["owner"]["ops"] == r1["owner"]["ops"]
+          and r0["psum"]["ops"] == r1["psum"]["ops"],
+          "24b: the ranks counted different collectives")
+    for routing in ("owner", "psum"):
+        b = r0[routing]
+        log("parallel (b) DistTrainer mesh (1, 2), partitioned store, %s "
+            "routing: %d + %d steps of batch %d, mean loss %.6f / %.6f "
+            "(ranks 0 / 1), %.1f / %.1f ms a step (%.0f edges/s), %.2f MB "
+            "over the graph axis a step and rank (%s), %s gather_rows + %s "
+            "segment_spmm a step; %s; card: %s"
+            % (routing, PAR_WARM, PAR_PART_STEPS, cfg["batch"], b["loss"],
+               r1[routing]["loss"], b["step_ms"], r1[routing]["step_ms"],
+               edges / (b["step_ms"] / 1e3), b["graph_bytes"] / 1e6,
+               ", ".join("%s x%g %.2f MB" % (op, c, by / 1e6)
+                         for op, (c, by) in sorted(b["ops"].items())),
+               b["gather"], b["spmm"], SHARED_CARD, card))
+    log("parallel (b) device bytes: rank 0 / 1 hold %d / %d bytes of the "
+        "store's block (%d / %d allocated by the placement) against %d for "
+        "one rank's whole store; %d topk batches bit-equal to the one-rank "
+        "plan (ids and feature rows of src, hop1, hop2); the store drawn "
+        "in %.1f / %.1f s on each rank's host; card: %s"
+        % (r0["block_bytes"], r1["block_bytes"], r0["block_alloc"],
+           r1["block_alloc"], r0["store_bytes"], PAR_TOPK_BATCHES,
+           r0["build_s"], r1["build_s"], card))
+    # (c)
+    check(torch.equal(r0["dp"]["params"], r1["dp"]["params"]),
+          "24c: the two data-parallel ranks' parameters differ")
+    want = (2.0, 1.0) if on_card else (0.0, 0.0)
+    for r in (r0, r1):
+        check((r["dp"]["gather"], r["dp"]["spmm"]) == want,
+              "24c: %s gather_rows + %s segment_spmm a step, not 2 + 1"
+              % (r["dp"]["gather"], r["dp"]["spmm"]))
+    dp_ms = max(r0["dp"]["step_ms"], r1["dp"]["step_ms"])
+    log("parallel (c) DistTrainer mesh (2, 1), data-parallel: %d + %d steps "
+        "of batch %d (%d a rank), mean loss %.6f / %.6f, %.1f / %.1f ms a "
+        "step (%.0f edges/s over both), %s gather_rows + %s segment_spmm a "
+        "step on each rank, parameters bit-equal on both ranks after the "
+        "steps; %s; card: %s"
+        % (PAR_WARM, PAR_STEPS, cfg["batch"], cfg["batch"] // 2,
+           r0["dp"]["loss"], r1["dp"]["loss"], r0["dp"]["step_ms"],
+           r1["dp"]["step_ms"], edges / (dp_ms / 1e3), r0["dp"]["gather"],
+           r0["dp"]["spmm"], SHARED_CARD, card))
+    # (d)
+    for r in (r0, r1):
+        gcn = r["gcn"]
+        check(gcn["mean_excess"] <= 1e-6, "24d: sharded_spmm's mean is off "
+              "the one-rank mean by %g past rtol 1e-5" % gcn["mean_excess"])
+        check(all(math.isfinite(v) for v in gcn["losses"])
+              and gcn["losses"][-1] < gcn["losses"][0],
+              "24d: ShardedGCN losses %r" % gcn["losses"])
+        check(gcn["gather"] == 0 and gcn["spmm"] == 0,
+              "24d: %s gather_rows + %s segment_spmm a sharded_spmm, not 0 "
+              "(the halo path aggregates in plain torch)"
+              % (gcn["gather"], gcn["spmm"]))
+    check(r0["gcn"]["losses"] == r1["gcn"]["losses"],
+          "24d: the ranks' losses differ")
+    gcn = r0["gcn"]
+    check(abs(gcn["losses"][0] - gcn["ref_loss"])
+          <= PAR_RTOL * abs(gcn["ref_loss"])
+          and gcn["grad_err"] <= PAR_GRAD_RTOL,
+          "24d: the first step's loss %r against the one-rank dense GCN's "
+          "%r (float64); its summed gradients in float64 off the dense "
+          "ones by %r of their largest entry (tolerance %g)" % (gcn["losses"][0], gcn["ref_loss"],
+                                            gcn["grad_err"], PAR_GRAD_RTOL))
+    log("parallel (d) ShardedGCN %s full-batch over mesh (1, 2): "
+        "sharded_spmm mean equal to the one-rank mean within rtol 1e-5; "
+        "the first step's loss within rtol 1e-5 of a one-rank dense GCN's "
+        "(%.6f, float64) and its summed gradients in float64 off the dense "
+        "ones by %.3g of their largest entry (tolerance %g; in float32, "
+        "not checked, %.3g, with %d of %d first-layer units on the other "
+        "side of the ReLU from the float32 dense GCN's); losses %s; %.1f / %.1f ms a "
+        "step; each rank owns %d rows and receives %d / %d halo rows a "
+        "layer (partition_edges %.1f s on the host); %s gather_rows + %s "
+        "segment_spmm a sharded_spmm; %s; card: %s"
+        % (list(PAR_GCN_DIMS), gcn["ref_loss"], gcn["grad_err"],
+           PAR_GRAD_RTOL, gcn["grad_err32"], gcn["flips"], gcn["units"],
+           ["%.4f" % v for v in gcn["losses"]],
+           gcn["step_ms"], r1["gcn"]["step_ms"], gcn["rows"],
+           gcn["halo_rows"], r1["gcn"]["halo_rows"], gcn["partition_s"],
+           gcn["gather"], gcn["spmm"], SHARED_CARD, card))
+    # (e)
+    check(r0["routing"]["psum"]["ops"] == r1["routing"]["psum"]["ops"]
+          and r0["routing"]["owner"]["ops"] == r1["routing"]["owner"]["ops"],
+          "24e: the ranks counted different collectives")
+    for routing in ("psum", "owner"):
+        rr = r0["routing"][routing]
+        log("parallel (e) routing_bytes, batch %d fan-out %d D %d, 2 graph "
+            "shards, %s: %s, total %.1f KiB a step and rank, %.2f ms a "
+            "plan; %s; card: %s"
+            % (routing_bytes.BATCH, routing_bytes.FANOUT,
+               routing_bytes.WIDTH, routing,
+               ", ".join("%s x%g %.1f KiB" % (op, c, by / 1024)
+                         for op, (c, by) in sorted(rr["ops"].items())),
+               sum(v[1] for v in rr["ops"].values()) / 1024, rr["step_ms"],
+               SHARED_CARD, card))
+    took = time.perf_counter() - t_phase
+    log("phase 24 (parallel) in %.1f s (the two ranks %.1f s of it)"
+        % (took, spawn_s))
+    return {
+        "gather_rows": {
+            "parallel_nccl_launches_per_step": a["launches"]["gather_rows"],
+            "parallel_nccl_ms_step": a["step_ms"],
+            "parallel_nccl_edges_per_s": a["edges_per_s"],
+            "parallel_owner_launches_per_step": r0["owner"]["gather"],
+            "parallel_psum_launches_per_step": r0["psum"]["gather"],
+            "parallel_owner_ms_step_shared_card": r0["owner"]["step_ms"],
+            "parallel_psum_ms_step_shared_card": r0["psum"]["step_ms"],
+            "parallel_owner_graph_bytes_per_step": r0["owner"]["graph_bytes"],
+            "parallel_psum_graph_bytes_per_step": r0["psum"]["graph_bytes"],
+            "parallel_dp_launches_per_step": r0["dp"]["gather"],
+            "parallel_dp_ms_step_shared_card": dp_ms,
+            "parallel_halo_launches_per_spmm": r0["gcn"]["gather"]},
+        "segment_spmm": {
+            "parallel_nccl_launches_per_step": a["launches"]["segment_spmm"],
+            "parallel_dp_launches_per_step": r0["dp"]["spmm"],
+            "parallel_halo_launches_per_spmm": r0["gcn"]["spmm"]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7200,10 +7768,16 @@ def main() -> int:
         online_path(torch, card, gather, spmm)
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 24: the parallel store and training on torch.distributed
+    with bench.bench_conf(storage_profile="full"):
+        parallel_rows = parallel_path(torch, card, gather, spmm)
+    gc.collect()
+    torch.cuda.empty_cache()
     for part in (bench_rows, scale_rows, walks_rows, query_rows,
                  bipartite_rows, rgcn_rows, temporal_rows, tgat_rows,
                  example_rows, seal_rows, sage_rows, file_rows, sampler_rows,
-                 host_rows, reorder_rows, tsv_rows, real_rows):
+                 host_rows, reorder_rows, tsv_rows, real_rows,
+                 parallel_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

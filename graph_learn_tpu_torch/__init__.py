@@ -34,8 +34,11 @@ from graph_learn_tpu_torch.config import (conf, set_dataset_capacity,
                                           set_default_int_attribute,
                                           set_default_neighbor_id,
                                           set_default_string_attribute,
-                                          set_field_delimiter, set_knn_metric,
-                                          set_padding_mode, set_retry_times,
+                                          set_field_delimiter,
+                                          set_graph_shards, set_knn_metric,
+                                          set_padding_mode,
+                                          set_partition_routing,
+                                          set_retry_times,
                                           set_seed, set_storage_device,
                                           set_storage_mode,
                                           set_tape_capacity, set_use_pallas)
@@ -64,6 +67,7 @@ __all__ = ["conf", "Decoder", "FeatureSpec", "Mask", "NodeFrom", "EdgeTable",
            "set_dataset_capacity", "set_default_float_attribute",
            "set_default_full_nbr_num", "set_default_int_attribute",
            "set_default_neighbor_id", "set_default_string_attribute",
-           "set_field_delimiter", "set_knn_metric", "set_padding_mode",
+           "set_field_delimiter", "set_graph_shards", "set_knn_metric",
+           "set_padding_mode", "set_partition_routing",
            "set_retry_times", "set_seed", "set_storage_device",
            "set_storage_mode", "set_tape_capacity", "set_use_pallas"]

@@ -4,9 +4,10 @@ A copy of the flags of ``graph_learn_tpu/config.py`` that this package
 reads or that a user sets through a setter (``:112-137``).  There is no
 ``use_pallas`` counterpart: on the card the hand-written kernels are the
 only path, and CPU tensors take their plain versions, so
-``set_use_pallas`` raises.  The flags of the parallel store, which is
-not ported yet, have no setter here (``set_graph_shards``,
-``set_partition_routing``).  The setters of flags that no code reads
+``set_use_pallas`` raises.  The parallel store's flags
+(``graph_shards``, ``partition_routing``, ``owner_route_capacity``,
+``:76-94``) take the JAX defaults, with their setters (``:136-137``).
+The setters of flags that no code reads
 raise ``UnimplementedError`` instead of storing a value nothing looks at:
 the attribute defaults, tape capacity and storage mode, which the JAX
 package stores but never reads either.
@@ -61,6 +62,17 @@ class _Config:
     # k-NN metric of an index built without one: 0 = L2, 1 = inner product
     # (reference KnnMetric)
     knn_metric: int = 0
+    # number of graph shards (the mesh's "graph" axis); 1 = one device
+    graph_shards: int = 1
+    # payload exchange of the partitioned plan: "owner" routes feature rows
+    # to their owning shards with all_to_all (O(n * D) bytes over the
+    # axis), "psum" stitches them with a masked all_reduce (O(P * n * D));
+    # both are exact (core/sharding.py)
+    partition_routing: str = "owner"
+    # owner-routing bucket capacity factor: capacity per (sender, owner)
+    # bucket = max(ceil(m * factor / P) + 8, 8); an overflow stays exact
+    # through the psum fallback
+    owner_route_capacity: float = 2.0
 
 
 conf = _Config()
@@ -94,6 +106,8 @@ set_seed = _make_setter("seed")
 set_storage_device = _make_setter("storage_device")
 set_field_delimiter = _make_setter("field_delimiter")
 set_knn_metric = _make_setter("knn_metric")
+set_graph_shards = _make_setter("graph_shards")
+set_partition_routing = _make_setter("partition_routing")
 set_default_int_attribute = _refuse("set_default_int_attribute", _UNREAD)
 set_default_float_attribute = _refuse("set_default_float_attribute", _UNREAD)
 set_default_string_attribute = _refuse("set_default_string_attribute",

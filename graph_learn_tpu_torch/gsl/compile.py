@@ -20,6 +20,13 @@ Randomness comes from one explicit ``torch.Generator``, drawn from in DAG
 order (the JAX package splits one key per node; the two streams differ,
 see ops/sampling.py).
 
+The same plan runs over a graph-sharded store (``parallel/sharded_store.py``
+``ShardedTables.view``): the samplers, degrees (``csr_degrees``), edge
+fields (``edge_field``), lookups and the conditional index's attribute
+probe (``sharded_row_gather``) dispatch on the sharded tables, as
+``:185-186``, ``:260-264``, ``:294``, ``:346`` and ``:412-450`` of the
+JAX package do.
+
 Time threads through the plan as in the JAX package (``_Rec.ts:39-48``):
 an ``E()`` source over a timestamped edge type carries its events'
 timestamps, its endpoint views inherit them (``:193-207``), and a hop
@@ -43,6 +50,9 @@ import numpy as np
 import torch
 
 from graph_learn_tpu_torch.config import conf
+from graph_learn_tpu_torch.core.sharding import (ShardedNodeTable,
+                                                 csr_degrees,
+                                                 sharded_row_gather)
 from graph_learn_tpu_torch.core.values import Edges, Nodes
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.gsl.dag import Dag, DagNode
@@ -55,7 +65,6 @@ from graph_learn_tpu_torch.ops import walk as walk_ops
 from graph_learn_tpu_torch.ops.lookup import (edge_field, edge_payload,
                                               lookup_nodes,
                                               lookup_sparse_nodes)
-from graph_learn_tpu_torch.ops.segment import row_bounds
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -263,8 +272,8 @@ def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, recs,
     # DegreeDagNode): Nodes.out_degrees on dense hops
     pv = parent.value
     if isinstance(pv, Nodes) and pv.out_degrees is None:
-        _, _, deg = row_bounds(csr.row_offsets, flat)
-        parent.value = pv.replace(out_degrees=deg.reshape(shape))
+        parent.value = pv.replace(
+            out_degrees=csr_degrees(csr, flat).reshape(shape))
 
     k = node.count
     strategy = node.strategy
@@ -432,12 +441,22 @@ def _exec_conditional_neg(query: Query, tables, node: DagNode, recs, flat,
     int_props = list(cond.get("int_props", [])) + list(
         cond.get("str_props", []))
     float_cols = list(cond.get("float_cols", []))
-    # the positives' attribute rows, read only where a column asks
-    pos = pos_dst.long()
-    pia = (dst_table.int_attrs[pos]
-           if int_cols and dst_table.int_attrs is not None else None)
-    pfa = (dst_table.float_attrs[pos]
-           if float_cols and dst_table.float_attrs is not None else None)
+    # the positives' attribute rows, read only where a column asks; on a
+    # sharded store the condition table stays replicated and only this
+    # attribute probe crosses the graph axis (one psum each, ``:446-450``)
+    if isinstance(dst_table, ShardedNodeTable):
+        def rows(arr):
+            return sharded_row_gather(arr, dst_table.rows_per_shard,
+                                      dst_table.axis, pos_dst)
+        pia = rows(dst_table.local.int_attrs) if int_cols else None
+        pfa = rows(dst_table.local.float_attrs) if float_cols else None
+    else:
+        pos = pos_dst.long()
+        pia = (dst_table.int_attrs[pos]
+               if int_cols and dst_table.int_attrs is not None else None)
+        pfa = (dst_table.float_attrs[pos]
+               if float_cols and dst_table.float_attrs is not None
+               else None)
     return cond_ops.conditional_negative_sample(
         et, ct, flat, pos_dst, pia, pfa, node.count, generator,
         int_cols, int_props, float_cols, list(cond.get("float_props", [])),

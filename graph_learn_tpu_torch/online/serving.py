@@ -35,8 +35,8 @@ records that table on the caller's stream too.
 (``online/export.py``, a ``torch.export`` program) by name:
 ``InstalledModel`` pads a request to the program's batch with its first
 id and trims every output whose leading axis is that batch, as
-``:327-342`` does.  The partitioned (graph-sharded) branch is not yet
-ported: ``graph_shards > 1`` raises.
+``:327-342`` does.  The partitioned (graph-sharded) branch over the
+parallel store is not yet ported (A3b): ``graph_shards > 1`` raises.
 """
 
 from __future__ import annotations
@@ -357,7 +357,7 @@ class QueryService:
         if graph_shards > 1:
             raise UnimplementedError(
                 "QueryService(graph_shards=%d): partitioned serving is not "
-                "yet ported (A3)" % graph_shards)
+                "yet ported (A3b)" % graph_shards)
         self.graph = graph
         self.device = resolve_device(device)
         self._queries: Dict[int, InstalledQuery] = {}

@@ -25,6 +25,10 @@ As in ops/sampling.py, the draws come from an explicit
 draws (:func:`cdf_positions`, :func:`pick_negatives`), so a test can feed
 both packages the same numbers.  Nothing here makes a tensor from host data
 or reads one back: pool sizes are shapes, known on the host.
+
+On a sharded store (``core/sharding.py``) the pools and the node-weight
+CDF are replicated and the neighbour rejection is ``row_member``'s psum
+stitch, so the draws and the answer are the single-device ones.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Optional
 import torch
 
 from graph_learn_tpu_torch.config import conf
+from graph_learn_tpu_torch.core.sharding import ShardedNodeTable
 from graph_learn_tpu_torch.core.store import DeviceEdgeTable, DeviceNodeTable
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.ops.segment import row_member
@@ -101,8 +106,8 @@ def negative_sample_from_nodes(nt: DeviceNodeTable, b: int, k: int,
     """``Neg(node_type)``: [b, k] negatives from a node set, no topology:
     uniform (``in_degree`` degrades to it) or by node weight."""
     _check(strategy)
-    all_ids = torch.arange(nt.num_nodes, dtype=torch.int32,
-                           device=nt.raw_ids.device)
+    dev = nt.device if isinstance(nt, ShardedNodeTable) else nt.raw_ids.device
+    all_ids = torch.arange(nt.num_nodes, dtype=torch.int32, device=dev)
     if strategy == "node_weight":
         return cdf_ids(all_ids, _node_cdf(nt), (b, k), generator)
     return uniform_ids(all_ids, (b, k), generator)

@@ -32,6 +32,11 @@ timestamps (``edge_ts``), as ``_apply_filter_retry:173`` does; like
 GSL sends hops on a temporal path to ``ops/temporal.py`` instead, whose
 before-t prefix is exact.  ``register_sampler:423`` adds a custom
 strategy.
+
+The five samplers above run on a ``ShardedCSR`` too
+(``core/sharding.py row_sharded_sampler``, as ``:204-390`` are
+decorated): each rank samples the seeds' rows in its block and one psum
+keeps the owner's answer.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import Optional
 import torch
 
 from graph_learn_tpu_torch.config import conf
+from graph_learn_tpu_torch.core.sharding import row_sharded_sampler
 from graph_learn_tpu_torch.core.store import DeviceCSR
 from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.ops.segment import (SCAN_CHUNK, bisect_iters,
@@ -181,6 +187,7 @@ def uniform_draw(csr: DeviceCSR, seeds: torch.Tensor, u: torch.Tensor,
     return _gather(csr, pos, (deg > 0)[:, None])
 
 
+@row_sharded_sampler
 def uniform_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                    generator: torch.Generator,
                    flt: Optional[SampleFilter] = None,
@@ -201,6 +208,7 @@ def _arange(k: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(k, dtype=torch.int32, device=like.device)
 
 
+@row_sharded_sampler
 def topk_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                 generator: Optional[torch.Generator] = None,
                 flt: Optional[SampleFilter] = None):
@@ -286,6 +294,7 @@ def weighted_draw(csr: DeviceCSR, seeds: torch.Tensor, u: torch.Tensor,
     return _gather(csr, pos, (deg > 0)[:, None])
 
 
+@row_sharded_sampler
 def weighted_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                     generator: torch.Generator, by: str = "edge_weight",
                     flt: Optional[SampleFilter] = None):
@@ -350,6 +359,7 @@ def wor_draw(csr: DeviceCSR, seeds: torch.Tensor, r: torch.Tensor,
     return _gather(csr, pos, (deg > 0)[:, None])
 
 
+@row_sharded_sampler
 def without_replacement_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                                generator: torch.Generator,
                                flt: Optional[SampleFilter] = None):
@@ -359,6 +369,7 @@ def without_replacement_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
     return wor_draw(csr, seeds, r, flt)
 
 
+@row_sharded_sampler
 def full_sample(csr: DeviceCSR, seeds: torch.Tensor, cap: int,
                 flt: Optional[SampleFilter] = None):
     """All neighbours up to ``cap``.  Returns (ids [b, cap], edge ids,

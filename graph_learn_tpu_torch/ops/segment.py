@@ -85,7 +85,16 @@ def row_member(csr, rows: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     """Is each query id in its row's neighbour list?  ``rows`` [b],
     ``queries`` [b, ...] -> bool of ``queries``' shape: by bisection over
     the row's id-sorted copy (``csr.nbr_ids_sorted``), or where the store
-    has none (the "minimal" profile) by :func:`scan_member`."""
+    has none (the "minimal" profile) by :func:`scan_member`.  On a
+    ``ShardedCSR`` the owner of each row answers and one psum stitches
+    the verdicts (``graph_learn_tpu/ops/negative.py _reject_neighbors:47``
+    and the sharded walk's membership probe, ``ops/walk.py:122-137``)."""
+    from graph_learn_tpu_torch.core.sharding import (ShardedCSR, own_rows,
+                                                     psum_owned)
+    if isinstance(csr, ShardedCSR):
+        loc, own = own_rows(csr.rows_per_shard, csr.axis, rows)
+        hit = row_member(csr.local, loc, queries).to(torch.int32)
+        return psum_owned(hit, own, csr.axis) > 0
     start, end, _ = row_bounds(csr.row_offsets, rows)
     if csr.nbr_ids_sorted is None:
         return scan_member(csr, start, end, queries)

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from graph_learn_tpu_torch.config import conf
+from graph_learn_tpu_torch.core.sharding import row_sharded_sampler
 from graph_learn_tpu_torch.core.store import DeviceCSR
 from graph_learn_tpu_torch.core.values import SubGraphVal
 from graph_learn_tpu_torch.ops.segment import row_bounds
@@ -36,6 +37,7 @@ from graph_learn_tpu_torch.ops.segment import row_bounds
 FILL = 2 ** 31 - 1
 
 
+@row_sharded_sampler
 def _full_candidates(csr: DeviceCSR, rows: torch.Tensor, cap: int):
     """(nbr, eid, deg): each row's first ``cap`` neighbour and edge ids
     [*, cap] (positions past the row read clamped entries, masked by the

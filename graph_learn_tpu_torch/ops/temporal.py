@@ -37,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from graph_learn_tpu_torch.core.sharding import row_sharded_sampler
 from graph_learn_tpu_torch.core.store import DeviceCSR
 from graph_learn_tpu_torch.ops.sampling import (SampleFilter, _arange,
                                                 _exclusion, _gather, _skip,
@@ -96,6 +97,7 @@ def temporal_uniform_draw(csr: DeviceCSR, seeds: torch.Tensor,
     return _gather(csr, pos, (deg > 0)[:, None])
 
 
+@row_sharded_sampler
 def temporal_uniform_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                             generator: torch.Generator,
                             t_upper: torch.Tensor,
@@ -144,6 +146,7 @@ def temporal_weighted_draw(csr: DeviceCSR, seeds: torch.Tensor,
     return _gather(csr, pos, (deg > 0)[:, None])
 
 
+@row_sharded_sampler
 def temporal_weighted_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                              generator: torch.Generator,
                              t_upper: torch.Tensor, by: str = "edge_weight",
@@ -167,6 +170,7 @@ def temporal_wor_draw(csr: DeviceCSR, seeds: torch.Tensor, r: torch.Tensor,
     return _gather(csr, pos, (deg > 0)[:, None])
 
 
+@row_sharded_sampler
 def temporal_without_replacement_sample(csr: DeviceCSR, seeds: torch.Tensor,
                                         k: int, generator: torch.Generator,
                                         t_upper: torch.Tensor,
@@ -176,6 +180,7 @@ def temporal_without_replacement_sample(csr: DeviceCSR, seeds: torch.Tensor,
     return temporal_wor_draw(csr, seeds, r, t_upper, flt)
 
 
+@row_sharded_sampler
 def temporal_topk_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                          t_upper: torch.Tensor,
                          flt: Optional[SampleFilter] = None):
@@ -190,6 +195,7 @@ def temporal_topk_sample(csr: DeviceCSR, seeds: torch.Tensor, k: int,
                    (deg > 0)[:, None])
 
 
+@row_sharded_sampler
 def temporal_full_sample(csr: DeviceCSR, seeds: torch.Tensor, cap: int,
                          t_upper: torch.Tensor,
                          flt: Optional[SampleFilter] = None):

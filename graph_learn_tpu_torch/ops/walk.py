@@ -2,8 +2,11 @@
 skip-gram pairs of a batch of walks.
 
 Counterpart of ``graph_learn_tpu/ops/walk.py`` ``_uniform_step:40``,
-``deepwalk:64``, ``node2vec_walk:78`` and ``skipgram_pairs:166`` on one
-device (the ``ShardedCSR`` branches wait for the parallel store).  A walk
+``deepwalk:64``, ``node2vec_walk:78`` and ``skipgram_pairs:166``, with
+their ``ShardedCSR`` branches (``:30-62``, ``:122``): each step's
+proposals come from the owner of the walker's node and the membership
+probe from the owner of its previous node, each stitched by one psum, so
+a sharded walk equals the single-device one.  A walk
 is a [b, walk_len] id matrix whose first column is the seed.  A walker
 that reaches a node with no out-edge emits -1 for every later step, as
 the JAX package does (the reference's operator emits its default id; -1
@@ -32,6 +35,8 @@ from __future__ import annotations
 
 import torch
 
+from graph_learn_tpu_torch.core.sharding import (ShardedCSR, own_rows,
+                                                 psum_owned)
 from graph_learn_tpu_torch.core.store import DeviceCSR
 from graph_learn_tpu_torch.ops.sampling import uniform_positions
 from graph_learn_tpu_torch.ops.segment import row_bounds, row_member
@@ -42,7 +47,16 @@ NUM_TRIES = 8
 
 def _neighbours(csr: DeviceCSR, cur: torch.Tensor, u: torch.Tensor):
     """Uniform neighbours of ``cur`` [b] for the draws ``u`` [b, n]:
-    [b, n] ids, -1 where ``cur`` is -1 or has no out-edge."""
+    [b, n] ids, -1 where ``cur`` is -1 or has no out-edge.  On a
+    ``ShardedCSR`` the owner of each walker's node proposes and one psum
+    stitches the ids in id + 1 space, so a walker with no owner (-1)
+    decodes back to -1 (``_stitch_ids:29``)."""
+    if isinstance(csr, ShardedCSR):
+        loc, own = own_rows(csr.rows_per_shard, csr.axis,
+                            torch.clamp(cur, min=0))
+        nxt = _neighbours(csr.local, torch.where(cur >= 0, loc, -1), u)
+        live = (own & (cur >= 0))[:, None]
+        return psum_owned(nxt + 1, live, csr.axis) - 1
     e = csr.num_edges
     if e == 0:
         return torch.full(u.shape, -1, dtype=torch.int32, device=u.device)

@@ -34,6 +34,11 @@ from graph_learn_tpu_torch.ops.kernels import build
 from graph_learn_tpu_torch.online import loader_main, serve_main
 from graph_learn_tpu_torch.online.export import export_serving_fn
 from graph_learn_tpu_torch.online.http import ServingServer
+from graph_learn_tpu_torch.examples import routing_bytes
+from graph_learn_tpu_torch.parallel import bootstrap, dryrun, launch
+from graph_learn_tpu_torch.parallel.full_graph import ShardedGCN
+from graph_learn_tpu_torch.parallel.mesh import make_mesh
+from graph_learn_tpu_torch.parallel.train import DistTrainer
 from torch_parity import numpy_graph, torch_graph, two_hop
 
 REPO = Path(__file__).resolve().parents[1]
@@ -129,7 +134,10 @@ def no_card(monkeypatch):
                                    "sage_unsup_main", "tgn_load", "tgn_main",
                                    "u2i_load", "ultra_gcn_main",
                                    "bipartite_main", "collab_load",
-                                   "seal_collab_main", "seal_main"])
+                                   "seal_collab_main", "seal_main",
+                                   "init_cluster", "spawn", "make_mesh",
+                                   "dist_trainer", "sharded_gcn",
+                                   "dryrun_multichip", "routing_bytes_main"])
 def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
                                            tmp_path):
     monkeypatch.delenv("GLT_PLATFORM", raising=False)
@@ -191,6 +199,14 @@ def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
         "seal_collab_main": lambda: seal.main(
             ["--collab_dir", str(tmp_path / "collab")]),
         "seal_main": lambda: seal.main(["--data_dir", str(files)]),
+        "init_cluster": lambda: bootstrap.init_cluster(
+            "file://" + str(tmp_path / "store"), 1, 0),
+        "spawn": lambda: launch.spawn(print, 2),
+        "make_mesh": lambda: make_mesh(1, 1),
+        "dist_trainer": lambda: DistTrainer(None),
+        "sharded_gcn": lambda: ShardedGCN([4], None, None, in_dim=4),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(2),
+        "routing_bytes_main": lambda: routing_bytes.main(["--ranks", "2"]),
     }
     files = tmp_path / "cora_like"
     if entry in ("cora_load_graph", "node2vec_load", "sage_unsup_load"):
@@ -204,6 +220,28 @@ def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
         g.save(str(snap))  # a real snapshot: the device is what fails
     with pytest.raises(DeviceUnavailableError, match="device='cpu'"):
         calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["init_cluster", "spawn"])
+def test_ranks_sharing_a_card_are_refused_without_gloo(entry, monkeypatch,
+                                                        tmp_path):
+    """Two ranks on one card: NCCL refuses them, so the entry points that
+    start ranks raise unless ``backend="gloo"`` is asked for, before any
+    process group or process starts."""
+    from graph_learn_tpu_torch.errors import InvalidArgumentError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    calls = {
+        "init_cluster": lambda: bootstrap.init_cluster(
+            "file://" + str(tmp_path / "store"), 2, 0),
+        "spawn": lambda: launch.spawn(print, 2),
+    }
+    with pytest.raises(InvalidArgumentError, match="backend='gloo'"):
+        calls[entry]()
+    assert bootstrap.current_device() is None
 
 
 ONLINE_MODULES = ("update", "serving", "export", "stream", "http", "router",
@@ -690,6 +728,35 @@ def test_chip_smoke_main_runs_phase_22():
     assert called.index("online_path") > called.index("knn_path")
 
 
+def test_chip_smoke_parallel_path_rehearses_on_the_cpu(capsys,
+                                                       monkeypatch):
+    """Phase 24 at a small size on the CPU: DistTrainer at (1, 1) against
+    LocalTrainer, then two gloo ranks: the partitioned store in both
+    routings with three topk batches against the one-rank plan, the
+    data-parallel run with equal parameters on both ranks, ShardedGCN
+    and routing_bytes; on the CPU no kernel launches."""
+    import importlib
+    from graph_learn_tpu_torch.ops.kernels import gather, spmm
+    # by its own name, so that the spawned ranks import it
+    monkeypatch.syspath_prepend(str(REPO))
+    smoke = importlib.import_module("chip_smoke")
+    with bench.bench_conf(storage_profile="full"):
+        rows = smoke.parallel_path(torch, "the CPU", gather, spmm, cfg=dict(
+            n_nodes=400, avg_degree=6, feat_dim=8, hidden=16, classes=4,
+            batch=32, fanout=(3, 2), device="cpu"))
+    assert rows["gather_rows"]["parallel_dp_launches_per_step"] == 0
+    assert rows["segment_spmm"]["parallel_halo_launches_per_spmm"] == 0
+    assert rows["gather_rows"]["parallel_halo_launches_per_spmm"] == 0
+    out = capsys.readouterr().out
+    for line in ("parallel (a) DistTrainer mesh (1, 1)", "owner routing",
+                 "psum routing", "3 topk batches bit-equal",
+                 "parallel (c) DistTrainer mesh (2, 1)", "bit-equal on both",
+                 "parallel (d) ShardedGCN", "of a one-rank dense GCN's",
+                 "parallel (e) routing_bytes",
+                 "phase 24 (parallel)"):
+        assert line in out, line
+
+
 def test_chip_smoke_online_path_rehearses_on_the_cpu(capsys):
     """Phase 22 at a small size on the CPU: the worker from its TSV files,
     HTTP clients through clients/py, the stream with the live-snapshot
@@ -730,6 +797,20 @@ def test_chip_smoke_main_runs_phase_23():
         "tsv_examples_path")
     assert "real_rows" in {n.id for n in ast.walk(main)
                            if isinstance(n, ast.Name)}
+
+
+def test_chip_smoke_main_runs_phase_24():
+    """main() drives the parallel path after the online tier (phase 22)
+    and merges its fields into the kernels line."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    main = next(f for f in tree.body
+                if isinstance(f, ast.FunctionDef) and f.name == "main")
+    called = [n.func.id for n in ast.walk(main)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    assert "parallel_path" in called
+    assert called.index("parallel_path") > called.index("online_path")
+    assert "parallel_rows" in {n.id for n in ast.walk(main)
+                               if isinstance(n, ast.Name)}
 
 
 def test_chip_smoke_real_layout_path_rehearses_on_the_cpu(capsys):

@@ -451,3 +451,635 @@ def store_equal(tg, jg):
                   "unique_src_outdeg_cdf"):
             np.testing.assert_array_equal(getattr(ad, f).numpy(),
                                           np.asarray(getattr(bd, f)))
+
+
+# ---------------------------------------------------------------------------
+# The parallel slice: a weighted, timestamped, labelled store written as
+# files (tests/test_sharded_store.py's ``wts_graph``), loaded by both
+# packages, and the rank functions that parallel/launch.py spawn runs
+# (module-level, so the child processes import them from here).
+# ---------------------------------------------------------------------------
+
+
+def write_wts_files(where: str, n: int = 50):
+    """tests/test_sharded_store.py ``wts_graph``'s files under ``where``."""
+    import os
+    rng = np.random.default_rng(3)
+    with open(os.path.join(where, "nodes"), "w") as f:
+        f.write("id:int64\tweight:float\tlabel:int64\tfeature:string\n")
+        for i in range(n):
+            feats = ":".join("%.4f" % x for x in rng.random(6))
+            f.write("%d\t%.2f\t%d\t%s\n" % (i, 0.1 + i * 0.05, i % 4, feats))
+    with open(os.path.join(where, "edges"), "w") as f:
+        f.write("src_id:int64\tdst_id:int64\tweight:float\ttimestamp:int64\n")
+        for i in range(n):
+            for j in range(1 + i % 6):
+                f.write("%d\t%d\t%.2f\t%d\n"
+                        % (i, (i * 7 + j * 3 + 1) % n, 0.5 + j, 100 * i + j))
+    with open(os.path.join(where, "train"), "w") as f:
+        f.write("id:int64\tweight:float\n")
+        for i in range(0, n, 2):
+            f.write("%d\t1.0\n" % i)
+
+
+def wts_graph(mod, where: str):
+    """The store of :func:`write_wts_files` in ``mod`` (either package;
+    the port's on the CPU)."""
+    import os
+    kw = {"device": "cpu"} if mod.__name__.endswith("_torch") else {}
+    g = (mod.Graph(**kw)
+         .node(os.path.join(where, "nodes"), "v",
+               mod.Decoder(weighted=True, labeled=True,
+                           attr_types=["float"] * 6))
+         .edge(os.path.join(where, "edges"), ("v", "v", "e"),
+               mod.Decoder(weighted=True, timestamped=True))
+         .node(os.path.join(where, "train"), "v", mod.Decoder(weighted=True),
+               mask=mod.Mask.TRAIN))
+    return g.init()
+
+
+def wts_queries(mod, g) -> Dict[str, object]:
+    """The queries of tests/test_sharded_store.py, by case name."""
+    M = mod.Mask
+    qs = {}
+    for s in ("random", "topk", "edge_weight", "in_degree",
+              "random_without_replacement", "full"):
+        qs["plan-" + s] = (g.V("v", mask=M.TRAIN).batch(8).alias("src")
+                           .outV("e").sample(3).by(s).alias("h1")
+                           .outV("e").sample(2).by("random").alias("h2")
+                           .values())
+    qs["temporal"] = (g.E("e").batch(6).alias("ev").outV().alias("src")
+                      .outE("e").sample(3).by("edge_weight").alias("h1")
+                      .values())
+    qs["negatives"] = (g.V("v").batch(6).alias("src")
+                       .outNeg("e").sample(4).by("in_degree").alias("neg")
+                       .values())
+    for name, p, q in (("deepwalk", 1.0, 1.0), ("node2vec", 0.5, 2.0)):
+        qs["walk-" + name] = (g.V("v").batch(6).alias("src")
+                              .random_walk(4, p=p, q=q, edge_type="e")
+                              .alias("w").values())
+    seed = g.E("e").batch(6).alias("seed")
+    src = seed.outV().alias("src")
+    seed.inV().alias("dst")
+    (src.outNeg("e").sample(4).by("node_weight")
+     .where("dst", {"float_cols": [0], "float_props": [0.5]}).alias("neg"))
+    qs["conditional"] = seed.values()
+    seed = g.E("e").batch(8).alias("ev")
+    src = seed.outV().alias("src")
+    seed.inV().alias("dst")
+    src.outE("e").sample(3).by("edge_weight").filter("dst").alias("h1")
+    qs["temporal-filter"] = seed.values()
+    qs["routing"] = (g.V("v", mask=M.TRAIN).batch(8).alias("src")
+                     .outV("e").sample(4).by("edge_weight").alias("h1")
+                     .values())
+    qs["overflow"] = (g.V("v").batch(128).alias("src")
+                      .outV("e").sample(3).by("topk").alias("h1").values())
+    for nd in (False, True):
+        qs["subgraph-%s" % nd] = (g.V("v", mask=M.TRAIN).batch(8)
+                                  .alias("src")
+                                  .SubGraph("e", nbr_cap=8, need_dist=nd)
+                                  .alias("sg").values())
+    # deterministic hops with edge payloads: held against the JAX package
+    qs["topk-edges"] = (g.V("v").batch(8).alias("src")
+                        .outV("e").sample(3).by("topk").alias("h1")
+                        .outE("e").sample(2).by("topk").alias("e2").values())
+    return qs
+
+
+WTS_SEEDS = {"temporal": 6, "negatives": 6, "walk-deepwalk": 6,
+             "walk-node2vec": 6, "conditional": 6}
+
+
+def wts_seeds(case: str) -> np.ndarray:
+    """The seeds tests/test_sharded_store.py feeds each case."""
+    if case == "overflow":
+        return np.full(128, 7, np.int32)
+    return np.arange(WTS_SEEDS.get(case, 8), dtype=np.int32)
+
+
+def flat_result(res, prefix: str = "") -> Dict[str, object]:
+    """{path: CPU tensor} of every tensor of a port plan result, feature
+    rows materialised (a deferred gather's table left out)."""
+    import dataclasses
+
+    import torch
+
+    from graph_learn_tpu_torch.core.values import DeferredRows, TensorStruct
+
+    out = {}
+
+    def walk(p, v):
+        if isinstance(v, DeferredRows):
+            out[p] = v.materialize().cpu()
+        elif isinstance(v, TensorStruct):
+            for f in dataclasses.fields(v):
+                if not f.metadata.get("static"):
+                    walk(p + "." + f.name, getattr(v, f.name))
+        elif isinstance(v, torch.Tensor):
+            out[p] = v.detach().cpu()
+
+    for a, v in (res.items() if isinstance(res, dict) else [(prefix, res)]):
+        walk(prefix + a, v)
+    return out
+
+
+def jax_flat_result(res) -> Dict[str, np.ndarray]:
+    """{path: numpy} of a JAX plan result (flax struct dataclasses)."""
+    import dataclasses
+
+    out = {}
+
+    def walk(p, v):
+        if dataclasses.is_dataclass(v):
+            for f in dataclasses.fields(v):
+                walk(p + "." + f.name, getattr(v, f.name))
+        elif hasattr(v, "shape") and hasattr(v, "dtype"):
+            out[p] = np.asarray(v)
+
+    for a, v in res.items():
+        walk(a, v)
+    return out
+
+
+def _mismatch(a: Dict, b: Dict):
+    """Keys whose tensors differ (bit for bit, NaN-free), or are missing."""
+    import torch
+    keys = sorted(set(a) | set(b))
+    return [k for k in keys if k not in a or k not in b
+            or a[k].shape != b[k].shape or a[k].dtype != b[k].dtype
+            or not torch.equal(a[k], b[k])]
+
+
+def _single(q, seeds, seed: int):
+    import torch
+
+    from graph_learn_tpu_torch.gsl.compile import _execute
+    return flat_result(_execute(q, q.device_tables("cpu"),
+                                torch.as_tensor(seeds),
+                                torch.Generator().manual_seed(seed)))
+
+
+def sharded_store_ranks(rank: int, world: int, where: str):
+    """tests/test_torch_sharded_store.py's cases on 4 ranks: mesh (1, 4)
+    (every plan against the single-device plan, bit for bit) and mesh
+    (2, 2) (data parallelism), returning the mismatches and the results
+    the test holds against the JAX package."""
+    import torch
+
+    import graph_learn_tpu_torch as glt
+    from graph_learn_tpu_torch.config import conf
+    from graph_learn_tpu_torch.core.sharding import COLLECTIVES
+    from graph_learn_tpu_torch.parallel.mesh import make_mesh
+    from graph_learn_tpu_torch.parallel.sharded_store import (
+        build_sharded_tables)
+    from graph_learn_tpu_torch.parallel.train import make_partitioned_plan
+
+    g = wts_graph(glt, where)
+    qs = wts_queries(glt, g)
+    out = {"bad": {}, "jax": {}}
+    mesh = make_mesh(1, world, device="cpu")
+    for case, q in qs.items():
+        routings = ("owner", "psum") if case == "routing" else (None,)
+        for routing in routings:
+            name = case if routing is None else "routing-" + routing
+            st = build_sharded_tables(q, world, shard=rank).place(mesh)
+            plan = make_partitioned_plan(q, mesh, st, routing=routing)
+            seeds = torch.as_tensor(wts_seeds(case))
+            COLLECTIVES.reset()
+            got = flat_result(plan(seeds, torch.Generator().manual_seed(5)))
+            want = _single(q, seeds, 5)
+            out["bad"][name] = _mismatch(got, want)
+            if case == "overflow":
+                out["overflow_calls"] = dict(COLLECTIVES.by_op("graph"))
+            if case == "topk-edges":
+                out["jax"]["1x%d" % world] = got
+            if case.startswith("subgraph"):
+                out[name + "-edges"] = int(got["sg.num_edges"])
+    assert conf.owner_route_capacity == 2.0
+
+    # mesh (2, 2): data parallelism; each data slice draws for its size
+    mesh2 = make_mesh(2, world // 2, device="cpu")
+    half = world // 2
+    gi = rank % half
+    et = g.store.edge_table("e")
+    feats = torch.as_tensor(g.store.node_table("v").float_attrs)
+    dp = {}
+    for case in ("dp-random", "dp-owner"):
+        q = (g.V("v").batch(8).alias("src")
+             .outE("e").sample(3).by("random").alias("h1").values()
+             if case == "dp-random" else
+             g.V("v").batch(8).alias("src")
+             .outV("e").sample(4).by("random").alias("h1").values())
+        st = build_sharded_tables(q, half, shard=gi).place(mesh2)
+        plan = make_partitioned_plan(q, mesh2, st,
+                                     routing="owner" if case == "dp-owner"
+                                     else None)
+        res = flat_result(plan(torch.arange(8, dtype=torch.int32),
+                               torch.Generator().manual_seed(2)))
+        d = rank // half
+        seeds = torch.arange(8, dtype=torch.int32)[d * 4:(d + 1) * 4]
+        if case == "dp-random":
+            ids, eids = res["h1.dst_nodes.ids"], res["h1.edge_ids"]
+            ok = []
+            for i in range(4):
+                s = int(seeds[i])
+                adm = set(et.dst[et.src == s].tolist())
+                ok.append(set(ids[i].tolist()) <= adm)
+            m = eids >= 0
+            src = torch.as_tensor(et.src)[eids.clamp(min=0).long()]
+            dst = torch.as_tensor(et.dst)[eids.clamp(min=0).long()]
+            w = torch.as_tensor(et.weights)[eids.clamp(min=0).long()]
+            dp[case] = dict(
+                true_neighbours=all(ok),
+                eids_consistent=bool(
+                    (src[m] == seeds[:, None].expand_as(eids)[m].long()).all()
+                    and (dst[m] == ids[m].long()).all()),
+                feats=torch.equal(res["h1.dst_nodes.float_attrs"],
+                                  feats[ids.long()]),
+                weights=torch.equal(res["h1.weights"][m], w[m]))
+        else:
+            ids = res["h1.ids"]
+            dp[case] = dict(feats=torch.equal(res["h1.float_attrs"],
+                                              feats[ids.long()]))
+    # topk under data parallelism: held against the JAX plan at P = 2
+    q = qs["topk-edges"]
+    st = build_sharded_tables(q, half, shard=gi).place(mesh2)
+    plan = make_partitioned_plan(q, mesh2, st)
+    out["jax"]["2x%d" % half] = flat_result(plan(
+        torch.arange(8, dtype=torch.int32), torch.Generator().manual_seed(5)))
+    # SubGraph x data parallelism: stacked [n_data, ...], each slice the
+    # single-device induction of that shard's seeds
+    q = qs["subgraph-True"]
+    st = build_sharded_tables(q, half, shard=gi).place(mesh2)
+    plan = make_partitioned_plan(q, mesh2, st)
+    res = plan(torch.arange(8, dtype=torch.int32),
+               torch.Generator().manual_seed(5))
+    sg = res["sg"]
+    stack_ok = []
+    for d in range(2):
+        want = {k: v for k, v in _single(
+            q, np.arange(8, dtype=np.int32)[d * 4:(d + 1) * 4], 5).items()
+            if k.startswith("sg.")}
+        got = flat_result({"sg": sg.map(lambda x: x[d])})
+        stack_ok.append(_mismatch(got, want))
+    dp["dp-subgraph"] = dict(bad=stack_ok,
+                             edges=int(sg.num_edges.sum()),
+                             shape=tuple(sg.node_ids.shape))
+    out["dp"] = dp
+    out["dp"]["train"] = _partitioned_train_losses(g, mesh2, half, gi)
+    return out
+
+
+def _partitioned_train_losses(g, mesh, half: int, gi: int):
+    """Three partitioned train steps of EgoGraphSAGE [6, 8, 4] on one
+    repeated batch over mesh (2, 2) (tests/test_sharded_store.py
+    ``test_partitioned_train_step_runs``): the losses and the parameters'
+    checksum."""
+    import torch
+
+    import graph_learn_tpu_torch as glt
+    from graph_learn_tpu_torch.nn.data import EgoGraph
+    from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+    from graph_learn_tpu_torch.parallel.sharded_store import (
+        build_sharded_tables)
+    from graph_learn_tpu_torch.parallel.train import (
+        make_partitioned_train_step)
+
+    q = (g.V("v", mask=glt.Mask.TRAIN).batch(8).alias("src")
+         .outV("e").sample(4).by("edge_weight").alias("hop1")
+         .outV("e").sample(2).by("random").alias("hop2").values())
+    torch.manual_seed(0)
+    model = EgoGraphSAGE([6, 8, 4], g.get_node_decoder("v"),
+                         agg_type="mean", device="cpu")
+
+    def loss_fn(m, batch, gen, training):
+        ego = EgoGraph.from_query_result(batch, "src", ["hop1", "hop2"])
+        return supervised_softmax_loss(m(ego, training=training,
+                                         generator=gen),
+                                       batch["src"].labels)
+
+    st = build_sharded_tables(q, half, shard=gi).place(mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=0.05)
+    step = make_partitioned_train_step(q, model, loss_fn, opt, mesh, st)
+    losses = []
+    for i in range(3):
+        losses.append(float(step(torch.arange(8, dtype=torch.int32),
+                                 torch.Generator().manual_seed(i))))
+    return dict(losses=losses, params=torch.cat(
+        [p.detach().reshape(-1) for p in model.parameters()]))
+
+
+def halo_graph(n: int, e: int, seed: int = 0, weighted: bool = True):
+    """tests/test_halo.py ``_random_graph``'s arrays: (src, dst, weights,
+    feats [n, 8])."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, n, e)
+    w = rng.random(e).astype(np.float32) if weighted else None
+    feats = rng.standard_normal((n, 8)).astype(np.float32)
+    return src, dst, w, feats
+
+
+def gcn_arrays(n: int = 64, e: int = 500):
+    """tests/test_halo.py ``test_full_graph_gcn_trains``'s homophilous
+    two-block graph: (src, dst, feats, labels)."""
+    rng = np.random.default_rng(11)
+    labels = (np.arange(n) < n // 2).astype(np.int32)
+    src = rng.integers(0, n, e)
+    dst = np.where(rng.random(e) < 0.9,
+                   (src + rng.integers(1, n // 2, e)) % (n // 2)
+                   + (src >= n // 2) * (n // 2),
+                   rng.integers(0, n, e))
+    feats = (labels[:, None] * 2.0 - 1.0) + \
+        rng.standard_normal((n, 8)).astype(np.float32) * 2.0
+    return src, dst, feats.astype(np.float32), labels
+
+
+HALO_CASES = (("even", 64, 400, 0), ("uneven", 53, 300, 3))
+
+
+def halo_ranks(rank: int, world: int, gcn_params):
+    """tests/test_torch_halo.py's cases on 4 ranks: sharded_spmm (three
+    aggregations, forward and the gradient of a fixed projection of it)
+    at P = 4 on mesh (1, 4) and P = 2 on mesh (2, 2); ShardedGCN one step
+    from the given flax parameters at P = 4, then 30 steps of training."""
+    import torch
+
+    import graph_learn_tpu_torch as glt
+    from graph_learn_tpu_torch.parallel.full_graph import (
+        ShardedGCN, make_full_graph_train_step)
+    from graph_learn_tpu_torch.parallel.halo import sharded_spmm
+    from graph_learn_tpu_torch.parallel.mesh import make_mesh
+    from graph_learn_tpu_torch.parallel.partition import (partition_edges,
+                                                          shard_features)
+
+    out = {}
+    for n_data in (1, 2):
+        p = world // n_data
+        gi = rank % p
+        mesh = make_mesh(n_data, p, device="cpu")
+        for name, n, e, seed in HALO_CASES:
+            src, dst, w, feats = halo_graph(n, e, seed)
+            et = glt.EdgeTable("e", "v", "v", glt.Decoder(weighted=True),
+                               src=src, dst=dst, num_src_nodes=n,
+                               num_dst_nodes=n, weights=w)
+            sg = partition_edges(et, p)
+            x = torch.as_tensor(shard_features(feats, p)[gi])
+            proj = torch.as_tensor(np.random.default_rng(seed + 1)
+                                   .standard_normal(x.shape)
+                                   .astype(np.float32))
+            for agg in ("sum", "mean", "weighted_sum"):
+                xg = x.clone().requires_grad_(True)
+                y = sharded_spmm(sg, xg, mesh, agg=agg)
+                (y * proj).sum().backward()
+                out[(p, name, agg)] = (y.detach(), xg.grad)
+            out[(p, name, "halo_rows")] = int(sg.recv_offsets[gi, -1])
+    # ShardedGCN [16, 2] at P = 4: one step from the flax parameters, then
+    # training from them
+    p = world
+    mesh = make_mesh(1, p, device="cpu")
+    src, dst, feats, labels = gcn_arrays()
+    n = feats.shape[0]
+    et = glt.EdgeTable("e", "v", "v", glt.Decoder(), src=src, dst=dst,
+                       num_src_nodes=n, num_dst_nodes=n)
+    sg = partition_edges(et, p)
+    rows = sg.rows_per_shard
+    x = torch.as_tensor(shard_features(feats, p)[rank])
+    lab = torch.as_tensor(np.pad(labels, (0, p * rows - n))
+                          .reshape(p, rows)).long()
+    msk = torch.as_tensor(np.pad(np.ones(n, np.float32), (0, p * rows - n))
+                          .reshape(p, rows))
+    model = ShardedGCN([16, 2], sg, mesh, in_dim=8, device="cpu")
+    with torch.no_grad():
+        for i, layer in enumerate(model.dense):
+            layer.weight.copy_(torch.as_tensor(gcn_params[i][0]).T)
+            layer.bias.copy_(torch.as_tensor(gcn_params[i][1]))
+
+    def loss_fn(logits, labels_, mask):
+        ls = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, 2), labels_.reshape(-1), reduction="none")
+        m = mask.reshape(-1)
+        return (ls * m).sum() / m.sum()
+
+    opt = torch.optim.Adam(model.parameters(), lr=0.02)
+    step = make_full_graph_train_step(model, opt, mesh, loss_fn)
+    losses = [float(step(x, lab, msk))]
+    out["gcn_step1"] = [(l.weight.detach().T.clone(), l.bias.detach().clone())
+                        for l in model.dense]
+    for _ in range(29):
+        losses.append(float(step(x, lab, msk)))
+    out["gcn_losses"] = losses
+    return out
+
+
+def _wts_sage(g, dims=(6, 8, 4)):
+    """EgoGraphSAGE over the wts store, its weights drawn from seed 0 (the
+    same on every rank), and its loss function."""
+    import torch
+
+    from graph_learn_tpu_torch.nn.data import EgoGraph
+    from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+
+    torch.manual_seed(0)
+    model = EgoGraphSAGE(list(dims), g.get_node_decoder("v"),
+                         agg_type="mean", device="cpu")
+    hops = ["hop1", "hop2"][:len(dims) - 1]
+
+    def loss_fn(m, batch, gen, training):
+        ego = EgoGraph.from_query_result(batch, "src", hops)
+        return supervised_softmax_loss(m(ego, training=training,
+                                         generator=gen),
+                                       batch["src"].labels)
+    return model, loss_fn
+
+
+def _params(model):
+    import torch
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def parallel_ranks(rank: int, world: int, where: str):
+    """tests/test_torch_parallel.py's cases on 2 ranks: meshes (1, 2) and
+    (2, 1), shard_tables, the placement rules, the sharded and
+    data-parallel steps and DistTrainer, each held to one process."""
+    import warnings
+
+    import torch
+
+    import graph_learn_tpu_torch as glt
+    from graph_learn_tpu_torch.core.sharding import ShardedNodeTable
+    from graph_learn_tpu_torch.core.store import DeviceNodeTable
+    from graph_learn_tpu_torch.gsl.compile import _execute
+    from graph_learn_tpu_torch.nn.trainer import LocalTrainer
+    from graph_learn_tpu_torch.parallel.mesh import (make_mesh,
+                                                     params_sharding_rules,
+                                                     shard_tables)
+    from graph_learn_tpu_torch.parallel.train import (DistTrainer,
+                                                      make_sharded_train_step)
+
+    out = {}
+    m12 = make_mesh(1, 2, device="cpu")
+    m21 = make_mesh(2, 1, device="cpu")
+    out["shapes"] = (tuple(m12.shape), tuple(m21.shape),
+                     tuple(m12.mesh_dim_names))
+
+    # shard_tables: rows that do not divide the graph axis are replicated
+    # with the JAX package's warning; divisible ones shard
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        shard_tables({"nodes": {"item": {
+            "float_attrs": torch.ones((41, 4)),
+            "labels": torch.zeros((41,), dtype=torch.int32)}},
+            "edges": {}}, m12)
+        ok = shard_tables({"nodes": {"item": DeviceNodeTable(
+            raw_ids=torch.arange(40), float_attrs=torch.ones((40, 4)))},
+            "edges": {}}, m12)
+    out["warnings"] = [str(w.message) for w in rec]
+    nt = ok["nodes"]["item"]
+    out["sharded_rows"] = (isinstance(nt, ShardedNodeTable)
+                           and nt.local.float_attrs.shape[0] == 20
+                           and nt.num_nodes == 40)
+
+    # placement rules: the JAX rule's answer; every rank holds every
+    # parameter all the same
+    emb = torch.nn.Module()
+    emb.embedding = torch.nn.Parameter(torch.ones(4, 3))
+    emb.dense = torch.nn.Linear(3, 2)
+    out["rules"] = (params_sharding_rules(emb, m12),
+                    params_sharding_rules(emb, m21))
+
+    g = wts_graph(glt, where)
+    q = (g.V("v").batch(16).alias("src")
+         .outV("e").sample(4).by("random").alias("hop1")
+         .outV("e").sample(2).by("random").alias("hop2").values())
+    seeds = torch.arange(16, dtype=torch.int32)
+
+    # (1, 2): node payloads sharded, CSR whole; the same batch as one
+    # process (the graph ranks draw alike), so the same loss
+    model, loss_fn = _wts_sage(g)
+    before = _params(model)
+    opt = torch.optim.Adam(model.parameters(), lr=0.05)
+    step = make_sharded_train_step(q, model, loss_fn, opt, m12)
+    tables = shard_tables(q.device_tables("cpu"), m12)
+    out["sharded_tables"] = isinstance(tables["nodes"]["v"],
+                                       ShardedNodeTable)
+    loss = float(step(tables, seeds, torch.Generator().manual_seed(1)))
+    ref, _ = _wts_sage(g)
+    with torch.no_grad():
+        ref_loss = float(loss_fn(ref, _execute(
+            q, q.device_tables("cpu"), seeds,
+            torch.Generator().manual_seed(1)), None, True))
+    out["sharded_step"] = dict(loss=loss, ref_loss=ref_loss,
+                               moved=float((_params(model) - before)
+                                           .abs().max()))
+
+    # (2, 1) on topk: the data-parallel step against one process's step
+    # on the whole batch
+    qt = (g.V("v").batch(16).alias("src")
+          .outV("e").sample(4).by("topk").alias("hop1")
+          .outV("e").sample(2).by("topk").alias("hop2").values())
+    model, loss_fn = _wts_sage(g)
+    opt = torch.optim.Adam(model.parameters(), lr=0.05)
+    step = make_sharded_train_step(qt, model, loss_fn, opt, m21)
+    loss = float(step(qt.device_tables("cpu"), seeds,
+                      torch.Generator().manual_seed(1)))
+    ref, _ = _wts_sage(g)
+    ropt = torch.optim.Adam(ref.parameters(), lr=0.05)
+    batch = _execute(qt, qt.device_tables("cpu"), seeds,
+                     torch.Generator().manual_seed(1))
+    rl = loss_fn(ref, batch, None, True)
+    ropt.zero_grad()
+    rl.backward()
+    ropt.step()
+    out["dp_step"] = dict(loss=loss, ref_loss=float(rl),
+                          params=_params(model), ref_params=_params(ref))
+    # random draws under data parallelism: each data slice draws for its
+    # own size (the JAX data-parallel step draws for the whole batch)
+    from graph_learn_tpu_torch.core.sharding import bind_mesh
+    from graph_learn_tpu_torch.parallel.train import data_slice
+    with bind_mesh(m21):
+        mine = data_slice(seeds)
+    got = _execute(q, q.device_tables("cpu"), mine,
+                   torch.Generator().manual_seed(1))["hop1"].ids
+    whole = _execute(q, q.device_tables("cpu"), seeds,
+                     torch.Generator().manual_seed(1))["hop1"].ids
+    et = g.store.edge_table("e")
+    out["dp_draws"] = dict(
+        slice=mine.tolist(),
+        differs=not torch.equal(got, whole[rank * 8:(rank + 1) * 8]),
+        true=all(set(got[i].tolist()) <= set(
+            et.dst[et.src == int(mine[i])].tolist()) for i in range(8)))
+
+    # DistTrainer at (2, 1) against LocalTrainer on one process
+    q1 = (g.V("v").batch(16).alias("src")
+          .outV("e").sample(3).by("topk").alias("hop1").values())
+    model, loss_fn = _wts_sage(g, (6, 5))
+    trainer = DistTrainer(m21, device="cpu")
+    _, hist = trainer.train(q1, model, loss_fn,
+                            torch.optim.SGD(model.parameters(), lr=0.1),
+                            epochs=2, verbose=False)
+    ref, _ = _wts_sage(g, (6, 5))
+    _, ref_hist = LocalTrainer(seed=0, device="cpu").train(
+        q1, ref, loss_fn, torch.optim.SGD(ref.parameters(), lr=0.1),
+        epochs=2, verbose=False)
+    out["dist_trainer"] = dict(hist=hist, ref_hist=ref_hist,
+                               params=_params(model), ref_params=_params(ref),
+                               partitioned=trainer.partitioned)
+
+    # DistTrainer at (1, 2) above the threshold: the partitioned store,
+    # whose plan equals one process's (random draws included)
+    model, loss_fn = _wts_sage(g)
+    trainer = DistTrainer(m12, device="cpu", partition_above_bytes=0)
+    _, hist = trainer.train(q, model, loss_fn,
+                            torch.optim.Adam(model.parameters(), lr=0.05),
+                            epochs=1, verbose=False)
+    ref, _ = _wts_sage(g)
+    _, ref_hist = LocalTrainer(seed=0, device="cpu").train(
+        q, ref, loss_fn, torch.optim.Adam(ref.parameters(), lr=0.05),
+        epochs=1, verbose=False)
+    out["partitioned_trainer"] = dict(
+        hist=hist, ref_hist=ref_hist, params=_params(model),
+        ref_params=_params(ref), partitioned=trainer.partitioned,
+        block_rows=trainer.stables.placed["nodes"]["v"]["raw_ids"].shape[0])
+    # below the threshold: shard_tables
+    model, loss_fn = _wts_sage(g)
+    trainer = DistTrainer(m12, device="cpu")
+    _, hist = trainer.train(q, model, loss_fn,
+                            torch.optim.Adam(model.parameters(), lr=0.05),
+                            epochs=1, verbose=False)
+    out["replicated_trainer"] = dict(hist=hist,
+                                     partitioned=trainer.partitioned)
+    # examples/routing_bytes.py's counts at P = 2
+    from graph_learn_tpu_torch.examples import routing_bytes
+    out["routing"] = routing_bytes.rank_bytes(rank, world, steps=1)
+    return out
+
+
+def failing_rank(rank: int, world: int):
+    """A rank function whose rank 1 raises (tests/test_torch_multiprocess.py)."""
+    import torch.distributed as dist
+    if rank == 1:
+        raise ValueError("rank one gives up")
+    dist.barrier()
+    return rank
+
+
+def sleeping_rank(rank: int, world: int, seconds: float):
+    """A rank function whose rank 0 outlives any short deadline."""
+    import time
+    if rank == 0:
+        time.sleep(seconds)
+    return rank
+
+
+def echo_rank(rank: int, world: int, tag: str):
+    """Each rank's (rank, world, tag, device, the world's sum of ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from graph_learn_tpu_torch.parallel import bootstrap
+    x = torch.tensor([rank])
+    dist.all_reduce(x)
+    return rank, world, tag, str(bootstrap.current_device()), int(x)
