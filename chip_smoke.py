@@ -91,9 +91,10 @@ Phases (any failure exits non-zero before the result line):
    wall, edges/s, device-busy share, capture seconds, graph-pool bytes,
    host build seconds and peak bytes on the card;
 12. run the bipartite u2i path (examples/family_scale.py's bipartite
-   family) at its full store: 1 225 000 users and items with 100 bf16
-   features, 41 037 500 u-i and 20 212 500 i-i weighted edges on the
-   "full" profile (host draw, CSR and candidate-pool build, upload and
+   family) at its store's node counts and widths, with FAMILY_DEGREE
+   (8) edges a node where CFG_SCALE has 25: 1 225 000 users and items
+   with 100 bf16 features, 13 132 000 u-i and 6 468 000 i-i weighted
+   edges on the "full" profile (host draw, CSR and candidate-pool build, upload and
    table bytes timed); one step of the two towers (EgoSAGEConv mean, 100 ->
    256, batch 1024, 10 neighbours, 2 negatives) on the kernels against the
    plain versions, with every hop gathered (6 gather_rows) and with the
@@ -105,8 +106,9 @@ Phases (any failure exits non-zero before the result line):
    bit-equal, 3 gather_rows + 3 segment_spmm per replayed step, step wall,
    edges/s, device-busy share, capture seconds and graph pool;
 13. run the rgcn family (examples/family_scale.py's rgcn family) at its
-   full store: 2 450 000 items with 100 bf16 features and 47 classes, two
-   weighted relations of 30 625 000 edges each on the "minimal" profile
+   store's node count and widths, FAMILY_DEGREE edges a node: 2 450 000
+   items with 100 bf16 features and 47 classes, two weighted relations of
+   9 800 000 edges each on the "minimal" profile
    (host draw, CSR build, upload and table bytes timed);
    EgoRGCN([100, 256, 47], num_relations=2, num_bases=1), batch 1024,
    fanout [10, 5] per relation: one step on the kernels against the plain
@@ -120,8 +122,9 @@ Phases (any failure exits non-zero before the result line):
    LocalTrainer.train (7 gather_rows a step); Kernel 1 at 10 240 and 51 200
    rows and Kernel 2 at [10 240, 5] means of the store's table, cold;
 14. run the temporal family (examples/family_scale.py's temporal family)
-   at its full store: 2 450 000 items with 100 bf16 features and 47
-   classes, 61 250 000 weighted, timestamped edges on the "full" profile
+   at its store's node count and widths, FAMILY_DEGREE edges a node:
+   2 450 000 items with 100 bf16 features and 47 classes, 19 600 000
+   weighted, timestamped edges on the "full" profile
    (host draw, CSR build, upload and table bytes timed);
    EgoGraphSAGE([100, 256, 47], "gcn") on E("rel").batch(1024) event
    seeds with two edge_weight hops [15, 10] strictly before the propagated
@@ -354,6 +357,35 @@ Phases (any failure exits non-zero before the result line):
    bytes over the graph axis of the 1-hop plan, psum against owner.
    Times of the gloo ranks are of two processes sharing one card over
    gloo, not of NVLink collectives; every line says so.
+25. partitioned serving and the sharded k-NN index, after phase 24, on
+   two gloo ranks that share the card, each building the bench CFG store
+   itself (bf16 features, the "minimal" profile).  (a)
+   QueryService(graph_shards=2) at mesh (1, 2), rank 0 leading and rank
+   1 following: the random 2-hop [15, 10] query at micro-batch 1 024, a
+   fixed sequence of requests (1 to 2 047 ids) from one caller, ids and
+   feature rows bit-equal to a one-rank QueryService on the same store
+   (both generators seeded with conf.seed), request wall p50 / p99 after
+   a warm request, gather_rows launches a round on each rank (> 0: the
+   owners' row gathers), the device bytes each rank holds against one
+   rank's whole store; then a topk query from ONLINE_CLIENTS concurrent
+   callers, each answer the one-rank answer.  (b) Callers on a topk
+   query while ONLINE_EDGE_BATCHES batches of ONLINE_EDGE_BATCH streamed
+   edges (each with a heavy probe edge, as phase 22's) and a probe-only
+   batch are applied and refreshed: every answer equal to the one-rank
+   oracle of a snapshot live during it, each probe leading its source's
+   topk after its refresh, each refresh's upload summed over the ranks
+   against the first full upload (under it for the streamed batches,
+   whose growth moves every edge-payload block; at most half of it for
+   the probe-only batch).  (c) online/serve_main.py with "graph_shards":
+   2 and "backend": "gloo" in a worker process from phase 22's TSV files
+   (rank 0 starts rank 1): (a)'s first requests replayed over HTTP, ids
+   equal to (a)'s and rows to the store's within the text's five
+   decimals; SIGTERM ends both ranks.  (d) The sharded k-NN index at
+   phase 20c's counts and widths (1 000 000 x 128 f32, 10 000 queries, k
+   100): flat L2, flat inner product, ivfflat and ivfpq (nlist 4 096,
+   nprobe 16), each trained once on rank 0 and sharded over the two
+   ranks, the check queries' ids equal to the one-rank index and the
+   distances within KNN_DIST_RTOL, ms per 10 000 queries.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -401,7 +433,9 @@ Kernel 1's ``cold_ms_cora_140`` / ``_3500`` and Kernel 2's
 Kernels 1-2: launches a step at mesh (1, 1) on NCCL, in each routing of
 the partitioned step and data-parallel, the steps' ms (``*_shared_card``
 for the two gloo ranks), the bytes over the graph axis a step, and the
-launches a ``sharded_spmm`` of the full-graph GCN (0: plain torch)).
+launches a ``sharded_spmm`` of the full-graph GCN (0: plain torch);
+phase 25's ``pserve_launches_per_round`` on Kernels 1-2 and
+``pserve_follower_launches_per_round`` on Kernel 1).
 """
 
 from __future__ import annotations
@@ -436,6 +470,9 @@ GIN_STEPS = 20
 GAT_HEADS = (8, 1)
 
 
+_T0 = time.perf_counter()
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -446,7 +483,10 @@ def check(cond, msg):
 
 
 def log(msg):
-    print("[chip_smoke] " + msg, flush=True)
+    """``msg`` with the seconds since the smoke started (phase times are
+    the differences)."""
+    print("[chip_smoke %.1f s] %s" % (time.perf_counter() - _T0, msg),
+          flush=True)
 
 
 def card_line() -> str:
@@ -2640,6 +2680,10 @@ def bench_path(torch, card, cfg, graph, gather, spmm, sweep, name,
 NEG_RATE_DRAWS = 2048
 # steps of LocalTrainer.train at this store (after 2 of warm-up)
 BIPARTITE_TRAIN_STEPS = 10
+# Phases 12-14 build their stores at CFG_SCALE's node counts and widths
+# with this many edges a node (CFG_SCALE: 25): the host builds of those
+# stores set the smoke's wall (PERF.md section 5)
+FAMILY_DEGREE = 8
 
 
 def neighbour_mass(torch, et, seeds):
@@ -2689,7 +2733,8 @@ def rate_agrees(hits, expected):
 
 def bipartite_path(torch, card, gather, spmm, sweep):
     """``examples/family_scale.py``'s bipartite family at its full store
-    (1.225M users and items, 61.25M weighted edges, the "full" profile):
+    (1.225M users and items, ``FAMILY_DEGREE`` weighted edges a node, the
+    "full" profile):
     the store build timed; one step of the towers on the kernels against
     the plain versions; the negatives checked; LocalTrainer.train over the
     port's bipartite_sage; the K-step form eager and captured; then phase
@@ -2704,7 +2749,7 @@ def bipartite_path(torch, card, gather, spmm, sweep):
     from graph_learn_tpu_torch.nn.trainer import LocalTrainer
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = bench.CFG_SCALE
+    cfg = dict(bench.CFG_SCALE, avg_degree=FAMILY_DEGREE)
     k1, n_neg = fs.fanout(False)
     b, d, hidden = cfg["batch"], cfg["feat_dim"], cfg["hidden"]
     counters = {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES,
@@ -2722,9 +2767,12 @@ def bipartite_path(torch, card, gather, spmm, sweep):
     n_ui = g.store.edge_table("u-i").num_edges
     n_ii = g.store.edge_table("i-i").num_edges
     et = tables["edges"]["u-i"]
-    check(n_ui == 41_037_500 and n_ii == 20_212_500 and et.inc is not None
-          and et.unique_dst is not None and et.out.cum_weights is not None,
-          "bipartite store: not the full-profile 41.04M + 20.21M-edge store")
+    want_ui = int(cfg["n_nodes"] * FAMILY_DEGREE * 0.67)
+    check(n_ui == want_ui and n_ii == cfg["n_nodes"] * FAMILY_DEGREE - want_ui
+          and et.inc is not None and et.unique_dst is not None
+          and et.out.cum_weights is not None,
+          "bipartite store: not the full-profile %d + %d-edge store"
+          % (want_ui, cfg["n_nodes"] * FAMILY_DEGREE - want_ui))
     log("bipartite store (%d users, %d items, %d u-i + %d i-i weighted "
         "edges, %d bf16 features, full profile): host draw %.1f s, CSR and "
         "candidate-pool build %.1f s (both directions of both edge types), "
@@ -2820,7 +2868,7 @@ def bipartite_path(torch, card, gather, spmm, sweep):
 
     def train(n):
         """(seconds from the call to its first step: the call's set-up,
-        above all the epoch's permutation of the 41M seed edges, and the
+        above all the epoch's permutation of the u-i seed edges, and the
         first batch; ms per step from the first step to the last)."""
         del losses[:], stamps[:]
         t0 = time.perf_counter()
@@ -3330,7 +3378,7 @@ def categorical_path(torch, card, gather, spmm, sweep, graph):
 
 
 # ---------------------------------------------------------------------------
-# Phase 13: the rgcn family at the two-relation 61.25M-edge store
+# Phase 13: the rgcn family at the two-relation store
 # ---------------------------------------------------------------------------
 
 # steps of LocalTrainer.train at this store (after 2 of warm-up)
@@ -3363,7 +3411,7 @@ def rgcn_path(torch, card, gather, spmm, sweep):
     from graph_learn_tpu_torch.nn.trainer import LocalTrainer
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = bench.CFG_SCALE
+    cfg = dict(bench.CFG_SCALE, avg_degree=FAMILY_DEGREE)
     nbrs = fs.rgcn_fanout(False)
     k1, k2 = nbrs
     R = len(er.RELS)
@@ -3396,18 +3444,19 @@ def rgcn_path(torch, card, gather, spmm, sweep):
     csr_s = sum(g.store.edge_table(r).host_build_s for r in er.RELS)
     table = tables["nodes"]["item"].float_attrs
     ets = [tables["edges"][r] for r in er.RELS]
-    check(all(g.store.edge_table(r).num_edges == 30_625_000
+    per_rel = n * FAMILY_DEGREE // 2
+    check(all(g.store.edge_table(r).num_edges == per_rel
               and g.store.edge_table(r).weights is not None
               for r in er.RELS)
-          and all(et.inc is None and et.out.num_edges == 30_625_000
+          and all(et.inc is None and et.out.num_edges == per_rel
                   for et in ets)
           and table.shape == (n, d) and table.dtype == torch.bfloat16,
           "rgcn store: not two weighted minimal-profile relations of "
-          "30 625 000 edges over a [%d, %d] bf16 table" % (n, d))
+          "%d edges over a [%d, %d] bf16 table" % (per_rel, n, d))
     log("rgcn store (%d items, %d bf16 features, %d classes; %s: %d "
         "weighted edges each, minimal profile): host draw %.1f s, CSR build "
         "%.1f s, upload %.1f s, tables %.3f GB on the card; card: %s"
-        % (n, d, cfg["classes"], " and ".join(er.RELS), 30_625_000, draw_s,
+        % (n, d, cfg["classes"], " and ".join(er.RELS), per_rel, draw_s,
            csr_s, tables_s - csr_s, nbytes(tables) / 1e9, card))
 
     # 1. one step on the kernels against the plain versions, both routes
@@ -3624,7 +3673,7 @@ def rgcn_path(torch, card, gather, spmm, sweep):
 
 
 # ---------------------------------------------------------------------------
-# Phase 14: the temporal family at the 61.25M-edge timestamped store
+# Phase 14: the temporal family at the timestamped store
 # ---------------------------------------------------------------------------
 
 TEMPORAL_PER_STEP = {"gather_rows": 2.0, "segment_spmm": 1.0,
@@ -3695,9 +3744,10 @@ def before_t_check(torch, gl, q, eq, tables, n_edges, csr):
 
 
 def temporal_path(torch, card, gather, spmm, sweep):
-    """``examples/family_scale.py``'s temporal family at its full store
-    (2.45M items, 61.25M weighted, timestamped edges, the "full"
-    profile): the store build timed; the before-t bound of one batch
+    """``examples/family_scale.py``'s temporal family at its store's node
+    count and widths (2.45M items, ``FAMILY_DEGREE`` weighted, timestamped
+    edges a node, the "full" profile): the store build timed; the
+    before-t bound of one batch
     checked on the card; one step on the kernels against the plain
     versions; the K-step form eager and captured.  Returns the kernels
     line's fields."""
@@ -3710,7 +3760,7 @@ def temporal_path(torch, card, gather, spmm, sweep):
     from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
     from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
 
-    cfg = bench.CFG_SCALE
+    cfg = dict(bench.CFG_SCALE, avg_degree=FAMILY_DEGREE)
     nbrs = fs.temporal_fanout(False)
     k1, k2 = nbrs
     n, b, d = cfg["n_nodes"], cfg["batch"], cfg["feat_dim"]
@@ -3741,13 +3791,14 @@ def temporal_path(torch, card, gather, spmm, sweep):
     et = tables["edges"]["rel"]
     table = tables["nodes"]["item"].float_attrs
     n_e = host.num_edges
-    check(n_e == 61_250_000 and host.weights is not None
+    check(n_e == n * FAMILY_DEGREE and host.weights is not None
           and host.timestamps is not None and et.inc is not None
           and et.out.nbr_ts is not None and et.out.nbr_ts.dtype == torch.int32
           and et.out.cum_weights is not None and et.timestamps is not None
           and table.shape == (n, d) and table.dtype == torch.bfloat16,
           "temporal store: not the weighted, timestamped full-profile "
-          "61.25M-edge store over a [%d, %d] bf16 table" % (n, d))
+          "%d-edge store over a [%d, %d] bf16 table" % (n * FAMILY_DEGREE,
+                                                        n, d))
     log("temporal store (%d items, %d bf16 features, %d classes; rel: %d "
         "weighted edges, timestamps in [0, %d), full profile): host draw "
         "%.1f s, CSR build %.1f s (both directions: ts-ascending rows, "
@@ -6254,10 +6305,13 @@ def edge_key_sets(src, dst, n):
 
 def online_path(torch, card, gather, spmm, n_nodes=None, feat_dim=None,
                 device="cuda", max_ids=ONLINE_MAX_IDS,
-                edge_batch=ONLINE_EDGE_BATCH, new_nodes=ONLINE_NEW_NODES):
+                edge_batch=ONLINE_EDGE_BATCH, new_nodes=ONLINE_NEW_NODES,
+                files=None):
     """22: the online tier on one card at the bench store's width (module
     note, phase 22); the sizes and the device are arguments so that the
-    phase can be rehearsed small on the CPU.  Returns the launches of one
+    phase can be rehearsed small on the CPU.  The TSV files are written
+    into ``files`` and kept there (phase 25 serves from them), or into a
+    temporary directory removed after.  Returns the launches of one
     /predict and the counts after the phase."""
     import base64
     import tempfile
@@ -6283,7 +6337,7 @@ def online_path(torch, card, gather, spmm, n_nodes=None, feat_dim=None,
     snt, set_ = syn.store.node_table("item"), syn.store.edge_table("rel")
     orig_src, orig_dst = set_.src.copy(), set_.dst.copy()
     orig_w = set_.weights.copy()
-    where = tempfile.mkdtemp(prefix="glt_online_")
+    where = files or tempfile.mkdtemp(prefix="glt_online_")
     servers, stops = [], []
     real_apply = stream.apply_updates
     try:
@@ -6688,7 +6742,8 @@ def online_path(torch, card, gather, spmm, n_nodes=None, feat_dim=None,
         stream.apply_updates = real_apply
         for stop in reversed(stops):
             stop()
-        shutil.rmtree(where, ignore_errors=True)
+        if files is None:
+            shutil.rmtree(where, ignore_errors=True)
     counts["router"] = {"gather_rows": gather.LAUNCHES.count,
                         "segment_spmm": spmm.LAUNCHES.count}
     log("glt_online launches: %s (HTTP serving: the answers' feature rows; "
@@ -7627,6 +7682,522 @@ def parallel_path(torch, card, gather, spmm, cfg=None):
             "parallel_halo_launches_per_spmm": r0["gcn"]["spmm"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: partitioned serving and the sharded k-NN index across ranks
+# ---------------------------------------------------------------------------
+
+# (a): one caller's request sizes (1-2 micro-batches each) and how many of
+# them (c) replays over HTTP
+PSERVE_SIZES = (1, 3, 7, 1_024, 1_500, 64, 2_047, 300)
+PSERVE_REPLAY = 3
+PSERVE_TOPK_BATCH = 64  # micro-batch of the topk queries of (a) and (b)
+PSERVE_POOL = 64  # (b): the callers' ids, plus each batch's probe source
+PSERVE_PROBES = 3  # (b): heavy edges of the last, probe-only refresh
+# (c): a feature of the worker's TSV store against the in-memory f32 row:
+# five decimals, read back as f32
+PSERVE_TEXT_TOL = 6e-6
+PSERVE_TIMEOUT_S = 600
+PSERVE_CFG = dict(n_nodes=N_NODES, avg_degree=AVG_DEGREE, feat_dim=FEAT_DIM,
+                  classes=CLASSES, batch=MICRO_BATCH, fanout=FANOUT,
+                  device="cuda", sizes=PSERVE_SIZES,
+                  clients=ONLINE_CLIENTS, requests=ONLINE_REQUESTS,
+                  max_ids=ONLINE_MAX_IDS, edge_batches=ONLINE_EDGE_BATCHES,
+                  edge_batch=ONLINE_EDGE_BATCH,
+                  knn=dict(base=KNN_BASE, queries=KNN_QUERIES,
+                           check=KNN_CHECK_QUERIES, nlist=KNN_NLIST,
+                           nprobe=KNN_NPROBE, k=KNN_K))
+
+
+def _topk_query(g, cfg, k, alias="top"):
+    return (g.V("item").batch(cfg["batch"]).alias("src")
+            .outV("rel").sample(k).by("topk").alias(alias).values())
+
+
+def _pserve_a(torch, g, svc, cfg):
+    """25a on the leader: the fixed request sequence against a one-rank
+    service on the same store, each round timed; closes the partitioned
+    service."""
+    from graph_learn_tpu_torch.examples.scale_demo import nbytes
+    from graph_learn_tpu_torch.online.serving import QueryService
+    from graph_learn_tpu_torch.ops.kernels import gather
+
+    dev, n, mb = cfg["device"], cfg["n_nodes"], cfg["batch"]
+    one = QueryService(g, device=dev)
+    qid = svc.install(_par_query(g, cfg), micro_batch=mb)
+    oid = one.install(_par_query(g, cfg), micro_batch=mb)
+    iq = svc._queries[qid]
+    launch, round_ms = iq._launch, []
+
+    def timed_launch(snap, chunk):
+        t0 = time.perf_counter()
+        out = launch(snap, chunk)
+        _sync(torch, dev)
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    iq._launch = timed_launch
+    rng = np.random.default_rng(25)
+    reqs = [rng.integers(0, n, s) for s in cfg["sizes"]]
+    # a warm request on both services (the same draws on both)
+    warm = [rng.integers(0, n, 1)]
+    _sync(torch, dev)
+    gather.LAUNCHES.reset()  # over every round, as the follower counts
+    t0 = time.perf_counter()
+    svc.run(qid, warm[0])
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    one.run(oid, warm[0])
+    del round_ms[:]
+    got = [svc.run(qid, ids) for ids in reqs]
+    launches = gather.LAUNCHES.count
+    same, replay = [], []
+    nt = g.store.node_table("item")
+    for i, (ids, a) in enumerate(zip(reqs, got)):
+        b = one.run(oid, ids)
+        for alias in ("src", "hop1", "hop2"):
+            same.append(_same_bits(torch, a[alias].ids, b[alias].ids))
+            same.append(_same_bits(torch, a[alias].float_attrs,
+                                   b[alias].float_attrs.materialize()))
+        if i < PSERVE_REPLAY:
+            ans = {alias: a[alias].ids.cpu().numpy()
+                   for alias in ("src", "hop1", "hop2")}
+            replay.append(dict(ids=ids, ans=ans, rows={
+                alias: nt.float_attrs[v.reshape(-1)]
+                for alias, v in ans.items()}))
+    out = dict(same=all(same), compared=len(same), rounds=len(round_ms),
+               launches=launches, round_ms=round_ms, warm_ms=warm_ms,
+               warm=warm, replay=replay,
+               block=iq._snap.tables.device_bytes(),
+               store=nbytes(one._queries[oid]._snap.tables))
+    svc.close()
+    one.close()
+    return out
+
+
+def _pserve_topk(torch, g, svc, cfg):
+    """25a on the leader: a topk query from concurrent callers, each
+    answer held to a one-rank service's; closes the partitioned
+    service."""
+    from graph_learn_tpu_torch.online.serving import QueryService
+
+    dev, n, k1 = cfg["device"], cfg["n_nodes"], cfg["fanout"][0]
+    one = QueryService(g, device=dev)
+    tq = svc.install(_topk_query(g, cfg, k1), micro_batch=PSERVE_TOPK_BATCH)
+    ot = one.install(_topk_query(g, cfg, k1), micro_batch=PSERVE_TOPK_BATCH)
+    records, errors = [], []
+
+    def caller(c):
+        r = np.random.default_rng(250 + c)
+        try:
+            for _ in range(cfg["requests"]):
+                ids = r.integers(0, n, int(r.integers(1, cfg["max_ids"] + 1)))
+                records.append((ids, svc.run(tq, ids)["top"].ids.cpu()))
+        except Exception as e:  # reported below; fails the phase
+            errors.append(e)
+
+    threads = [threading.Thread(target=caller, args=(c,))
+               for c in range(cfg["clients"])]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=PSERVE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads),
+          "25a: a topk caller failed: %r" % (errors[:1],))
+    out = dict(same=all(torch.equal(ans, one.run(ot, ids)["top"].ids.cpu())
+                        for ids, ans in records),
+               requests=len(records), wall=wall, stats=svc.stats(tq))
+    svc.close()
+    one.close()
+    return out
+
+
+def _pserve_b(torch, g, svc, cfg):
+    """25b on the leader: callers on a topk query while streamed edge
+    batches are applied and refreshed, each answer held to the oracle of a
+    snapshot live during it; then a probe-only refresh."""
+    from graph_learn_tpu_torch.online.serving import QueryService
+    from graph_learn_tpu_torch.online.update import (UpdateBuffer,
+                                                     apply_updates)
+
+    dev, n = cfg["device"], cfg["n_nodes"]
+    k1 = cfg["fanout"][0]
+    one = QueryService(g, device=dev)
+    tq = svc.install(_topk_query(g, cfg, k1), micro_batch=PSERVE_TOPK_BATCH)
+    pq = svc.install(_topk_query(g, dict(cfg, batch=1), k1), micro_batch=16)
+    ot = one.install(_topk_query(g, cfg, k1), micro_batch=PSERVE_TOPK_BATCH)
+    full = svc._queries[tq].last_refresh_upload_bytes
+    rng = np.random.default_rng(26)
+    batches = []
+    for b in range(cfg["edge_batches"]):
+        m = cfg["edge_batch"]
+        src, dst = rng.integers(0, n, m), rng.integers(0, n, m)
+        w = rng.random(m).astype(np.float32)
+        w[0] = ONLINE_PROBE_WEIGHT + b  # the probe: its source's heaviest
+        batches.append((src, dst, w))
+    probe_src = int(rng.integers(0, n))
+    probe_dst = rng.integers(0, n, PSERVE_PROBES)
+    batches.append((np.full(PSERVE_PROBES, probe_src), probe_dst,
+                    (2 * ONLINE_PROBE_WEIGHT + np.arange(PSERVE_PROBES)[::-1])
+                    .astype(np.float32)))
+    pool = np.concatenate([rng.integers(0, n, PSERVE_POOL),
+                           [int(s[0]) for s, _, _ in batches]])
+    oracle = [one.run(ot, pool)["top"].ids.cpu()]
+    records, errors, stop = [], [], threading.Event()
+
+    def caller(c):
+        r = np.random.default_rng(260 + c)
+        try:
+            while not stop.is_set():
+                at = r.integers(0, pool.size,
+                                int(r.integers(1, cfg["max_ids"] + 1)))
+                t0 = time.perf_counter()
+                ans = svc.run(tq, pool[at])["top"].ids.cpu()
+                records.append((t0, time.perf_counter(), at, ans))
+                time.sleep(ONLINE_THINK_S)
+        except Exception as e:  # reported below; fails the phase
+            errors.append(e)
+
+    threads = [threading.Thread(target=caller, args=(c,))
+               for c in range(cfg["clients"])]
+    for t in threads:
+        t.start()
+    spans, uploads, probes = [], [], []
+    try:
+        for src, dst, w in batches:
+            buf = UpdateBuffer()
+            buf.add_edges("rel", src_ids=src, dst_ids=dst, weights=w)
+            apply_updates(g, buf)
+            t0 = time.perf_counter()
+            svc.refresh()
+            spans.append((t0, time.perf_counter()))
+            uploads.append(svc._queries[tq].last_refresh_upload_bytes)
+            one.refresh()
+            oracle.append(one.run(ot, pool)["top"].ids.cpu())
+            top = svc.run(pq, [int(src[0])])["top"].ids.cpu()
+            probes.append(int(top[0, 0]) == int(dst[np.argmax(w)]))
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=PSERVE_TIMEOUT_S)
+    check(not errors and not any(t.is_alive() for t in threads),
+          "25b: a caller failed: %r" % (errors[:1],))
+    ends = np.array([e for _, e in spans])
+    starts = np.array([s for s, _ in spans])
+    wrong = 0
+    for t0, t1, at, ans in records:
+        lo = int(np.searchsorted(ends, t0))  # refreshes ended before it
+        hi = int(np.searchsorted(starts, t1))  # refreshes begun before its end
+        if not any(torch.equal(ans, oracle[s][at]) for s in range(lo, hi + 1)):
+            wrong += 1
+    out = dict(full=full, uploads=uploads, probes=probes, wrong=wrong,
+               answers=len(records), refresh_s=[e - s for s, e in spans],
+               stats=svc.stats(tq), edges=[s.size for s, _, _ in batches])
+    svc.close()
+    one.close()
+    return out
+
+
+def _pserve_knn(torch, rank, world, cfg):
+    """25d on each rank: the k-NN data of phase 20c drawn on this rank,
+    each configuration built once (trained on rank 0) and sharded over the
+    ranks; rank 0 holds the check queries' answers to its one-rank
+    index."""
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch.ops import knn
+    from graph_learn_tpu_torch.parallel.mesh import make_mesh
+
+    kc, dev = cfg["knn"], cfg["device"]
+    mesh = make_mesh(1, world)
+    gen = torch.Generator(device=dev).manual_seed(KNN_SEED)
+    centres = KNN_SPREAD * torch.randn((KNN_CENTRES, KNN_DIM), generator=gen,
+                                       device=dev)
+    base = centres[torch.randint(0, KNN_CENTRES, (kc["base"],),
+                                 generator=gen, device=dev)]
+    base += torch.randn(base.shape, generator=gen, device=dev)
+    picks = torch.randperm(kc["base"], generator=gen, device=dev)[
+        :kc["queries"]]
+    queries = base[picks] + KNN_NOISE * torch.randn(
+        (kc["queries"], KNN_DIM), generator=gen, device=dev)
+    data, q = base.cpu().numpy(), queries.cpu().numpy()
+    del centres, base, queries
+    ids = np.arange(kc["base"])
+    out = {}
+    for kind, metric in KNN_CONFIGS:
+        what = "%s/%s" % (kind, "L2" if metric == 0 else "ip")
+        opt = gl.KnnOption(k=kc["k"], index_type=kind, nlist=kc["nlist"],
+                           nprobe=kc["nprobe"], metric=metric)
+        t0 = time.perf_counter()
+        index = knn.build_index(data, ids, opt, device=dev, mesh=mesh)
+        sharded = knn.shard_index(index, mesh)
+        _sync(torch, dev)
+        build_s = time.perf_counter() - t0
+        sharded.search(q[:kc["check"]], kc["k"])  # warm
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        got_ids, got_dist = sharded.search(q, kc["k"])
+        wall = time.perf_counter() - t0
+        row = dict(build_s=build_s, train_s=index.train_s,
+                   ms_per_10k=wall * 1e3 * 10_000 / kc["queries"],
+                   block_bytes=sum(x.numel() * x.element_size()
+                                   for x in sharded.block.values()))
+        if rank == 0:
+            want_ids, want_dist = index.search(q[:kc["check"]], kc["k"])
+            fin = np.isfinite(want_dist)
+            scale = np.max(np.where(fin, np.abs(want_dist), 0), axis=1,
+                           keepdims=True)
+            err = np.where(fin, np.abs(got_dist[:kc["check"]] - want_dist), 0)
+            row.update(
+                ids_equal=bool(np.array_equal(got_ids[:kc["check"]],
+                                              want_ids)),
+                dist_ok=bool((np.isfinite(got_dist[:kc["check"]]) == fin)
+                             .all() and (err <= KNN_DIST_RTOL * scale).all()),
+                dist_err=float((err / np.maximum(scale, 1e-30)).max()))
+        out[what] = row
+        del index, sharded
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def partitioned_ranks(rank, world, card, cfg):
+    """25a, 25b and 25d on each of two gloo ranks that share the card."""
+    import torch
+
+    import graph_learn_tpu_torch as gl
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.online.serving import QueryService
+    from graph_learn_tpu_torch.ops.kernels import gather, spmm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gl.conf.feature_dtype = "bfloat16"
+    gl.conf.storage_profile = "minimal"
+    dev = cfg["device"]
+    t0 = time.perf_counter()
+    g, _ = bench.build_graph(cfg, dev)
+    out = {"build_s": time.perf_counter() - t0}
+    # (a) and (b), each part on a partitioned service of its own
+    for part, fn in (("a", _pserve_a), ("topk", _pserve_topk),
+                     ("b", _pserve_b)):
+        svc = QueryService(g, device=dev, graph_shards=world)
+        if rank == 0:
+            spmm.LAUNCHES.reset()
+            out[part] = fn(torch, g, svc, cfg)
+            out[part]["spmm"] = spmm.LAUNCHES.count
+        else:
+            gather.LAUNCHES.reset()
+            svc.follow()
+            out[part] = dict(gather=gather.LAUNCHES.count, block=(
+                svc._followed[0].tables.device_bytes()))
+    out["knn"] = _pserve_knn(torch, rank, world, cfg)
+    return out
+
+
+def _pserve_http(torch, card, cfg, files, warm, replay):
+    """25c: serve_main with graph_shards 2 over gloo in a worker process
+    from phase 22's files; (a)'s first requests replayed over HTTP; SIGTERM
+    ends both ranks."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    dev = cfg["device"]
+    conf_path = os.path.join(files, "pserve.json")
+    node_dec = {"labeled": True, "attr_types": ["float"] * cfg["feat_dim"]}
+    with open(conf_path, "w") as f:
+        json.dump({"host": "127.0.0.1", "port": 0, "device": dev,
+                   "graph_shards": 2, "backend": "gloo",
+                   "nodes": [{"source": os.path.join(files, "nodes"),
+                              "type": "item", "decoder": node_dec}],
+                   "edges": [{"source": os.path.join(files, "edges"),
+                              "type": ["item", "item", "rel"],
+                              "decoder": {"weighted": True}}]}, f)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "graph_learn_tpu_torch.online.serve_main",
+         "--config", conf_path], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(
+        target=lambda: [lines.append(x) for x in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        while not any("[serve] listening" in x for x in lines):
+            check(proc.poll() is None and time.perf_counter() - t0
+                  < PSERVE_TIMEOUT_S, "25c: the worker did not start: %s"
+                  % "".join(lines[-30:]))
+            time.sleep(0.05)
+        up_s = time.perf_counter() - t0
+        line = next(x for x in lines if "[serve] listening" in x)
+        port = int(line.split(":")[1].split()[0])
+        pids = json.loads(line.split("pids ")[1].rstrip(")\n"))
+        cg = load_gsl_client(root).Graph("127.0.0.1", port, timeout=600.0)
+        k1, k2 = cfg["fanout"]
+        qid = cg.install(cg.V("item").batch(cfg["batch"]).alias("src")
+                         .outV("rel").sample(k1).by("random").alias("hop1")
+                         .outV("rel").sample(k2).by("random").alias("hop2"),
+                         micro_batch=cfg["batch"])
+        t1 = time.perf_counter()
+        for ids in warm:  # (a)'s warm request, for the same draws after
+            cg.run(qid, ids.tolist())
+        warm_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        same_ids, row_err = True, 0.0
+        for r in replay:
+            ans = cg.run(qid, r["ids"].tolist())
+            for alias, want in r["ans"].items():
+                got = np.asarray(ans[alias]["ids"])
+                same_ids &= got.shape == want.shape and bool(
+                    (got == want).all())
+                rows = np.asarray(ans[alias]["float_attrs"],
+                                  np.float64).reshape(r["rows"][alias].shape)
+                row_err = max(row_err, float(np.abs(
+                    rows - r["rows"][alias]).max()))
+        serve_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        stop_s = time.perf_counter() - t2
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    check(rc == 0 and not alive, "25c: the worker exited %s with ranks %s "
+          "alive: %s" % (rc, alive, "".join(lines[-30:])))
+    check(same_ids, "25c: the worker's answers' ids differ from (a)'s")
+    check(row_err <= PSERVE_TEXT_TOL, "25c: the worker's rows differ from the "
+          "store's by %g, over the TSV's %g" % (row_err, PSERVE_TEXT_TOL))
+    log("partitioned (c) serve_main with graph_shards 2 over gloo from phase "
+        "22's TSV files, in a worker process: up in %.1f s (both ranks built "
+        "the graph; rank 0 started rank 1, pid %s), the random 2-hop query "
+        "installed over HTTP and (a)'s warm request sent (%.1f s), (a)'s "
+        "first %d requests (%s ids) answered with (a)'s ids bit for bit "
+        "and the store's rows within %.1e (the TSV's five decimals; the "
+        "worker keeps f32 features) in %.3f s; SIGTERM ended both ranks in "
+        "%.1f s (exit %d); %s; card: %s"
+        % (up_s, pids, warm_s, len(replay), [r["ids"].size for r in replay],
+           row_err, serve_s, stop_s, rc, SHARED_CARD, card))
+
+
+def partitioned_path(torch, card, gather, spmm, files, cfg=None):
+    """25: partitioned serving and the sharded k-NN index (module note,
+    phase 25); ``files`` is the directory of phase 22's TSV store.
+    ``cfg`` (default ``PSERVE_CFG``) sets the sizes and the device, so
+    that the phase rehearses small on the CPU, where no kernel launches.
+    Returns the kernels line's fields of phase 25."""
+    from graph_learn_tpu_torch.parallel.launch import spawn
+
+    cfg = dict(PSERVE_CFG, **(cfg or {}))
+    dev, on_card = cfg["device"], cfg["device"] == "cuda"
+    t_phase = time.perf_counter()
+    r0, r1 = spawn(partitioned_ranks, 2, device=dev, backend="gloo",
+                   args=(card, cfg), timeout_s=PSERVE_TIMEOUT_S,
+                   threads=None if on_card else 2)
+    spawn_s = time.perf_counter() - t_phase
+    a, b, topk = r0["a"], r0["b"], r0["topk"]
+    # (a)
+    check(a["same"], "25a: the partitioned service's answers are not the "
+          "one-rank service's, bit for bit")
+    check(topk["same"], "25a: a concurrent topk caller's answer is not "
+          "the one-rank answer")
+    check(a["rounds"] == sum(-(-s // cfg["batch"]) for s in cfg["sizes"]),
+          "25a: %d rounds for requests of %s ids at micro-batch %d"
+          % (a["rounds"], list(cfg["sizes"]), cfg["batch"]))
+    # over the warm round and the sequence's, on both ranks
+    per_round = (a["launches"] / (a["rounds"] + 1),
+                 r1["a"]["gather"] / (a["rounds"] + 1))
+    check(min(per_round) > 0 if on_card else per_round == (0.0, 0.0),
+          "25a: gather_rows launches a round %r on ranks 0 / 1"
+          % (per_round,))
+    check(a["spmm"] == 0, "25a: segment_spmm launched %d times by the "
+          "partitioned rounds" % a["spmm"])
+    check(max(a["block"], r1["a"]["block"]) < a["store"],
+          "25a: a block of %d / %d bytes for a store of %d"
+          % (a["block"], r1["a"]["block"], a["store"]))
+    rms = np.array(a["round_ms"])
+    log("partitioned (a) QueryService(graph_shards=2) at mesh (1, 2), the "
+        "random 2-hop [%d, %d] query at micro-batch %d on the %d-node "
+        "store (bf16, \"minimal\"): %d requests of %s ids (%d rounds) from "
+        "one caller after a warm request of 1 id (%.1f ms), ids and feature "
+        "rows of src, hop1, hop2 bit-equal to a one-rank QueryService on "
+        "the same store (%d tensors); round wall p50 %.1f ms, p99 %.1f ms "
+        "(rank 0's host clock, synchronised; rounds %s ms); gather_rows "
+        "%.1f / %.1f a round on ranks 0 / 1 (the owners' row gathers), "
+        "segment_spmm 0; each rank holds %d / %d device bytes against %d "
+        "for one rank's whole store; the store drawn in %.1f / %.1f s on "
+        "each rank's host; %s; card: %s"
+        % (cfg["fanout"][0], cfg["fanout"][1], cfg["batch"], cfg["n_nodes"],
+           len(cfg["sizes"]), list(cfg["sizes"]), a["rounds"], a["warm_ms"],
+           a["compared"], np.percentile(rms, 50), np.percentile(rms, 99),
+           [float(round(x, 1)) for x in rms], per_round[0], per_round[1],
+           a["block"], r1["a"]["block"], a["store"], r0["build_s"],
+           r1["build_s"], SHARED_CARD, card))
+    log("partitioned (a) topk [%d] from %d concurrent callers (%d requests "
+        "of 1..%d ids, micro-batch %d): every answer the one-rank answer; "
+        "p50 %.1f ms, p99 %.1f ms, %.1f requests/s; %s; card: %s"
+        % (cfg["fanout"][0], cfg["clients"], topk["requests"],
+           cfg["max_ids"], PSERVE_TOPK_BATCH, topk["stats"]["p50_ms"],
+           topk["stats"]["p99_ms"], topk["requests"] / topk["wall"],
+           SHARED_CARD, card))
+    # (b)
+    check(b["wrong"] == 0 and b["answers"] > 0, "25b: %d of %d answers equal "
+          "no live snapshot's oracle" % (b["wrong"], b["answers"]))
+    check(all(b["probes"]), "25b: a probe edge does not lead the topk "
+          "answer after its refresh: %r" % b["probes"])
+    shares = [u / b["full"] for u in b["uploads"]]
+    check(all(s < 1.0 for s in shares[:-1]) and shares[-1] <= 0.5,
+          "25b: refresh uploads %r of the full upload (the streamed batches "
+          "under 1, the probe-only refresh at most 1/2)" % shares)
+    log("partitioned (b) %d callers on topk while %d batches of %s edges "
+        "(each with a heavy probe edge) and one of %d probe edges were "
+        "applied and refreshed: %d answers, each equal to the one-rank "
+        "oracle of a snapshot live during it; every probe led its source's "
+        "topk after its refresh; refresh %s s; summed upload over the ranks "
+        "%s bytes, %s of the first full upload of %d (the streamed batches "
+        "move every edge-payload block: its rows per shard grow with the "
+        "edge count); caller p99 %.1f ms; %s; card: %s"
+        % (cfg["clients"], cfg["edge_batches"], cfg["edge_batch"],
+           PSERVE_PROBES, b["answers"],
+           [round(x, 3) for x in b["refresh_s"]], b["uploads"],
+           [round(x, 3) for x in shares], b["full"], b["stats"]["p99_ms"],
+           SHARED_CARD, card))
+    # (c)
+    _pserve_http(torch, card, cfg, files, a["warm"], a["replay"])
+    # (d)
+    kc = cfg["knn"]
+    for what, row in r0["knn"].items():
+        check(row["ids_equal"] and row["dist_ok"], "25d: k-NN %s over two "
+              "ranks: ids equal %s, distances off by %g of the row's largest"
+              % (what, row["ids_equal"], row["dist_err"]))
+        log("partitioned (d) k-NN %s, %d x %d f32 over 2 ranks (k %d%s): %d "
+            "check queries' ids equal to the one-rank index and distances "
+            "within %g of the row's largest (%.2e); built and sharded in "
+            "%.2f / %.2f s (train %.2f s on rank 0); %.1f / %.1f ms per "
+            "10 000 queries; a rank's block %d / %d bytes; %s; card: %s"
+            % (what, kc["base"], KNN_DIM, kc["k"],
+               "" if what.startswith("flat") else ", nlist %d, nprobe %d"
+               % (kc["nlist"], kc["nprobe"]), kc["check"], KNN_DIST_RTOL,
+               row["dist_err"], row["build_s"], r1["knn"][what]["build_s"],
+               row["train_s"], row["ms_per_10k"],
+               r1["knn"][what]["ms_per_10k"], row["block_bytes"],
+               r1["knn"][what]["block_bytes"], SHARED_CARD, card))
+    log("phase 25 (partitioned serving) in %.1f s (the two ranks %.1f s of "
+        "it)" % (time.perf_counter() - t_phase, spawn_s))
+    return {"gather_rows": {"pserve_launches_per_round": per_round[0],
+                            "pserve_follower_launches_per_round":
+                                per_round[1]},
+            "segment_spmm": {"pserve_launches_per_round": a["spmm"]}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7763,21 +8334,32 @@ def main() -> int:
     knn_path(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    # phase 22: the online tier from the bench store's files
-    with bench.bench_conf(storage_profile="full"):
-        online_path(torch, card, gather, spmm)
-    gc.collect()
-    torch.cuda.empty_cache()
-    # phase 24: the parallel store and training on torch.distributed
-    with bench.bench_conf(storage_profile="full"):
-        parallel_rows = parallel_path(torch, card, gather, spmm)
+    # phase 22: the online tier from the bench store's files, which phase
+    # 25 serves from again
+    import tempfile
+    online_files = tempfile.mkdtemp(prefix="glt_online_")
+    try:
+        with bench.bench_conf(storage_profile="full"):
+            online_path(torch, card, gather, spmm, files=online_files)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phase 24: the parallel store and training on torch.distributed
+        with bench.bench_conf(storage_profile="full"):
+            parallel_rows = parallel_path(torch, card, gather, spmm)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # phase 25: partitioned serving and the sharded k-NN index
+        pserve_rows = partitioned_path(torch, card, gather, spmm,
+                                       online_files)
+    finally:
+        shutil.rmtree(online_files, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     for part in (bench_rows, scale_rows, walks_rows, query_rows,
                  bipartite_rows, rgcn_rows, temporal_rows, tgat_rows,
                  example_rows, seal_rows, sage_rows, file_rows, sampler_rows,
                  host_rows, reorder_rows, tsv_rows, real_rows,
-                 parallel_rows):
+                 parallel_rows, pserve_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

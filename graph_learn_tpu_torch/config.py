@@ -6,7 +6,8 @@ reads or that a user sets through a setter (``:112-137``).  There is no
 only path, and CPU tensors take their plain versions, so
 ``set_use_pallas`` raises.  The parallel store's flags
 (``graph_shards``, ``partition_routing``, ``owner_route_capacity``,
-``:76-94``) take the JAX defaults, with their setters (``:136-137``).
+``serving_shard_slack``, ``:76-95``) take the JAX defaults, with the
+setters the JAX package has (``:136-137``).
 The setters of flags that no code reads
 raise ``UnimplementedError`` instead of storing a value nothing looks at:
 the attribute defaults, tape capacity and storage mode, which the JAX
@@ -73,6 +74,11 @@ class _Config:
     # bucket = max(ceil(m * factor / P) + 8, 8); an overflow stays exact
     # through the psum fallback
     owner_route_capacity: float = 2.0
+    # per-shard tail capacity of the partitioned QueryService's store:
+    # appended rows land in padding, so a refresh keeps the block layouts
+    # and uploads only the blocks an update touched
+    # (ShardedTables.replace_blocks)
+    serving_shard_slack: float = 1.25
 
 
 conf = _Config()

@@ -19,6 +19,7 @@ onto ``torch.distributed`` on that group:
                        -0.0 + 0.0 = +0.0 as in the JAX package)
     lax.all_to_all  -> dist.all_to_all_single (equal blocks)
     all_gather      -> dist.all_gather_into_tensor
+    (replication)   -> dist.broadcast from the axis's first rank
     lax.axis_index  -> the rank's index in the group (the mesh's local rank)
 
 An axis of one rank runs no collective: its psum is the identity.  Every
@@ -175,9 +176,9 @@ COLLECTIVES = CollectiveLog()
 def _collective(op: str, axis_name: str, out: torch.Tensor,
                 inp: torch.Tensor) -> torch.Tensor:
     """Run ``op`` on the group of ``axis_name``: ``all_reduce`` sums
-    ``inp`` in place (``out`` is ``inp``), ``all_to_all`` and
-    ``all_gather`` write ``out``.  Counts the payload (``out``'s
-    bytes)."""
+    ``inp`` in place and ``broadcast`` overwrites it with the axis's first
+    rank's (``out`` is ``inp``), ``all_to_all`` and ``all_gather`` write
+    ``out``.  Counts the payload (``out``'s bytes)."""
     import torch.distributed as dist
 
     group = axis(axis_name).group
@@ -187,6 +188,8 @@ def _collective(op: str, axis_name: str, out: torch.Tensor,
         dist.all_to_all_single(out, inp, group=group)
     elif op == "all_gather":
         dist.all_gather_into_tensor(out, inp, group=group)
+    elif op == "broadcast":  # from the axis's first rank
+        dist.broadcast(inp, src=dist.get_global_rank(group, 0), group=group)
     else:
         raise ValueError("unknown collective %r" % op)
     COLLECTIVES.add(op, axis_name, out.numel() * out.element_size())
@@ -208,6 +211,14 @@ def all_to_all(x: torch.Tensor, axis_name: str) -> torch.Tensor:
         return x
     x = x.contiguous()
     return _collective("all_to_all", axis_name, torch.empty_like(x), x)
+
+
+def broadcast(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """The axis's first rank's ``x`` on every rank of the axis."""
+    if axis_size(axis_name) == 1:
+        return x
+    y = x.contiguous().clone()
+    return _collective("broadcast", axis_name, y, y)
 
 
 def all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:

@@ -34,8 +34,8 @@ attributes, ``ops/knn.py``) are here; the sampler factories
 relabels the nodes after the edges are loaded and before the time bases
 are unified (``:133-145``, ``core/reorder.py``).  ``save`` / ``load``
 (``:221-244``, ``core/snapshot.py``) write and restore the built store in
-the JAX package's format.  The sharded index of ``search(mesh=...)`` is
-not yet ported.
+the JAX package's format.  ``search(mesh=...)`` range-partitions the
+index over the mesh's "graph" axis (``ops/knn.py ShardedIndex``).
 
 A ``Graph`` owns the device its views live on: the CUDA card unless the
 caller passes ``device="cpu"``.
@@ -55,8 +55,7 @@ from graph_learn_tpu_torch.core.schema import Decoder, Mask, mask_type
 from graph_learn_tpu_torch.core.snapshot import load_store, save_store
 from graph_learn_tpu_torch.core.store import (EdgeTable, GraphStore, NodeSet,
                                               NodeTable, unify_ts_bases)
-from graph_learn_tpu_torch.errors import (InvalidArgumentError,
-                                          UnimplementedError)
+from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -357,20 +356,26 @@ class Graph:
         graph's device at the first call and kept per (node type, index
         type), as the JAX package keys it: a later call with another
         ``nlist``, ``nprobe`` or ``metric`` searches the index built
-        first."""
+        first.  With a ``mesh`` whose "graph" axis has more than one rank,
+        every rank of that axis calls it with the same inputs: the index,
+        trained on the axis's first rank and added on each, is
+        range-partitioned over the axis (``knn.shard_index``) and kept
+        under its own key; the answer is the unsharded one."""
         from graph_learn_tpu_torch.ops import knn
-        if mesh is not None and dict(mesh.shape).get("graph", 1) > 1:
-            raise UnimplementedError(
-                "search(mesh=...) over graph shards (ShardedIndex) is not "
-                "yet ported: it waits for the parallel store")
-        key = (node_type, option.index_type, False)
+        sharded = (mesh is not None and "graph" in mesh.mesh_dim_names
+                   and mesh.size(mesh.mesh_dim_names.index("graph")) > 1)
+        key = (node_type, option.index_type, sharded)
         if key not in self._knn_indexes:
             t = self.store.node_table(node_type)
             if t.float_attrs is None:
                 raise InvalidArgumentError(
                     "node type %r has no float attrs for KNN" % node_type)
-            self._knn_indexes[key] = knn.build_index(
-                t.float_attrs, t.raw_ids, option, device=self.device)
+            index = knn.build_index(t.float_attrs, t.raw_ids, option,
+                                    device=self.device,
+                                    mesh=mesh if sharded else None)
+            if sharded:
+                index = knn.shard_index(index, mesh)
+            self._knn_indexes[key] = index
         return self._knn_indexes[key].search(np.asarray(inputs, np.float32),
                                              option.k)
 

@@ -31,6 +31,13 @@ JAX worker reads its StableHLO artifacts, and anything else is refused.
 and serves them from copy-on-write snapshots, so admin work never stalls
 reads.  Admin mutations take one lock.
 
+With ``graph_shards = P > 1`` the server runs on the leader of a
+partitioned ``QueryService`` (rank 0 of a P-rank group; the other ranks
+follow it, ``online/serving.py``): ``/admin/query`` installs through the
+service's command stream, and ``/admin/update``, ``/admin/expire`` and
+``/admin/refresh`` change the leader's graph, which reaches the
+followers' blocks at the next refresh.
+
 ``online/serve_main.py`` builds the graph from a config JSON and runs this
 server.
 """
@@ -49,6 +56,7 @@ import numpy as np
 import torch
 
 from graph_learn_tpu_torch.core.values import DeferredRows
+from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.gsl.plan import plan_to_query, query_to_plan
 from graph_learn_tpu_torch.online.serving import QueryService
 from graph_learn_tpu_torch.online.update import (UpdateBuffer,
@@ -83,13 +91,19 @@ def _value_payload(v) -> dict:
 
 class ServingServer:
     """HTTP front end over a graph: install plans, serve, ingest updates,
-    serve exported models; on the card unless ``device="cpu"``."""
+    serve exported models; on the card unless ``device="cpu"``.  With
+    ``graph_shards > 1``, built on the leader rank (the followers build
+    the ``QueryService`` alone and follow it)."""
 
     def __init__(self, graph, host: str = "127.0.0.1", port: int = 0,
                  graph_shards: int = 1, device: DeviceLike = "cuda"):
         self.graph = graph
         self.service = QueryService(graph, device=device,
                                     graph_shards=graph_shards)
+        if not self.service.is_leader:
+            raise InvalidArgumentError(
+                "the HTTP server runs on the leader of the partitioned "
+                "service; this rank follows it (QueryService.follow)")
         self._buf = UpdateBuffer()
         self._lock = threading.Lock()
         outer = self

@@ -35,8 +35,9 @@ JAX package computes them in XLA, not in a Pallas kernel.
 
 ``train(data, init_rows=None)`` takes the k-means starting rows (a test
 passes the rows JAX's ``jax.random.choice`` picks) or draws them from the
-index's own ``torch.Generator``.  The sharded index (``ShardedIndex``,
-``shard_index``, ``:281-431``) waits for the parallel store.
+index's own ``torch.Generator``.  :class:`ShardedIndex` (``shard_index``,
+``:281-431``) range-partitions a built index over a mesh axis of the
+parallel store's process groups.
 """
 
 from __future__ import annotations
@@ -120,11 +121,17 @@ def _merge(vals: torch.Tensor, rows: torch.Tensor, new_vals: torch.Tensor,
     return v[:, :k], torch.gather(r, 1, order[:, :k])
 
 
-def _search_top(queries: torch.Tensor, n: int, k: int, scorer):
-    """(values, rows) [m, min(k, n)]: the top k over ``n`` data rows, with
-    ``scorer(q_chunk)`` returning a function ``(lo, hi) -> [q, hi - lo]``
-    scores of the data rows ``lo ... hi - 1``."""
+def _search_top(queries: torch.Tensor, n: int, k: int, scorer,
+                start: int = 0):
+    """(values, rows) [m, min(k, n)]: the top k over the ``n`` data rows
+    from ``start``, with ``scorer(q_chunk)`` returning a function ``(lo,
+    hi) -> [q, hi - lo]`` scores of the data rows ``lo ... hi - 1``.  The
+    blocks end at multiples of ``DATA_CHUNK``, so a range that starts
+    inside the data (a shard's) is scored in the blocks the whole search
+    scores, but at its ends."""
     out_v, out_r = [], []
+    edges = [start] + list(range((start // DATA_CHUNK + 1) * DATA_CHUNK,
+                                 start + n, DATA_CHUNK)) + [start + n]
     for q0 in range(0, queries.shape[0], QUERY_CHUNK):
         qc = queries[q0:q0 + QUERY_CHUNK]
         block = scorer(qc)
@@ -132,8 +139,9 @@ def _search_top(queries: torch.Tensor, n: int, k: int, scorer):
                            device=qc.device)
         rows = torch.empty((qc.shape[0], 0), dtype=torch.long,
                            device=qc.device)
-        for lo in range(0, n, DATA_CHUNK):
-            hi = min(lo + DATA_CHUNK, n)
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            if hi <= lo:
+                continue
             bv, br = _chunk_top(block(lo, hi), k, lo)
             vals, rows = _merge(vals, rows, bv, br, k)
         out_v.append(vals)
@@ -251,14 +259,22 @@ class FlatIndex(_Index):
         self._append("_norms", torch.sum(x * x, dim=1))
         self._add_ids(ids)
 
-    def search(self, queries, k: int):
-        """-> (ids [m, k] int64, -1 padded; distances [m, k] float32)."""
-        q = self._tensor(queries)
+    def scorer(self, data=None, norms=None, off: int = 0):
+        """The block scorer of :func:`_search_top` over ``data`` (default
+        the index's rows), whose first row is data row ``off``."""
+        data = self._data if data is None else data
+        norms = self._norms if norms is None else norms
 
         def scorer(qc):
-            return lambda lo, hi: _scores(qc, self._data[lo:hi], self.metric,
-                                          self._norms[lo:hi])
-        vals, rows = _search_top(q, self.ntotal, k, scorer)
+            return lambda lo, hi: _scores(qc, data[lo - off:hi - off],
+                                          self.metric,
+                                          norms[lo - off:hi - off])
+        return scorer
+
+    def search(self, queries, k: int):
+        """-> (ids [m, k] int64, -1 padded; distances [m, k] float32)."""
+        vals, rows = _search_top(self._tensor(queries), self.ntotal, k,
+                                 self.scorer())
         return _finish(vals, rows, self._ids, k, self.metric, False)
 
 
@@ -308,21 +324,31 @@ class IVFFlatIndex(_Index):
         self._append("_cell", _assign(x, self.centroids))
         self._add_ids(ids)
 
-    def search(self, queries, k: int):
-        q = self._tensor(queries)
+    def scorer(self, data=None, norms=None, cell=None, centroids=None,
+               off: int = 0):
+        """The block scorer of :func:`_search_top` over ``data`` /
+        ``norms`` / ``cell`` (default the index's), whose first row is data
+        row ``off``, probing ``centroids`` (default the index's)."""
+        data = self._data if data is None else data
+        norms = self._norms if norms is None else norms
+        cell = self._cell if cell is None else cell
+        centroids = self.centroids if centroids is None else centroids
 
         def scorer(qc):
-            _, slot = _probe_slots(qc, self.centroids, self.metric,
-                                   self.nprobe)
+            _, slot = _probe_slots(qc, centroids, self.metric, self.nprobe)
 
             def block(lo, hi):
-                probed = torch.gather(slot, 1, self._cell[lo:hi].expand(
+                probed = torch.gather(slot, 1, cell[lo - off:hi - off].expand(
                     qc.shape[0], hi - lo)) >= 0
-                s = _scores(qc, self._data[lo:hi], self.metric,
-                            self._norms[lo:hi])
+                s = _scores(qc, data[lo - off:hi - off], self.metric,
+                            norms[lo - off:hi - off])
                 return torch.where(probed, s, float("-inf"))
             return block
-        vals, rows = _search_top(q, self.ntotal, k, scorer)
+        return scorer
+
+    def search(self, queries, k: int):
+        vals, rows = _search_top(self._tensor(queries), self.ntotal, k,
+                                 self.scorer())
         return _finish(vals, rows, self._ids, k, self.metric, True)
 
 
@@ -386,37 +412,51 @@ class IVFPQIndex(_Index):
         self._append("_cell", cell)
         self._add_ids(ids)
 
-    def _lut(self, qc: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
+    def _lut(self, qc: torch.Tensor, probe: torch.Tensor,
+             centroids: Optional[torch.Tensor] = None,
+             codebooks: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[q, P * m * ksub] ADC table: minus the squared L2 of each
         subspace of the query's residual to each probed centroid against
-        each codeword."""
+        each codeword (default the index's centroids and codebooks)."""
+        centroids = self.coarse.centroids if centroids is None else centroids
+        codebooks = self.codebooks if codebooks is None else codebooks
         q, p = probe.shape
-        resid = qc[:, None, :] - self.coarse.centroids[probe]
+        resid = qc[:, None, :] - centroids[probe]
         rs = resid.reshape(q, p, self.m, self.dsub)
-        diff = rs[:, :, :, None, :] - self.codebooks[None, None]
+        diff = rs[:, :, :, None, :] - codebooks[None, None]
         return (-torch.sum(diff * diff, dim=-1)).reshape(q, -1)
 
-    def search(self, queries, k: int):
-        q = self._tensor(queries)
+    def scorer(self, codes=None, cell=None, centroids=None, codebooks=None,
+               off: int = 0):
+        """The block scorer of :func:`_search_top` over ``codes`` /
+        ``cell`` (default the index's), whose first row is data row
+        ``off``, with the coarse ``centroids`` and ``codebooks`` (default
+        the index's)."""
+        codes_all = self.codes if codes is None else codes
+        cell = self._cell if cell is None else cell
+        centroids = self.coarse.centroids if centroids is None else centroids
         mk = self.m * self.ksub
 
         def scorer(qc):
-            probe, slot = _probe_slots(qc, self.coarse.centroids, 0,
-                                       self.coarse.nprobe)
-            lut = self._lut(qc, probe)
+            probe, slot = _probe_slots(qc, centroids, 0, self.coarse.nprobe)
+            lut = self._lut(qc, probe, centroids, codebooks)
 
             def block(lo, hi):
-                at = torch.gather(slot, 1, self._cell[lo:hi].expand(
+                at = torch.gather(slot, 1, cell[lo - off:hi - off].expand(
                     qc.shape[0], hi - lo))
                 base = torch.clamp(at, min=0) * mk
-                codes = self.codes[lo:hi]
+                codes = codes_all[lo - off:hi - off]
                 s = torch.gather(lut, 1, base + codes[:, 0])
                 for j in range(1, self.m):
                     s = s + torch.gather(lut, 1,
                                          base + (j * self.ksub + codes[:, j]))
                 return torch.where(at >= 0, s, float("-inf"))
             return block
-        vals, rows = _search_top(q, self.ntotal, k, scorer)
+        return scorer
+
+    def search(self, queries, k: int):
+        vals, rows = _search_top(self._tensor(queries), self.ntotal, k,
+                                 self.scorer())
         return _finish(vals, rows, self._ids, k, 0, True)
 
 
@@ -425,11 +465,39 @@ def _synchronize(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def build_index(data, ids, option: KnnOption, device: DeviceLike = "cuda"):
+def _train_once(index, data, mesh, axis: str):
+    """Train ``index`` on the first rank of the mesh's ``axis`` and give
+    every other rank of the axis its trained state (coarse centroids,
+    codebooks) by broadcast."""
+    from graph_learn_tpu_torch.core.sharding import (bind_axes, broadcast,
+                                                     mesh_axis)
+    ax = mesh_axis(mesh, axis)
+    if ax.index == 0:
+        index.train(data)
+    coarse = index.coarse if isinstance(index, IVFPQIndex) else index
+    if not isinstance(coarse, IVFFlatIndex):
+        return  # a flat index has nothing trained
+    dev = index.device
+    with bind_axes(**{axis: ax}):
+        if ax.index:
+            coarse.centroids = torch.zeros((coarse.nlist, index.dim),
+                                           device=dev)
+        coarse.centroids = broadcast(coarse.centroids, axis)
+        if isinstance(index, IVFPQIndex):
+            if ax.index:
+                index.codebooks = torch.zeros(
+                    (index.m, index.ksub, index.dsub), device=dev)
+            index.codebooks = broadcast(index.codebooks, axis)
+
+
+def build_index(data, ids, option: KnnOption, device: DeviceLike = "cuda",
+                mesh=None, axis: str = "graph"):
     """Index factory (reference index_factory.cc): the option's index,
     trained on ``data`` and holding ``data`` under ``ids``.  The index
     records the wall seconds of its ``train`` and ``add`` (``train_s``,
-    ``add_s``, the device's work included)."""
+    ``add_s``, the device's work included).  With ``mesh`` every rank of
+    its ``axis`` calls it with the same data: the first rank trains and
+    the others take its trained state (:func:`_train_once`)."""
     dim = np.shape(data)[1]
     if option.index_type == "flat":
         index = FlatIndex(dim, metric=option.metric, device=device)
@@ -443,10 +511,142 @@ def build_index(data, ids, option: KnnOption, device: DeviceLike = "cuda"):
         raise InvalidArgumentError("unknown index type %r"
                                    % option.index_type)
     t0 = time.perf_counter()
-    index.train(data)
+    if mesh is None:
+        index.train(data)
+    else:
+        _train_once(index, data, mesh, axis)
     _synchronize(index.device)
     t1 = time.perf_counter()
     index.add(data, ids)
     _synchronize(index.device)
     index.train_s, index.add_s = t1 - t0, time.perf_counter() - t1
     return index
+
+
+# the row a padding candidate of the merge carries (past every data row)
+_PAD_ROW = 2 ** 31 - 1
+
+
+class ShardedIndex:
+    """A built index whose per-point arrays are range-partitioned over the
+    mesh's ``axis`` (``graph_learn_tpu/ops/knn.py:281-426``): each rank of
+    the axis searches its block of ``rps = ceil(n / P)`` rows and one
+    ``all_gather`` of every rank's top k merges them into the answer of
+    the whole index.
+
+    Every rank of the axis builds it from its own ``base`` (the same data
+    and ids) and calls :meth:`search` with the same queries, as every
+    device runs the JAX package's one SPMD program.  The trained state is
+    the axis's first rank's: its coarse centroids and codebooks are
+    broadcast and replicated, and so are its cell assignments and codes,
+    of which each rank keeps its block (a k-means whose sums are atomic
+    on the card need not give two ranks the same bits).  Each rank keeps
+    its block of the data rows (``flat``, ``ivfflat``) or codes
+    (``ivfpq``) and of the cells.
+
+    A rank scores its block through the chunked scorer of the base index
+    (``_search_top``, no [m, n] tensor), pads its top ``min(k, rows)``
+    to k with -inf at row ``2**31 - 1``, and the gathered candidates are
+    merged by one stable sort: they come in rank order, each rank's equal
+    values in ascending row, so equal scores resolve to the lower global
+    row as one ``top_k`` over the whole index does.  Ids and the -1 and
+    inf padding follow the base index; IVFPQ distances are the negated
+    top whatever the metric."""
+
+    def __init__(self, base, mesh, axis: str = "graph"):
+        from graph_learn_tpu_torch.core.sharding import (all_gather,
+                                                         bind_axes,
+                                                         broadcast,
+                                                         mesh_axis)
+        ax = mesh_axis(mesh, axis)
+        self.base, self.mesh, self.axis = base, mesh, axis
+        self._axis = ax
+        self.nshards = p = ax.size
+        n = base.ntotal
+        self.rps = rps = max(-(-n // p), 1)
+        self.lo = min(ax.index * rps, n)
+        self.rows = min(self.lo + rps, n) - self.lo
+        if isinstance(base, FlatIndex):
+            self._kind = "flat"
+        elif isinstance(base, IVFFlatIndex):
+            self._kind = "ivfflat"
+        elif isinstance(base, IVFPQIndex):
+            self._kind = "ivfpq"
+        else:
+            raise InvalidArgumentError("cannot shard index type %s"
+                                       % type(base).__name__)
+        dev = base.device
+        with bind_axes(**{axis: ax}):
+            shape = torch.tensor([n, base.dim], device=dev)
+            if not bool((all_gather(shape[None], axis) == shape).all()):
+                raise InvalidArgumentError(
+                    "shard_index: the ranks of the %r axis hold indexes of "
+                    "different sizes" % axis)
+            block = slice(self.lo, self.lo + self.rows)
+            self.repl = {}
+            if self._kind == "flat":
+                self.block = {"data": base._data[block],
+                              "norms": base._norms[block]}
+                return
+            coarse = base.coarse if self._kind == "ivfpq" else base
+            self.repl["centroids"] = broadcast(coarse.centroids, axis)
+            cell = broadcast(base._cell, axis)[block]
+            if self._kind == "ivfflat":
+                self.block = {"data": base._data[block],
+                              "norms": base._norms[block], "cell": cell}
+            else:
+                self.repl["codebooks"] = broadcast(base.codebooks, axis)
+                self.block = {"codes": broadcast(base.codes, axis)[block],
+                              "cell": cell}
+
+    @property
+    def ntotal(self) -> int:
+        return self.base.ntotal
+
+    def _scorer(self):
+        b, r, off = self.block, self.repl, self.lo
+        if self._kind == "flat":
+            return self.base.scorer(b["data"], b["norms"], off=off)
+        if self._kind == "ivfflat":
+            return self.base.scorer(b["data"], b["norms"], b["cell"],
+                                    r["centroids"], off=off)
+        return self.base.scorer(b["codes"], b["cell"], r["centroids"],
+                                r["codebooks"], off=off)
+
+    def search(self, queries, k: int):
+        """-> (ids [m, k] int64, distances [m, k] float32), numpy: the
+        base index's answer.  Every rank of the axis calls it with the
+        same queries."""
+        from graph_learn_tpu_torch.core.sharding import all_gather, bind_axes
+        base = self.base
+        q = base._tensor(queries)
+        m = q.shape[0]
+        vals, rows = _search_top(q, self.rows, k, self._scorer(),
+                                 start=self.lo)
+        pad = k - vals.shape[1]
+        if pad:
+            vals = torch.nn.functional.pad(vals, (0, pad),
+                                           value=float("-inf"))
+            rows = torch.nn.functional.pad(rows, (0, pad), value=_PAD_ROW)
+        with bind_axes(**{self.axis: self._axis}):
+            gv = all_gather(vals.contiguous(), self.axis)
+            gr = all_gather(rows.contiguous(), self.axis)
+        p = self.nshards
+        cand_v = gv.reshape(p, m, k).permute(1, 0, 2).reshape(m, p * k)
+        cand_r = gr.reshape(p, m, k).permute(1, 0, 2).reshape(m, p * k)
+        top, order = torch.sort(cand_v, dim=1, descending=True, stable=True)
+        top = top[:, :k]
+        rows = torch.gather(cand_r, 1, order[:, :k])
+        valid = torch.isfinite(top)
+        ids = torch.where(valid, base._ids[torch.where(valid, rows, 0)], -1)
+        if self._kind == "ivfpq" or base.metric == 0:
+            dist = torch.where(valid, -top, float("inf"))
+        else:
+            dist = torch.where(valid, top, float("-inf"))
+        return ids.cpu().numpy(), dist.cpu().numpy()
+
+
+def shard_index(index, mesh, axis: str = "graph") -> ShardedIndex:
+    """``index`` (built on every rank of the axis from the same data)
+    distributed over the mesh's ``axis``: :class:`ShardedIndex`."""
+    return ShardedIndex(index, mesh, axis=axis)

@@ -216,6 +216,26 @@ def _to(a, dev: torch.device) -> torch.Tensor:
     return a.to(dev) if isinstance(a, torch.Tensor) else _put(a, dev)
 
 
+def same_leaf(a, b) -> bool:
+    """Equal shape, dtype and values (two host arrays, or two tensors)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                 else np.array_equal(a, b)))
+
+
+def _to_device(x, dev: torch.device):
+    """``x`` (tensors inside dicts and dataclasses) moved to ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _to_device(v, dev) for k, v in x.items()}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _to_device(getattr(x, f.name), dev)
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -279,11 +299,18 @@ class ShardedTables:
                                    device=dev)
 
     def _place_repl(self, dev: torch.device) -> Dict:
+        """The replicated arrays on ``dev``, and the ``.where()`` condition
+        tables: ``repl["cond"]`` where the host tables carry them (a
+        serving follower gets its leader's), else built from the query's
+        store."""
         from graph_learn_tpu_torch.gsl.compile import build_condition_tables
         repl = {k: _tree_map(lambda a: _to(a, dev), v)
                 for k, v in self.repl.items() if k != "cond"}
-        repl["cond"] = (build_condition_tables(self.query, dev)
-                        if self.query is not None else {})
+        if "cond" in self.repl:
+            repl["cond"] = _to_device(self.repl["cond"], dev)
+        else:
+            repl["cond"] = (build_condition_tables(self.query, dev)
+                            if self.query is not None else {})
         return repl
 
     def view(self) -> Dict:
@@ -354,11 +381,7 @@ class ShardedTables:
                 return {k: merge((old_dev or {}).get(k), (old_h or {}).get(k),
                                  v) for k, v in new_h.items()}
             if (old_dev is not None and old_h is not None
-                    and old_h.shape == new_h.shape
-                    and old_h.dtype == new_h.dtype
-                    and (torch.equal(old_h, new_h)
-                         if isinstance(new_h, torch.Tensor)
-                         else np.array_equal(old_h, new_h))):
+                    and same_leaf(old_h, new_h)):
                 return old_dev
             uploaded[0] += _nbytes(new_h)
             return _to(new_h, dev)

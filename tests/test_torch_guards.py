@@ -137,7 +137,9 @@ def no_card(monkeypatch):
                                    "seal_collab_main", "seal_main",
                                    "init_cluster", "spawn", "make_mesh",
                                    "dist_trainer", "sharded_gcn",
-                                   "dryrun_multichip", "routing_bytes_main"])
+                                   "dryrun_multichip", "routing_bytes_main",
+                                   "shard_index", "partitioned_service",
+                                   "serve_graph_shards"])
 def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
                                            tmp_path):
     monkeypatch.delenv("GLT_PLATFORM", raising=False)
@@ -207,6 +209,10 @@ def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
         "sharded_gcn": lambda: ShardedGCN([4], None, None, in_dim=4),
         "dryrun_multichip": lambda: dryrun.dryrun_multichip(2),
         "routing_bytes_main": lambda: routing_bytes.main(["--ranks", "2"]),
+        "shard_index": lambda: knn.shard_index(knn.FlatIndex(4), None),
+        "partitioned_service": lambda: glt.QueryService(g, graph_shards=2),
+        "serve_graph_shards": lambda: serve_main.serve(
+            dict(cfg, graph_shards=2, backend="gloo"), block=False),
     }
     files = tmp_path / "cora_like"
     if entry in ("cora_load_graph", "node2vec_load", "sage_unsup_load"):
@@ -222,7 +228,7 @@ def test_entry_points_raise_without_a_card(no_card, entry, monkeypatch,
         calls[entry]()
 
 
-@pytest.mark.parametrize("entry", ["init_cluster", "spawn"])
+@pytest.mark.parametrize("entry", ["init_cluster", "spawn", "serve_main"])
 def test_ranks_sharing_a_card_are_refused_without_gloo(entry, monkeypatch,
                                                         tmp_path):
     """Two ranks on one card: NCCL refuses them, so the entry points that
@@ -238,6 +244,9 @@ def test_ranks_sharing_a_card_are_refused_without_gloo(entry, monkeypatch,
         "init_cluster": lambda: bootstrap.init_cluster(
             "file://" + str(tmp_path / "store"), 2, 0),
         "spawn": lambda: launch.spawn(print, 2),
+        "serve_main": lambda: serve_main.serve(
+            {"nodes": [], "edges": [], "port": 0, "graph_shards": 2},
+            block=False),
     }
     with pytest.raises(InvalidArgumentError, match="backend='gloo'"):
         calls[entry]()
@@ -728,6 +737,22 @@ def test_chip_smoke_main_runs_phase_22():
     assert called.index("online_path") > called.index("knn_path")
 
 
+def test_chip_smoke_main_runs_phase_25():
+    """main() drives partitioned serving after phase 24, from the files
+    phase 22 kept, and merges its fields into the kernels line."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    main = next(f for f in tree.body
+                if isinstance(f, ast.FunctionDef) and f.name == "main")
+    calls = [n for n in ast.walk(main)
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    line = {n.func.id: n.lineno for n in calls}
+    assert line["partitioned_path"] > line["parallel_path"]
+    online = next(n for n in calls if n.func.id == "online_path")
+    assert [k.arg for k in online.keywords] == ["files"]
+    assert "pserve_rows" in {n.id for n in ast.walk(main)
+                             if isinstance(n, ast.Name)}
+
+
 def test_chip_smoke_parallel_path_rehearses_on_the_cpu(capsys,
                                                        monkeypatch):
     """Phase 24 at a small size on the CPU: DistTrainer at (1, 1) against
@@ -754,6 +779,47 @@ def test_chip_smoke_parallel_path_rehearses_on_the_cpu(capsys,
                  "parallel (d) ShardedGCN", "of a one-rank dense GCN's",
                  "parallel (e) routing_bytes",
                  "phase 24 (parallel)"):
+        assert line in out, line
+
+
+def test_chip_smoke_partitioned_path_rehearses_on_the_cpu(capsys,
+                                                         monkeypatch,
+                                                         tmp_path):
+    """Phase 25 at a small size on the CPU: two gloo ranks serve the
+    random 2-hop query bit-equal to a one-rank service, topk callers get
+    the one-rank answers, refreshes under callers with probe edges, the
+    serve_main worker from TSV files with graph_shards 2 over HTTP, and
+    the sharded k-NN index of each configuration; on the CPU no kernel
+    launches."""
+    import importlib
+    from graph_learn_tpu_torch.ops.kernels import gather, spmm
+    monkeypatch.syspath_prepend(str(REPO))  # the ranks import it by name
+    smoke = importlib.import_module("chip_smoke")
+    cfg = dict(n_nodes=1500, avg_degree=6, feat_dim=8, classes=4, batch=32,
+               fanout=(3, 2), device="cpu", sizes=(1, 3, 7, 32, 50, 5),
+               clients=3, requests=4, max_ids=3, edge_batches=2,
+               edge_batch=200, knn=dict(base=500, queries=40, check=20,
+                                        nlist=8, nprobe=3, k=10))
+    g, _ = glt.synthetic_graph(cfg["n_nodes"], cfg["avg_degree"],
+                               cfg["feat_dim"], cfg["classes"], seed=0,
+                               device="cpu")
+    nt = g.store.node_table("item")
+    smoke.write_store_tsv(str(tmp_path), nt, g.store.edge_table("rel"),
+                          nt.raw_ids[:1])
+    rows = smoke.partitioned_path(torch, "the CPU", gather, spmm,
+                                  str(tmp_path), cfg=cfg)
+    assert rows == {"gather_rows": {"pserve_launches_per_round": 0.0,
+                                    "pserve_follower_launches_per_round":
+                                        0.0},
+                    "segment_spmm": {"pserve_launches_per_round": 0}}
+    out = capsys.readouterr().out
+    for line in ("partitioned (a) QueryService(graph_shards=2)",
+                 "bit-equal to a one-rank QueryService",
+                 "every answer the one-rank answer", "partitioned (b)",
+                 "every probe led", "partitioned (c) serve_main",
+                 "SIGTERM ended both ranks", "k-NN flat/L2", "k-NN flat/ip",
+                 "k-NN ivfflat/L2", "k-NN ivfpq/L2",
+                 "phase 25 (partitioned serving)"):
         assert line in out, line
 
 

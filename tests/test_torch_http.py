@@ -585,9 +585,48 @@ def test_serve_main_models_config(cfg, tmp_path):
         stop()
 
 
-def test_serve_main_refuses_graph_shards(cfg):
-    with pytest.raises(glt.UnimplementedError, match="A3"):
-        serve(dict(cfg, graph_shards=2), block=False)
+def test_serve_main_refuses_graph_shards(cfg, tmp_graph_dir, tmp_path):
+    """``graph_shards`` is ported (the name is the refusal's this test once
+    pinned): serve() with "graph_shards": 2 and "backend": "gloo" is rank
+    0 and starts rank 1 itself; /serving answers the JAX worker's JSON, a
+    streamed update reaches the followers' blocks through the pump's
+    refresh, and stopping rank 0 ends rank 1."""
+    from graph_learn_tpu.online.http import ServingServer as JaxServer
+    server, stop = serve(dict(cfg, graph_shards=2, backend="gloo"),
+                         block=False)
+    procs = list(server.ranks.procs)
+    jsrv = JaxServer(_jax_graph(tmp_graph_dir)).start()
+    try:
+        assert [p.is_alive() for p in procs] == [True]
+        plan = query_to_plan(_two_hop_topk(server.graph))
+        ids = [0, 10, 20, 390, 70]
+        answers = []
+        for srv in (jsrv, server):
+            c = ServingClient(_url(srv))
+            answers.append(c._post("/serving", {
+                "qid": c.install(plan, micro_batch=4), "ids": ids}))
+        assert json.dumps(answers[0], sort_keys=True) == \
+            json.dumps(answers[1], sort_keys=True)
+        client = ServingClient(_url(server))
+        qid = client.install(query_to_plan(
+            server.graph.V("item").batch(4).alias("src")
+            .outV("rel").sample(3).by("topk").alias("h1").values()),
+            micro_batch=4)
+        StreamProducer(FileTopic(str(tmp_path / "topic"), create=False)) \
+            .put_edges("rel", [0, 0, 0], [390, 380, 370],
+                       weights=[9.0, 8.0, 7.0])
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            top = set(client.run(qid, [0])["h1"]["ids"][0])
+            if top == {39, 38, 37}:
+                break
+            time.sleep(0.1)
+        assert top == {39, 38, 37}
+    finally:
+        jsrv.stop()
+        stop()
+    assert [p.is_alive() for p in procs] == [False]
+    assert [p.exitcode for p in procs] == [0]
 
 
 # --- worker processes (tests/test_multiprocess_serving.py) -----------------

@@ -20,10 +20,11 @@ from torch.utils._pytree import tree_leaves
 import graph_learn_tpu as gl
 import graph_learn_tpu_torch as glt
 from graph_learn_tpu.ops import knn as jknn
-from graph_learn_tpu_torch.errors import (InvalidArgumentError,
-                                          UnimplementedError)
+from graph_learn_tpu_torch.errors import InvalidArgumentError
 from graph_learn_tpu_torch.ops import knn
-from torch_parity import both_confs, jax_graph, numpy_graph, torch_graph
+from graph_learn_tpu_torch.parallel.mesh import make_mesh
+from torch_parity import (both_confs, jax_graph, numpy_graph, one_rank_group,
+                          torch_graph)
 
 DIST_TOL = dict(rtol=1e-5, atol=1e-4)
 TRAIN_TOL = dict(rtol=0, atol=1e-5)
@@ -252,22 +253,26 @@ def test_graph_search_equals_jax_and_keeps_its_first_index(monkeypatch):
     assert tg._knn_indexes[("item", "ivfflat", False)].nprobe == 2
 
 
-def test_graph_search_refuses_a_table_without_features_and_a_mesh():
+def test_graph_search_refuses_a_table_without_features_and_a_mesh(
+        tmp_path):
     g = glt.Graph(device="cpu")
     g.add_node_table(glt.NodeTable("v", glt.Decoder(), np.arange(5)))
     with pytest.raises(InvalidArgumentError, match="no float attrs"):
         g.search("v", np.zeros((1, 2), np.float32), glt.KnnOption())
+    # a mesh whose graph axis has one rank searches the unsharded index,
+    # under the unsharded key (graph_learn_tpu/graph.py:298); more ranks
+    # shard it (tests/test_torch_sharded_knn.py)
     a = numpy_graph(n=50, d=4)
     tg = torch_graph(a)[0]
-
-    class Mesh:
-        shape = {"graph": 2, "data": 1}
-    with pytest.raises(UnimplementedError, match="not yet ported"):
-        tg.search("item", a["feats"][:2], glt.KnnOption(k=3), mesh=Mesh())
-    Mesh.shape = {"graph": 1}
-    ids, _ = tg.search("item", a["feats"][:2], glt.KnnOption(k=3),
-                       mesh=Mesh())
+    with one_rank_group(str(tmp_path)):
+        mesh = make_mesh(1, 1, device="cpu")
+        ids, dist = tg.search("item", a["feats"][:2], glt.KnnOption(k=3),
+                              mesh=mesh)
     np.testing.assert_array_equal(ids[:, 0], a["raw_ids"][:2])
+    assert list(tg._knn_indexes) == [("item", "flat", False)]
+    want = tg.search("item", a["feats"][:2], glt.KnnOption(k=3))
+    np.testing.assert_array_equal(ids, want[0])
+    np.testing.assert_array_equal(dist, want[1])
 
 
 def test_set_knn_metric_sets_the_default_metric():

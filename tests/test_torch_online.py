@@ -400,9 +400,29 @@ def test_subgraph_serving_rejects_oversized_request(g):
     svc.close()
 
 
-def test_partitioned_serving_is_not_yet_ported(g):
-    with pytest.raises(glt.UnimplementedError, match="A3"):
-        QueryService(g, device="cpu", graph_shards=2)
+def test_partitioned_serving_is_not_yet_ported(tmp_graph_dir):
+    """The partitioned branch is ported (the name is the refusal's this
+    test once pinned): QueryService(graph_shards=2) on two gloo ranks
+    answers the JAX one-device service's topk, value for value, and
+    serves a streamed update after refresh(); the other cases are in
+    tests/test_torch_partitioned_serving.py."""
+    import torch_parity
+    from graph_learn_tpu.online.serving import QueryService as JaxService
+    from graph_learn_tpu_torch.parallel.launch import spawn
+    before, after = spawn(torch_parity.online_partitioned_ranks, 2,
+                          device="cpu", args=(tmp_graph_dir,),
+                          timeout_s=120, threads=1)[0]
+    jg = _jax_graph(tmp_graph_dir)
+    jsvc = JaxService(jg)
+    q = (jg.V("item").batch(4).alias("src")
+         .outV("rel").sample(3).by("topk").alias("h1").values())
+    want = jsvc.run(jsvc.install(q, micro_batch=4), [0, 10, 20, 390, 70])
+    jsvc.close()
+    np.testing.assert_array_equal(before["h1.ids"].numpy(),
+                                  np.asarray(want["h1"].ids))
+    np.testing.assert_array_equal(before["h1.float_attrs"].numpy(),
+                                  np.asarray(want["h1"].float_attrs))
+    assert 39 in after and 38 in after
 
 
 # --- export (tests/test_online.py:155-181) --------------------------------

@@ -1057,6 +1057,21 @@ def parallel_ranks(rank: int, world: int, where: str):
     return out
 
 
+@contextlib.contextmanager
+def one_rank_group(where: str):
+    """A gloo process group of this process alone (a FileStore under
+    ``where``) for the code inside."""
+    import os
+
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        where, "store"), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def failing_rank(rank: int, world: int):
     """A rank function whose rank 1 raises (tests/test_torch_multiprocess.py)."""
     import torch.distributed as dist
@@ -1083,3 +1098,414 @@ def echo_rank(rank: int, world: int, tag: str):
     x = torch.tensor([rank])
     dist.all_reduce(x)
     return rank, world, tag, str(bootstrap.current_device()), int(x)
+
+
+# --- partitioned serving and the sharded k-NN index ----------------------
+
+PART_IDS = np.array([0, 5, 17, 123, 999, 1500, 1999, 3], np.int64)
+PART_RANDOM_SIZES = (1, 5, 8, 13, 20)
+INC_ORACLE_IDS = (100, 600, 1100, 1600, 1999)
+INC_REFRESHES = 5
+
+
+def write_partition_files(where: str) -> Dict[str, Dict[str, str]]:
+    """tests/test_online.py's partitioned-serving files: "part" (:381-446,
+    32 features) and "inc" (:449-543, 16 features), each 2 000 nodes with
+    8 weighted out-edges; {name: {"nodes", "edges", "f"}}."""
+    import os
+    out = {}
+    for name, seed, f in (("part", 0, 32), ("inc", 1, 16)):
+        rng = np.random.default_rng(seed)
+        n, deg = 2000, 8
+        paths = {"nodes": os.path.join(where, name + "_nodes"),
+                 "edges": os.path.join(where, name + "_edges"), "f": f}
+        with open(paths["nodes"], "w") as fh:
+            fh.write("id:int64\tfeature:string\n")
+            for i in range(n):
+                fh.write("%d\t%s\n" % (i, ":".join(
+                    "%.3f" % x for x in rng.random(f))))
+        with open(paths["edges"], "w") as fh:
+            fh.write("src_id:int64\tdst_id:int64\tweight:float\n")
+            for i in range(n):
+                for j in range(deg):
+                    fh.write("%d\t%d\t%.2f\n" % (i, (i * 13 + j * 7) % n,
+                                                 j + 1.0))
+        out[name] = paths
+    return out
+
+
+def partition_graph(mod, paths: Dict[str, str]):
+    """Either package's Graph over one set of those files ("v" / "e"); the
+    port's on the CPU."""
+    kw = {"device": "cpu"} if mod.__name__ == "graph_learn_tpu_torch" else {}
+    return (mod.Graph(**kw)
+            .node(paths["nodes"], "v",
+                  mod.Decoder(attr_types=["float"] * paths["f"]))
+            .edge(paths["edges"], ("v", "v", "e"),
+                  mod.Decoder(weighted=True))).init()
+
+
+def part_topk(g, batch: int = 8):
+    return (g.V("v").batch(batch).alias("src")
+            .outV("e").sample(3).by("topk").alias("h1").values())
+
+
+def _flat_block(tree, prefix: str = "") -> Dict:
+    """A placed or host block (nested dicts of arrays) as {path: tensor}."""
+    import torch
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_block(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = torch.as_tensor(v)
+    return out
+
+
+def partitioned_serving_ranks(rank: int, world: int, files):
+    """tests/test_torch_partitioned_serving.py's cases on ``world`` ranks,
+    each on a partitioned QueryService of its own (every rank builds it;
+    rank 0 leads, the others follow until it closes): the topk answers,
+    the bytes a rank holds and a streamed update (every world); at two
+    ranks also the random answers against the one-rank service, the
+    refusals, SubGraph rounds and the incremental refresh of
+    tests/test_online.py:449-543 with every rank's block after each
+    refresh."""
+    import threading
+
+    import torch
+
+    import graph_learn_tpu_torch as glt
+    from graph_learn_tpu_torch.config import conf
+    from graph_learn_tpu_torch.examples.scale_demo import nbytes
+    from graph_learn_tpu_torch.online import serving
+    from graph_learn_tpu_torch.online.update import (UpdateBuffer,
+                                                     apply_updates)
+    from graph_learn_tpu_torch.parallel.sharded_store import (
+        build_sharded_tables)
+
+    out = {"followed": 0}
+
+    def service(g):
+        svc = serving.QueryService(g, device="cpu", graph_shards=world)
+        if rank:
+            try:  # models stay on the leader
+                svc.install_model("m", b"")
+            except glt.InvalidArgumentError:
+                out["model_refused"] = True
+            svc.follow()
+            out["followed"] += 1
+            return None
+        return svc
+
+    # the topk case (tests/test_online.py:381-446)
+    g = partition_graph(glt, files["part"])
+    svc = service(g)
+    if svc is not None:
+        qid = svc.install(part_topk(g), micro_batch=8)
+        ans = svc.run(qid, PART_IDS)["h1"]
+        out["topk"] = (ans.ids, ans.float_attrs)
+        out["bytes"] = (build_sharded_tables(part_topk(g), world)
+                        .bytes_per_device(),
+                        nbytes(part_topk(g).device_tables("cpu")))
+        out["block"] = svc._queries[qid]._snap.tables.device_bytes()
+        buf = UpdateBuffer()
+        buf.add_edges("e", src_ids=[0, 0, 0], dst_ids=[42, 43, 44],
+                      weights=[99.0, 98.0, 97.0])
+        apply_updates(g, buf)
+        svc.refresh()
+        out["after"] = svc.run(qid, [0])["h1"].ids
+        svc.close()
+    if world > 2:
+        # a data axis is refused on every rank, before any control group
+        from graph_learn_tpu_torch.parallel.mesh import make_mesh
+        try:
+            serving.QueryService(g, mesh=make_mesh(2, world // 2,
+                                                   device="cpu"),
+                                 device="cpu", graph_shards=world // 2)
+        except glt.InvalidArgumentError as e:
+            out["data_axis"] = str(e)
+        return out
+
+    # random answers, refusals and SubGraph rounds
+    g = partition_graph(glt, files["part"])
+    svc = service(g)
+    if svc is not None:
+        one = serving.QueryService(g, device="cpu")
+        q2 = (lambda gg: gg.V("v").batch(8).alias("src")
+              .outV("e").sample(4).by("random").alias("h1")
+              .outV("e").sample(2).by("random").alias("h2").values())
+        qid, oid = (s.install(q2(g), micro_batch=8) for s in (svc, one))
+        rng = np.random.default_rng(3)
+        bad = []
+        for size in PART_RANDOM_SIZES:
+            ids = rng.integers(0, 2000, size)
+            bad.append(_mismatch(flat_result(svc.run(qid, ids)),
+                                 flat_result(one.run(oid, ids))))
+        out["random_bad"] = bad
+        refused = []
+        for ids in ([10 ** 9], [0, 10 ** 9]):
+            try:
+                svc.run(qid, ids)
+            except glt.NotFoundError:
+                refused.append("not found")
+        sg = (lambda gg: gg.V("v").batch(4).alias("src")
+              .SubGraph("e").alias("sg").values())
+        sid, osid = svc.install(sg(g), micro_batch=4), one.install(
+            sg(g), micro_batch=4)
+        try:
+            svc.run(sid, np.arange(8))
+        except glt.InvalidArgumentError:
+            refused.append("oversized")
+        out["refused"] = refused
+        # one round a request: two requests queued before one dispatch
+        iq = svc._queries[sid]
+        iq.close()
+        sends = []
+        real_send = svc._control.send
+
+        def counting_send(cmd, *a, **kw):
+            sends.append(cmd)
+            return real_send(cmd, *a, **kw)
+        svc._control.send = counting_send
+        pa = serving._Pending(np.array([0, 5], np.int64))
+        pb = serving._Pending(np.array([17, 123, 999], np.int64))
+        iq._queue.put(pa)
+        iq._queue.put(pb)
+        iq._serve_once()
+        iq._serve_once()
+        out["sg_rounds"] = sends.count(serving._ROUND)
+        out["sg_bad"] = [_mismatch(flat_result(p.result),
+                                   flat_result(one.run(osid, p.ids)))
+                         for p in (pa, pb)]
+        out["after_refusals"] = _mismatch(
+            flat_result(svc.run(qid, [7, 8])), flat_result(
+                one.run(oid, [7, 8])))
+        svc._control.send = real_send
+        svc.close()
+        one.close()
+
+    # the incremental refresh (tests/test_online.py:449-543), "minimal"
+    conf.storage_profile = "minimal"
+    g = partition_graph(glt, files["inc"])
+    if rank:
+        blocks = []
+        real_swap = serving._FollowerQuery.swap
+
+        def recording_swap(self, payload):
+            up = real_swap(self, payload)
+            blocks.append(_flat_block(self.tables.placed))
+            return up
+        serving._FollowerQuery.swap = recording_swap
+        service(g)
+        out["blocks"] = blocks
+        return out
+    svc = service(g)
+    q = part_topk(g)
+    qid = svc.install(q, micro_batch=8)
+    iq = svc._queries[qid]
+    inc = {"full": iq.last_refresh_upload_bytes, "uploads": [],
+           "fresh": [], "leader": [], "errors": []}
+    oracle = {i: svc.run(qid, [i])["h1"].ids[0].tolist()
+              for i in INC_ORACLE_IDS}
+
+    def client(tid):
+        try:
+            for r in range(8):
+                i = INC_ORACLE_IDS[(tid + r) % len(INC_ORACLE_IDS)]
+                got = svc.run(qid, [i])["h1"].ids[0].tolist()
+                if got != oracle[i]:
+                    inc["errors"].append((tid, i, got))
+        except Exception as e:  # reported by the test
+            inc["errors"].append((tid, repr(e)))
+
+    def updater():
+        for k in range(INC_REFRESHES):
+            buf = UpdateBuffer()
+            buf.add_edges("e", src_ids=[0], dst_ids=[42 + k],
+                          weights=[50.0 + k])
+            apply_updates(g, buf)
+            svc.refresh()
+            inc["uploads"].append(iq.last_refresh_upload_bytes)
+            inc["leader"].append(_flat_block(iq._snap.tables.placed))
+            inc["fresh"].append([_flat_block(build_sharded_tables(
+                q, world, slack=conf.serving_shard_slack, shard=p).stacked)
+                for p in range(world)])
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(6)]
+    upd = threading.Thread(target=updater)
+    upd.start()
+    for t in threads:
+        t.start()
+    for t in threads + [upd]:
+        t.join(timeout=120)
+    inc["final"] = svc.run(qid, [0])["h1"].ids[0].tolist()
+    svc.close()
+    out["inc"] = inc
+    return out
+
+
+def online_partitioned_ranks(rank: int, world: int, paths):
+    """tests/test_torch_online.py's partitioned case on the tmp_graph_dir
+    files: topk answers, then a streamed update after refresh()."""
+    import graph_learn_tpu_torch as glt
+    from graph_learn_tpu_torch.online.serving import QueryService
+    from graph_learn_tpu_torch.online.update import (UpdateBuffer,
+                                                     apply_updates)
+    g = (glt.Graph(device="cpu")
+         .node(paths["node"], node_type="item",
+               decoder=glt.Decoder(weighted=True, labeled=True,
+                                   attr_types=["float"] * 4))
+         .edge(paths["edge"], edge_type=("item", "item", "rel"),
+               decoder=glt.Decoder(weighted=True))).init()
+    svc = QueryService(g, device="cpu", graph_shards=world)
+    if rank:
+        svc.follow()
+        return None
+    q = (g.V("item").batch(4).alias("src")
+         .outV("rel").sample(3).by("topk").alias("h1").values())
+    qid = svc.install(q, micro_batch=4)
+    before = flat_result(svc.run(qid, [0, 10, 20, 390, 70]))
+    buf = UpdateBuffer()
+    buf.add_edges("rel", src_ids=[0, 0], dst_ids=[390, 380],
+                  weights=[9.0, 8.0])
+    apply_updates(g, buf)
+    svc.refresh()
+    after = svc.run(qid, [0])["h1"].ids[0].tolist()
+    svc.close()
+    return before, after
+
+
+def dead_follower_rank(rank: int, where: str, mode: str):
+    """Two ranks started by parallel.launch.start.  ``mode`` "killed": rank
+    1 is killed on its second round.  "refused": rank 1's refresh raises
+    and the process lives on (30 s) after its follow() raised.  Rank 0
+    writes how its calls ended to leader.json."""
+    import json
+    import os
+    import signal
+    import time
+    import traceback
+
+    import torch
+
+    from graph_learn_tpu_torch.online import serving
+    from graph_learn_tpu_torch.online.update import (UpdateBuffer,
+                                                     apply_updates)
+    from graph_learn_tpu_torch.parallel import launch
+    torch.set_num_threads(1)
+    report = {}
+    try:
+        launch.join(rank, 2, where, "cpu", None, 60.0)
+        a = numpy_graph(n=200)
+        g = torch_graph(a)[0]
+        svc = serving.QueryService(g, device="cpu", graph_shards=2)
+        if rank == 1:
+            if mode == "killed":
+                ctl, seen = svc._control, []
+                real = ctl.recv_chunk
+
+                def die_on_the_second(n):
+                    seen.append(n)
+                    if len(seen) == 2:
+                        os.kill(os.getpid(), signal.SIGKILL)
+                    return real(n)
+                ctl.recv_chunk = die_on_the_second
+                svc.follow()
+            else:
+                def refuse(self, payload):
+                    raise ValueError("this rank refuses the block")
+                serving._FollowerQuery.swap = refuse
+                try:
+                    svc.follow()
+                except ValueError:
+                    time.sleep(30)
+            return
+        qid = svc.install(two_hop(g, 3, 2, batch=8), micro_batch=8)
+        raw = a["raw_ids"]
+        report["first"] = len(svc.run(qid, raw[:3])["hop1"].ids)
+        buf = UpdateBuffer()
+        buf.add_edges("rel", src_ids=raw[:2], dst_ids=raw[2:4],
+                      weights=[2.0, 3.0])
+        apply_updates(g, buf)
+        calls = {"killed": (("second", lambda: svc.run(qid, raw[3:5])),
+                            ("third", lambda: svc.run(qid, raw[3:5]))),
+                 "refused": (("second", svc.refresh),
+                             ("third", lambda: svc.run(qid, raw[3:5])))}
+        for key, call in calls[mode]:
+            t0 = time.monotonic()
+            try:
+                call()
+                report[key] = None
+            except Exception as e:  # the test reads what it was
+                report[key] = repr(e)
+            report[key + "_s"] = time.monotonic() - t0
+    except BaseException:
+        report["error"] = traceback.format_exc()
+    if rank == 0:
+        with open(os.path.join(where, "leader.json.tmp"), "w") as f:
+            json.dump(report, f)
+        os.replace(os.path.join(where, "leader.json.tmp"),
+                   os.path.join(where, "leader.json"))
+
+
+def sharded_knn_ranks(rank: int, world: int, init_rows):
+    """tests/test_torch_sharded_knn.py's cases on ``world`` ranks: every
+    index kind and metric of tests/test_knn_conditional.py:257-320 built
+    on each rank from JAX's starting rows (``init_rows``), sharded, and
+    searched at k 5 and at k above the rows of a shard; the one-rank
+    index's answers; the replicated arrays each rank holds; then
+    Graph.search(mesh=...) against the unsharded call."""
+    import graph_learn_tpu_torch as glt
+    from graph_learn_tpu_torch.ops import knn
+    from graph_learn_tpu_torch.parallel.mesh import make_mesh
+
+    data, ids, q = knn_case_data()
+    mesh = make_mesh(1, world, device="cpu")
+    out = {}
+    for kind in ("flat", "ivfflat", "ivfpq"):
+        for metric in (0, 1):
+            opt = glt.KnnOption(k=5, index_type=kind, nlist=8, nprobe=3,
+                                metric=metric)
+            if kind == "flat":
+                base = knn.FlatIndex(data.shape[1], metric, device="cpu")
+            elif kind == "ivfflat":
+                base = knn.IVFFlatIndex(data.shape[1], nlist=8, nprobe=3,
+                                        metric=metric, device="cpu")
+            else:
+                base = knn.IVFPQIndex(data.shape[1], nlist=8, nprobe=3,
+                                      metric=metric, device="cpu")
+            base.train(data, init_rows=init_rows.get(kind))
+            base.add(data, ids)
+            sharded = knn.shard_index(base, mesh)
+            for k in (opt.k, KNN_BIG_K):
+                out[(kind, metric, k)] = dict(
+                    sharded=sharded.search(q, k), one=base.search(q, k))
+            out[(kind, metric, "repl")] = dict(sharded.repl)
+    t = glt.NodeTable("item", glt.Decoder(attr_types=["float"] *
+                                          data.shape[1]), ids,
+                      float_attrs=data)
+    g = glt.Graph(device="cpu").add_node_table(t)
+    for kind in ("flat", "ivfflat"):
+        opt = glt.KnnOption(k=4, index_type=kind, nlist=8, nprobe=3)
+        out[("graph", kind)] = dict(
+            sharded=g.search("item", q, opt, mesh=mesh),
+            one=g.search("item", q, opt))
+    out["graph_keys"] = sorted(g._knn_indexes)
+    return out
+
+
+# k above a shard's rows at two ranks (ceil(203 / 2) = 102)
+KNN_BIG_K = 110
+
+
+def knn_case_data():
+    """tests/test_knn_conditional.py:265-271's data: 203 points (not a
+    multiple of the ranks) in 8 dimensions, ids from 1 000, 17 queries."""
+    rng = np.random.default_rng(7)
+    n, d = 203, 8
+    data = rng.standard_normal((n, d)).astype(np.float32)
+    ids = np.arange(1000, 1000 + n)
+    q = data[rng.integers(0, n, 17)] + \
+        0.01 * rng.standard_normal((17, d)).astype(np.float32)
+    return data, ids, q
