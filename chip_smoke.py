@@ -386,6 +386,34 @@ Phases (any failure exits non-zero before the result line):
    nprobe 16), each trained once on rank 0 and sharded over the two
    ranks, the check queries' ids equal to the one-rank index and the
    distances within KNN_DIST_RTOL, ms per 10 000 queries.
+26. the root measurement scripts (graph_learn_tpu_torch/examples/).  (a)
+   Inside phase 11, on its weighted 61.25M-edge "minimal" store, at
+   CFG_SCALE: gat_scale, EgoGAT [100, 256, 47] heads [8, 1] at chunk 256
+   in its three variants (pre 0: the hop-2 rows gathered in the step; 1:
+   gathered first by feature_gather; 2: the loss under
+   torch.utils.checkpoint): each variant's first step on one batch from
+   the same weights on the kernels against the plain versions and
+   against pre 0, with its launches (3 gather_rows + 3 + 3 gat_block, 6 +
+   6 + 3 under pre 2); each variant's K = 20 steps eager (two calls) and
+   in one CUDA graph from the same state, the 40 losses within
+   A4_CAPTURE_RTOL (Kernel 3's backward adds with atomics), the kernels
+   a replayed and an eager step from the profiler as derived, ms a step,
+   edges/s, device busy, capture seconds and graph pool; scale_matrix's
+   float32 and bfloat16 runs on that one store, each record with its
+   table's dtype and bytes and 2 gather_rows + 1 segment_spmm a replayed
+   step; group_sweep at G 1, 4, 10 and 20, each with 2 K gather_rows and
+   K / G segment_spmm a replayed call.  (b) After phase 11:
+   gather_micro at its shapes (2 450 000 x 100, 153 600 draws in groups
+   of 10), bf16 and f32: every variant's ms an iteration (K = 24 in one
+   CUDA graph), max_abs_diff of the Kernel 4 mean within A4_MICRO_TOL,
+   one sweep_aggregate (and its memset) in a call of the sorted route and
+   one segment_spmm in a call of the unsorted route (a captured graph's
+   nodes); segment_softmax_probe at its full shape (15 360 seeds, k2 10,
+   D 128, 8 x 256, f32): bar, chunked and fused, fused and chunked within
+   3e-3 of bar, and Kernel 3's forward alone on the probe's inputs
+   against its plain version and its bound; host_overlap_probe on the
+   bench CFG store: t_host, t_dev and t_loop for windows 1, 2 and 4, and
+   Kernels 1-2 launched 0 times.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -435,7 +463,22 @@ the partitioned step and data-parallel, the steps' ms (``*_shared_card``
 for the two gloo ranks), the bytes over the graph axis a step, and the
 launches a ``sharded_spmm`` of the full-graph GCN (0: plain torch);
 phase 25's ``pserve_launches_per_round`` on Kernels 1-2 and
-``pserve_follower_launches_per_round`` on Kernel 1).
+``pserve_follower_launches_per_round`` on Kernel 1; phase 26's
+``a4_gat_launches_per_step_pre*`` on Kernels 1 and 3 (with
+``a4_gat_bwd_launches_per_step_pre*``, ``a4_gat_ms_step_pre*``,
+``a4_gat_edges_per_s_pre*`` and ``a4_gat_busy_share_pre*`` on Kernel 3),
+``a4_scale_matrix_launches_per_step_{f32,bf16}``,
+``a4_group_sweep_launches_per_call_G*`` and
+``a4_group_sweep_first_loss_off`` on Kernels 1-2 (with
+``a4_group_sweep_max_abs_err``, Kernel 2 at the widths' shapes, on
+Kernel 2), ``a4_host_overlap_launches`` (the counters' reading, checked
+0) on Kernels 1-2, ``micro_*`` on Kernels 2 and 4
+(``micro_launches_per_call_{bf16,f32}``, the launches a captured call of
+the unsorted or sorted route put on the card, the routes' ms an
+iteration and the wrappers' launches), and the probe's
+``probe_bar_ms``, ``probe_chunked_ms``, ``probe_fused_ms``,
+``probe_fused_over_bar`` and Kernel 3's forward alone,
+``probe_kernel_ms`` with its bound and plain time, on Kernel 3).
 """
 
 from __future__ import annotations
@@ -729,7 +772,8 @@ def check_bounds(rows):
              ("ms_sum", "bound_ms_sum"), ("cold_ms_rgcn", "bound_ms_rgcn"),
              ("reorder_cold_ms_before", "reorder_bound_ms_before"),
              ("reorder_cold_ms_after", "reorder_bound_ms_after"),
-             ("cold_ms_cora_spmm", "bound_ms_cora_spmm"))
+             ("cold_ms_cora_spmm", "bound_ms_cora_spmm"),
+             ("probe_kernel_ms", "probe_kernel_bound_ms"))
     pairs += tuple(pair for m in (GATHER_PATH_ROWS + RGCN_GATHER_ROWS
                                   + WALK_GATHER_ROWS + CAT_GATHER_ROWS
                                   + SEAL_GATHER_ROWS)
@@ -1240,6 +1284,18 @@ def check_gat(torch, gat):
            worst[0], worst[1], routes, wgmma_cases))
 
 
+def gat_work(b, e, din, h, w):
+    """(bytes of the forward's f32 inputs, its f32 operations, its
+    product's operations) at (b, e, Din, H, W): every input read once; the
+    operations of the restructured block (csrc/gat.cu): the prep and two
+    K-long dots per neighbour row and head (logit, weighted sum) on the
+    CUDA cores, the [b, K] x [K, W] product per head on the tensor cores
+    (counted once, whatever passes the kernel makes).  The output's
+    ``4 * h * b * w`` bytes are the caller's to add."""
+    io = 4 * (b * e * din + h * din * w + h * w + h * b)
+    return io, 2 * h * din * w + 4 * h * b * e * din, 2 * h * b * din * w
+
+
 def measure_gat(torch, gat):
     """Time gat_block, forward and backward, and its plain version at the
     training path's largest call: the first layer's deepest hop,
@@ -1270,15 +1326,8 @@ def measure_gat(torch, gat):
                           iters=10, warmup=2, hold=True)
     bwd_ms = time_ms(backward(out), iters=20, hold=True)
     plain_bwd_ms = time_ms(backward(plain), iters=10, warmup=2, hold=True)
-    # what the function needs: every input read once, every output written
-    # once; the operations of the restructured block (csrc/gat.cu): the
-    # prep and two K-long dots per neighbour row and head (logit, weighted
-    # sum) on the CUDA cores, the [b, K] x [K, W] product per head on the
-    # tensor cores (counted once, whatever passes the kernel makes)
     k = din
-    io = 4 * (b * e * din + h * din * w + h * w + h * b)
-    dots = 2 * h * k * w + 4 * h * b * e * k
-    product = 2 * h * b * k * w
+    io, dots, product = gat_work(b, e, din, h, w)
     bound_ms, by = bound(io + 4 * h * b * w, dots, product)
     bound_f32_ms, _ = bound(io + 4 * h * b * w, dots + product)
     # backward: the forward's inputs and g read, d_wn, d_ar, d_el written;
@@ -2536,16 +2585,20 @@ def filtered_queries(torch, g):
 BENCH_KERNELS = ("gather_rows", "segment_spmm", "sweep_aggregate")
 
 
-def bench_work(torch, fn, steps, calls, tries=3):
+def bench_work(torch, fn, steps, calls, tries=3, kernels=None):
     """Kernels per step and device ms per step of the work ``calls`` calls
     of ``fn`` (``steps`` steps each) put on the card, from torch.profiler:
-    under a replay each kernel of the graph is an event of its own.  A
-    window that lost records (a kernel count that is no whole number a
-    step) is profiled again, up to ``tries`` times."""
+    under a replay each kernel of the graph is an event of its own.
+    ``kernels`` maps each name counted to the pattern of its kernels'
+    names (default: BENCH_KERNELS, each its own pattern).  A window that
+    lost records (a kernel count that is no whole number a step) is
+    profiled again, up to ``tries`` times."""
+    if kernels is None:
+        kernels = {k: k for k in BENCH_KERNELS}
     for _ in range(tries):
         work, ms = device_work_per_call(torch, fn, calls=calls)
-        per_step = {k: sum(c for n, c in work.items() if k in n) / steps
-                    for k in BENCH_KERNELS}
+        per_step = {k: sum(c for n, c in work.items() if pat in n) / steps
+                    for k, pat in kernels.items()}
         if all(v == int(v) for v in per_step.values()):
             by_name = {n: c * ms[n] / steps for n, c in work.items()}
             return per_step, sum(by_name.values()), by_name
@@ -8198,6 +8251,531 @@ def partitioned_path(torch, card, gather, spmm, files, cfg=None):
             "segment_spmm": {"pserve_launches_per_round": a["spmm"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the root measurement scripts (examples/gat_scale.py,
+# scale_matrix.py, group_sweep.py, gather_micro.py,
+# segment_softmax_probe.py, host_overlap_probe.py)
+# ---------------------------------------------------------------------------
+
+# EgoGATConv's seed_chunk in gat_scale's runs (the JAX script's default;
+# on the card every chunk runs the same kernel)
+A4_CHUNK = 256
+# the three gat_scale variants' first step against each other on one batch
+# from the same weights: the same kernels on the same inputs, but Kernel
+# 3's backward adds across blocks with atomics, so gradients agree to a
+# few f32 roundings of each tensor's largest value
+A4_VARIANT_TOL = 1e-4
+# eager against captured EgoGAT losses over two calls of K steps from the
+# same state: after the first step the atomics' rounding moves the
+# weights, which Adam's update does not damp
+A4_CAPTURE_RTOL = 1e-3
+# gather_micro's group mean on Kernel 4 against the plain f32 mean: both
+# sum 10 f32 terms (bf16 or f32 rows, exact in f32), in other orders
+A4_MICRO_TOL = 1e-5
+# host_overlap_probe's timed steps (the JAX script's default)
+A4_OVERLAP_STEPS = 30
+# kernel name patterns of the paths' launches (Kernel 3: one attention
+# kernel a forward, one a backward)
+A4_KERNELS = {"gather_rows": "gather_rows", "segment_spmm": "segment_spmm",
+              "sweep_aggregate": "sweep_aggregate",
+              "gat_block": "attn_fwd_kernel",
+              "gat_block_bwd": "attn_bwd_kernel"}
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max().item()
+            / max(want.float().abs().max().item(), 1e-12))
+
+
+def gat_scale_path(torch, card, gather, gat, graph, cfg):
+    """26a, examples/gat_scale.py on phase 11's store: each variant's first
+    step (one batch, the same weights) on the kernels against the plain
+    versions and against the other variants, with its launches; then each
+    variant's K-step form eager (two calls) and captured (a warm call and
+    ``cfg["steps"] // K`` timed ones) from the same state: losses within
+    A4_CAPTURE_RTOL, launches a replayed step from the profiler as derived,
+    ms a step, edges/s, device busy, capture seconds and graph pool.
+    Returns the kernels line's fields."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.examples import gat_scale as gs
+    from graph_learn_tpu_torch.examples.scale_demo import loss_of
+    from graph_learn_tpu_torch.nn.layers import ego as ego_layers
+
+    g, dec = graph
+    K, (k1, k2), b = cfg["scan_steps"], cfg["fanout"], cfg["batch"]
+    edges = b * (k1 + k1 * k2)
+    q = bench.two_hop_query(g, b, (k1, k2))
+    tables = q.device_tables("cuda")
+    table = tables["nodes"]["item"].float_attrs
+    n_rows = table.shape[0]
+    counters = {"gather_rows": gather.LAUNCHES, "gat_block": gat.LAUNCHES_FWD,
+                "gat_block_bwd": gat.LAUNCHES_BWD}
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def counts():
+        return {k: c.count for k, c in counters.items()}
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        _, batch = bench.sample_one(q, tables, cfg["n_nodes"], gen)
+    model = gs.make_model(cfg, dec, A4_CHUNK, "cuda")
+    first = {}
+    for pre in gs.VARIANTS:
+        reset()
+        first[pre] = gs.loss_and_grads(model, batch, table, pre)
+        torch.cuda.synchronize()
+        check(counts() == gs.launches_per_step(pre),
+              "gat_scale pre=%d: one step launched %s, derived %s"
+              % (pre, counts(), gs.launches_per_step(pre)))
+    plain = {a: v.replace(float_attrs=table[v.ids.long().clamp(0, n_rows - 1)])
+             for a, v in batch.items()}
+    kernel_block = ego_layers.gat_block
+    ego_layers.gat_block = gat.gat_block_plain
+    try:
+        ref = loss_of(model, plain)
+        ref_grads = torch.autograd.grad(ref, list(model.parameters()))
+    finally:
+        ego_layers.gat_block = kernel_block
+    names = [n for n, _ in model.named_parameters()]
+    worst_plain, worst_var = 0.0, 0.0
+    for pre, (loss, grads) in first.items():
+        check(abs(loss.item() - ref.item()) <= STEP_LOSS_RTOL
+              * abs(ref.item()), "gat_scale pre=%d: loss %g on the kernels, "
+              "%g on the plain versions" % (pre, loss.item(), ref.item()))
+        check(abs(loss.item() - first[0][0].item()) <= A4_VARIANT_TOL
+              * abs(first[0][0].item()), "gat_scale pre=%d: first loss %g, "
+              "pre=0 %g" % (pre, loss.item(), first[0][0].item()))
+        for name, got, want, base in zip(names, grads, ref_grads,
+                                         first[0][1]):
+            rel = _rel_err(got, want)
+            check(rel <= STEP_GRAD_TOL, "gat_scale pre=%d: gradient of %s "
+                  "off by %g of its largest plain value" % (pre, name, rel))
+            var = _rel_err(got, base)
+            check(var <= A4_VARIANT_TOL, "gat_scale pre=%d: gradient of %s "
+                  "off by %g of pre=0's largest value" % (pre, name, var))
+            worst_plain, worst_var = max(worst_plain, rel), max(worst_var,
+                                                                var)
+    log("gat_scale (EgoGAT %s heads %s, chunk %d, the %d-node %d-edge "
+        "store): one step of each variant on one batch: losses %s against "
+        "%.7f on the plain versions (limit %g relative), worst gradient "
+        "%.3g of the plain tensor's largest value (limit %g), %.3g of "
+        "pre=0's (limit %g); launches a step %s; card: %s"
+        % ([cfg["feat_dim"], cfg["hidden"], cfg["classes"]], list(gs.HEADS),
+           A4_CHUNK, cfg["n_nodes"], cfg["n_nodes"] * cfg["avg_degree"],
+           ["%.7f" % first[p][0].item() for p in gs.VARIANTS], ref.item(),
+           STEP_LOSS_RTOL, worst_plain, STEP_GRAD_TOL, worst_var,
+           A4_VARIANT_TOL, {p: gs.launches_per_step(p) for p in gs.VARIANTS},
+           card))
+    del first, ref, ref_grads, plain, model
+
+    rows = {"gather_rows": {}, "gat_block": {}}
+    for pre in gs.VARIANTS:
+        want = gs.launches_per_step(pre)
+        eager = gs.make_steps(q, tables, cfg, dec, pre, A4_CHUNK, "cuda",
+                              capture=False)
+        eager()
+        eager_losses = [eager.losses.clone()]
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        eager()
+        eager_losses.append(eager.losses.clone())
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / K * 1e3
+        launched = counts()
+        check(launched == {k: v * K for k, v in want.items()},
+              "gat_scale pre=%d eager: launches %s over %d steps, derived %s "
+              "a step" % (pre, launched, K, want))
+        eager_work, eager_busy, _ = bench_work(torch, eager.run_eager, 1, 1,
+                                               kernels=A4_KERNELS)
+        del eager
+        step = gs.make_steps(q, tables, cfg, dec, pre, A4_CHUNK, "cuda",
+                             capture=True)
+        r = bench.time_calls(step, cfg, edges)
+        el = torch.cat(eager_losses).cpu().numpy()
+        gl_ = np.asarray(r["losses"][:2 * K])
+        check(bool(np.isfinite(r["losses"]).all()),
+              "gat_scale pre=%d: a captured loss is not finite" % pre)
+        diff = float(np.max(np.abs(el - gl_) / np.abs(el)))
+        check(diff <= A4_CAPTURE_RTOL, "gat_scale pre=%d: eager and captured "
+              "losses differ by %g relative (limit %g)"
+              % (pre, diff, A4_CAPTURE_RTOL))
+        work, busy, by_name = bench_work(torch, step, 1, 2,
+                                         kernels=A4_KERNELS)
+        per_step = {k: work[k] / K for k in want}
+        check(per_step == want and work["segment_spmm"] == 0,
+              "gat_scale pre=%d: kernels a replayed step %s, derived %s"
+              % (pre, per_step, want))
+        check({k: eager_work[k] / K for k in want} == want,
+              "gat_scale pre=%d: kernels an eager step %s, derived %s"
+              % (pre, {k: eager_work[k] / K for k in want}, want))
+        log("gat_scale chunk=%d pre=%d: CUDA graph %.4f ms a step (%.4g "
+            "edges/s; device busy %.4f ms, %.1f%%), eager %.4f ms a step "
+            "(device busy %.4f ms, %.1f%%); warm call %.2f s, capture %.3f "
+            "s, graph pool %.1f MB; %d losses eager and captured within %.3g "
+            "relative (limit %g; %.4f -> %.4f); kernels a replayed step %s "
+            "(derived); card: %s"
+            % (A4_CHUNK, pre, r["step_ms"], r["edges_per_s"], busy / K,
+               100.0 * busy / K / r["step_ms"], eager_ms, eager_busy / K,
+               100.0 * eager_busy / K / eager_ms, r["warm_s"],
+               r["capture_s"], r["graph_pool_bytes"] / 1e6, 2 * K, diff,
+               A4_CAPTURE_RTOL, r["losses"][0], r["losses"][-1], per_step,
+               card))
+        for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log("  device %.4f ms per replayed step: %s"
+                % (ms / K, kernel_label(kname)[:90]))
+        rows["gather_rows"].update({
+            "a4_gat_launches_per_step_pre%d" % pre: per_step["gather_rows"],
+            "a4_gat_eager_launches_pre%d" % pre: launched["gather_rows"]})
+        rows["gat_block"].update({
+            "a4_gat_eager_launches_pre%d" % pre: launched["gat_block"],
+            "a4_gat_eager_bwd_launches_pre%d" % pre:
+                launched["gat_block_bwd"],
+            "a4_gat_launches_per_step_pre%d" % pre: per_step["gat_block"],
+            "a4_gat_bwd_launches_per_step_pre%d" % pre:
+                per_step["gat_block_bwd"],
+            "a4_gat_ms_step_pre%d" % pre: r["step_ms"],
+            "a4_gat_edges_per_s_pre%d" % pre: r["edges_per_s"],
+            "a4_gat_busy_share_pre%d" % pre: busy / K / r["step_ms"]})
+        del step, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _counted(counters, fn):
+    """(fn(), {name: launches of its wrapper during the call}), every
+    count set to 0 first."""
+    for c in counters.values():
+        c.reset()
+    out = fn()
+    return out, {k: c.count for k, c in counters.items()}
+
+
+def scale_matrix_path(torch, card, gather, spmm, graph, cfg):
+    """26a, examples/scale_matrix.py on phase 11's store: the float32 and
+    bfloat16 runs, each table's dtype and bytes as asked, 2 gather_rows
+    and 1 segment_spmm a replayed step, and both wrappers launched.
+    Returns the kernels line's fields."""
+    from graph_learn_tpu_torch.examples import scale_matrix as sm
+    K = cfg["scan_steps"]
+    out, launched = _counted(
+        {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES},
+        lambda: sm.run(cfg, "cuda", graph=graph))
+    check(all(launched.values()), "scale_matrix: wrapper launches %s"
+          % launched)
+    rows = {k: {"a4_scale_matrix_launches": v} for k, v in launched.items()}
+    for r in out:
+        rec, dt = r["record"], r["record"]["feature_dtype"]
+        width = {"float32": 4, "bfloat16": 2}[dt]
+        check(r["table_dtype"] == dt and r["table_bytes"]
+              == cfg["n_nodes"] * cfg["feat_dim"] * width,
+              "scale_matrix %s: the run's table is %s, %d bytes"
+              % (dt, r["table_dtype"], r["table_bytes"]))
+        check(bool(np.isfinite(r["bench"]["losses"]).all()),
+              "scale_matrix %s: a loss is not finite" % dt)
+        work, busy, _ = bench_work(torch, r["bench"]["step"], K, 2)
+        check(work == {"gather_rows": 2.0, "segment_spmm": 1.0,
+                       "sweep_aggregate": 0.0},
+              "scale_matrix %s: kernels a replayed step %s; want 2 "
+              "gather_rows and 1 segment_spmm" % (dt, work))
+        log("scale_matrix: %s; table %s, %d bytes; %.4f ms a step, device "
+            "busy %.4f ms a step; kernels a replayed step %s; card: %s"
+            % (json.dumps(rec), r["table_dtype"], r["table_bytes"],
+               r["bench"]["step_ms"], busy,
+               {k: v for k, v in work.items() if v}, card))
+        tag = {"float32": "f32", "bfloat16": "bf16"}[dt]
+        for k in rows:
+            rows[k]["a4_scale_matrix_launches_per_step_" + tag] = work[k]
+        rows["gather_rows"]["a4_scale_matrix_edges_per_s_" + tag] = \
+            r["bench"]["edges_per_s"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def group_sweep_path(torch, card, gather, spmm, graph, cfg):
+    """26a, examples/group_sweep.py on phase 11's store: each G that
+    divides K, with its launches a replayed call (2 K gather_rows, K / G
+    segment_spmm) from the profiler, both wrappers launched, and each G's
+    first loss within A4_VARIANT_TOL of G = 1's (the same weights and
+    first batch); then, outside the counted run, Kernel 2 at each G's
+    shape (the deepest hops of G sampled batches, [G * b * k1, k2] ids)
+    against its plain version.  Returns the kernels line's fields."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.examples import group_sweep as gsw
+    from graph_learn_tpu_torch.ops.aggregate import gather_group_agg
+    K, (k1, k2), b = cfg["scan_steps"], cfg["fanout"], cfg["batch"]
+
+    def inspect(G, step):
+        work, busy, _ = bench_work(torch, step, 1, 2, kernels=A4_KERNELS)
+        want = gsw.launches_per_call(K, G)
+        check({k: work[k] for k in want} == want
+              and work["sweep_aggregate"] == 0,
+              "group_sweep G=%d: kernels a replayed call %s, derived %s"
+              % (G, work, want))
+        return work, busy
+
+    r, launched = _counted(
+        {"gather_rows": gather.LAUNCHES, "segment_spmm": spmm.LAUNCHES},
+        lambda: gsw.run(cfg, "cuda", graph=graph, inspect=inspect))
+    check(all(launched.values()), "group_sweep: wrapper launches %s"
+          % launched)
+    check([x["G"] for x in r["runs"]] == gsw.widths(K),
+          "group_sweep: widths %s" % [x["G"] for x in r["runs"]])
+    rows = {k: {"a4_group_sweep_launches": v} for k, v in launched.items()}
+    for x in r["runs"]:
+        work, busy = x["inspected"]
+        check(bool(np.isfinite(x["losses"]).all()),
+              "group_sweep G=%d: a loss is not finite" % x["G"])
+        log("group_sweep G=%-3d %12.1f edges/s   %.4f ms/step   (warmup "
+            "%.1fs; capture %.3f s, graph pool %.1f MB; device busy %.4f ms "
+            "a step; kernels a replayed call of K = %d: %s); card: %s"
+            % (x["G"], x["edges_per_s"], x["step_ms"], x["warm_s"],
+               x["capture_s"], x["graph_pool_bytes"] / 1e6, busy / K, K,
+               {k: v for k, v in work.items() if v}, card))
+        for k in rows:
+            rows[k]["a4_group_sweep_launches_per_call_G%d" % x["G"]] = work[k]
+        rows["gather_rows"]["a4_group_sweep_ms_step_G%d" % x["G"]] = \
+            x["step_ms"]
+    first = r["runs"][0]["losses"][0]
+    off = {x["G"]: abs(x["losses"][0] - first) / abs(first)
+           for x in r["runs"]}
+    check(max(off.values()) <= A4_VARIANT_TOL, "group_sweep: first losses "
+          "off G = 1's by %s relative (limit %g)" % (off, A4_VARIANT_TOL))
+
+    q = bench.two_hop_query(graph[0], b, (k1, k2))
+    tables = q.device_tables("cuda")
+    table = tables["nodes"]["item"].float_attrs
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = {}
+    for G in gsw.widths(K):
+        spmm.LAUNCHES.reset()
+        with torch.no_grad():
+            ids = torch.stack([
+                bench.sample_one(q, tables, cfg["n_nodes"], gen)[1]["hop2"].ids
+                for _ in range(G)])
+            out = gather_group_agg(table, ids, "mean")
+            flat = ids.reshape(-1, k2)
+            deg = torch.full((flat.shape[0],), k2, dtype=torch.int32,
+                             device="cuda")
+            ref = spmm.segment_spmm_plain(
+                table, *spmm.clip(flat, deg, table.shape[0]), "mean",
+                out.dtype)
+        torch.cuda.synchronize()
+        # check_spmm's tolerances
+        rtol, atol = ((1e-5, 1e-5) if out.dtype == torch.float32
+                      else (2 ** -7, 1e-5))
+        errs[G] = (out.float() - ref.float()).abs().max().item()
+        out_dtype = str(out.dtype).replace("torch.", "")
+        check(spmm.LAUNCHES.count == 1
+              and tuple(out.shape) == (G * b * k1, table.shape[1])
+              and torch.allclose(out.float(), ref.float(), rtol=rtol,
+                                 atol=atol),
+              "group_sweep G=%d: Kernel 2 on [%d, %d] ids (%d launches, "
+              "out %s) against segment_spmm_plain: max abs err %g"
+              % (G, flat.shape[0], k2, spmm.LAUNCHES.count,
+                 tuple(out.shape), errs[G]))
+        del ids, out, flat, deg, ref
+    log("group_sweep: first losses off G = 1's by %s relative (limit %g); "
+        "Kernel 2 at each width's shape ([G * %d, %d] ids of sampled "
+        "deepest hops into the %s [%d, %d] table, %s out) against "
+        "segment_spmm_plain within check_spmm's tolerance, max abs err %s; "
+        "card: %s"
+        % ({G: "%.3g" % v for G, v in off.items()}, A4_VARIANT_TOL, b * k1,
+           k2, str(table.dtype).replace("torch.", ""), table.shape[0],
+           table.shape[1], out_dtype,
+           {G: "%.3g" % v for G, v in errs.items()}, card))
+    for k in rows:
+        rows[k]["a4_group_sweep_first_loss_off"] = max(off.values())
+    rows["segment_spmm"]["a4_group_sweep_max_abs_err"] = max(errs.values())
+    return rows
+
+
+def a4_scale_path(torch, card, gather, spmm, gat, graph):
+    """Phase 26a inside phase 11, on its weighted 61.25M-edge "minimal"
+    store: gat_scale, scale_matrix and group_sweep at CFG_SCALE.  Returns
+    the kernels line's fields."""
+    from graph_learn_tpu_torch import bench
+    t_phase = time.perf_counter()
+    cfg = dict(bench.CFG_SCALE)
+    rows = {}
+    for part in (gat_scale_path(torch, card, gather, gat, graph, cfg),
+                 scale_matrix_path(torch, card, gather, spmm, graph, cfg),
+                 group_sweep_path(torch, card, gather, spmm, graph, cfg)):
+        for k, fields in part.items():
+            rows.setdefault(k, {}).update(fields)
+    log("phase 26a (gat_scale, scale_matrix, group_sweep) in %.1f s"
+        % (time.perf_counter() - t_phase))
+    return rows
+
+
+def gather_micro_path(torch, card, spmm, sweep):
+    """26b, examples/gather_micro.py at its shapes, bf16 then f32: every
+    variant's ms an iteration, max_abs_diff within A4_MICRO_TOL, and one
+    call of each kernel route's body putting one sweep_aggregate (and its
+    memset) or one segment_spmm on the card (a captured graph's nodes).
+    Returns the kernels line's fields."""
+    from graph_learn_tpu_torch.examples import gather_micro as gm
+    counters = {"sweep_aggregate": sweep.LAUNCHES_SWEEP,
+                "segment_spmm": spmm.LAUNCHES}
+    rows = {"sweep_aggregate": {}, "segment_spmm": {}}
+    for dtype, tag in (("bfloat16", "bf16"), ("float32", "f32")):
+        calls = {}
+
+        def inspect(name, body, table, idx0):
+            if name not in gm.KERNEL_ROWS:
+                return
+            work = captured_work(torch, lambda: body(table, idx0, 0))
+            calls[name] = {k: sum(c for n, c in work.items() if k in n)
+                           for k in counters}
+            calls[name]["memset"] = sum(c for n, c in work.items()
+                                        if n.startswith("Memset"))
+
+        for c in counters.values():
+            c.reset()
+        res = gm.run(dtype=dtype, device="cuda", inspect=inspect)
+        launched = {k: c.count for k, c in counters.items()}
+        check(calls["kernel_sorted"]["sweep_aggregate"] == 1
+              and calls["kernel_sorted"]["segment_spmm"] == 0
+              and calls["kernel_sorted"]["memset"] >= 1
+              and calls["kernel_unsorted"]["segment_spmm"] == 1
+              and calls["kernel_unsorted"]["sweep_aggregate"] == 0,
+              "gather_micro %s: one call of the sorted route put %s on the "
+              "card, of the unsorted route %s" % (
+                  dtype, calls["kernel_sorted"], calls["kernel_unsorted"]))
+        check(launched["sweep_aggregate"] > 0 and launched["segment_spmm"] > 0,
+              "gather_micro %s: launches %s" % (dtype, launched))
+        check(res["max_abs_diff"] <= A4_MICRO_TOL,
+              "gather_micro %s: max_abs_diff %g (limit %g)"
+              % (dtype, res["max_abs_diff"], A4_MICRO_TOL))
+        log("gather_micro %s D=100 (2 450 000 rows, 153 600 draws, groups "
+            "of 10; ms an iteration, K = %d iterations in one CUDA graph): "
+            "%s; max_abs_diff %g (limit %g); a call of kernel_sorted puts "
+            "%s on the card, of kernel_unsorted %s; wrapper launches %s; "
+            "card: %s"
+            % (tag, gm.K, ", ".join("%s %.4f" % (n, res[n + "_ms"])
+                                    for n in gm.VARIANTS + gm.KERNEL_ROWS),
+               res["max_abs_diff"], A4_MICRO_TOL, calls["kernel_sorted"],
+               calls["kernel_unsorted"], launched, card))
+        rows["sweep_aggregate"].update({
+            "micro_launches_per_call_" + tag:
+                calls["kernel_sorted"]["sweep_aggregate"],
+            "micro_kernel_sorted_ms_" + tag: res["kernel_sorted_ms"],
+            "micro_plain_ms_" + tag: res["plain_ms"],
+            "micro_sorted_seg_ms_" + tag: res["sorted_seg_ms"],
+            "micro_max_abs_diff_" + tag: res["max_abs_diff"],
+            "micro_launches_" + tag: launched["sweep_aggregate"]})
+        rows["segment_spmm"].update({
+            "micro_launches_per_call_" + tag:
+                calls["kernel_unsorted"]["segment_spmm"],
+            "micro_kernel_unsorted_ms_" + tag: res["kernel_unsorted_ms"],
+            "micro_launches_" + tag: launched["segment_spmm"]})
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def probe_path(torch, card, gat):
+    """26b, examples/segment_softmax_probe.py at its full shape: bar,
+    chunked and fused (fused and chunked within 3e-3 of bar, checked by
+    the probe), and Kernel 3's forward alone on the probe's inputs
+    against its plain version and its bound.  Returns Kernel 3's
+    fields."""
+    from graph_learn_tpu_torch.examples import segment_softmax_probe as sp
+    gat.LAUNCHES_FWD.reset()
+    r = sp.run(small=False, steps=20, device="cuda")
+    probe_launches = gat.LAUNCHES_FWD.count
+    check(probe_launches > 0, "the probe's fused never launched gat_block")
+    n_seeds, k2, din, h, w = r["seeds"], r["k2"], r["D"], r["heads"], \
+        r["width"]
+    x, wn, al, ar = sp.inputs(n_seeds, k2, din, h, w, torch.device("cuda"))
+    nbr = x.reshape(n_seeds, k2, din)
+    el = torch.einsum("sd,hd->hs", nbr[:, 0],
+                      torch.einsum("hdw,hw->hd", wn, al[:, 0])).contiguous()
+    args = (nbr, wn, ar[:, 0].contiguous(), el)
+    with torch.no_grad():
+        out, ref = gat.gat_block(*args), gat.gat_block_plain(*args)
+        err = (out - ref).abs().max().item()
+        rel = err / max(1.0, ref.abs().max().item())
+        check(rel <= GAT_TOL, "gat_block on the probe's inputs: max abs err "
+              "%g, %g of the largest plain value (limit %g)"
+              % (err, rel, GAT_TOL))
+        ms = time_ms(lambda: gat.gat_block(*args), iters=20, hold=True)
+        plain_ms = time_ms(lambda: gat.gat_block_plain(*args), iters=10,
+                           warmup=2, hold=True)
+    io, dots, product = gat_work(n_seeds, k2, din, h, w)
+    bound_ms, by = bound(io + 4 * h * n_seeds * w, dots, product)
+    log("segment_softmax_probe (seeds %d, k2 %d, D %d, %d heads x %d, f32, "
+        "block %d; CUDA events, chunked not held): bar %.4f ms, chunked %.4f ms, fused %.4f "
+        "ms (the el term and Kernel 3's forward), fused/bar %.2fx; fused "
+        "and chunked within %g of bar (max abs err %g, %g); Kernel 3's "
+        "forward alone %.4f ms (plain %.4f, bound %.4f by %s, %.1f%% of "
+        "it, stream held; max abs err %g); card: %s"
+        % (n_seeds, k2, din, h, w, r["block"], r["bar_ms"], r["chunked_ms"],
+           r["fused_ms"], r["fused_over_bar"], r["tol"],
+           r["fused_max_abs_err"], r["chunked_max_abs_err"], ms, plain_ms,
+           bound_ms, by, 100.0 * bound_ms / ms, err, card))
+    return {"gat_block": {
+        "probe_bar_ms": r["bar_ms"], "probe_chunked_ms": r["chunked_ms"],
+        "probe_fused_ms": r["fused_ms"],
+        "probe_fused_over_bar": r["fused_over_bar"],
+        "probe_fused_max_abs_err": r["fused_max_abs_err"],
+        "probe_kernel_ms": ms, "probe_kernel_plain_ms": plain_ms,
+        "probe_kernel_bound_ms": bound_ms, "probe_kernel_bound_by": by,
+        "probe_kernel_max_abs_err": err, "probe_launches": probe_launches}}
+
+
+def host_overlap_path(torch, card, gather, spmm):
+    """26b, examples/host_overlap_probe.py on the bench CFG store: t_host,
+    t_dev and t_loop for windows 1, 2 and 4, Kernels 1-2 launched 0
+    times.  Returns the kernels line's fields."""
+    from graph_learn_tpu_torch import bench
+    from graph_learn_tpu_torch.examples import host_overlap_probe as hop
+    r = hop.run(dict(bench.CFG), steps=A4_OVERLAP_STEPS, windows=(1, 2, 4),
+                device="cuda")
+    check(r["launches"] == {"gather_rows": 0, "segment_spmm": 0},
+          "host_overlap_probe: Kernels 1-2 launched %s times" % r["launches"])
+    log("host_overlap_probe (bench CFG, EgoGraphSAGE gcn, %d steps, host "
+        "clock): t_host %.3f ms, t_dev %.3f ms (overlap ceiling %.3fx); %s; "
+        "gather_rows and segment_spmm launched %s; card: %s"
+        % (r["steps"], r["t_host_ms"], r["t_dev_ms"], r["ceiling"],
+           "; ".join("window=%d t_loop %.3f ms, overlap %.3fx, %.4g edges/s"
+                     % (x["window"], x["t_loop_ms"], x["overlap"],
+                        x["edges_per_s"]) for x in r["windows"]),
+           r["launches"], card))
+    return {"gather_rows": {
+                "a4_host_overlap_launches": r["launches"]["gather_rows"],
+                "a4_host_overlap_t_host_ms": r["t_host_ms"],
+                "a4_host_overlap_t_dev_ms": r["t_dev_ms"],
+                **{"a4_host_overlap_factor_w%d" % x["window"]: x["overlap"]
+                   for x in r["windows"]}},
+            "segment_spmm": {
+                "a4_host_overlap_launches": r["launches"]["segment_spmm"]}}
+
+
+def a4_micro_path(torch, card, gather, spmm, sweep, gat):
+    """Phase 26b after phase 11: gather_micro, segment_softmax_probe and
+    host_overlap_probe.  Returns the kernels line's fields."""
+    t_phase = time.perf_counter()
+    rows = {}
+    for part in (gather_micro_path(torch, card, spmm, sweep),
+                 probe_path(torch, card, gat),
+                 host_overlap_path(torch, card, gather, spmm)):
+        for k, fields in part.items():
+            rows.setdefault(k, {}).update(fields)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("phase 26b (gather_micro, segment_softmax_probe, host_overlap_probe) "
+        "in %.1f s" % (time.perf_counter() - t_phase))
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8283,8 +8861,14 @@ def main() -> int:
             gc.collect()
             shutil.rmtree(snap_dir, ignore_errors=True)
         host_rows["gather_rows"].update(snap_rows)
+        # phase 26a: gat_scale, scale_matrix and group_sweep on this store
+        a4_rows = a4_scale_path(torch, card, gather, spmm, gat, scale_graph)
     del scale_graph, et
     gc.collect()  # the weighted 61.25M-edge graph of the bench phase
+    torch.cuda.empty_cache()
+    # phase 26b: gather_micro, segment_softmax_probe, host_overlap_probe
+    a4_micro_rows = a4_micro_path(torch, card, gather, spmm, sweep, gat)
+    gc.collect()
     torch.cuda.empty_cache()
     with bench.bench_conf(storage_profile="full"):
         bipartite_rows = bipartite_path(torch, card, gather, spmm, sweep)
@@ -8359,7 +8943,7 @@ def main() -> int:
                  bipartite_rows, rgcn_rows, temporal_rows, tgat_rows,
                  example_rows, seal_rows, sage_rows, file_rows, sampler_rows,
                  host_rows, reorder_rows, tsv_rows, real_rows,
-                 parallel_rows, pserve_rows):
+                 parallel_rows, pserve_rows, a4_rows, a4_micro_rows):
         for kname, fields in part.items():
             extra.setdefault(kname, {}).update(fields)
     # `launches`: each from the run of the path named, which started from

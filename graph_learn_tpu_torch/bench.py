@@ -275,21 +275,51 @@ def make_multi_step(q: Query, tables, model: torch.nn.Module,
     return MultiStep(q, tables, model, optimizer, cfg, G, generator, capture)
 
 
+def time_calls(step: MultiStep, cfg: dict, edges_per_step: int,
+               warmup: int = 1) -> Dict[str, object]:
+    """``warmup`` calls of ``step`` (``warm_s``), then ``cfg["steps"] //
+    K`` calls closed by one pull of the loss: rounds, edges/s, the step
+    wall in ms, every step's loss, capture seconds and graph-pool bytes
+    (None when eager), and on the card its peak allocated bytes."""
+    dev = step.losses.device
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        step()
+        losses.append(step.losses.clone())
+    float(step.losses[-1])  # drain before timing
+    warm_s = time.perf_counter() - t0
+    rounds = max(cfg["steps"] // step.K, 1)
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        step()
+        losses.append(step.losses.clone())
+    float(step.losses[-1])  # the one pull: a true barrier
+    dt = time.perf_counter() - t0
+    out = {"warm_s": warm_s, "rounds": rounds,
+           "edges_per_s": edges_per_step * step.K * rounds / dt,
+           "step_ms": dt / (step.K * rounds) * 1e3,
+           "losses": torch.cat(losses).tolist(),
+           "capture_s": step.capture_s, "graph_pool_bytes": step.pool_bytes}
+    if dev.type == "cuda":
+        out["device_bytes_peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
 def run_bench(cfg: dict, device: DeviceLike = "cuda",
               capture: Optional[bool] = None,
               graph: Optional[Tuple[Graph, Decoder]] = None,
               seed: int = 0) -> Dict[str, object]:
     """Build the graph (or take ``graph``, a :func:`build_graph` result on
     the same device), put the plan's tables on the device, take the first
-    batch through a ``Dataset``, build the model, make ``cfg["warmup"]``
-    calls, then time ``cfg["steps"] // K`` calls closed by one pull of the
-    loss.  ``capture`` defaults to True on the card.
+    batch through a ``Dataset``, build the model, then time its K-step
+    function with :func:`time_calls` after ``cfg["warmup"]`` calls.
+    ``capture`` defaults to True on the card.
 
-    Returns edges/s (``b * (k1 + k1 * k2) * K * rounds / dt``), the step
-    wall in ms, host build and table seconds, table bytes, capture seconds
-    and graph-pool bytes (None when eager), the card's peak allocated
-    bytes, every step's loss, and under "graph", "query", "tables",
-    "model", "optimizer", "generator" and "step" what it built."""
+    Returns :func:`time_calls`'s numbers (edges/s is ``b * (k1 + k1 * k2)
+    * K * rounds / dt``), K and G, host build and table seconds, table
+    bytes, and under "graph", "query", "tables", "model", "optimizer",
+    "generator" and "step" what it built."""
     dev = resolve_device(device)
     if capture is None:
         capture = dev.type == "cuda"
@@ -329,30 +359,10 @@ def run_bench(cfg: dict, device: DeviceLike = "cuda",
     step = make_multi_step(q, tables, model, optimizer, cfg, G, generator,
                            capture)
 
-    losses = []
-    t0 = time.perf_counter()
-    for _ in range(cfg["warmup"]):
-        step()
-        losses.append(step.losses.clone())
-    float(step.losses[-1])  # drain before timing
-    out["warmup_s"] = time.perf_counter() - t0
+    out.update(time_calls(step, cfg, b * (k1 + k1 * k2), cfg["warmup"]),
+               K=K, G=G)
     _log("warm-up (%s) %.1fs" % ("eager run, then capture" if capture
-                                 else "eager", out["warmup_s"]))
-    rounds = max(cfg["steps"] // K, 1)
-    t0 = time.perf_counter()
-    for _ in range(rounds):
-        step()
-        losses.append(step.losses.clone())
-    float(step.losses[-1])  # the one pull: a true barrier
-    dt = time.perf_counter() - t0
-
-    out.update(K=K, G=G, rounds=rounds,
-               edges_per_s=b * (k1 + k1 * k2) * K * rounds / dt,
-               step_ms=dt / (K * rounds) * 1e3,
-               losses=torch.cat(losses).tolist(),
-               capture_s=step.capture_s, graph_pool_bytes=step.pool_bytes)
-    if dev.type == "cuda":
-        out["device_bytes_peak"] = torch.cuda.max_memory_allocated(dev)
+                                 else "eager", out["warm_s"]))
     out.update(graph=graph, query=q, tables=tables, model=model,
                optimizer=optimizer, generator=generator, step=step)
     return out

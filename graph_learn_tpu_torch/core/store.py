@@ -250,6 +250,12 @@ class NodeTable:
                 cum_weights=_put(cum, dev))
         return self._device[dev]
 
+    def drop_device(self, device: DeviceLike = "cuda"):
+        """Forget the view on ``device``: the next :meth:`device` builds it
+        again under the current ``conf`` (its ``feature_dtype``).  Tables
+        already handed out keep their tensors."""
+        self._device.pop(resolve_device(device), None)
+
 
 def _segment_cdf(vals: np.ndarray, row_offsets: np.ndarray,
                  counts: np.ndarray) -> np.ndarray:

@@ -142,34 +142,6 @@ def _device_tables(q: Query, edge_types, dev: torch.device, out: dict):
     return tables
 
 
-def _time_calls(step: bench.MultiStep, cfg: dict, dev: torch.device,
-                out: dict):
-    """One warm-up call of ``step`` (``warm_s``), then ``cfg["steps"] //
-    K`` calls closed by one pull of the loss, into ``out``: rounds,
-    edges/s, the step wall in ms, every step's loss, capture seconds and
-    graph-pool bytes (None when eager), and the card's peak bytes."""
-    K = step.K
-    t0 = time.perf_counter()
-    step()
-    losses = [step.losses.clone()]
-    float(step.losses[-1])
-    out["warm_s"] = time.perf_counter() - t0
-    rounds = max(cfg["steps"] // K, 1)
-    t0 = time.perf_counter()
-    for _ in range(rounds):
-        step()
-        losses.append(step.losses.clone())
-    float(step.losses[-1])  # the one pull: a true barrier
-    dt = time.perf_counter() - t0
-    out.update(rounds=rounds,
-               edges_per_s=out["edges_per_step"] * K * rounds / dt,
-               step_ms=dt / (K * rounds) * 1e3,
-               losses=torch.cat(losses).tolist(),
-               capture_s=step.capture_s, graph_pool_bytes=step.pool_bytes)
-    if dev.type == "cuda":
-        out["device_bytes_peak"] = torch.cuda.max_memory_allocated(dev)
-
-
 def rgcn_fanout(small: bool) -> Tuple[int, int]:
     """(k1, k2): [10, 5], and [4, 2] when small."""
     return (4, 2) if small else (10, 5)
@@ -259,7 +231,7 @@ def run_rgcn(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
         raise RuntimeError("first batch: %s %s, loss %s"
                            % (aliases[-1], tuple(b0[aliases[-1]].ids.shape),
                               loss0))
-    _time_calls(step, cfg, dev, out)
+    out.update(bench.time_calls(step, cfg, out["edges_per_step"]))
     out.update(graph=graph, query=q, aliases=aliases, tables=tables,
                model=model, optimizer=optimizer, generator=generator,
                step=step)
@@ -394,7 +366,7 @@ def run_bipartite(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     step = BipartiteSteps(q, tables, model, optimizer, cfg, generator,
                           capture)
-    _time_calls(step, cfg, dev, out)
+    out.update(bench.time_calls(step, cfg, out["edges_per_step"]))
     out.update(graph=graph, query=q, tables=tables, model=model,
                optimizer=optimizer, generator=generator, step=step)
     return out
@@ -515,7 +487,7 @@ def run_temporal(cfg: dict, small: bool = False, device: DeviceLike = "cuda",
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     step = TemporalSteps(q, tables, model, optimizer, cfg, generator,
                          capture)
-    _time_calls(step, cfg, dev, out)
+    out.update(bench.time_calls(step, cfg, out["edges_per_step"]))
     out.update(graph=graph, query=q, tables=tables, model=model,
                optimizer=optimizer, generator=generator, step=step)
     return out

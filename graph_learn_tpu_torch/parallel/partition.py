@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from graph_learn_tpu_torch.core.store import EdgeTable
+from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass
@@ -62,8 +63,11 @@ class ShardedGraph:
     def buffer_rows(self) -> int:
         return self.rows_per_shard + self.halo_max
 
-    def local(self, p: int, device="cpu") -> LocalGraph:
-        """Shard ``p``'s block on ``device``."""
+    def local(self, p: int, device: DeviceLike = "cuda") -> LocalGraph:
+        """Shard ``p``'s block on ``device``: the card unless the CPU is
+        asked for."""
+        device = resolve_device(device)
+
         def put(a):
             return None if a is None else torch.from_numpy(
                 np.ascontiguousarray(a[p])).to(device)
