@@ -19,7 +19,10 @@ Phases (any failure exits non-zero before the result line):
    clips itself, and with a raw max/min, on which a group max keeps inf,
    -inf and NaN as the JAX package does; the gather kernel bit for bit on
    both its routes, even and odd tables and a view; the sweep kernel with
-   its prep's invariants), and time kernel, plain version and, where one
+   its prep's invariants; then each kernel called as its torch.library
+   operator, torch.ops.glt.*, as an exported program calls it, Kernel 3's
+   backward operator against the plain backward), and time kernel, plain
+   version and, where one
    PyTorch call computes the same function, that call, at the main paths'
    shapes (the gather kernel at 1 024, 15 360 and 153 600 rows, the row
    counts the paths launch, with one kernel a call; the segment SpMM
@@ -92,8 +95,8 @@ Phases (any failure exits non-zero before the result line):
    host build seconds and peak bytes on the card;
 12. run the bipartite u2i path (examples/family_scale.py's bipartite
    family) at its store's node counts and widths, with FAMILY_DEGREE
-   (8) edges a node where CFG_SCALE has 25: 1 225 000 users and items
-   with 100 bf16 features, 13 132 000 u-i and 6 468 000 i-i weighted
+   (4) edges a node where CFG_SCALE has 25: 1 225 000 users and items
+   with 100 bf16 features, 6 566 000 u-i and 3 234 000 i-i weighted
    edges on the "full" profile (host draw, CSR and candidate-pool build, upload and
    table bytes timed); one step of the two towers (EgoSAGEConv mean, 100 ->
    256, batch 1024, 10 neighbours, 2 negatives) on the kernels against the
@@ -108,7 +111,7 @@ Phases (any failure exits non-zero before the result line):
 13. run the rgcn family (examples/family_scale.py's rgcn family) at its
    store's node count and widths, FAMILY_DEGREE edges a node: 2 450 000
    items with 100 bf16 features and 47 classes, two weighted relations of
-   9 800 000 edges each on the "minimal" profile
+   4 900 000 edges each on the "minimal" profile
    (host draw, CSR build, upload and table bytes timed);
    EgoRGCN([100, 256, 47], num_relations=2, num_bases=1), batch 1024,
    fanout [10, 5] per relation: one step on the kernels against the plain
@@ -123,7 +126,7 @@ Phases (any failure exits non-zero before the result line):
    rows and Kernel 2 at [10 240, 5] means of the store's table, cold;
 14. run the temporal family (examples/family_scale.py's temporal family)
    at its store's node count and widths, FAMILY_DEGREE edges a node:
-   2 450 000 items with 100 bf16 features and 47 classes, 19 600 000
+   2 450 000 items with 100 bf16 features and 47 classes, 9 800 000
    weighted, timestamped edges on the "full" profile
    (host draw, CSR build, upload and table bytes timed);
    EgoGraphSAGE([100, 256, 47], "gcn") on E("rel").batch(1024) event
@@ -281,10 +284,10 @@ Phases (any failure exits non-zero before the result line):
    online/serve_main.py serve(device="cuda") from those files with a
    2-partition FileTopic and its update pump (polled every 0.2 s); the
    2-hop [15, 10] random query installed over HTTP with the unchanged
-   clients/py/gsl_client.py; 8 concurrent HTTP clients x 16 requests of
+   clients/py/gsl_client.py; 8 concurrent HTTP clients x 8 requests of
    1..4 ids (each JSON answer carries every alias's feature rows, about
    0.25 MB of text a seed): p50 / p99 / max ms and seeds/s.  (b) With the
-   clients running again, 1 000 new nodes with features and then 3
+   clients running again, 1 000 new nodes with features and then 2
    batches of 10 000 weighted edges streamed with StreamProducer: each
    ingest's apply_updates, host CSR and upload seconds, the staleness
    from put_edges to the first answer of a topk probe query that reaches
@@ -299,7 +302,12 @@ Phases (any failure exits non-zero before the result line):
    /admin/model, one /predict launching Kernel 1 twice and Kernel 2 once
    and equal to the forward run in the process on the same seed within
    1e-5, a JAX StableHLO artifact (tests/fixtures/jax_serving.stablehlo)
-   refused; bytes, export and load seconds, /predict p50 / p99.  (d) A
+   refused; bytes, export and load seconds, /predict p50 / p99.  The same
+   for an EgoGAT [128, 256, 32] with heads (8, 1) on that query and
+   table (3 glt::gather_rows and 3 glt::gat_block: one /predict launches
+   Kernel 3's forward 3 times), and for the EgoGraphSAGE exported under
+   conf.sorted_gather (2 glt::gather_rows and 1 glt::sweep_aggregate:
+   Kernel 4 once, Kernel 2 never).  (d) A
    ServingRouter over that worker and a second in-process worker on a
    replica of its store: a topk answer stitched over both owners equal to
    one worker's, an update fanned out to both and served by both;
@@ -1282,6 +1290,86 @@ def check_gat(torch, gat):
         "mma.sync in the rest"
         % (len(cases), shapes, [c[0] for c in GAT_DEEP_CASES], GAT_TOL,
            worst[0], worst[1], routes, wgmma_cases))
+
+
+# Kernel 3 as phase 22's exported EgoGAT calls it: its first layer on the
+# seeds and on hop 1, its second layer; and a ragged case with a bias and
+# a dropout mask
+OP_GAT_CASES = (((1024, 15, 128, 8, 256), False, False),
+                ((15_360, 10, 128, 8, 256), False, False),
+                ((1024, 15, 256, 1, 32), False, False),
+                ((777, 10, 100, 3, 5), True, True))
+
+
+def check_operators(torch, gather, spmm, gat, sweep):
+    """Every kernel called as its torch.library operator
+    (``torch.ops.glt.*``), as an exported program calls it, against its
+    plain version: Kernel 1 bit for bit, Kernel 2 and 4 within
+    rtol = atol = 1e-5, Kernel 5 within 1e-6 of the column's sum of
+    magnitudes, Kernel 3's forward and backward operators within
+    check_gat's limits."""
+    ops = torch.ops.glt
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    table = torch.randn((20_011, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    idx = torch.randint(0, 20_011, (1024,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    check(torch.equal(ops.gather_rows(table, idx),
+                      gather.gather_rows_plain(table, idx)),
+          "glt::gather_rows differs from gather_rows_plain")
+    ids = torch.randint(0, 20_011, (1024, 10), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    deg = torch.full((1024,), 10, dtype=torch.int32, device="cuda")
+    got = ops.segment_spmm(table, ids, deg, "mean", torch.float32, False)
+    want = spmm.segment_spmm_plain(table, *spmm.clip(ids, deg, 20_011),
+                                   "mean", torch.float32)
+    errs = {"segment_spmm": (got - want).abs().max().item()}
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          "glt::segment_spmm: max err %g" % errs["segment_spmm"])
+    starts, packed = sweep.sweep_prep(ids.reshape(-1), 10, 20_011)
+    got = ops.sweep_aggregate(starts, packed, table, 1024,
+                              sweep.MAX_SLAB_ROWS)
+    want = sweep.sweep_aggregate_plain(starts, packed, table, 1024,
+                                       sweep.MAX_SLAB_ROWS)
+    errs["sweep_aggregate"] = (got - want).abs().max().item()
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+          "glt::sweep_aggregate: max err %g" % errs["sweep_aggregate"])
+    got = ops.stream_sum(table)
+    err = (got[0].double() - table.sum(0, dtype=torch.float64)).abs()
+    errs["stream_sum"] = err.max().item()
+    check(bool((err <= 1e-6 * table.abs().sum(0, dtype=torch.float64))
+               .all()), "glt::stream_sum: max err %g" % errs["stream_sum"])
+    worst = (0.0, "")
+    for (b, e, din, h, w), bias, drop in OP_GAT_CASES:
+        t = gat_inputs(torch, gen, b, e, din, h, w, torch.float32, bias,
+                       drop, grad=False)
+        args = [t[n] for n in GAT_INPUTS] + [t["drop"]]
+        g = torch.randn((h, b, w), generator=gen, device="cuda")
+        out = ops.gat_block(*args)
+        d_nbr, d_wn, d_ar, d_el = ops.gat_block_backward(g, *args, True)
+        ref = [gat.gat_block_plain(*args)] + list(
+            gat.gat_block_backward_plain(g, *args))
+        got = [out, d_nbr, d_wn[:, :din], d_ar, d_el,
+               d_wn[:, din] if bias else None]
+        for name, a, r in zip(("out", "d_nbr", "d_wn", "d_ar", "d_el",
+                               "d_bn"), got, ref):
+            if r is None:
+                continue
+            rel = ((a - r).abs().max().item()
+                   / max(1.0, r.abs().max().item()))
+            check(a.shape == r.shape and rel <= GAT_TOL,
+                  "glt::gat_block%s %s at %s: %g of the largest reference "
+                  "value (limit %g)" % ("" if name == "out" else "_backward",
+                                        name, (b, e, din, h, w), rel,
+                                        GAT_TOL))
+            if rel > worst[0]:
+                worst = (rel, "%s at %s" % (name, (b, e, din, h, w)))
+    log("torch.ops.glt: gather_rows bit-equal to its plain version, "
+        "segment_spmm / sweep_aggregate / stream_sum max abs err %s, "
+        "gat_block and gat_block_backward within %g of each tensor's "
+        "largest plain value at %s (worst %g, %s)"
+        % ({k: float("%.3g" % v) for k, v in errs.items()}, GAT_TOL,
+           [c[0] for c in OP_GAT_CASES], worst[0], worst[1]))
 
 
 def gat_work(b, e, din, h, w):
@@ -2729,14 +2817,16 @@ def bench_path(torch, card, cfg, graph, gather, spmm, sweep, name,
 # ---------------------------------------------------------------------------
 
 # draws per seed of the negative-rate check: enough that the expected
-# count of true neighbours among soft_in_degree draws is tens
-NEG_RATE_DRAWS = 2048
+# count of true neighbours among soft_in_degree draws is tens (at
+# FAMILY_DEGREE edges a node)
+NEG_RATE_DRAWS = 4096
 # steps of LocalTrainer.train at this store (after 2 of warm-up)
 BIPARTITE_TRAIN_STEPS = 10
 # Phases 12-14 build their stores at CFG_SCALE's node counts and widths
 # with this many edges a node (CFG_SCALE: 25): the host builds of those
-# stores set the smoke's wall (PERF.md section 5)
-FAMILY_DEGREE = 8
+# stores set the smoke's wall (PERF.md section 5); cut from 8 to keep the
+# smoke well inside its time on slow hosts
+FAMILY_DEGREE = 4
 
 
 def neighbour_mass(torch, et, seeds):
@@ -6303,15 +6393,16 @@ def checkpoint_bridge_path(torch, card, g, dec):
                last_rows, card))
 
 
-# 16 requests a client and 3 edge batches: cut from 32 and 5 to keep the
-# whole smoke inside its time (each batch's host CSR rebuild is about 8 s)
-ONLINE_CLIENTS, ONLINE_REQUESTS = 8, 16
+# 8 requests a client and 2 edge batches: cut from 32 and 5 (then 16 and
+# 3) to keep the whole smoke inside its time (each batch's host CSR
+# rebuild is about 8 s)
+ONLINE_CLIENTS, ONLINE_REQUESTS = 8, 8
 # ids a served HTTP request carries: the JSON answer of one seed of the
 # 2-hop [15, 10] query is 166 feature rows of 128 floats, about 0.25 MB of
 # text whose encode and decode hold the interpreter lock for about 30 ms
 ONLINE_MAX_IDS = 4
 ONLINE_NEW_NODES = 1_000
-ONLINE_EDGE_BATCHES, ONLINE_EDGE_BATCH = 3, 10_000
+ONLINE_EDGE_BATCHES, ONLINE_EDGE_BATCH = 2, 10_000
 ONLINE_POLL_S = 0.2
 ONLINE_THINK_S = 0.02  # a streaming-phase client's pause between requests
 ONLINE_PROBE_WEIGHT = 10.0  # above every drawn weight (uniform in [0, 1))
@@ -6319,6 +6410,7 @@ ONLINE_PREDICT_CALLS = 20
 ONLINE_PREDICT_SEED = 11
 # the exported forward against the same forward run in the process: the
 # same kernels on the same draws, so equal up to the f32 JSON round trip
+# and, on the sorted route, the order of Kernel 4's adds (atomics)
 ONLINE_PREDICT_TOL = 1e-5
 ONLINE_STABLEHLO = os.path.join("tests", "fixtures", "jax_serving.stablehlo")
 
@@ -6374,9 +6466,10 @@ def online_path(torch, card, gather, spmm, n_nodes=None, feat_dim=None,
     from graph_learn_tpu_torch import bench
     from graph_learn_tpu_torch.gsl.compile import _execute
     from graph_learn_tpu_torch.nn.data import EgoGraph
-    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT, EgoGraphSAGE
     from graph_learn_tpu_torch.online import export, http, router, stream
     from graph_learn_tpu_torch.online.serve_main import serve
+    from graph_learn_tpu_torch.ops.kernels import gat, sweep
 
     cfg = bench.CFG
     n = n_nodes or cfg["n_nodes"]
@@ -6662,41 +6755,107 @@ def online_path(torch, card, gather, spmm, n_nodes=None, feat_dim=None,
             "newest snapshot live during its request" % (checked,
                                                          len(quiet + busy)))
 
-        # --- (c) the exported EgoGraphSAGE through /admin/model ----------
+        # --- (c) exported programs through /admin/model -----------------
         q = server.service._queries[qid].query
         tables = svc._queries[qid]._snap.tables
         table = tables["nodes"]["item"].float_attrs
+        on_card = torch.device(device).type == "cuda"
+        devs = [torch.device(device)] if on_card else []
+        counters = {"gather_rows": gather.LAUNCHES,
+                    "segment_spmm": spmm.LAUNCHES,
+                    "gat_block": gat.LAUNCHES_FWD,
+                    "gat_block_bwd": gat.LAUNCHES_BWD,
+                    "sweep_aggregate": sweep.LAUNCHES_SWEEP}
+
+        def serving_fn(model):
+            def fn(seeds, generator):
+                ans = _execute(q, tables, seeds, generator)
+                return model(EgoGraph.from_query_result(
+                    ans, "src", ["hop1", "hop2"], defer_last_table=table))
+            return fn
+
+        def serve_exported(name, what, fn, want):
+            """Export ``fn`` on the device, hold the program's glt
+            operators to ``want``, install it by bytes through POST
+            /admin/model; one /predict launches each kernel as often as
+            the program holds it and equals the forward run in the process
+            on the same seed; then the /predict latency.  Returns the
+            launches of the one /predict and of all of them."""
+            want = {k: want.get(k, 0) for k in counters}
+            t0 = time.perf_counter()
+            blob = export.export_serving_fn(
+                fn, (np.arange(MICRO_BATCH), 0), device=device)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = export.load_serving_exported(blob)
+            load_s = time.perf_counter() - t0
+            ops = [str(x.target) for x in loaded.program.graph.nodes
+                   if x.op == "call_function"]
+            held = {k: ops.count("glt.%s.default" % k) for k in counters}
+            check(held == want, "online: the exported %s program holds %s "
+                  "glt operators (want %s)" % (name, held, want))
+            del loaded
+            t0 = time.perf_counter()
+            r = cg.install_model(name, blob)
+            install_model_s = time.perf_counter() - t0
+            check(r == {"name": name, "batch": MICRO_BATCH},
+                  "online: install_model answered %s" % r)
+            ids = rng.integers(0, n, MICRO_BATCH)
+            for c in counters.values():
+                c.reset()
+            got = np.asarray(cg.predict(name, ids.tolist(),
+                                        seed=ONLINE_PREDICT_SEED), np.float32)
+            one = {k: c.count for k, c in counters.items()}
+            check(one == {k: v * on_card for k, v in want.items()},
+                  "online: one /predict of %s launched %s (want %s)"
+                  % (name, one, want))
+            with torch.random.fork_rng(devices=devs), torch.no_grad():
+                torch.manual_seed(ONLINE_PREDICT_SEED)
+                ref = fn(torch.as_tensor(ids, dtype=torch.int32,
+                                         device=device), None)
+            ref = ref.float().cpu().numpy()
+            err = float(np.abs(got - ref).max())
+            check(got.shape == (MICRO_BATCH, CLASSES)
+                  and np.isfinite(got).all()
+                  and np.allclose(got, ref, rtol=ONLINE_PREDICT_TOL,
+                                  atol=ONLINE_PREDICT_TOL),
+                  "online: /predict of %s differs from the forward: %g"
+                  % (name, err))
+            plat = []
+            for i in range(ONLINE_PREDICT_CALLS):
+                part = rng.integers(0, n, int(rng.integers(1,
+                                                           MICRO_BATCH + 1)))
+                t0 = time.perf_counter()
+                out = cg.predict(name, part.tolist(), seed=i)
+                plat.append((time.perf_counter() - t0) * 1e3)
+                check(len(out) == part.size, "online: /predict rows")
+            plat = np.array(plat)
+            log("online export (sample + lookup + %s, batch %d, traced on "
+                "%s): %d bytes, exported in %.3f s, loaded in %.3f s "
+                "(installed by bytes through POST /admin/model in %.3f s); "
+                "the program holds the glt operators %s and one /predict "
+                "launched %s; /predict equals the forward run in the "
+                "process on the same seed within %g (max abs err %g); "
+                "/predict of 1..%d ids over HTTP, %d calls: p50 %.3f ms, "
+                "p99 %.3f ms; card: %s"
+                % (what, MICRO_BATCH, device, len(blob), export_s, load_s,
+                   install_model_s, {k: v for k, v in held.items() if v},
+                   {k: v for k, v in one.items() if v}, ONLINE_PREDICT_TOL,
+                   err, MICRO_BATCH, ONLINE_PREDICT_CALLS,
+                   np.percentile(plat, 50), np.percentile(plat, 99), card))
+            return one, {k: c.count for k, c in counters.items()}
+
         torch.manual_seed(22)
         model = EgoGraphSAGE([d, HIDDEN, CLASSES],
                              g.get_node_decoder("item"), agg_type="gcn",
                              device=device).eval()
-
-        def serve_fn(seeds, generator):
-            ans = _execute(q, tables, seeds, generator)
-            return model(EgoGraph.from_query_result(
-                ans, "src", ["hop1", "hop2"], defer_last_table=table))
-
-        t0 = time.perf_counter()
-        blob = export.export_serving_fn(serve_fn, (np.arange(MICRO_BATCH),
-                                                   0), device=device)
-        export_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        loaded = export.load_serving_exported(blob)
-        load_s = time.perf_counter() - t0
-        ops = [str(x.target) for x in loaded.program.graph.nodes
-               if x.op == "call_function"]
-        check(ops.count("glt.gather_rows.default") == 2
-              and ops.count("glt.segment_spmm.default") == 1,
-              "online: the exported program holds %d gather_rows and %d "
-              "segment_spmm operators (want 2 and 1)"
-              % (ops.count("glt.gather_rows.default"),
-                 ops.count("glt.segment_spmm.default")))
-        del loaded
-        t0 = time.perf_counter()
-        r = cg.install_model("sage", blob)
-        install_model_s = time.perf_counter() - t0
-        check(r == {"name": "sage", "batch": MICRO_BATCH},
-              "online: install_model answered %s" % r)
+        sage_fn = serving_fn(model)
+        sage = ("gather_rows", "segment_spmm")
+        one, total = serve_exported(
+            "sage", "EgoGraphSAGE [%d, %d, %d] gcn" % (d, HIDDEN, CLASSES),
+            sage_fn, {"gather_rows": 2, "segment_spmm": 1})
+        launches = {k: one[k] for k in sage}
+        counts["predict"] = {k: total[k] for k in sage}
         with open(os.path.join(root, ONLINE_STABLEHLO), "rb") as f:
             jax_blob = f.read()
         try:
@@ -6705,57 +6864,31 @@ def online_path(torch, card, gather, spmm, n_nodes=None, feat_dim=None,
         except urllib.error.HTTPError as e:
             refused = "torch.export" in e.read().decode()
         check(refused, "online: a JAX StableHLO artifact was not refused")
-        ids = rng.integers(0, n, MICRO_BATCH)
-        gather.LAUNCHES.reset()
-        spmm.LAUNCHES.reset()
-        got = np.asarray(cg.predict("sage", ids.tolist(),
-                                    seed=ONLINE_PREDICT_SEED), np.float32)
-        launches = {"gather_rows": gather.LAUNCHES.count,
-                    "segment_spmm": spmm.LAUNCHES.count}
-        on_card = torch.device(device).type == "cuda"
-        check(launches == {"gather_rows": 2 * on_card,
-                           "segment_spmm": 1 * on_card},
-              "online: one /predict launched %s (want 2 gather_rows and 1 "
-              "segment_spmm)" % launches)
-        devs = [torch.device(device)] if on_card else []
-        with torch.random.fork_rng(devices=devs), torch.no_grad():
-            torch.manual_seed(ONLINE_PREDICT_SEED)
-            want = serve_fn(torch.as_tensor(ids, dtype=torch.int32,
-                                            device=device), None)
-        want = want.float().cpu().numpy()
-        err = float(np.abs(got - want).max())
-        check(got.shape == (MICRO_BATCH, CLASSES)
-              and np.isfinite(got).all()
-              and np.allclose(got, want, rtol=ONLINE_PREDICT_TOL,
-                              atol=ONLINE_PREDICT_TOL),
-              "online: /predict differs from the forward: %g" % err)
-        plat = []
-        for i in range(ONLINE_PREDICT_CALLS):
-            part = rng.integers(0, n, int(rng.integers(1, MICRO_BATCH + 1)))
-            t0 = time.perf_counter()
-            out = cg.predict("sage", part.tolist(), seed=i)
-            plat.append((time.perf_counter() - t0) * 1e3)
-            check(len(out) == part.size, "online: /predict rows")
-        plat = np.array(plat)
-        counts["predict"] = {"gather_rows": gather.LAUNCHES.count,
-                             "segment_spmm": spmm.LAUNCHES.count}
-        log("online export (sample + lookup + EgoGraphSAGE [%d, %d, %d] "
-            "gcn, batch %d, traced on %s): %d bytes, exported in %.3f s, "
-            "loaded in %.3f s (installed by bytes through POST "
-            "/admin/model in %.3f s); the program holds 2 glt::gather_rows "
-            "and 1 glt::segment_spmm and one /predict launched %s; "
-            "/predict equals the forward run in the process on the same "
-            "seed within %g (max abs err %g); a JAX StableHLO artifact is "
-            "refused; /predict of 1..%d ids over HTTP, %d calls: p50 %.3f "
-            "ms, p99 %.3f ms; card: %s"
-            % (d, HIDDEN, CLASSES, MICRO_BATCH, device, len(blob), export_s,
-               load_s, install_model_s, launches, ONLINE_PREDICT_TOL, err,
-               MICRO_BATCH, ONLINE_PREDICT_CALLS, np.percentile(plat, 50),
-               np.percentile(plat, 99), card))
-        del blob
+        log("online export: a JAX StableHLO artifact is refused by POST "
+            "/admin/model")
+        # EgoGAT at phase 6's width: three neighbour blocks (Kernel 3; the
+        # card takes each block whole, and so does the CPU with
+        # seed_chunk=0)
+        torch.manual_seed(22)
+        gat_model = EgoGAT([d, HIDDEN, CLASSES], g.get_node_decoder("item"),
+                           num_heads=list(GAT_HEADS), seed_chunk=0,
+                           device=device).eval()
+        counts["gat_one_predict"], _ = serve_exported(
+            "gat", "EgoGAT [%d, %d, %d] heads %s" % (d, HIDDEN, CLASSES,
+                                                     list(GAT_HEADS)),
+            serving_fn(gat_model), {"gather_rows": 3, "gat_block": 3})
+        del gat_model
+        # the EgoGraphSAGE above on the sorted route: its deepest-hop mean
+        # through sweep_prep and Kernel 4, traced under the flag
+        with bench.bench_conf(sorted_gather=True, sorted_gather_min_bytes=(
+                table.numel() * table.element_size())):
+            counts["sorted_one_predict"], _ = serve_exported(
+                "sage_sorted", "EgoGraphSAGE [%d, %d, %d] gcn, "
+                "conf.sorted_gather" % (d, HIDDEN, CLASSES), sage_fn,
+                {"gather_rows": 2, "sweep_aggregate": 1})
         svc._models.clear()
-        gather.LAUNCHES.reset()
-        spmm.LAUNCHES.reset()
+        for c in counters.values():
+            c.reset()
 
         # --- (d) the router over two in-process workers --------------------
         twin = http.ServingServer(replica_graph(gl, g), device=device).start()
@@ -8809,6 +8942,7 @@ def main() -> int:
     check_group_max(torch, gl, spmm)
     check_sweep(torch, sweep)
     check_gat(torch, gat)
+    check_operators(torch, gather, spmm, gat, sweep)
     rows = measure_kernels(torch, gather, spmm)
     rows["gat_block"] = measure_gat(torch, gat)
     rows["gat_block"].update(measure_gat_tgat(torch, gat))
@@ -8924,7 +9058,8 @@ def main() -> int:
     online_files = tempfile.mkdtemp(prefix="glt_online_")
     try:
         with bench.bench_conf(storage_profile="full"):
-            online_path(torch, card, gather, spmm, files=online_files)
+            online_counts = online_path(torch, card, gather, spmm,
+                                        files=online_files)
         gc.collect()
         torch.cuda.empty_cache()
         # phase 24: the parallel store and training on torch.distributed
@@ -8965,6 +9100,11 @@ def main() -> int:
           "gat_block was never launched by the training path")
     kernels.append(rows["gat_block"])
     rows["sweep_aggregate"]["launches"] = sorted_launches["sweep_aggregate"]
+    # one /predict of phase 22's exported EgoGAT and sorted-route programs
+    rows["gat_block"]["predict_launches"] = \
+        online_counts["gat_one_predict"]["gat_block"]
+    rows["sweep_aggregate"]["predict_launches"] = \
+        online_counts["sorted_one_predict"]["sweep_aggregate"]
     for name in ("sweep_aggregate", "stream_sum"):
         check(rows[name]["launches"] > 0, name + " was never launched by "
               "its path")

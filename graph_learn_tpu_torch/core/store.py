@@ -96,6 +96,10 @@ class DeviceCSR(TensorStruct):
     nbr_ts: Optional[torch.Tensor] = None  # [E] int32
 
     @property
+    def num_rows(self) -> int:
+        return self.row_offsets.shape[0] - 1
+
+    @property
     def num_edges(self) -> int:
         return self.nbr_ids.shape[0]
 
@@ -508,6 +512,13 @@ class GraphStore:
         if t not in self.node_sets:
             raise NotFoundError("unknown node set %r" % t)
         return self.node_sets[t]
+
+    def drop_device_views(self):
+        """Forget every table's device views: the next ``device()`` call
+        builds them from the host tables as they are now, and tensors no
+        view holds any more return to the device's memory."""
+        for t in list(self.nodes.values()) + list(self.edges.values()):
+            t._device = {}
 
     def stats(self) -> Dict[str, Dict[str, int]]:
         return {

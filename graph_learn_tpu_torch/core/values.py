@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 
@@ -218,10 +219,27 @@ class DeferredRows(TensorStruct):
     :meth:`materialize` gathers the rows (Kernel 1 on the card);
     :meth:`group_agg` reduces them over the trailing fanout axis straight
     from the table (Kernel 2), so the [..., k, D] rows are never written.
+    It has the ``shape`` and ``dtype`` of the rows it stands for, and
+    ``np.asarray`` of it gives them (gathered, then copied to the host),
+    as it gives the JAX package's array.
     """
 
     table: torch.Tensor = dataclasses.field(metadata={"static": True})
     idx: torch.Tensor  # hop-shaped int indices
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(tuple(self.idx.shape) + tuple(self.table.shape[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.table.dtype
+
+    def __array__(self, dtype=None, copy=None):
+        rows = self.materialize().detach().cpu()
+        if rows.dtype == torch.bfloat16:  # numpy has no bfloat16
+            rows = rows.float()
+        return np.asarray(rows.numpy(), dtype=dtype)
 
     def materialize(self) -> torch.Tensor:
         from graph_learn_tpu_torch.ops.kernels.dispatch import feature_gather

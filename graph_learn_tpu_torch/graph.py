@@ -273,6 +273,17 @@ class Graph:
                                                             np.float32)))
         return self
 
+    def close(self):
+        """Give the graph a new empty store and forget ``init()``, as the
+        JAX package's ``close`` (``graph.py:217-219``); the old store's
+        device views are dropped first, so the card's memory returns once
+        nothing else holds them.  The registered sources stay, so
+        ``init()`` builds the store again; the k-NN indexes stay too, as
+        the JAX package keeps them."""
+        self.store.drop_device_views()
+        self.store = GraphStore()
+        self._initialized = False
+
     # --- snapshots (graph.py:221-244) -----------------------------------
     def save(self, path: str) -> "Graph":
         """Write the built store to ``path/`` (``core/snapshot.py``); a

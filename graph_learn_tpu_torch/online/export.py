@@ -16,11 +16,11 @@ artifact's signature with an int seed for the key: ``call`` seeds the
 default generators under ``torch.random.fork_rng`` and runs the program,
 so one seed gives one answer and the process's own random state is left
 as it was.  The seeds are traced on the device the program serves from,
-so on the card the feature gathers and the deepest-hop reduction stay the
-``glt::gather_rows`` / ``glt::segment_spmm`` operators (Kernels 1-2) and
-the program launches the kernels when it runs.  A function that reaches
-Kernels 3-5 is refused while it is traced (``ops/kernels/build.py
-refuse_export``).
+so on the card every hand-written kernel the function reaches stays an
+operator of the program (``torch.ops.glt``: ``gather_rows``,
+``segment_spmm``, ``gat_block``, ``sweep_aggregate``, ``stream_sum``) and
+the program launches the kernels when it runs: any model's serving
+function exports, as any jitted function does in the JAX package.
 """
 
 from __future__ import annotations

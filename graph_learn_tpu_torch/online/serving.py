@@ -230,7 +230,7 @@ class InstalledQuery:
         """Pick up applied graph updates: drop every table's device views,
         build the next snapshot while rounds keep serving the current one,
         then swap it in (rounds in flight keep theirs)."""
-        _drop_device_views(self.query.graph.store)
+        self.query.graph.store.drop_device_views()
         if self._control is None:
             self._snap = self._build_snapshot()
         else:
@@ -394,13 +394,6 @@ def _cat(values):
                 parts[0], (torch.Tensor, TensorStruct)):
             changes[f.name] = _cat(parts)
     return first.replace(**changes)
-
-
-def _drop_device_views(store):
-    """Forget every table's device views, so the next ``device()`` call
-    builds them from the host tables as they are now."""
-    for t in list(store.nodes.values()) + list(store.edges.values()):
-        t._device = {}
 
 
 def _static_tensors(result: dict):
@@ -572,7 +565,7 @@ class QueryService:
         query swaps on every rank, module note)."""
         self._lead("refresh")
         with self._refresh_lock:
-            _drop_device_views(self.graph.store)
+            self.graph.store.drop_device_views()
             builds: dict = {}
             for q in self._queries.values():
                 if self._control is None:

@@ -23,10 +23,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
-import torch
-
-from graph_learn_tpu_torch.errors import (DeviceUnavailableError,
-                                          UnimplementedError)
+from graph_learn_tpu_torch.errors import DeviceUnavailableError
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = PKG_DIR / "csrc"
@@ -55,18 +52,6 @@ class LaunchCounter:
     def reset(self):
         with self._lock:
             self.count = 0
-
-
-def refuse_export(kernel: str):
-    """Raise while ``torch.export`` (or ``torch.compile``) traces the
-    wrapper of ``kernel``: Kernels 3-5 launch through ``ctypes`` on data
-    pointers, which a trace cannot hold, and are not yet operators as
-    Kernels 1-2 are (``glt::gather_rows``, ``glt::segment_spmm``)."""
-    if torch.compiler.is_compiling():
-        raise UnimplementedError(
-            "%s cannot be exported yet: only gather_rows and segment_spmm "
-            "are torch.library operators; a serving function that reaches "
-            "%s is not exportable" % (kernel, kernel))
 
 
 def _nvcc() -> str:

@@ -22,11 +22,16 @@ split TF32 where the width allows, and the backward recomputes everything
 from the inputs.
 
 :func:`gat_block` is differentiable in ``nbr``, ``wn``, ``ar``, ``el``,
-``bn`` and ``ba``.  CUDA tensors launch the kernels (forward and, through
-``torch.autograd.Function``, the hand-written backward) or raise; CPU
-tensors take :func:`gat_block_plain`, differentiated by autograd.  Sums
-across blocks in the backward are added with atomics, so the last bits of
-``d_wn``, ``d_ar``, ``d_bn`` vary from run to run.
+``bn`` and ``ba``.  It checks its inputs, then calls the operator
+``torch.ops.glt.gat_block`` (``torch.library.custom_op``), whose backward
+(``register_autograd``) is the operator ``torch.ops.glt.gat_block_backward``.
+CUDA tensors launch the hand-written kernels, forward and backward, or
+raise; on CPU tensors they are :func:`gat_block_plain` and
+:func:`gat_block_backward_plain`, its gradient written out.  The fakes give
+the outputs' shapes and dtypes, so ``torch.export`` keeps each block as one
+node of an exported program (online/export.py).  Sums across blocks in the
+backward are added with atomics, so the last bits of ``d_wn``, ``d_ar``,
+``d_bn`` vary from run to run.
 
 The products take one of two hand-written routes, chosen by shape alone
 (:func:`product_route`): ``"tensor"`` (TF32 tensor cores, each f32 operand
@@ -40,14 +45,13 @@ route the forward's product runs on ``wgmma`` where the depth allows
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
-from graph_learn_tpu_torch.ops.kernels.build import (LaunchCounter, library,
-                                                 refuse_export)
+from graph_learn_tpu_torch.ops.kernels.build import LaunchCounter, library
 
 LAUNCHES_FWD = LaunchCounter("gat_block")
 LAUNCHES_BWD = LaunchCounter("gat_block_bwd")
@@ -149,6 +153,41 @@ def gat_block_plain(nbr: torch.Tensor, wn: torch.Tensor, ar: torch.Tensor,
     return (coef[..., None] * nh.reshape(h, b, e, w)).sum(dim=2)
 
 
+def gat_block_backward_plain(g: torch.Tensor, nbr: torch.Tensor,
+                             wn: torch.Tensor, ar: torch.Tensor,
+                             el: torch.Tensor,
+                             bn: Optional[torch.Tensor] = None,
+                             ba: Optional[torch.Tensor] = None,
+                             drop: Optional[torch.Tensor] = None):
+    """Plain version of the backward: (d_nbr, d_wn, d_ar, d_el, d_bn) of
+    :func:`gat_block_plain` for the output gradient ``g``, written out
+    (d_ba is d_el summed over the seeds; d_bn is None without a bias)."""
+    b, e, din = nbr.shape
+    h, _, w = wn.shape
+    x = nbr.reshape(b * e, din).to(wn.dtype)
+    nh = torch.einsum("nd,hdw->hnw", x, wn)
+    if bn is not None:
+        nh = nh + bn[:, None, :]
+    nh = nh.reshape(h, b, e, w)
+    z = el[..., None] + (nh * ar[:, None, None, :]).sum(-1)
+    if ba is not None:
+        z = z + ba[:, None, None]
+    coef = torch.softmax(F.leaky_relu(z, LEAKY_SLOPE), dim=2)
+    g = g.to(torch.float32)
+    d_coef = torch.einsum("hbw,hbew->hbe", g, nh)
+    if drop is not None:
+        d_coef = d_coef * drop
+    d_z = coef * (d_coef - (coef * d_coef).sum(2, keepdim=True))
+    d_z = torch.where(z > 0, d_z, LEAKY_SLOPE * d_z)
+    weight = coef if drop is None else coef * drop
+    d_nh = (weight[..., None] * g[:, :, None, :]
+            + d_z[..., None] * ar[:, None, None, :]).reshape(h, b * e, w)
+    d_nbr = torch.einsum("hnw,hdw->nd", d_nh, wn).reshape(b, e, din)
+    return (d_nbr.to(nbr.dtype), torch.einsum("nd,hnw->hdw", x, d_nh),
+            torch.einsum("hbe,hbew->hw", d_z, nh), d_z.sum(2),
+            None if bn is None else d_nh.sum(1))
+
+
 def _entry():
     fn = library("gat").glt_gat_block
     if fn.argtypes is None:
@@ -226,53 +265,113 @@ def _scratch(t: dict, names) -> dict:
     return t
 
 
-class _GatBlock(torch.autograd.Function):
-    """Launches csrc/gat.cu.  Saves the inputs only; the backward recomputes
-    the softmax and the weighted neighbour sums."""
+def _weights_with_bias(wn: torch.Tensor,
+                       bn: Optional[torch.Tensor]) -> torch.Tensor:
+    """[wn; bn]: the bias rides as row Din of the weights, against a
+    constant 1 appended to every neighbour row inside the kernel."""
+    aug = wn if bn is None else torch.cat([wn, bn[:, None, :]], dim=1)
+    return _aligned(aug.detach().contiguous())
 
-    @staticmethod
-    def forward(ctx, nbr, wn, ar, el, bn, ba, drop):
-        # [wn; bn]: the bias rides as row Din of the weights, against a
-        # constant 1 appended to every neighbour row inside the kernel
-        wn_aug = wn if bn is None else torch.cat([wn, bn[:, None, :]], dim=1)
-        wn_aug = _aligned(wn_aug.detach().contiguous())
-        nbr = _aligned(nbr)
-        t = _scratch(dict(nbr=nbr, wn=wn_aug, ar=ar, el=el, ba=ba, drop=drop),
-                     ("out",))
-        ctx.save_for_backward(nbr, wn_aug, ar, el, ba, drop)
-        ctx.has_bn = bn is not None
-        if t["out"].numel() == 0:
-            return t["out"]
-        # the wgmma product reads the weights transposed and split
-        on_wgmma = forward_product_kernel(*wn_aug.shape[1:]) == "wgmma"
-        took = _launch("forward", _scratch(
-            t, ("v", "a") + (("bt_hi", "bt_lo") if on_wgmma else ())))
-        LAUNCHES_FWD.add()
-        ROUTE_LAUNCHES[took].add()
-        if on_wgmma:  # _launch has held the C side to the rule
-            WGMMA_LAUNCHES.add()
+
+@torch.library.custom_op("glt::gat_block", mutates_args=(),
+                         device_types="cpu")
+def _gat_block_op(nbr: torch.Tensor, wn: torch.Tensor, ar: torch.Tensor,
+                  el: torch.Tensor, bn: Optional[torch.Tensor],
+                  ba: Optional[torch.Tensor],
+                  drop: Optional[torch.Tensor]) -> torch.Tensor:
+    return gat_block_plain(nbr, wn, ar, el, bn, ba, drop)
+
+
+@_gat_block_op.register_fake
+def _gat_block_fake(nbr, wn, ar, el, bn, ba, drop):
+    return wn.new_empty((wn.shape[0], nbr.shape[0], wn.shape[2]),
+                        dtype=torch.float32)
+
+
+@_gat_block_op.register_kernel("cuda")
+def _gat_block_cuda(nbr, wn, ar, el, bn, ba, drop):
+    wn_aug = _weights_with_bias(wn, bn)
+    t = _scratch(dict(nbr=_aligned(nbr), wn=wn_aug, ar=ar, el=el, ba=ba,
+                      drop=drop), ("out",))
+    if t["out"].numel() == 0:
         return t["out"]
+    # the wgmma product reads the weights transposed and split
+    on_wgmma = forward_product_kernel(*wn_aug.shape[1:]) == "wgmma"
+    took = _launch("forward", _scratch(
+        t, ("v", "a") + (("bt_hi", "bt_lo") if on_wgmma else ())))
+    LAUNCHES_FWD.add()
+    ROUTE_LAUNCHES[took].add()
+    if on_wgmma:  # _launch has held the C side to the rule
+        WGMMA_LAUNCHES.add()
+    return t["out"]
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad_out):
-        nbr, wn_aug, ar, el, ba, drop = ctx.saved_tensors
-        din = nbr.shape[2]
-        want_nbr = ctx.needs_input_grad[0]
-        t = dict(nbr=nbr, wn=wn_aug, ar=ar, el=el, ba=ba, drop=drop,
-                 g=_aligned(grad_out.to(torch.float32).contiguous()))
-        _scratch(t, ("v", "dv", "a", "da", "d_wn", "d_ar", "d_el")
-                 + (("d_nbr",) if want_nbr else ()))
-        took = _launch("backward", t)
-        LAUNCHES_BWD.add()
-        if took:
-            ROUTE_LAUNCHES[took].add()
-        d_wn, d_el = t["d_wn"], t["d_el"]
-        d_bn = d_wn[:, din, :] if ctx.has_bn else None
-        # z = el + er + ba: d_ba is d_el summed over the seeds
-        d_ba = d_el.sum(dim=1) if ba is not None else None
-        d_nbr = t["d_nbr"].to(nbr.dtype) if want_nbr else None
-        return d_nbr, d_wn[:, :din, :], t["d_ar"], d_el, d_bn, d_ba, None
+
+@torch.library.custom_op("glt::gat_block_backward", mutates_args=(),
+                         device_types="cpu")
+def _gat_block_backward_op(
+        grad: torch.Tensor, nbr: torch.Tensor, wn: torch.Tensor,
+        ar: torch.Tensor, el: torch.Tensor, bn: Optional[torch.Tensor],
+        ba: Optional[torch.Tensor], drop: Optional[torch.Tensor],
+        want_nbr: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """(d_nbr, d_[wn; bn], d_ar, d_el) of the block, as the kernel gives
+    them, from :func:`gat_block_backward_plain`.  d_nbr is empty unless
+    ``want_nbr``."""
+    d_nbr, d_wn, d_ar, d_el, d_bn = gat_block_backward_plain(
+        grad, nbr, wn, ar, el, bn, ba, drop)
+    if bn is not None:
+        d_wn = torch.cat([d_wn, d_bn[:, None, :]], dim=1)
+    return (d_nbr.contiguous() if want_nbr else nbr.new_empty((0,)),
+            d_wn.contiguous(), d_ar.contiguous(), d_el.contiguous())
+
+
+@_gat_block_backward_op.register_fake
+def _gat_block_backward_fake(grad, nbr, wn, ar, el, bn, ba, drop, want_nbr):
+    h, din, w = wn.shape
+    k = din + (bn is not None)
+    return (nbr.new_empty(tuple(nbr.shape) if want_nbr else (0,)),
+            wn.new_empty((h, k, w)), wn.new_empty((h, w)),
+            wn.new_empty((h, nbr.shape[0])))
+
+
+@_gat_block_backward_op.register_kernel("cuda")
+def _gat_block_backward_cuda(grad, nbr, wn, ar, el, bn, ba, drop,
+                             want_nbr):
+    t = dict(nbr=_aligned(nbr), wn=_weights_with_bias(wn, bn), ar=ar, el=el,
+             ba=ba, drop=drop,
+             g=_aligned(grad.to(torch.float32).contiguous()))
+    _scratch(t, ("v", "dv", "a", "da", "d_wn", "d_ar", "d_el")
+             + (("d_nbr",) if want_nbr else ()))
+    took = _launch("backward", t)
+    LAUNCHES_BWD.add()
+    if took:
+        ROUTE_LAUNCHES[took].add()
+    d_nbr = (t["d_nbr"].to(nbr.dtype) if want_nbr
+             else nbr.new_empty((0,)))
+    return d_nbr, t["d_wn"], t["d_ar"], t["d_el"]
+
+
+def _gat_block_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+@torch.autograd.function.once_differentiable
+def _gat_block_grad(ctx, grad_out):
+    """The backward op's gradients, split back into the block's inputs."""
+    nbr, wn, ar, el, bn, ba, drop = ctx.saved_tensors
+    din = nbr.shape[2]
+    want_nbr = ctx.needs_input_grad[0]
+    d_nbr, d_wn, d_ar, d_el = _gat_block_backward_op(
+        grad_out, nbr, wn, ar, el, bn, ba, drop, want_nbr)
+    d_bn = d_wn[:, din, :] if bn is not None else None
+    # z = el + er + ba: d_ba is d_el summed over the seeds
+    d_ba = d_el.sum(dim=1) if ba is not None else None
+    return (d_nbr if want_nbr else None, d_wn[:, :din, :], d_ar, d_el, d_bn,
+            d_ba, None)
+
+
+_gat_block_op.register_autograd(_gat_block_grad,
+                                setup_context=_gat_block_setup)
 
 
 class GatParts:
@@ -326,7 +425,6 @@ def gat_block(nbr: torch.Tensor, wn: torch.Tensor, ar: torch.Tensor,
               ba: Optional[torch.Tensor] = None,
               drop: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fused neighbour block (shapes in the module note) -> [H, b, W]."""
-    refuse_export("gat_block")
     if nbr.dim() != 3 or wn.dim() != 3 or wn.shape[1] != nbr.shape[2]:
         raise InvalidArgumentError(
             "gat_block: want nbr [b, e, Din] and wn [H, Din, W], got %s and "
@@ -346,10 +444,8 @@ def gat_block(nbr: torch.Tensor, wn: torch.Tensor, ar: torch.Tensor,
                            ("el", el, (h, b)), ("bn", bn, (h, w)),
                            ("ba", ba, (h,)), ("drop", drop, (h, b, e))):
         _check(name, t, shape, dev)
-    if dev.type == "cpu":
-        return gat_block_plain(nbr, wn, ar, el, bn, ba, drop)
-    if not nbr.is_cuda:
+    if dev.type != "cpu" and not nbr.is_cuda:
         raise InvalidArgumentError(
             "gat_block: inputs must be on the CPU or on one CUDA device, "
             "got %s" % dev)
-    return _GatBlock.apply(nbr, wn, ar, el, bn, ba, drop)
+    return _gat_block_op(nbr, wn, ar, el, bn, ba, drop)

@@ -150,12 +150,6 @@ def segment_spmm(feats: torch.Tensor, ids: torch.Tensor,
     if not feats.is_contiguous():
         raise InvalidArgumentError("segment_spmm: feats must be contiguous")
     return _segment_spmm_op(feats, ids, degrees, agg, out_dtype, raw_extrema)
-    args = kernel_args(feats, ids, degrees, agg, out, raw_extrema)
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        launch(_lib(), args, stream)
-    LAUNCHES.add()
-    return out
 
 
 def clip(ids: torch.Tensor, degrees: torch.Tensor,

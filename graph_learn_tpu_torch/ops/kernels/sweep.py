@@ -22,6 +22,13 @@ and there are fewer than 2**18 groups.
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version beside it.  Neither kernel has a backward: a table that
 requires a gradient is refused.
+
+Both sit behind operators, ``torch.ops.glt.sweep_aggregate`` and
+``torch.ops.glt.stream_sum`` (``torch.library.custom_op``): the CUDA
+implementation is the kernel's launch, the CPU one the plain version, and
+the fake gives the output's shape and dtype, so ``torch.export`` keeps each
+as one node of an exported program (online/export.py).  The wrappers
+check their inputs, then call the operator.
 """
 
 from __future__ import annotations
@@ -32,8 +39,7 @@ from typing import Tuple
 import torch
 
 from graph_learn_tpu_torch.errors import InvalidArgumentError
-from graph_learn_tpu_torch.ops.kernels.build import (LaunchCounter, library,
-                                                 refuse_export)
+from graph_learn_tpu_torch.ops.kernels.build import LaunchCounter, library
 
 LAUNCHES_SWEEP = LaunchCounter("sweep_aggregate")
 LAUNCHES_STREAM = LaunchCounter("stream_sum")
@@ -127,39 +133,24 @@ def _check_cuda_table(name: str, table: torch.Tensor):
         raise InvalidArgumentError("%s: table must be contiguous" % name)
 
 
-def sweep_aggregate(starts: torch.Tensor, packed: torch.Tensor,
-                    table: torch.Tensor, n_groups: int,
-                    R: int = MAX_SLAB_ROWS) -> torch.Tensor:
-    """``out[g] = sum of table[slab * R + r]`` over the hits of
-    :func:`sweep_prep` -> [n_groups, D] f32.
+@torch.library.custom_op("glt::sweep_aggregate", mutates_args=(),
+                         device_types="cpu")
+def _sweep_aggregate_op(starts: torch.Tensor, packed: torch.Tensor,
+                        table: torch.Tensor, n_groups: int,
+                        R: int) -> torch.Tensor:
+    return sweep_aggregate_plain(starts, packed, table, n_groups, R)
 
-    On the card the adds of one group arrive in an order that changes from
-    run to run, so two runs may differ in the last bits."""
-    refuse_export("sweep_aggregate")
-    _check_table("sweep_aggregate", table)
-    check_slab_rows(R)
-    n_slabs = -(-table.shape[0] // R)
-    if starts.shape != (n_slabs + 1,) or packed.dim() != 1 \
-            or starts.dtype != torch.int32 or packed.dtype != torch.int32:
-        raise InvalidArgumentError(
-            "sweep_aggregate: want int32 starts [%d] and packed [N] for a "
-            "table of %d rows in slabs of %d, got %s %s and %s %s"
-            % (n_slabs + 1, table.shape[0], R, tuple(starts.shape),
-               starts.dtype, tuple(packed.shape), packed.dtype))
-    if not 0 <= n_groups < MAX_GROUPS:
-        raise InvalidArgumentError(
-            "sweep_aggregate: n_groups must be in [0, %d), got %r"
-            % (MAX_GROUPS, n_groups))
-    devices = (table.device, starts.device, packed.device)
-    if all(d.type == "cpu" for d in devices):
-        return sweep_aggregate_plain(starts, packed, table, n_groups, R)
-    if not table.is_cuda or any(d != table.device for d in devices):
-        raise InvalidArgumentError(
-            "sweep_aggregate: inputs must be on one CUDA device, got %s, %s, "
-            "%s" % devices)
-    _check_cuda_table("sweep_aggregate", table)
+
+@_sweep_aggregate_op.register_fake
+def _sweep_aggregate_fake(starts, packed, table, n_groups, R):
+    return table.new_empty((n_groups, table.shape[1]), dtype=torch.float32)
+
+
+@_sweep_aggregate_op.register_kernel("cuda")
+def _sweep_aggregate_cuda(starts, packed, table, n_groups, R):
     starts, packed = starts.contiguous(), packed.contiguous()
     n, d = packed.shape[0], table.shape[1]
+    n_slabs = starts.shape[0] - 1
     # the C entry zeroes out with a memset on the stream, then launches
     out = torch.empty((n_groups, d), dtype=torch.float32, device=table.device)
     if out.numel() == 0:
@@ -182,18 +173,19 @@ def sweep_aggregate(starts: torch.Tensor, packed: torch.Tensor,
     return out
 
 
-def stream_sum(table: torch.Tensor) -> torch.Tensor:
-    """The whole table summed over its rows -> [1, D] f32: what reading
-    the table once costs."""
-    refuse_export("stream_sum")
-    _check_table("stream_sum", table)
-    if table.device.type == "cpu":
-        return stream_sum_plain(table)
-    if not table.is_cuda:
-        raise InvalidArgumentError(
-            "stream_sum: the table must be on a CUDA device or the CPU, got "
-            "%s" % table.device)
-    _check_cuda_table("stream_sum", table)
+@torch.library.custom_op("glt::stream_sum", mutates_args=(),
+                         device_types="cpu")
+def _stream_sum_op(table: torch.Tensor) -> torch.Tensor:
+    return stream_sum_plain(table)
+
+
+@_stream_sum_op.register_fake
+def _stream_sum_fake(table):
+    return table.new_empty((1, table.shape[1]), dtype=torch.float32)
+
+
+@_stream_sum_op.register_kernel("cuda")
+def _stream_sum_cuda(table):
     n_rows, d = table.shape
     out = torch.zeros((1, d), dtype=torch.float32, device=table.device)
     if n_rows == 0 or d == 0:
@@ -210,3 +202,48 @@ def stream_sum(table: torch.Tensor) -> torch.Tensor:
                            % rc)
     LAUNCHES_STREAM.add()
     return out
+
+
+def sweep_aggregate(starts: torch.Tensor, packed: torch.Tensor,
+                    table: torch.Tensor, n_groups: int,
+                    R: int = MAX_SLAB_ROWS) -> torch.Tensor:
+    """``out[g] = sum of table[slab * R + r]`` over the hits of
+    :func:`sweep_prep` -> [n_groups, D] f32.
+
+    On the card the adds of one group arrive in an order that changes from
+    run to run, so two runs may differ in the last bits."""
+    _check_table("sweep_aggregate", table)
+    check_slab_rows(R)
+    n_slabs = -(-table.shape[0] // R)
+    if starts.shape != (n_slabs + 1,) or packed.dim() != 1 \
+            or starts.dtype != torch.int32 or packed.dtype != torch.int32:
+        raise InvalidArgumentError(
+            "sweep_aggregate: want int32 starts [%d] and packed [N] for a "
+            "table of %d rows in slabs of %d, got %s %s and %s %s"
+            % (n_slabs + 1, table.shape[0], R, tuple(starts.shape),
+               starts.dtype, tuple(packed.shape), packed.dtype))
+    if not 0 <= n_groups < MAX_GROUPS:
+        raise InvalidArgumentError(
+            "sweep_aggregate: n_groups must be in [0, %d), got %r"
+            % (MAX_GROUPS, n_groups))
+    devices = (table.device, starts.device, packed.device)
+    if any(d.type != "cpu" for d in devices):
+        if not table.is_cuda or any(d != table.device for d in devices):
+            raise InvalidArgumentError(
+                "sweep_aggregate: inputs must be on one CUDA device, got %s, "
+                "%s, %s" % devices)
+        _check_cuda_table("sweep_aggregate", table)
+    return _sweep_aggregate_op(starts, packed, table, n_groups, R)
+
+
+def stream_sum(table: torch.Tensor) -> torch.Tensor:
+    """The whole table summed over its rows -> [1, D] f32: what reading
+    the table once costs."""
+    _check_table("stream_sum", table)
+    if table.device.type != "cpu":
+        if not table.is_cuda:
+            raise InvalidArgumentError(
+                "stream_sum: the table must be on a CUDA device or the CPU, "
+                "got %s" % table.device)
+        _check_cuda_table("stream_sum", table)
+    return _stream_sum_op(table)

@@ -826,8 +826,10 @@ def test_chip_smoke_partitioned_path_rehearses_on_the_cpu(capsys,
 def test_chip_smoke_online_path_rehearses_on_the_cpu(capsys):
     """Phase 22 at a small size on the CPU: the worker from its TSV files,
     HTTP clients through clients/py, the stream with the live-snapshot
-    and CSR checks, the export through /admin/model (the StableHLO
-    fixture refused), the router; on the CPU no kernel launches."""
+    and CSR checks, the exports through /admin/model (EgoGraphSAGE,
+    EgoGAT and EgoGraphSAGE on the sorted route, each program holding its
+    glt operators; the StableHLO fixture refused), the router; on the CPU
+    no kernel launches."""
     from graph_learn_tpu_torch.ops.kernels import gather, spmm
     smoke = _chip_smoke_module()
     old = glt.conf.feature_dtype
@@ -841,11 +843,17 @@ def test_chip_smoke_online_path_rehearses_on_the_cpu(capsys):
     finally:
         glt.conf.feature_dtype = old
     zero = {"gather_rows": 0, "segment_spmm": 0}
+    none = dict(zero, gat_block=0, gat_block_bwd=0, sweep_aggregate=0)
     assert counts == {"http_serving": zero, "predict": zero,
-                      "router": zero, "one_predict": zero}
+                      "router": zero, "one_predict": zero,
+                      "gat_one_predict": none, "sorted_one_predict": none}
     out = capsys.readouterr().out
     for line in ("online store", "online HTTP serving", "online stream",
                  "bit-equal to an in-memory build", "online export",
+                 "EgoGAT [8, 256, 32] heads [8, 1]",
+                 "'gather_rows': 3, 'gat_block': 3",
+                 "'gather_rows': 2, 'sweep_aggregate': 1",
+                 "a JAX StableHLO artifact is refused",
                  "online router", "glt_online launches"):
         assert line in out, line
 

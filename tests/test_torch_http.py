@@ -32,6 +32,7 @@ from graph_learn_tpu_torch.online.serve_main import (_decoder,
 from graph_learn_tpu_torch.online.stream import FileTopic, StreamProducer
 from graph_learn_tpu_torch.online.update import (UpdateBuffer, UpdateLog,
                                                  apply_updates)
+from torch_parity import both_confs
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -239,70 +240,145 @@ def test_serving_payloads_equal_the_jax_workers(tmp_graph_dir):
         tsrv.stop()
 
 
-def test_predict_equals_the_jax_workers(tmp_graph_dir, tmp_path):
-    """The whole slice: a flax EgoGraphSAGE's params, carried by
-    load_flax_params, exported on a deterministic topk query in both
-    packages; the port worker's /predict equals the JAX worker's."""
+def _exported_pair(tmp_graph_dir, tmp_path, make_jax, make_port,
+                   defer=False):
+    """The same model in both packages, exported on the deterministic topk
+    query: the JAX artifact's bytes, the path of the port's program, both
+    graphs.  ``make_jax(decoder)`` gives the flax model; ``make_port(
+    decoder)`` the port's, whose params are carried over from the flax
+    init by load_flax_params.  The port's serving function hands the
+    deepest hop to the model as deferred rows over the feature table; with
+    ``defer`` the JAX one does too, so its deepest mean is
+    ``gather_group_agg``'s (on the sorted route under
+    ``conf.sorted_gather``)."""
     from graph_learn_tpu.gsl.compile import _execute as jax_execute
     from graph_learn_tpu.nn import data as jdata
-    from graph_learn_tpu.nn.models.ego_gnn import \
-        EgoGraphSAGE as JaxEgoGraphSAGE
     from graph_learn_tpu.online.export import export_serving_fn as jexport
-    from graph_learn_tpu.online.http import ServingServer as JaxServer
     from graph_learn_tpu_torch.nn import data as tdata
     from graph_learn_tpu_torch.nn.convert import load_flax_params
-    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
 
     jg, tg = _jax_graph(tmp_graph_dir), _mk_graph(tmp_graph_dir)
     jq, tq = _two_hop_topk(jg), _two_hop_topk(tg)
     jtables, ttables = jq.device_tables(), tq.device_tables("cpu")
-    jmodel = JaxEgoGraphSAGE([4, 16, 3], jg.get_node_decoder("item"),
-                             agg_type="gcn")
+    jtable = jtables["nodes"]["item"].float_attrs if defer else None
+    ttable = ttables["nodes"]["item"].float_attrs
+    jmodel = make_jax(jg.get_node_decoder("item"))
 
-    def jserve(seeds, key):
-        ego = jdata.EgoGraph.from_query_result(
-            jax_execute(jq, jtables, seeds, key), "src", ["hop1", "hop2"])
-        return jmodel.apply(params, ego)
+    def jego(seeds, key):
+        return jdata.EgoGraph.from_query_result(
+            jax_execute(jq, jtables, seeds, key), "src", ["hop1", "hop2"],
+            defer_last_table=jtable)
 
     seeds = jnp.arange(4, dtype=jnp.int32)
-    params = jmodel.init(jax.random.key(0), jdata.EgoGraph.from_query_result(
-        jax_execute(jq, jtables, seeds, jax.random.key(0)), "src",
-        ["hop1", "hop2"]))
-    tmodel = load_flax_params(
-        EgoGraphSAGE([4, 16, 3], tg.get_node_decoder("item"), agg_type="gcn",
-                     device="cpu"),
-        jax.tree_util.tree_map(np.asarray, params)).eval()
-    table = ttables["nodes"]["item"].float_attrs
+    params = jmodel.init(jax.random.key(0), jego(seeds, jax.random.key(0)))
+    tmodel = load_flax_params(make_port(tg.get_node_decoder("item")),
+                              jax.tree_util.tree_map(np.asarray,
+                                                     params)).eval()
 
     def tserve(s, generator):
-        ego = tdata.EgoGraph.from_query_result(
+        return tmodel(tdata.EgoGraph.from_query_result(
             _execute(tq, ttables, s, generator), "src", ["hop1", "hop2"],
-            defer_last_table=table)
-        return tmodel(ego)
+            defer_last_table=ttable))
 
-    jblob = jexport(jserve, (seeds, jax.random.key(0)))
-    tpath = str(tmp_path / "sage.pt2")
+    jblob = jexport(lambda s, k: jmodel.apply(params, jego(s, k)),
+                    (seeds, jax.random.key(0)))
+    tpath = str(tmp_path / "model.pt2")
     export_serving_fn(tserve, (np.arange(4), 0), path=tpath, device="cpu")
+    return bytes(jblob), tpath, jg, tg
+
+
+def _predict_both(jblob, tpath, jg, tg, **tol):
+    """Install both programs on a JAX worker and a port worker; the port's
+    /predict equals the JAX one's within ``tol`` and is the same for one
+    seed.  Returns the port's client and server (stopped by the caller)
+    and the JAX blob's refusal message."""
+    from graph_learn_tpu.online.http import ServingServer as JaxServer
     jsrv = JaxServer(jg).start()
     tsrv = ServingServer(tg, device="cpu").start()
     try:
         jc, tc = ServingClient(_url(jsrv)), ServingClient(_url(tsrv))
-        assert jc.install_model("sage", bytes(jblob)) == \
-            tc.install_model("sage", tpath) == {"name": "sage", "batch": 4}
+        assert jc.install_model("m", jblob) == \
+            tc.install_model("m", tpath) == {"name": "m", "batch": 4}
         for ids in ([0, 10, 20, 39], [7], [0, 30, 0]):  # dense indices
-            want = np.asarray(jc.predict("sage", ids))
-            got = np.asarray(tc.predict("sage", ids, seed=7))
+            want = np.asarray(jc.predict("m", ids))
+            got = np.asarray(tc.predict("m", ids, seed=7))
             assert got.shape == want.shape == (len(ids), 3)
-            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-            assert tc.predict("sage", ids, seed=7) == \
-                tc.predict("sage", ids, seed=7)
+            np.testing.assert_allclose(got, want, **tol)
+            assert tc.predict("m", ids, seed=7) == \
+                tc.predict("m", ids, seed=7)
         # the JAX artifact is refused by the port worker
         with pytest.raises(urllib.error.HTTPError) as err:
-            tc.install_model("jax", bytes(jblob))
-        assert "torch.export" in err.value.read().decode()
+            tc.install_model("jax", jblob)
+        return err.value.read().decode()
     finally:
         jsrv.stop()
         tsrv.stop()
+
+
+def _program_ops(tpath):
+    from graph_learn_tpu_torch.online.export import load_serving_exported
+    return [str(n.target) for n in load_serving_exported(tpath).program
+            .graph.nodes if n.op == "call_function"]
+
+
+def test_predict_equals_the_jax_workers(tmp_graph_dir, tmp_path):
+    """The whole slice: a flax EgoGraphSAGE's params, carried by
+    load_flax_params, exported on a deterministic topk query in both
+    packages; the port worker's /predict equals the JAX worker's."""
+    from graph_learn_tpu.nn.models.ego_gnn import \
+        EgoGraphSAGE as JaxEgoGraphSAGE
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+
+    pair = _exported_pair(
+        tmp_graph_dir, tmp_path,
+        lambda dec: JaxEgoGraphSAGE([4, 16, 3], dec, agg_type="gcn"),
+        lambda dec: EgoGraphSAGE([4, 16, 3], dec, agg_type="gcn",
+                                 device="cpu"))
+    assert "torch.export" in _predict_both(*pair, rtol=1e-5, atol=1e-6)
+
+
+def test_predict_of_an_ego_gat_equals_the_jax_workers(tmp_graph_dir,
+                                                      tmp_path):
+    """An EgoGAT (heads 2, 1) exported in both packages: the port's
+    program holds its three neighbour blocks as glt::gat_block operators
+    beside the three feature gathers, and its /predict equals the JAX
+    worker's within 1e-5."""
+    from graph_learn_tpu.nn.models.ego_gnn import EgoGAT as JaxEgoGAT
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGAT
+
+    pair = _exported_pair(
+        tmp_graph_dir, tmp_path,
+        lambda dec: JaxEgoGAT([4, 8, 3], dec, num_heads=[2, 1]),
+        lambda dec: EgoGAT([4, 8, 3], dec, num_heads=[2, 1], device="cpu"))
+    ops = _program_ops(pair[1])
+    assert ops.count("glt.gat_block.default") == 3
+    assert ops.count("glt.gather_rows.default") == 3
+    assert "glt.segment_spmm.default" not in ops
+    _predict_both(*pair, rtol=1e-5, atol=1e-5)
+
+
+def test_predict_on_the_sorted_route_equals_the_jax_workers(tmp_graph_dir,
+                                                            tmp_path):
+    """EgoGraphSAGE with conf.sorted_gather on in both packages (the JAX
+    route: graph_learn_tpu/ops/aggregate.py:56-67): the port's program
+    reduces the deepest hop with glt::sweep_aggregate, not
+    glt::segment_spmm, and its /predict equals the JAX worker's."""
+    from graph_learn_tpu.nn.models.ego_gnn import \
+        EgoGraphSAGE as JaxEgoGraphSAGE
+    from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+
+    with both_confs(sorted_gather=True, sorted_gather_min_bytes=0):
+        pair = _exported_pair(
+            tmp_graph_dir, tmp_path,
+            lambda dec: JaxEgoGraphSAGE([4, 16, 3], dec, agg_type="gcn"),
+            lambda dec: EgoGraphSAGE([4, 16, 3], dec, agg_type="gcn",
+                                     device="cpu"),
+            defer=True)
+    ops = _program_ops(pair[1])
+    assert ops.count("glt.sweep_aggregate.default") == 1
+    assert ops.count("glt.gather_rows.default") == 2
+    assert "glt.segment_spmm.default" not in ops
+    _predict_both(*pair, rtol=1e-5, atol=1e-6)
 
 
 # --- the router (tests/test_router.py) ------------------------------------

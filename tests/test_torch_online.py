@@ -493,24 +493,42 @@ def test_a_stablehlo_artifact_is_refused(tmp_graph_dir, g):
         svc.close()
 
 
-def test_export_refuses_kernels_that_are_not_operators(g):
-    """A serving function that reaches Kernels 3-5 is refused while it is
-    traced, naming the kernel."""
+@pytest.mark.parametrize("kernel", ["gat_block", "sweep_aggregate",
+                                    "stream_sum"])
+def test_export_keeps_kernels_3_to_5_as_operators(kernel):
+    """A serving function that reaches Kernels 3-5 exports: the program
+    holds the kernel as its glt operator and gives the eager answer."""
     from graph_learn_tpu_torch.ops.kernels import gat, sweep
-    x = torch.zeros((4, 3, 2))
+    rng = np.random.default_rng(5)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    x, wn, ar, el, table = t(4, 3, 2), t(2, 2, 5), t(2, 5), t(2, 4), t(40, 3)
 
     def gat_fn(seeds, generator):
-        return gat.gat_block(x, torch.zeros((1, 2, 2)), torch.zeros((1, 2)),
-                             torch.zeros((1, 4)))
+        return gat.gat_block(x[seeds.long()], wn, ar, el)
+
+    def sweep_fn(seeds, generator):
+        starts, packed = sweep.sweep_prep(seeds.repeat(3), 3, 40, R=16)
+        return sweep.sweep_aggregate(starts, packed, table, 4, 16)
 
     def sum_fn(seeds, generator):
-        return sweep.stream_sum(torch.ones((4, 2)))
+        return sweep.stream_sum(table[seeds.long()])
 
-    for fn, name in ((gat_fn, "gat_block"), (sum_fn, "stream_sum")):
-        with pytest.raises(glt.UnimplementedError, match=name):
-            export_serving_fn(fn, (np.arange(4), 0), device="cpu")
-    # outside a trace the same calls run their plain versions
-    assert gat_fn(None, None).shape == (1, 4, 2)
+    fn = {"gat_block": gat_fn, "sweep_aggregate": sweep_fn,
+          "stream_sum": sum_fn}[kernel]
+    seeds = np.array([3, 0, 2, 1])
+    exp = load_serving_exported(
+        export_serving_fn(fn, (seeds, 0), device="cpu"))
+    ops = [str(n.target) for n in exp.program.graph.nodes
+           if n.op == "call_function"]
+    assert ops.count("glt.%s.default" % kernel) == 1
+    want = fn(torch.as_tensor(seeds, dtype=torch.int32), None)
+    got = exp.call(seeds, 0)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 def test_the_exported_program_holds_the_kernel_operators(g):
