@@ -1,0 +1,107 @@
+"""EgoGraphSAGE as the port trains it at scale: ``bench.MultiStep``'s step
+(the deepest hop reduced outside the gradient by Kernel 2, the seeds' and
+hop 1's rows gathered by Kernel 1 in the forward, SAGE convs, softmax
+cross-entropy, fused Adam), with the step kept for the comparison.
+
+The model is the port's ``EgoGraphSAGE`` composed with the convs' own
+bias switch (``cfg["bias"]``), which ``EgoGraphSAGE`` does not pass on:
+with agg "mean" and a bias each conv is PyG's ``SAGEConv``, ``lin_l`` of
+the neighbours' mean (with its bias) plus ``lin_r`` of the node itself,
+as one Linear of their concatenation."""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, List
+
+import torch
+
+from graph_learn_tpu_torch import bench
+from graph_learn_tpu_torch.nn.data import EgoGraph, PreAggregatedRows
+from graph_learn_tpu_torch.nn.feature_column import FeatureEncoder
+from graph_learn_tpu_torch.nn.layers.ego import EgoLayer, EgoSAGEConv
+from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGNN
+from graph_learn_tpu_torch.ops.aggregate import gather_group_agg
+
+from gnnbench import flops
+from gnnbench.steps import RecordedSteps
+
+HOPS = ("hop1", "hop2")
+
+
+def build(cfg: dict, decoder, device) -> torch.nn.Module:
+    """EgoGraphSAGE ``cfg["dims"]`` with ``cfg["agg"]`` and ``cfg["bias"]``,
+    composed as the port's ``EgoGraphSAGE`` composes it (one shared conv a
+    layer, relu between, no dropout); its weights are set by the
+    harness."""
+    dims = cfg["dims"]
+    n = len(dims) - 1
+    convs = [EgoSAGEConv(dims[i], dims[i + 1], agg_type=cfg["agg"],
+                         use_bias=cfg["bias"]) for i in range(n)]
+    layers = [EgoLayer([convs[i]] * (n - i)) for i in range(n)]
+    return EgoGNN(layers, FeatureEncoder(decoder)).to(device)
+
+
+def ref_name(port_name: str) -> str:
+    """``layers.<l>.convs.0.trans_nodes.<leaf>`` -> ``layer<l>.<leaf>``."""
+    m = re.fullmatch(r"layers\.(\d+)\.convs\.0\.trans_nodes\.(weight|bias)",
+                     port_name)
+    if m is None:
+        raise ValueError("unexpected EgoGraphSAGE leaf %r" % port_name)
+    return "layer%s.%s" % m.groups()
+
+
+class Steps(RecordedSteps):
+    """``bench.MultiStep._group`` with its spans and ``keep`` calls."""
+
+    def _group(self, first: int):
+        table = self.tables["nodes"]["item"].float_attrs
+        with self.span("plan"), torch.no_grad():
+            batches = [bench.sample_one(self.q, self.tables, self.n_nodes,
+                                        self.generator)
+                       for _ in range(self.G)]
+        with self.span("aggregate"), torch.no_grad():
+            ids2 = [b["hop2"].ids for _, b in batches]
+            ids2 = ids2[0][None] if self.G == 1 else torch.stack(ids2)
+            agg2 = gather_group_agg(table, ids2, "mean").reshape(
+                self.G, -1, table.shape[-1])
+        for j, (seeds, batch) in enumerate(batches):
+            self.seeds.append(seeds)
+            with self.span("model"):
+                hop2 = batch["hop2"].replace(
+                    float_attrs=PreAggregatedRows(agg2[j], "mean"))
+                ego = EgoGraph.from_query_result({**batch, "hop2": hop2},
+                                                 "src", HOPS)
+                logits = self.model(ego, training=True)
+                loss = supervised_softmax_loss(logits, batch["src"].labels)
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                self.optimizer.step()
+                self.losses[first + j].copy_(loss.detach())
+            self.keep(first + j, seeds, batch, logits, agg2[j])
+
+
+def step_work(cfg: dict, traffic: dict) -> flops.Work:
+    d, h, c = cfg["dims"]
+    k1, k2 = traffic["fanout"]
+    if cfg["agg"] != "mean":
+        raise ValueError("the step's count is of agg 'mean'")
+    return flops.sage_step(traffic["batch"], k1, k2, d, h, c, cfg["bias"])
+
+
+def kernel_work(cfg: dict, traffic: dict, rec: Dict[str, torch.Tensor],
+                itemsize: int) -> Dict[str, List[flops.Work]]:
+    """The work of each kernel launch of one step, by operator: Kernel 1
+    on the seeds' and hop 1's rows, Kernel 2's means of hop 2."""
+    d = cfg["dims"][0]
+    k2 = traffic["fanout"][1]
+
+    def distinct(t):
+        return int(torch.unique(t).numel())
+
+    gathers = [flops.gather_rows(distinct(rec[a]), rec[a].numel(), d,
+                                 itemsize) for a in ("seeds", "hop1")]
+    groups = rec["hop2"].numel() // k2
+    mean = flops.group_mean(distinct(rec["hop2"]), groups, k2, d, itemsize)
+    return {"glt::gather_rows": gathers, "glt::segment_spmm": [mean]}
