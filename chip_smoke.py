@@ -633,26 +633,18 @@ def captured_work(torch, fn):
     "Memcpy".  Exact where torch.profiler's records come and go (a window
     of a few short kernels has lost some or all of them).  The call must
     be capturable: the current stream only, no host read."""
-    import ctypes
+    from graph_learn_tpu_torch.utils import profiling
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g, capture_error_mode="thread_local"):
         fn()
-    lib = ctypes.CDLL("libcuda.so.1")
-    graph = ctypes.c_void_p(g.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    _cu(lib.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * n.value)()
-    _cu(lib.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    work = {}
-    for node in nodes:
-        node = ctypes.c_void_p(node)
-        kind = ctypes.c_int(-1)
-        _cu(lib.cuGraphNodeGetType(node, ctypes.byref(kind)),
-            "cuGraphNodeGetType")
-        name = {0: None, 1: "Memcpy", 2: "Memset (Device)"}.get(
-            kind.value, "graph node of type %d" % kind.value)
-        name = name or _kernel_node_name(lib, node)
-        work[name] = work.get(name, 0) + 1
+
+    def name(lib, node, kind):
+        if kind == 0:
+            return _kernel_node_name(lib, node)
+        return {1: "Memcpy", 2: "Memset (Device)"}.get(
+            kind, "graph node of type %d" % kind)
+
+    work = profiling.graph_nodes(g, name)
     g.reset()
     return work
 

@@ -2,13 +2,13 @@
 
 Counterpart of the repository's ``bench.py``: ``CFG`` and ``CFG_SCALE``
 (``bench.py:42-80``, copied with the ``GLT_BENCH_SMALL`` sizes),
-``make_multi_step`` (``:119-203``), ``run_bench`` (``:236-296``),
-``cpu_baseline`` (``:299-328``) and ``main`` (``:331-385``), with its JSON
-lines: the headline record ``{"metric": "ego_sage_train_edges_per_s",
-"value", "unit", "vs_baseline"}`` prints as soon as ``CFG`` is measured,
-then the same record again with ``ego_sage_scale62m_edges_per_s`` added
-after ``CFG_SCALE`` (2.45M nodes, 61.25M weighted edges, the "minimal"
-store profile) has run.
+``make_multi_step`` (``:119-203``), ``run_bench`` (``:236-296``) and
+``main`` (``:331-385``), with its JSON lines: the headline record
+``{"metric": "ego_sage_train_edges_per_s", "value", "unit",
+"vs_baseline"}`` prints as soon as ``CFG`` is measured, then the same
+record again with ``ego_sage_scale62m_edges_per_s`` added after
+``CFG_SCALE`` (2.45M nodes, 61.25M weighted edges, the "minimal" store
+profile) has run.
 
 One call of the multi-step function runs K = ``cfg["scan_steps"]`` steps
 in ``K // G`` groups: G seed batches drawn with ``torch.randint`` on the
@@ -23,14 +23,15 @@ here, on the card, the first call runs them eagerly on a side stream
 captures them once into one ``torch.cuda.CUDAGraph``, which every later
 call replays.  The generator is registered with the graph, so each replay
 draws new seeds and neighbours.  On the CPU the same steps run eagerly.
+While tracing is on (``utils/profiling.py``) a call is a ``step.capture``,
+``step.replay`` or ``step.eager`` span, a step's backward and Adam update
+are ``model.backward`` and ``model.optimizer`` spans, and the capture
+counts the graph's nodes by kind (``step.graph_nodes``, ...).
 
-``vs_baseline`` divides by the port's own CPU run of the same pipeline
-(steps 5, warm-up 1, in a subprocess, cached in
-``.bench_torch_cpu_baseline.json`` at the repository root).  Left out:
-``scale62m_vs_r02_record`` and, under ``GLT_BENCH_SCALE=1``, the JAX
-bench's ``vs_baseline``: both divide by a TPU record (``bench.py:81``
-``SCALE_BASELINE_EPS``), and the port states no TPU number, so that
-``vs_baseline`` is null.
+``vs_baseline`` is null on every line: the JAX bench divides by its own
+CPU run or by a TPU record (``bench.py:81`` ``SCALE_BASELINE_EPS``), and
+the port measures neither (its CPU run of the same pipeline measured the
+host, not the card).  Left out: ``scale62m_vs_r02_record``.
 
 Usage:  python -m graph_learn_tpu_torch.bench
 
@@ -51,10 +52,8 @@ import contextlib
 import gc
 import json
 import os
-import subprocess
 import sys
 import time
-from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -70,6 +69,7 @@ from graph_learn_tpu_torch.gsl.dataset import Dataset
 from graph_learn_tpu_torch.nn.data import EgoGraph, PreAggregatedRows
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
 from graph_learn_tpu_torch.ops.aggregate import gather_group_agg
+from graph_learn_tpu_torch.utils import profiling
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 CFG = dict(
@@ -104,8 +104,6 @@ CFG_SCALE = dict(
 )
 HOPS = ("hop1", "hop2")
 LEARNING_RATE = 1e-3
-CPU_BASELINE_CACHE = (Path(__file__).resolve().parents[1]
-                      / ".bench_torch_cpu_baseline.json")
 
 
 def _log(msg: str):
@@ -143,9 +141,10 @@ def sample_one(q: Query, tables, n_nodes: int,
                generator: torch.Generator) -> Tuple[torch.Tensor, dict]:
     """One batch: ``q``'s batch size of seeds drawn uniformly from
     [0, n_nodes) on the generator's device, then the plan on them."""
-    seeds = torch.randint(0, n_nodes, (q.dag.batch_size,),
-                          generator=generator, device=generator.device,
-                          dtype=torch.int32)
+    with profiling.span("plan.seeds"):
+        seeds = torch.randint(0, n_nodes, (q.dag.batch_size,),
+                              generator=generator, device=generator.device,
+                              dtype=torch.int32)
     return seeds, _execute(q, tables, seeds, generator)
 
 
@@ -178,6 +177,7 @@ class MultiStep:
     of the last eager run; under a graph ``graph_seeds`` are the graph's
     own seed buffers, which each replay overwrites.  ``capture_s`` and
     ``pool_bytes`` are the seconds and the device memory the capture took.
+    ``calls`` counts the calls (the tracer's call number).
     """
 
     def __init__(self, q: Query, tables, model: torch.nn.Module,
@@ -199,6 +199,7 @@ class MultiStep:
         self.graph_seeds: List[torch.Tensor] = []
         self.capture_s: Optional[float] = None
         self.pool_bytes: Optional[int] = None
+        self.calls = 0
 
     def _group(self, first: int):
         table = self.tables["nodes"]["item"].float_attrs
@@ -217,8 +218,10 @@ class MultiStep:
                 float_attrs=PreAggregatedRows(agg2[j], "mean"))
             loss = loss_of(self.model, {**batch, "hop2": hop2})
             self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self.optimizer.step()
+            with profiling.span("model.backward"):
+                loss.backward()
+            with profiling.span("model.optimizer"):
+                self.optimizer.step()
             self.losses[first + j].copy_(loss.detach())
 
     def _body(self):
@@ -243,11 +246,20 @@ class MultiStep:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        # while tracing, the graph is kept to count its nodes, then
+        # instantiated where capture_end would have
+        counted = profiling.enabled()
+        graph = torch.cuda.CUDAGraph(keep_graph=counted)
         graph.register_generator_state(self.generator)
         eager_seeds = self.seeds
         with torch.cuda.graph(graph):
             self._body()
+        if counted:
+            nodes = profiling.graph_nodes(graph)
+            profiling.count("step.graph_nodes", sum(nodes.values()))
+            for kind in ("kernel", "memcpy", "memset"):
+                profiling.count("step.graph_%ss" % kind, nodes.get(kind, 0))
+            graph.instantiate()
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -255,12 +267,16 @@ class MultiStep:
         self.graph = graph
 
     def __call__(self) -> torch.Tensor:
+        self.calls += 1
         if self.graph is not None:
-            self.graph.replay()
+            with profiling.span("step.replay", call=self.calls):
+                self.graph.replay()
         elif self.capture:
-            self._capture()
+            with profiling.span("step.capture", call=self.calls):
+                self._capture()
         else:
-            self._body()
+            with profiling.span("step.eager", call=self.calls):
+                self._body()
         return self.losses[-1]
 
 
@@ -368,37 +384,9 @@ def run_bench(cfg: dict, device: DeviceLike = "cuda",
     return out
 
 
-def cpu_baseline(cfg: dict) -> float:
-    """edges/s of the same pipeline on the CPU, in a subprocess (steps 5,
-    warm-up 1, as ``bench.py:311-312``); cached on disk by config."""
-    key = json.dumps(cfg, sort_keys=True)
-    try:
-        data = json.loads(CPU_BASELINE_CACHE.read_text())
-        if data.get("key") == key:
-            return data["value"]
-    except (OSError, ValueError):
-        pass
-    code = ("import json, sys; sys.path.insert(0, %r); "
-            "from graph_learn_tpu_torch import bench; "
-            "cfg = json.loads(%r); cfg['steps'] = 5; cfg['warmup'] = 1; "
-            "print('CPU_EPS', bench.run_bench(cfg, device='cpu')"
-            "['edges_per_s'])" % (str(CPU_BASELINE_CACHE.parent), key))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=1200)
-    for ln in out.stdout.splitlines():
-        if ln.startswith("CPU_EPS"):
-            value = float(ln.split()[1])
-            CPU_BASELINE_CACHE.write_text(json.dumps({"key": key,
-                                                      "value": value}))
-            return value
-    raise RuntimeError("the CPU baseline run failed (exit %d):\n%s"
-                       % (out.returncode, out.stderr[-4000:]))
-
-
-def _record(eps: float, base: Optional[float]) -> dict:
+def _record(eps: float) -> dict:
     return {"metric": "ego_sage_train_edges_per_s", "value": round(eps, 1),
-            "unit": "edges/s/chip",
-            "vs_baseline": round(eps / base, 2) if base else None}
+            "unit": "edges/s/chip", "vs_baseline": None}
 
 
 def main() -> int:
@@ -416,7 +404,7 @@ def main() -> int:
     cfg = CFG_SMALL if small else CFG
     with bench_conf(feature_dtype=dtype):
         eps = run_bench(cfg, device)["edges_per_s"]
-    rec = _record(eps, cpu_baseline(cfg))
+    rec = _record(eps)
     # the headline line first: a reader cut off during the scale phase
     # already has a complete record
     print(json.dumps(rec), flush=True)

@@ -35,6 +35,7 @@ views hold them as int32 too without x64).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -47,6 +48,7 @@ from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.core.values import TensorStruct
 from graph_learn_tpu_torch.errors import InvalidArgumentError, NotFoundError
+from graph_learn_tpu_torch.utils import profiling
 from graph_learn_tpu_torch.utils.platform import (DeviceLike, resolve_device,
                                                   torch_dtype)
 
@@ -154,7 +156,18 @@ def _put(x, dev: torch.device, dtype: Optional[torch.dtype] = None):
     out = t.to(dev)
     if not a.flags.writeable and out.data_ptr() == a.ctypes.data:
         out = out.clone()
+    profiling.count("store.upload_bytes", out.nbytes)
     return out
+
+
+@contextlib.contextmanager
+def _upload(dev: torch.device):
+    """The ``store.upload`` span around a table's :func:`_put` calls,
+    closed (while tracing) only after the copies have landed."""
+    with profiling.span("store.upload"):
+        yield
+        if profiling.enabled() and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -199,30 +212,33 @@ class NodeTable:
                  int_attrs=None, float_attrs=None, multival_attrs=None,
                  multival_lens=None, weights=None, labels=None,
                  timestamps=None):
-        self.type_name = type_name
-        self.decoder = decoder
-        self.raw_ids = raw_ids.astype(np.int64)
-        self.index = IdIndex(self.raw_ids)
-        n = len(self.raw_ids)
+        with profiling.span("store.ingest_nodes"):
+            self.type_name = type_name
+            self.decoder = decoder
+            self.raw_ids = raw_ids.astype(np.int64)
+            self.index = IdIndex(self.raw_ids)
+            n = len(self.raw_ids)
 
-        def chk(a, name, dtype):
-            if a is None:
-                return None
-            a = np.asarray(a, dtype=dtype)
-            if a.shape[0] != n:
-                raise InvalidArgumentError(
-                    "%s rows %d != ids %d for %s" % (name, a.shape[0], n,
-                                                     type_name))
-            return a
+            def chk(a, name, dtype):
+                if a is None:
+                    return None
+                a = np.asarray(a, dtype=dtype)
+                if a.shape[0] != n:
+                    raise InvalidArgumentError(
+                        "%s rows %d != ids %d for %s" % (name, a.shape[0], n,
+                                                         type_name))
+                return a
 
-        self.int_attrs = chk(int_attrs, "int_attrs", np.int32)
-        self.float_attrs = chk(float_attrs, "float_attrs", np.float32)
-        self.multival_attrs = chk(multival_attrs, "multival_attrs", np.int32)
-        self.multival_lens = chk(multival_lens, "multival_lens", np.int32)
-        self.weights = chk(weights, "weights", np.float32)
-        self.labels = chk(labels, "labels", np.int32)
-        self.timestamps = chk(timestamps, "timestamps", np.int64)
-        self._device: Dict[torch.device, DeviceNodeTable] = {}
+            self.int_attrs = chk(int_attrs, "int_attrs", np.int32)
+            self.float_attrs = chk(float_attrs, "float_attrs", np.float32)
+            self.multival_attrs = chk(multival_attrs, "multival_attrs",
+                                      np.int32)
+            self.multival_lens = chk(multival_lens, "multival_lens",
+                                     np.int32)
+            self.weights = chk(weights, "weights", np.float32)
+            self.labels = chk(labels, "labels", np.int32)
+            self.timestamps = chk(timestamps, "timestamps", np.int64)
+            self._device: Dict[torch.device, DeviceNodeTable] = {}
 
     @property
     def num_nodes(self) -> int:
@@ -241,17 +257,18 @@ class NodeTable:
                 cum = np.cumsum(w / total).astype(np.float32)
             # the cast to bf16 happens on the host so the f32 table never
             # occupies the card
-            self._device[dev] = DeviceNodeTable(
-                raw_ids=_put(self.raw_ids, dev),
-                int_attrs=_put(self.int_attrs, dev),
-                float_attrs=_put(self.float_attrs, dev,
-                                 torch_dtype(conf.feature_dtype)),
-                multival_attrs=_put(self.multival_attrs, dev),
-                multival_lens=_put(self.multival_lens, dev),
-                weights=_put(self.weights, dev),
-                labels=_put(self.labels, dev),
-                timestamps=_put(self.timestamps, dev),
-                cum_weights=_put(cum, dev))
+            with _upload(dev):
+                self._device[dev] = DeviceNodeTable(
+                    raw_ids=_put(self.raw_ids, dev),
+                    int_attrs=_put(self.int_attrs, dev),
+                    float_attrs=_put(self.float_attrs, dev,
+                                     torch_dtype(conf.feature_dtype)),
+                    multival_attrs=_put(self.multival_attrs, dev),
+                    multival_lens=_put(self.multival_lens, dev),
+                    weights=_put(self.weights, dev),
+                    labels=_put(self.labels, dev),
+                    timestamps=_put(self.timestamps, dev),
+                    cum_weights=_put(cum, dev))
         return self._device[dev]
 
     def drop_device(self, device: DeviceLike = "cuda"):
@@ -319,11 +336,12 @@ def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
     over the row in CSR order: ts-ascending on a timestamped edge type."""
     e = rows.size
     eid = np.arange(e, dtype=np.int64)
-    if sort_key is not None:
-        key = -sort_key if sort_desc else sort_key
-        order = _stable_order(rows, key)
-    else:
-        order = np.argsort(rows, kind="stable")
+    with profiling.span("store.csr.sort"):
+        if sort_key is not None:
+            key = -sort_key if sort_desc else sort_key
+            order = _stable_order(rows, key)
+        else:
+            order = np.argsort(rows, kind="stable")
     r = rows[order]
     nbr = cols[order].astype(np.int32)
     eids = eid[order].astype(np.int32)
@@ -335,14 +353,16 @@ def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
         nbr_ts = timestamps[order].astype(np.int32)
     if not full:
         return row_offsets, nbr, eids, None, None, None, None, nbr_ts
-    order2 = _stable_order(rows, cols)
+    with profiling.span("store.csr.sort_ids"):
+        order2 = _stable_order(rows, cols)
     nbr_s = cols[order2].astype(np.int32)
     eid_s = eid[order2].astype(np.int32)
     cumw = cumind = None
-    if weights is not None and e:
-        cumw = _segment_cdf(weights[order], row_offsets, counts)
-    if nbr_in_degrees is not None and e:
-        cumind = _segment_cdf(nbr_in_degrees[nbr], row_offsets, counts)
+    with profiling.span("store.csr.cdf"):
+        if weights is not None and e:
+            cumw = _segment_cdf(weights[order], row_offsets, counts)
+        if nbr_in_degrees is not None and e:
+            cumind = _segment_cdf(nbr_in_degrees[nbr], row_offsets, counts)
     return row_offsets, nbr, eids, nbr_s, eid_s, cumw, cumind, nbr_ts
 
 
@@ -355,48 +375,52 @@ class EdgeTable:
                  int_attrs=None, float_attrs=None, multival_attrs=None,
                  multival_lens=None, weights=None, labels=None,
                  timestamps=None):
-        self.type_name = type_name
-        self.src_type = src_type
-        self.dst_type = dst_type
-        self.decoder = decoder
-        self.src = src.astype(np.int64)
-        self.dst = dst.astype(np.int64)
-        self.num_src_nodes = num_src_nodes
-        self.num_dst_nodes = num_dst_nodes
-        self.weights = None if weights is None else np.asarray(weights,
-                                                               np.float32)
-        self.labels = None if labels is None else np.asarray(labels, np.int32)
-        self.int_attrs = (None if int_attrs is None
-                          else np.asarray(int_attrs, np.int32))
-        self.float_attrs = (None if float_attrs is None
-                            else np.asarray(float_attrs, np.float32))
-        self.multival_attrs = (None if multival_attrs is None
-                               else np.asarray(multival_attrs, np.int32))
-        self.multival_lens = (None if multival_lens is None
-                              else np.asarray(multival_lens, np.int32))
-        self.timestamps = (None if timestamps is None
-                           else np.asarray(timestamps, np.int64))
-        # rebased to this table's own minimum: abs = ts * ts_scale +
-        # ts_base (unify_ts_bases moves every table of a store to one base)
-        self.ts_base = 0
-        self.ts_scale = 1
-        if self.timestamps is not None and self.timestamps.size:
-            self.ts_base = int(self.timestamps.min())
-            self.timestamps = self.timestamps - self.ts_base
-        self._device: Dict[torch.device, DeviceEdgeTable] = {}
-        self.host_build_s = 0.0  # host seconds of the last device view
-        # adjacency sort key: ts asc > weight desc > insertion order
-        if self.timestamps is not None:
-            self._sort_key, self._sort_desc = (
-                self.timestamps.astype(np.float64), False)
-        elif self.weights is not None:
-            self._sort_key, self._sort_desc = self.weights.astype(np.float64), True
-        else:
-            self._sort_key, self._sort_desc = None, False
-        self.out_degrees = np.bincount(
-            self.src, minlength=num_src_nodes).astype(np.int32)
-        self.in_degrees = np.bincount(
-            self.dst, minlength=num_dst_nodes).astype(np.int32)
+        with profiling.span("store.ingest_edges"):
+            self.type_name = type_name
+            self.src_type = src_type
+            self.dst_type = dst_type
+            self.decoder = decoder
+            self.src = src.astype(np.int64)
+            self.dst = dst.astype(np.int64)
+            self.num_src_nodes = num_src_nodes
+            self.num_dst_nodes = num_dst_nodes
+            self.weights = None if weights is None else np.asarray(weights,
+                                                                   np.float32)
+            self.labels = (None if labels is None
+                           else np.asarray(labels, np.int32))
+            self.int_attrs = (None if int_attrs is None
+                              else np.asarray(int_attrs, np.int32))
+            self.float_attrs = (None if float_attrs is None
+                                else np.asarray(float_attrs, np.float32))
+            self.multival_attrs = (None if multival_attrs is None
+                                   else np.asarray(multival_attrs, np.int32))
+            self.multival_lens = (None if multival_lens is None
+                                  else np.asarray(multival_lens, np.int32))
+            self.timestamps = (None if timestamps is None
+                               else np.asarray(timestamps, np.int64))
+            # rebased to this table's own minimum: abs = ts * ts_scale +
+            # ts_base (unify_ts_bases moves every table of a store to one
+            # base)
+            self.ts_base = 0
+            self.ts_scale = 1
+            if self.timestamps is not None and self.timestamps.size:
+                self.ts_base = int(self.timestamps.min())
+                self.timestamps = self.timestamps - self.ts_base
+            self._device: Dict[torch.device, DeviceEdgeTable] = {}
+            self.host_build_s = 0.0  # host seconds of the last device view
+            # adjacency sort key: ts asc > weight desc > insertion order
+            if self.timestamps is not None:
+                self._sort_key, self._sort_desc = (
+                    self.timestamps.astype(np.float64), False)
+            elif self.weights is not None:
+                self._sort_key, self._sort_desc = (
+                    self.weights.astype(np.float64), True)
+            else:
+                self._sort_key, self._sort_desc = None, False
+            self.out_degrees = np.bincount(
+                self.src, minlength=num_src_nodes).astype(np.int32)
+            self.in_degrees = np.bincount(
+                self.dst, minlength=num_dst_nodes).astype(np.int32)
 
     @property
     def num_edges(self) -> int:
@@ -405,11 +429,12 @@ class EdgeTable:
     def _host_csr(self, rows, cols, num_rows, nbr_degrees) -> dict:
         """One direction's CSR arrays (numpy); ``nbr_degrees`` are the
         degrees the in-degree CDF weighs each neighbour by."""
-        ro, nbr, eids, nbr_s, eid_s, cumw, cumind, nts = _build_csr(
-            rows, cols.astype(np.int32), num_rows, self._sort_key,
-            self._sort_desc, self.weights, nbr_degrees,
-            full=conf.storage_profile != "minimal",
-            timestamps=self.timestamps)
+        with profiling.span("store.csr"):
+            ro, nbr, eids, nbr_s, eid_s, cumw, cumind, nts = _build_csr(
+                rows, cols.astype(np.int32), num_rows, self._sort_key,
+                self._sort_desc, self.weights, nbr_degrees,
+                full=conf.storage_profile != "minimal",
+                timestamps=self.timestamps)
         return dict(row_offsets=ro, nbr_ids=nbr, nbr_edge_ids=eids,
                     nbr_ids_sorted=nbr_s, nbr_edge_ids_sorted=eid_s,
                     cum_weights=cumw, cum_in_degrees=cumind, nbr_ts=nts)
@@ -428,8 +453,9 @@ class EdgeTable:
             if conf.storage_profile != "minimal":
                 inc = self._host_csr(self.dst, self.src, self.num_dst_nodes,
                                      self.out_degrees)
-                pools = (_pool(dst32, self.in_degrees)
-                         + _pool(src32, self.out_degrees))
+                with profiling.span("store.pools"):
+                    pools = (_pool(dst32, self.in_degrees)
+                             + _pool(src32, self.out_degrees))
             self.host_build_s = time.perf_counter() - t0
 
             def csr(h):
@@ -437,20 +463,23 @@ class EdgeTable:
                 return DeviceCSR(max_degree=int(d.max()) if d.size else 0,
                                  **{k: _put(a, dev) for k, a in h.items()})
 
-            u_dst, u_dst_cdf, u_src, u_src_cdf = [_put(a, dev) for a in pools]
-            self._device[dev] = DeviceEdgeTable(
-                out=csr(out), inc=None if inc is None else csr(inc),
-                src=_put(src32, dev), dst=_put(dst32, dev),
-                weights=_put(self.weights, dev),
-                labels=_put(self.labels, dev),
-                timestamps=_put(None if self.timestamps is None
-                                else self.timestamps.astype(np.int32), dev),
-                int_attrs=_put(self.int_attrs, dev),
-                float_attrs=_put(self.float_attrs, dev),
-                multival_attrs=_put(self.multival_attrs, dev),
-                multival_lens=_put(self.multival_lens, dev),
-                unique_dst=u_dst, unique_dst_indeg_cdf=u_dst_cdf,
-                unique_src=u_src, unique_src_outdeg_cdf=u_src_cdf)
+            with _upload(dev):
+                u_dst, u_dst_cdf, u_src, u_src_cdf = [_put(a, dev)
+                                                      for a in pools]
+                self._device[dev] = DeviceEdgeTable(
+                    out=csr(out), inc=None if inc is None else csr(inc),
+                    src=_put(src32, dev), dst=_put(dst32, dev),
+                    weights=_put(self.weights, dev),
+                    labels=_put(self.labels, dev),
+                    timestamps=_put(None if self.timestamps is None
+                                    else self.timestamps.astype(np.int32),
+                                    dev),
+                    int_attrs=_put(self.int_attrs, dev),
+                    float_attrs=_put(self.float_attrs, dev),
+                    multival_attrs=_put(self.multival_attrs, dev),
+                    multival_lens=_put(self.multival_lens, dev),
+                    unique_dst=u_dst, unique_dst_indeg_cdf=u_dst_cdf,
+                    unique_src=u_src, unique_src_outdeg_cdf=u_src_cdf)
         return self._device[dev]
 
 

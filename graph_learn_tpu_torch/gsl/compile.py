@@ -65,6 +65,7 @@ from graph_learn_tpu_torch.ops import walk as walk_ops
 from graph_learn_tpu_torch.ops.lookup import (edge_field, edge_payload,
                                               lookup_nodes,
                                               lookup_sparse_nodes)
+from graph_learn_tpu_torch.utils import profiling
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -92,6 +93,10 @@ class Query:
         if src.kind not in ("source_v", "source_e"):
             raise InvalidArgumentError("query must start at V()/E()")
         self.source = src
+        # {nid: (the node's sample span, its lookup span)} (utils/profiling)
+        self.span_names = {
+            n.nid: ("plan.%s.sample" % a, "plan.%s.lookup" % a)
+            for n in dag.nodes for a in [n.alias_name or "n%d" % n.nid]}
         # {device: (weak references to the store tables they index, the
         #           condition tables of the query's .where() nodes)}
         self._cond: Dict[object, tuple] = {}
@@ -120,7 +125,11 @@ class Query:
         store holds another node or edge table than they were built from
         (``add_node_table`` / ``add_edge_table`` replaced one), so a query
         run many times sorts its columns once."""
-        device = self.graph.device if device is None else device
+        with profiling.span("store.device_tables"):
+            return self._device_tables(
+                self.graph.device if device is None else device)
+
+    def _device_tables(self, device: DeviceLike):
         dev = resolve_device(device)
         store = self.graph.store
         sources = [t for n in self.dag.nodes if n.strategy == "conditional"
@@ -188,9 +197,10 @@ def _execute(query: Query, tables, seeds: torch.Tensor,
              generator: torch.Generator) -> Dict[str, object]:
     """seeds [b] dense indices (node or edge rows) -> {alias: value}."""
     recs: Dict[int, _Rec] = {}
-    for node in query.dag.nodes:
-        recs[node.nid] = _exec_node(query, tables, node, recs, seeds,
-                                    generator)
+    with profiling.span("plan"):
+        for node in query.dag.nodes:
+            recs[node.nid] = _exec_node(query, tables, node, recs, seeds,
+                                        generator)
     return {alias: recs[node.nid].value
             for alias, node in query.dag.aliased_nodes.items()}
 
@@ -198,25 +208,29 @@ def _execute(query: Query, tables, seeds: torch.Tensor,
 def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
                generator) -> _Rec:
     kind = node.kind
+    sample_span, lookup_span = query.span_names[node.nid]
     if kind == "source_v":
         base = query.graph.store.node_set(node.node_type).base_type
         ids = seeds.to(torch.int32)
-        val = lookup_nodes(tables["nodes"][base], ids, type_name=node.node_type)
+        with profiling.span(lookup_span):
+            val = lookup_nodes(tables["nodes"][base], ids,
+                               type_name=node.node_type)
         return _Rec(ids, val)
     if kind == "source_e":
         et = tables["edges"][node.edge_type]
         s_t, d_t = query.graph.store.topology[node.edge_type]
         eidx = seeds.to(torch.int32)
-        src_ids = edge_field(et, "src", eidx)
-        pay = edge_payload(et, eidx)
-        val = Edges(
-            edge_ids=eidx,
-            src_nodes=lookup_nodes(tables["nodes"][s_t], src_ids,
-                                   type_name=s_t),
-            dst_nodes=lookup_nodes(tables["nodes"][d_t],
-                                   edge_field(et, "dst", eidx),
-                                   type_name=d_t),
-            type_name=node.edge_type, **pay)
+        with profiling.span(lookup_span):
+            src_ids = edge_field(et, "src", eidx)
+            pay = edge_payload(et, eidx)
+            val = Edges(
+                edge_ids=eidx,
+                src_nodes=lookup_nodes(tables["nodes"][s_t], src_ids,
+                                       type_name=s_t),
+                dst_nodes=lookup_nodes(tables["nodes"][d_t],
+                                       edge_field(et, "dst", eidx),
+                                       type_name=d_t),
+                type_name=node.edge_type, **pay)
         return _Rec(src_ids, val, pay["timestamps"])
     parent = recs[node.parent.nid]
     if kind in ("endpoint_src", "endpoint_dst"):
@@ -231,23 +245,30 @@ def _exec_node(query: Query, tables, node: DagNode, recs, seeds,
         et = tables["edges"][node.edge_type]
         d_t = query.graph.store.topology[node.edge_type][1]
         shape = tuple(parent.ids.shape)
-        walks = walk_ops.node2vec_walk(
-            et.out, parent.ids.reshape(-1), node.walk_len, generator,
-            p=node.walk_p, q=node.walk_q).reshape(shape + (node.walk_len,))
-        val = lookup_nodes(tables["nodes"][d_t], torch.clamp(walks, min=0),
-                           type_name=d_t)
+        with profiling.span(sample_span):
+            walks = walk_ops.node2vec_walk(
+                et.out, parent.ids.reshape(-1), node.walk_len, generator,
+                p=node.walk_p, q=node.walk_q).reshape(
+                    shape + (node.walk_len,))
+        profiling.count("plan.sampled_ids", walks.numel())
+        with profiling.span(lookup_span):
+            val = lookup_nodes(tables["nodes"][d_t],
+                               torch.clamp(walks, min=0), type_name=d_t)
         # the -1 of a stuck walker stays visible in the ids
         return _Rec(walks, val.replace(ids=walks))
     if kind == "subgraph":
         et = tables["edges"][node.edge_type]
         s_t = query.graph.store.topology[node.edge_type][0]
-        sg = sg_ops.induce_subgraph(et.out, parent.ids.reshape(-1),
-                                    nbr_cap=node.nbr_cap,
-                                    need_dist=node.need_dist)
-        nodes = lookup_nodes(
-            tables["nodes"][s_t],
-            torch.where(sg.node_ids < sg_ops.FILL, sg.node_ids, 0),
-            type_name=s_t)
+        with profiling.span(sample_span):
+            sg = sg_ops.induce_subgraph(et.out, parent.ids.reshape(-1),
+                                        nbr_cap=node.nbr_cap,
+                                        need_dist=node.need_dist)
+        profiling.count("plan.sampled_ids", sg.node_ids.numel())
+        with profiling.span(lookup_span):
+            nodes = lookup_nodes(
+                tables["nodes"][s_t],
+                torch.where(sg.node_ids < sg_ops.FILL, sg.node_ids, 0),
+                type_name=s_t)
         return _Rec(sg.node_ids, sg.replace(nodes=nodes,
                                             type_name=node.edge_type))
     raise InvalidArgumentError("dag node kind %r is not yet ported" % kind)
@@ -267,14 +288,7 @@ def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, recs,
     result_type = s_t if incoming else d_t
     shape = tuple(parent.ids.shape)
     flat = parent.ids.reshape(-1)
-
-    # the parent's degrees w.r.t. the hopped edge type (reference
-    # DegreeDagNode): Nodes.out_degrees on dense hops
-    pv = parent.value
-    if isinstance(pv, Nodes) and pv.out_degrees is None:
-        parent.value = pv.replace(
-            out_degrees=csr_degrees(csr, flat).reshape(shape))
-
+    sample_span, lookup_span = query.span_names[node.nid]
     k = node.count
     strategy = node.strategy
     nt = tables["nodes"][result_type]
@@ -299,51 +313,72 @@ def _exec_hop(query: Query, tables, node: DagNode, parent: _Rec, recs,
     if strategy == "full":
         # SparseNodes on an edge hop too, as the JAX package answers it
         cap = k if k > 0 else conf.default_full_nbr_num
-        if t_upper is not None:
-            ids, eids, degs = temporal_ops.temporal_full_sample(
-                csr, flat, cap, t_upper, flt=flt)
-        else:
-            ids, eids, degs = samp_ops.full_sample(csr, flat, cap, flt=flt)
-        val = lookup_sparse_nodes(nt, ids, degs, type_name=result_type)
-        new_ts = (edge_field(et, "timestamps", eids).reshape(shape + (cap,))
-                  if t_upper is not None else None)
+        with profiling.span(sample_span):
+            if t_upper is not None:
+                ids, eids, degs = temporal_ops.temporal_full_sample(
+                    csr, flat, cap, t_upper, flt=flt)
+            else:
+                ids, eids, degs = samp_ops.full_sample(csr, flat, cap,
+                                                       flt=flt)
+        profiling.count("plan.sampled_ids", ids.numel())
+        with profiling.span(lookup_span):
+            _parent_degrees(parent, csr, flat)
+            val = lookup_sparse_nodes(nt, ids, degs, type_name=result_type)
+            new_ts = (edge_field(et, "timestamps", eids).reshape(
+                shape + (cap,)) if t_upper is not None else None)
         return _Rec(ids.reshape(shape + (cap,)), val, new_ts)
-    if t_upper is not None:
-        ids, eids = _temporal_hop(csr, flat, k, strategy, generator, t_upper,
-                                  flt)
-    elif strategy in ("edge_weight", "in_degree"):
-        ids, eids = samp_ops.weighted_sample(csr, flat, k, generator,
-                                             by=strategy, flt=flt)
-    elif strategy in samp_ops.BUILTIN_STRATEGIES:
-        ids, eids = samp_ops.STRATEGY_FNS[strategy](csr, flat, k, generator,
-                                                    flt=flt)
-    elif strategy in samp_ops.STRATEGY_FNS:
-        # a registered strategy (register_sampler); filters do not reach
-        # it, as in the JAX package
-        ids, eids = samp_ops.STRATEGY_FNS[strategy](csr, flat, k, generator)
-    else:
-        raise InvalidArgumentError("unknown strategy %r" % strategy)
+    with profiling.span(sample_span):
+        if t_upper is not None:
+            ids, eids = _temporal_hop(csr, flat, k, strategy, generator,
+                                      t_upper, flt)
+        elif strategy in ("edge_weight", "in_degree"):
+            ids, eids = samp_ops.weighted_sample(csr, flat, k, generator,
+                                                 by=strategy, flt=flt)
+        elif strategy in samp_ops.BUILTIN_STRATEGIES:
+            ids, eids = samp_ops.STRATEGY_FNS[strategy](csr, flat, k,
+                                                        generator, flt=flt)
+        elif strategy in samp_ops.STRATEGY_FNS:
+            # a registered strategy (register_sampler); filters do not
+            # reach it, as in the JAX package
+            ids, eids = samp_ops.STRATEGY_FNS[strategy](csr, flat, k,
+                                                        generator)
+        else:
+            raise InvalidArgumentError("unknown strategy %r" % strategy)
+    profiling.count("plan.sampled_ids", ids.numel())
     ids = ids.reshape(shape + (k,))
     eids = eids.reshape(shape + (k,))
-    if node.kind in ("out_v", "in_v"):
-        # on a temporal path the sampled edges' times bound the next hop
-        hop_ts = (edge_field(et, "timestamps", eids)
-                  if t_upper is not None else None)
-        return _Rec(ids, lookup_nodes(nt, ids, type_name=result_type),
-                    hop_ts)
-    # edge hop: Edges whose src view repeats the parent's id in every slot
-    src_type = d_t if incoming else s_t
-    pay = edge_payload(et, eids)
-    val = Edges(
-        edge_ids=eids,
-        src_nodes=lookup_nodes(tables["nodes"][src_type],
-                               parent.ids[..., None].expand(ids.shape),
-                               type_name=src_type),
-        dst_nodes=lookup_nodes(nt, ids, type_name=result_type),
-        type_name=node.edge_type, **pay)
+    with profiling.span(lookup_span):
+        _parent_degrees(parent, csr, flat)
+        if node.kind in ("out_v", "in_v"):
+            # on a temporal path the sampled edges' times bound the next
+            # hop
+            hop_ts = (edge_field(et, "timestamps", eids)
+                      if t_upper is not None else None)
+            return _Rec(ids, lookup_nodes(nt, ids, type_name=result_type),
+                        hop_ts)
+        # edge hop: Edges whose src view repeats the parent's id in every
+        # slot
+        src_type = d_t if incoming else s_t
+        pay = edge_payload(et, eids)
+        val = Edges(
+            edge_ids=eids,
+            src_nodes=lookup_nodes(tables["nodes"][src_type],
+                                   parent.ids[..., None].expand(ids.shape),
+                                   type_name=src_type),
+            dst_nodes=lookup_nodes(nt, ids, type_name=result_type),
+            type_name=node.edge_type, **pay)
     # an edge hop carries its edges' times whenever the type has them, as
     # the JAX plan's does
     return _Rec(ids, val, pay["timestamps"])
+
+
+def _parent_degrees(parent: _Rec, csr, flat):
+    """The parent's degrees w.r.t. the hopped edge type (reference
+    DegreeDagNode): ``Nodes.out_degrees`` on dense hops."""
+    pv = parent.value
+    if isinstance(pv, Nodes) and pv.out_degrees is None:
+        parent.value = pv.replace(out_degrees=csr_degrees(csr, flat).reshape(
+            parent.ids.shape))
 
 
 def _temporal_hop(csr, flat, k: int, strategy: str, generator, t_upper,
@@ -378,32 +413,39 @@ def _exec_neg(query: Query, tables, node: DagNode, parent: _Rec, recs,
               generator):
     shape = tuple(parent.ids.shape)
     flat = parent.ids.reshape(-1)
+    sample_span, lookup_span = query.span_names[node.nid]
+    neg_ts = None
     if node.edge_type is None:
         # Neg(node_type): the pool is the node set's base table
-        base = query.graph.store.node_set(node.node_type).base_type
-        nt = tables["nodes"][base]
-        ids = neg_ops.negative_sample_from_nodes(
-            nt, flat.shape[0], node.count, generator, strategy=node.strategy)
-        ids = ids.reshape(shape + (node.count,))
-        return _Rec(ids, lookup_nodes(nt, ids, type_name=base))
-    et = tables["edges"][node.edge_type]
-    s_t, d_t = query.graph.store.topology[node.edge_type]
-    reverse = node.kind == "in_neg"
-    result_type = s_t if reverse else d_t
-    nt = tables["nodes"][result_type]
-    if node.strategy == "conditional":
-        ids = _exec_conditional_neg(query, tables, node, recs, flat, et, nt,
-                                    generator)
+        result_type = query.graph.store.node_set(node.node_type).base_type
+        nt = tables["nodes"][result_type]
+        with profiling.span(sample_span):
+            ids = neg_ops.negative_sample_from_nodes(
+                nt, flat.shape[0], node.count, generator,
+                strategy=node.strategy)
     else:
-        ids = neg_ops.negative_sample(et, flat, node.count, generator,
-                                      strategy=node.strategy, dst_table=nt,
-                                      reverse=reverse)
+        et = tables["edges"][node.edge_type]
+        s_t, d_t = query.graph.store.topology[node.edge_type]
+        reverse = node.kind == "in_neg"
+        result_type = s_t if reverse else d_t
+        nt = tables["nodes"][result_type]
+        with profiling.span(sample_span):
+            if node.strategy == "conditional":
+                ids = _exec_conditional_neg(query, tables, node, recs, flat,
+                                            et, nt, generator)
+            else:
+                ids = neg_ops.negative_sample(
+                    et, flat, node.count, generator, strategy=node.strategy,
+                    dst_table=nt, reverse=reverse)
+    profiling.count("plan.sampled_ids", ids.numel())
     ids = ids.reshape(shape + (node.count,))
     # negatives inherit the time of their row: hops below a negative tower
     # stay bounded by the event (reference TGAT train_eval.py:58-78)
-    neg_ts = (parent.ts[..., None].expand(ids.shape)
-              if parent.ts is not None else None)
-    return _Rec(ids, lookup_nodes(nt, ids, type_name=result_type), neg_ts)
+    if node.edge_type is not None and parent.ts is not None:
+        neg_ts = parent.ts[..., None].expand(ids.shape)
+    with profiling.span(lookup_span):
+        val = lookup_nodes(nt, ids, type_name=result_type)
+    return _Rec(ids, val, neg_ts)
 
 
 def _exec_conditional_neg(query: Query, tables, node: DagNode, recs, flat,

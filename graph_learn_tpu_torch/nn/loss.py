@@ -12,17 +12,20 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from graph_learn_tpu_torch.utils import profiling
+
 
 def supervised_softmax_loss(logits: torch.Tensor, labels: torch.Tensor,
                             valid: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """Mean softmax CE with integer labels; with ``valid`` [b] the mean
     over the valid rows only (at least one)."""
-    ls = F.cross_entropy(logits, labels.long(), reduction="none")
-    if valid is not None:
-        w = valid.to(ls.dtype)
-        return (ls * w).sum() / torch.clamp(w.sum(), min=1.0)
-    return ls.mean()
+    with profiling.span("model.loss"):
+        ls = F.cross_entropy(logits, labels.long(), reduction="none")
+        if valid is not None:
+            w = valid.to(ls.dtype)
+            return (ls * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return ls.mean()
 
 
 def sigmoid_cross_entropy_loss(pos_logit: torch.Tensor,

@@ -29,6 +29,7 @@ from graph_learn_tpu_torch.nn.feature_column import FeatureEncoder
 from graph_learn_tpu_torch.nn.layers.ego import (EgoGATConv, EgoGINConv,
                                                  EgoLayer, EgoRGCNConv,
                                                  EgoSAGEConv, init_linear)
+from graph_learn_tpu_torch.utils import profiling
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
 
 
@@ -104,18 +105,19 @@ class EgoGNN(nn.Module):
 
     def forward(self, ego: EgoGraph, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        values, deep_agg = self._prepare(ego)
-        h = [self._enc_for(i)(v) for i, v in enumerate(values)]
-        hops = list(ego.nbr_nums)
-        n_layers = len(self.layers)
-        for i in range(n_layers - 1):
-            current = hops if i == 0 else hops[:len(hops) - i]
-            h = self.layers[i](h, current,
-                               deep_agg=deep_agg if i == 0 else None)
-            h = [_dropout(self.act(x), self.dropout, training, generator)
-                 for x in h]
-        h = self.layers[-1](h, [hops[0]],
-                            deep_agg=deep_agg if n_layers == 1 else None)
+        with profiling.span("model.forward"):
+            values, deep_agg = self._prepare(ego)
+            h = [self._enc_for(i)(v) for i, v in enumerate(values)]
+            hops = list(ego.nbr_nums)
+            n_layers = len(self.layers)
+            for i in range(n_layers - 1):
+                current = hops if i == 0 else hops[:len(hops) - i]
+                h = self.layers[i](h, current,
+                                   deep_agg=deep_agg if i == 0 else None)
+                h = [_dropout(self.act(x), self.dropout, training, generator)
+                     for x in h]
+            h = self.layers[-1](h, [hops[0]],
+                                deep_agg=deep_agg if n_layers == 1 else None)
         assert len(h) == 1
         return h[0]
 

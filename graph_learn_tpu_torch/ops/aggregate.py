@@ -25,6 +25,7 @@ from graph_learn_tpu_torch.ops.kernels.spmm import segment_spmm
 from graph_learn_tpu_torch.ops.kernels.sweep import (MAX_GROUPS,
                                                      sweep_aggregate,
                                                      sweep_prep)
+from graph_learn_tpu_torch.utils import profiling
 from graph_learn_tpu_torch.utils.platform import torch_dtype
 
 _SCATTER_REDUCE = {"max": "amax", "min": "amin", "prod": "prod"}
@@ -86,15 +87,18 @@ def gather_group_agg(table: torch.Tensor, idx: torch.Tensor,
     k = idx.shape[-1]
     n_groups = idx.numel() // k if k else 0
     compute = torch_dtype(conf.compute_dtype)
-    if k and _use_sorted(table, n_groups, op):
-        flat = torch.clamp(idx.reshape(-1), 0, max(table.shape[0] - 1, 0))
-        starts, packed = sweep_prep(flat, k, table.shape[0])
-        out = sweep_aggregate(starts, packed, table, n_groups)
-        return (out / k if op == "mean" else out).to(compute)
-    ids = idx.reshape(-1, k)
-    deg = torch.full((ids.shape[0],), k, dtype=torch.int32, device=idx.device)
-    return segment_spmm(table, ids, deg, agg=op, out_dtype=compute,
-                        raw_extrema=True)
+    with profiling.span("aggregate"):
+        if k and _use_sorted(table, n_groups, op):
+            flat = torch.clamp(idx.reshape(-1), 0,
+                               max(table.shape[0] - 1, 0))
+            starts, packed = sweep_prep(flat, k, table.shape[0])
+            out = sweep_aggregate(starts, packed, table, n_groups)
+            return (out / k if op == "mean" else out).to(compute)
+        ids = idx.reshape(-1, k)
+        deg = torch.full((ids.shape[0],), k, dtype=torch.int32,
+                         device=idx.device)
+        return segment_spmm(table, ids, deg, agg=op, out_dtype=compute,
+                            raw_extrema=True)
 
 
 def embedding_agg(float_attrs: torch.Tensor, ids: torch.Tensor,

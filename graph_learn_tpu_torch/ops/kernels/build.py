@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 from graph_learn_tpu_torch.errors import DeviceUnavailableError
 
@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_counters: List["LaunchCounter"] = []
 
 
 class LaunchCounter:
@@ -44,6 +45,7 @@ class LaunchCounter:
         self.name = name
         self.count = 0
         self._lock = threading.Lock()
+        _counters.append(self)
 
     def add(self):
         with self._lock:
@@ -52,6 +54,11 @@ class LaunchCounter:
     def reset(self):
         with self._lock:
             self.count = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """{wrapper name: launches} of every counter made so far."""
+    return {c.name: c.count for c in _counters}
 
 
 def _nvcc() -> str:

@@ -25,6 +25,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA card; skips without one")
+
+
 @pytest.fixture
 def tmp_graph_dir(tmp_path):
     """Write a small deterministic weighted/labeled/attributed graph.

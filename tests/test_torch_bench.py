@@ -317,12 +317,11 @@ def _lines(fn):
 
 @pytest.fixture
 def bench_env(monkeypatch):
-    """The port's main() on the CPU, with fake runs and a fake baseline."""
+    """The port's main() on the CPU, with fake runs."""
     for name in ("GLT_BENCH_SMALL", "GLT_BENCH_SCALE", "GLT_BENCH_NO_SCALE",
                  "GLT_BENCH_GROUP", "GLT_FEATURE_DTYPE"):
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("GLT_PLATFORM", "cpu")
-    monkeypatch.setattr(tbench, "cpu_baseline", lambda cfg: 2.0e6)
     return monkeypatch
 
 
@@ -344,8 +343,8 @@ def test_two_lines_headline_then_scale(bench_env):
     assert first["unit"] == "edges/s/chip"
     assert "ego_sage_scale62m_edges_per_s" not in first
     assert last["ego_sage_scale62m_edges_per_s"] == 54e6
-    assert last["vs_baseline"] == first["vs_baseline"] == round(134e6 / 2e6,
-                                                                2)
+    # no baseline the port measures: null, as on the scale line
+    assert last["vs_baseline"] is None and first["vs_baseline"] is None
     # the TPU record ratio is left out
     assert "scale62m_vs_r02_record" not in last
 
@@ -376,28 +375,21 @@ def test_scale_env_flag_single_line(bench_env):
                    "vs_baseline": None}
 
 
-def test_small_cpu_run_prints_the_headline_and_caches_its_baseline(
-        monkeypatch, tmp_path):
+def test_small_cpu_run_prints_the_headline(monkeypatch):
     monkeypatch.setenv("GLT_PLATFORM", "cpu")
     monkeypatch.setenv("GLT_BENCH_SMALL", "1")
     monkeypatch.delenv("GLT_BENCH_SCALE", raising=False)
-    cache = tmp_path / "baseline.json"
-    monkeypatch.setattr(tbench, "CPU_BASELINE_CACHE", cache)
     before = (conf.storage_profile, conf.feature_dtype)
+
+    def no_subprocess(*args, **kwargs):
+        raise AssertionError("the bench started a subprocess")
+
+    monkeypatch.setattr(subprocess, "run", no_subprocess)
     (rec,) = _lines(tbench.main)
     assert (conf.storage_profile, conf.feature_dtype) == before
     assert sorted(rec) == ["metric", "unit", "value", "vs_baseline"]
     assert rec["metric"] == "ego_sage_train_edges_per_s" and rec["value"] > 0
-    assert rec["vs_baseline"] > 0
-    # the second call reads the cache: no subprocess
-    cached = json.loads(cache.read_text())
-    assert cached["key"] == json.dumps(tbench.CFG_SMALL, sort_keys=True)
-
-    def no_subprocess(*args, **kwargs):
-        raise AssertionError("the cached baseline ran again")
-
-    monkeypatch.setattr(subprocess, "run", no_subprocess)
-    assert tbench.cpu_baseline(tbench.CFG_SMALL) == cached["value"]
+    assert rec["vs_baseline"] is None
 
 
 def test_run_bench_on_the_cpu_returns_its_numbers():

@@ -53,6 +53,13 @@ NOT_PORTED = {
         "torch device (utils/platform.py resolve_device)",
     "utils/platform.py enable_compile_cache":
         "XLA's persistent compile cache; the port compiles no XLA programs",
+    "utils/profiling.py profiling":
+        "the always-on scope timer is the port's tracer's span (utils/"
+        "profiling.py span: calls, total and self seconds per name, on "
+        "while profiling.enable() is in force)",
+    "utils/profiling.py annotate":
+        "a named trace region is the port's tracer's span, which opens the "
+        "profiler range glt.<name> while tracing is on",
 }
 
 

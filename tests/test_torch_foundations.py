@@ -1,8 +1,9 @@
 """The port's remaining foundations against the JAX package:
 ``set_member`` and ``segment_softmax`` (ops/segment.py), query plans
 (gsl/plan.py) in both directions, the Graph's direct APIs, the EgoGraph
-and TemporalGraph accessors, the ``set_*`` setters, the profiling scope
-timer, and EgoTGAT with edge encoders against the flax model."""
+and TemporalGraph accessors, the ``set_*`` setters, and EgoTGAT with edge
+encoders against the flax model (the tracer's tests, once here, are in
+``test_torch_profiling.py``)."""
 
 import dataclasses
 import json
@@ -33,7 +34,6 @@ from graph_learn_tpu_torch.nn.convert import load_flax_params, to_flax_params
 from graph_learn_tpu_torch.nn.feature_column import FeatureEncoder
 from graph_learn_tpu_torch.nn.models.tgat import EgoTGAT
 from graph_learn_tpu_torch.ops import segment as tseg
-from graph_learn_tpu_torch.utils import profiling
 from torch_parity import (assert_trees_close, cat_u2i_arrays, jax_u2i_graph,
                           torch_u2i_graph)
 
@@ -228,34 +228,6 @@ def test_every_setter_sets_its_flag():
                  "SparseEdges", "SubGraphVal", "UnimplementedError",
                  "register_sampler", "register_filesystem", "KnnOption"):
         assert name in glt.__all__ and hasattr(glt, name), name
-
-
-def test_profiling_accumulates_and_dumps(capsys, monkeypatch):
-    monkeypatch.setattr(profiling, "_stats", type(profiling._stats)(
-        profiling._stats.default_factory))
-    for _ in range(3):
-        with profiling.profiling("lookup"):
-            pass
-    with pytest.raises(ValueError):
-        with profiling.profiling("boom"):
-            raise ValueError("inside")
-    profiling.dump()
-    out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("[profiling] boom: total ")
-    assert "count 1" in out[0]
-    assert out[1].startswith("[profiling] lookup: total ") and \
-        "count 3" in out[1]
-    with profiling.annotate("region"):
-        torch.ones(2).sum()
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    with profiling.device_trace(str(tmp_path)) as prof:
-        with profiling.annotate("scoped"):
-            torch.ones(8).cumsum(0)
-    names = {e.key for e in prof.key_averages()}
-    assert "scoped" in names
-    assert (tmp_path / "trace.json").stat().st_size > 0
 
 
 def _tgat_inputs(b, k, d, e_dec, seed=0):
