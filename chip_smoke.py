@@ -422,6 +422,16 @@ Phases (any failure exits non-zero before the result line):
    against its plain version and its bound; host_overlap_probe on the
    bench CFG store: t_host, t_dev and t_loop for windows 1, 2 and 4, and
    Kernels 1-2 launched 0 times.
+27. the CSR order on the card (ops/kernels/csr.py, csrc/csr.cu), inside
+   phase 11 on its weighted 61.25M-edge "minimal" store: the view dropped
+   and built again by EdgeTable.device with the tracer on, so that its
+   launches, store.csr.device_builds (1) and store.csr.long_rows are read
+   from that build; its CSR equal to phase 11's view and to the plain
+   version (the host's order, on CPU copies) bit for bit; then, for
+   timing only, a direct csr_order of the view's tensors: its ms a call
+   over CSR_TIMED_CALLS calls beside its bound (csr_work bytes), and the
+   plain version's host seconds.  The kernels line carries it as a sixth
+   row, ``csr_order``.
 
 The last two lines of standard output are the card line and the JSON
 object {"ok": true, "device": {...}}; the {"kernels": [...]} line comes
@@ -8901,6 +8911,81 @@ def a4_micro_path(torch, card, gather, spmm, sweep, gat):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the CSR order on the card, at the weighted 61.25M-edge store
+# ---------------------------------------------------------------------------
+
+CSR_TIMED_CALLS = 5
+
+
+def csr_work(n_edges: int, key_bytes: int = 4) -> int:
+    """Bytes of one CSR order: rows, cols and the key read once, the
+    neighbour and edge ids written once (csrc/csr.cu)."""
+    return n_edges * (4 + 4 + key_bytes + 4 + 4)
+
+
+def csr_path(torch, card, csr, graph):
+    """The weighted store's view built again (``EdgeTable.device``, the
+    main path) with the tracer on: its launches of the CSR kernels, the
+    counters ``store.csr.device_builds`` (1) and ``store.csr.long_rows``,
+    and its CSR equal to phase 11's view and to the plain version (the
+    host order on CPU copies) bit for bit; then, for timing only, the ms a
+    call of ``csr.csr_order`` on the view's tensors over CSR_TIMED_CALLS
+    calls beside its bound (csr_work bytes) and the plain version's host
+    seconds.  Returns the kernels line's ``csr_order`` row."""
+    from graph_learn_tpu_torch.utils import profiling
+    et = graph[0].store.edge_table("rel")
+    old = et.device("cuda").out
+    et.drop_device("cuda")
+    before = csr.LAUNCHES.count
+    profiling.reset()
+    profiling.enable()
+    try:
+        view = et.device("cuda")
+        torch.cuda.synchronize()
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    launches = csr.LAUNCHES.count - before
+    builds = counters.get("store.csr.device_builds", 0)
+    long_rows = counters.get("store.csr.long_rows", 0)
+    check(launches >= 2 and builds == 1,
+          "csr_order: the view's build made %d launches and %d card builds "
+          "(want >= 2 and 1)" % (launches, builds))
+    check(torch.equal(view.out.nbr_ids, old.nbr_ids)
+          and torch.equal(view.out.nbr_edge_ids, old.nbr_edge_ids)
+          and torch.equal(view.out.row_offsets, old.row_offsets),
+          "csr_order: the rebuilt view's CSR differs from phase 11's")
+    del old
+    args = (view.src, view.dst, view.out.row_offsets, view.weights)
+    t0 = time.perf_counter()
+    want = csr.csr_order(*[a.cpu() for a in args], descending=True)
+    plain_s = time.perf_counter() - t0
+    check(torch.equal(view.out.nbr_ids.cpu(), want[0])
+          and torch.equal(view.out.nbr_edge_ids.cpu(), want[1]),
+          "csr_order: the view's CSR differs from the plain version's")
+    del want
+    ms = time_ms(lambda: csr.csr_order(*args, descending=True),
+                 iters=CSR_TIMED_CALLS, warmup=1)
+    b_ms, by = bound(csr_work(et.num_edges), 0)
+    log("csr_order at the weighted %d-edge store (%d rows, largest %d): "
+        "the view's build %d launches, store.csr.device_builds %d, "
+        "store.csr.long_rows %d, %.3f s; equal to phase 11's view and to "
+        "the plain version bit for bit; a direct call %.4f ms (bound %.4f "
+        "ms by %s, %.1f%%), plain version %.2f s on the host; card: %s"
+        % (et.num_edges, et.num_src_nodes, int(et.out_degrees.max()),
+           launches, builds, long_rows, et.host_build_s, ms, b_ms, by,
+           100.0 * b_ms / ms, plain_s, card))
+    return dict(name="csr_order", route="cuda",
+                source="graph_learn_tpu_torch/csrc/csr.cu",
+                replaces="none: the host order of core/store.py _build_csr",
+                launches=launches, ms=ms, bound_ms=b_ms,
+                plain_ms=plain_s * 1e3, edges=et.num_edges,
+                device_builds=builds, long_rows=long_rows,
+                store_csr_s=et.host_build_s)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8908,8 +8993,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import graph_learn_tpu_torch as gl
-    from graph_learn_tpu_torch.ops.kernels import (build, gat, gather, spmm,
-                                                   sweep)
+    from graph_learn_tpu_torch.ops.kernels import (build, csr, gat, gather,
+                                                   spmm, sweep)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8971,6 +9056,8 @@ def main() -> int:
         et = scale_graph[0].store.edge_table("rel")
         check(et.weights is not None and et.num_edges == 61_250_000,
               "bench cfg_scale: not the weighted 61.25M-edge graph")
+        # phase 27: the CSR order the view was built with
+        csr_row = csr_path(torch, card, csr, scale_graph)
         walks_rows = walks_path(torch, card, gather, scale_graph)
         # phase 19's GSL SubGraph query, on this store before it is freed
         query_rows = subgraph_query_path(torch, card, gather, scale_graph)
@@ -9103,6 +9190,7 @@ def main() -> int:
         kernels.append(rows[name])
     for name, fields in extra.items():
         rows[name].update(fields)
+    kernels.append(csr_row)
     check_bounds(kernels)
     log("every phase passed in %.1f s" % (time.perf_counter() - t_start))
 

@@ -27,10 +27,13 @@ need them raise.  A weighted node table also carries the normalised
 cumulative weights that ``node_weight`` negatives draw by.
 
 Device views are built lazily per device, on the card unless the caller
-passes ``device="cpu"``.  Int (embedding id) and multi-value attribute
-columns and their lengths travel as int32, node timestamps as int64
-(``core/store.py:238-263``, ``:356-364`` of the JAX package, whose device
-views hold them as int32 too without x64).
+passes ``device="cpu"``.  A view builds its CSR from its own edge
+tensors through ``ops/kernels/csr.py``: on a card by the card's kernels,
+on the CPU by the host order, both equal to ``_build_csr``'s bit for bit
+(which the sharded store still runs on the host).  Int (embedding
+id) and multi-value attribute columns and their lengths travel as int32,
+node timestamps as int64 (``core/store.py:238-263``, ``:356-364`` of the
+JAX package, whose device views hold them as int32 too without x64).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.core.values import TensorStruct
 from graph_learn_tpu_torch.errors import InvalidArgumentError, NotFoundError
+from graph_learn_tpu_torch.ops.kernels import csr
 from graph_learn_tpu_torch.utils import profiling
 from graph_learn_tpu_torch.utils.platform import (DeviceLike, resolve_device,
                                                   torch_dtype)
@@ -278,6 +282,13 @@ class NodeTable:
         self._device.pop(resolve_device(device), None)
 
 
+def _offsets(degrees: np.ndarray) -> np.ndarray:
+    """The int32 [N+1] row offsets of rows with ``degrees`` edges."""
+    ro = np.zeros(degrees.size + 1, dtype=np.int32)
+    np.cumsum(degrees.astype(np.int64), out=ro[1:])
+    return ro
+
+
 def _segment_cdf(vals: np.ndarray, row_offsets: np.ndarray,
                  counts: np.ndarray) -> np.ndarray:
     """Per-row normalised inclusive cumsum of ``vals`` (adjacency order),
@@ -306,20 +317,6 @@ def _pool(ids32: np.ndarray, degs: np.ndarray):
     return uniq.astype(np.int32), cdf
 
 
-def _stable_order(rows: np.ndarray, key: np.ndarray) -> np.ndarray:
-    """``np.lexsort((key, rows))``: by row, then by key, ties in input
-    order.  Where the key is integral and in [0, 2**32) (timestamps, ids)
-    one stable argsort of ``row * 2**32 + key`` gives the same order in
-    about a third of the time."""
-    if (key.size and key.dtype.kind in "iuf" and key.min() >= 0
-            and key.max() < 2 ** 32 and rows.max() < 2 ** 31
-            and (key.dtype.kind != "f" or np.array_equal(key,
-                                                         np.floor(key)))):
-        return np.argsort((rows.astype(np.int64) << 32)
-                          | key.astype(np.int64), kind="stable")
-    return np.lexsort((key, rows))
-
-
 def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
                sort_key: Optional[np.ndarray], sort_desc: bool,
                weights: Optional[np.ndarray] = None,
@@ -337,11 +334,7 @@ def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
     e = rows.size
     eid = np.arange(e, dtype=np.int64)
     with profiling.span("store.csr.sort"):
-        if sort_key is not None:
-            key = -sort_key if sort_desc else sort_key
-            order = _stable_order(rows, key)
-        else:
-            order = np.argsort(rows, kind="stable")
+        order = csr.host_order(rows, sort_key, sort_desc)
     r = rows[order]
     nbr = cols[order].astype(np.int32)
     eids = eid[order].astype(np.int32)
@@ -354,7 +347,7 @@ def _build_csr(rows: np.ndarray, cols: np.ndarray, num_rows: int,
     if not full:
         return row_offsets, nbr, eids, None, None, None, None, nbr_ts
     with profiling.span("store.csr.sort_ids"):
-        order2 = _stable_order(rows, cols)
+        order2 = csr.host_order(rows, cols)
     nbr_s = cols[order2].astype(np.int32)
     eid_s = eid[order2].astype(np.int32)
     cumw = cumind = None
@@ -426,60 +419,129 @@ class EdgeTable:
     def num_edges(self) -> int:
         return self.src.size
 
-    def _host_csr(self, rows, cols, num_rows, nbr_degrees) -> dict:
-        """One direction's CSR arrays (numpy); ``nbr_degrees`` are the
-        degrees the in-degree CDF weighs each neighbour by."""
+    def drop_device(self, device: DeviceLike = "cuda"):
+        """Forget the view on ``device``: the next :meth:`device` builds it
+        again from the host table.  Tables already handed out keep their
+        tensors."""
+        self._device.pop(resolve_device(device), None)
+
+    def _csr_key(self, weights: Optional[torch.Tensor],
+                 ts: Optional[torch.Tensor], dev: torch.device):
+        """The adjacency key as a view's tensor: its weights (taken
+        descending); its int32 timestamps where they are the table's sort
+        key up to one shift (so they order the edges alike: no coarsening
+        since the key was set); else a float64 copy of the sort key, 8 bytes
+        an edge that live through the build; or None."""
+        if self._sort_key is None:
+            return None
+        if self.timestamps is None:
+            return weights
+        t, k = self.timestamps, self._sort_key
+        if not t.size or (t.min() >= -2 ** 31 and t.max() < 2 ** 31
+                          and np.abs(k).max() < 2 ** 53
+                          and np.ptp(t - k) == 0):
+            return ts
+        return _put(self._sort_key, dev)
+
+    def _csr(self, rows: torch.Tensor, cols: torch.Tensor, ro: np.ndarray,
+             ro_t: torch.Tensor, nbr_degrees: np.ndarray,
+             key: Optional[torch.Tensor],
+             ts: Optional[torch.Tensor]) -> DeviceCSR:
+        """One direction's CSR, built where the view's tensors are: the
+        order and its permutes by :func:`csr.csr_order` (the kernels on a
+        card, the host order on the CPU) within the row offsets ``ro``
+        (``ro_t`` on the device), ``nbr_ts`` gathered in that order; under
+        "full" also the id order, and the CDFs by the host's float64
+        arithmetic in that order.  Every array equals
+        :func:`_build_csr`'s."""
+        dev, e = rows.device, rows.shape[0]
+        counts = np.diff(ro).astype(np.int64)
+        nbr_s = eid_s = cumw = cumind = nbr_ts = None
         with profiling.span("store.csr"):
-            ro, nbr, eids, nbr_s, eid_s, cumw, cumind, nts = _build_csr(
-                rows, cols.astype(np.int32), num_rows, self._sort_key,
-                self._sort_desc, self.weights, nbr_degrees,
-                full=conf.storage_profile != "minimal",
-                timestamps=self.timestamps)
-        return dict(row_offsets=ro, nbr_ids=nbr, nbr_edge_ids=eids,
-                    nbr_ids_sorted=nbr_s, nbr_edge_ids_sorted=eid_s,
-                    cum_weights=cumw, cum_in_degrees=cumind, nbr_ts=nts)
+            with profiling.span("store.csr.sort"):
+                nbr, eids = csr.csr_order(rows, cols, ro_t, key,
+                                          self._sort_desc)
+                if profiling.enabled() and dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            if ts is not None and e:
+                nbr_ts = torch.index_select(ts, 0, eids)
+            if conf.storage_profile != "minimal":
+                with profiling.span("store.csr.sort_ids"):
+                    nbr_s, eid_s = csr.csr_order(rows, cols, ro_t, cols)
+                with profiling.span("store.csr.cdf"):
+                    if self.weights is not None and e:
+                        cumw = _put(_segment_cdf(
+                            self.weights[eids.cpu().numpy()], ro, counts),
+                            dev)
+                    if e:
+                        cumind = _put(_segment_cdf(
+                            nbr_degrees[nbr.cpu().numpy()], ro, counts), dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                profiling.count("store.csr.device_builds")
+        return DeviceCSR(
+            row_offsets=ro_t, nbr_ids=nbr, nbr_edge_ids=eids,
+            max_degree=int(counts.max()) if counts.size else 0,
+            nbr_ids_sorted=nbr_s, nbr_edge_ids_sorted=eid_s,
+            cum_weights=cumw, cum_in_degrees=cumind, nbr_ts=nbr_ts)
 
     def device(self, device: DeviceLike = "cuda") -> DeviceEdgeTable:
-        """The table's view on ``device``, built on first use: the CSR
-        arrays and candidate pools on the host (``host_build_s`` records
-        those seconds), then every array copied to the device."""
+        """The table's view on ``device``, built on first use: the row
+        offsets (from the degrees) and candidate pools on the host, then
+        the edge arrays and those copied, then each direction's CSR built
+        from the copies where they are (:meth:`_csr`: on a card by the
+        card's kernels, on the CPU by the host order; for any other device
+        on the CPU, then copied).  ``host_build_s`` records the seconds of
+        the build (on a card, to its synchronise), the copies left out."""
         dev = resolve_device(device)
-        if dev not in self._device:
-            t0 = time.perf_counter()
-            src32, dst32 = self.src.astype(np.int32), self.dst.astype(np.int32)
-            out = self._host_csr(self.src, self.dst, self.num_src_nodes,
-                                 self.in_degrees)
-            inc, pools = None, [None] * 4
-            if conf.storage_profile != "minimal":
-                inc = self._host_csr(self.dst, self.src, self.num_dst_nodes,
-                                     self.out_degrees)
-                with profiling.span("store.pools"):
-                    pools = (_pool(dst32, self.in_degrees)
-                             + _pool(src32, self.out_degrees))
-            self.host_build_s = time.perf_counter() - t0
-
-            def csr(h):
-                d = np.diff(h["row_offsets"])
-                return DeviceCSR(max_degree=int(d.max()) if d.size else 0,
-                                 **{k: _put(a, dev) for k, a in h.items()})
-
+        if dev in self._device:
+            return self._device[dev]
+        full = conf.storage_profile != "minimal"
+        build = dev if dev.type == "cuda" else torch.device("cpu")
+        t0 = time.perf_counter()
+        src32, dst32 = self.src.astype(np.int32), self.dst.astype(np.int32)
+        offsets = [_offsets(self.out_degrees),
+                   _offsets(self.in_degrees) if full else None]
+        pools = [None] * 4
+        if full:
+            with profiling.span("store.pools"):
+                pools = (_pool(dst32, self.in_degrees)
+                         + _pool(src32, self.out_degrees))
+        host_s = time.perf_counter() - t0
+        with _upload(build):
+            edges = dict(
+                src=_put(src32, build), dst=_put(dst32, build),
+                weights=_put(self.weights, build),
+                labels=_put(self.labels, build),
+                timestamps=_put(None if self.timestamps is None
+                                else self.timestamps.astype(np.int32), build),
+                int_attrs=_put(self.int_attrs, build),
+                float_attrs=_put(self.float_attrs, build),
+                multival_attrs=_put(self.multival_attrs, build),
+                multival_lens=_put(self.multival_lens, build))
+            offsets_t = [_put(ro, build) for ro in offsets]
+            u_dst, u_dst_cdf, u_src, u_src_cdf = [_put(a, build)
+                                                  for a in pools]
+            key = self._csr_key(edges["weights"], edges["timestamps"],
+                                build)
+        t0 = time.perf_counter()
+        out = self._csr(edges["src"], edges["dst"], offsets[0], offsets_t[0],
+                        self.in_degrees, key, edges["timestamps"])
+        inc = None
+        if full:
+            inc = self._csr(edges["dst"], edges["src"], offsets[1],
+                            offsets_t[1], self.out_degrees, key,
+                            edges["timestamps"])
+        del key
+        self.host_build_s = host_s + time.perf_counter() - t0
+        view = DeviceEdgeTable(
+            out=out, inc=inc, **edges,
+            unique_dst=u_dst, unique_dst_indeg_cdf=u_dst_cdf,
+            unique_src=u_src, unique_src_outdeg_cdf=u_src_cdf)
+        if build != dev:
             with _upload(dev):
-                u_dst, u_dst_cdf, u_src, u_src_cdf = [_put(a, dev)
-                                                      for a in pools]
-                self._device[dev] = DeviceEdgeTable(
-                    out=csr(out), inc=None if inc is None else csr(inc),
-                    src=_put(src32, dev), dst=_put(dst32, dev),
-                    weights=_put(self.weights, dev),
-                    labels=_put(self.labels, dev),
-                    timestamps=_put(None if self.timestamps is None
-                                    else self.timestamps.astype(np.int32),
-                                    dev),
-                    int_attrs=_put(self.int_attrs, dev),
-                    float_attrs=_put(self.float_attrs, dev),
-                    multival_attrs=_put(self.multival_attrs, dev),
-                    multival_lens=_put(self.multival_lens, dev),
-                    unique_dst=u_dst, unique_dst_indeg_cdf=u_dst_cdf,
-                    unique_src=u_src, unique_src_outdeg_cdf=u_src_cdf)
+                view = view.map(lambda t: t.to(dev))
+        self._device[dev] = view
         return self._device[dev]
 
 

@@ -26,11 +26,16 @@ The names, by layer (``glt.`` before each in a trace):
 * store: ``store.ingest_nodes`` / ``store.ingest_edges`` (the host
   tables' constructors), ``store.device_tables`` (``Query.device_tables``)
   holding, per edge table and direction, ``store.csr`` with its children
-  ``store.csr.sort`` (the adjacency order), and on a store that is not
+  ``store.csr.sort`` (the adjacency order; a process's first also takes the
+  first ``torch.library`` operator call's import of ``torch._dynamo``,
+  seconds), and on a store that is not
   ``"minimal"`` ``store.csr.sort_ids`` (the id-sorted copy) and
-  ``store.csr.cdf``, then ``store.pools``; ``store.upload`` (every copy of
-  a table to its device, closed after the copies have landed) and the
-  counter ``store.upload_bytes``;
+  ``store.csr.cdf`` (which copies its CDFs too), and ``store.pools``;
+  ``store.upload`` (the copies of a table's arrays to its device, closed
+  after the copies have landed) and the counter ``store.upload_bytes``;
+  the counters ``store.csr.device_builds`` (CSR directions built on a
+  card) and ``store.csr.long_rows`` (rows the card's order sorted past its
+  warp tier, each sort counting its own);
 * plan: ``plan.seeds`` (``bench.sample_one``'s draw), ``plan``
   (``_execute``) holding ``plan.<alias>.sample`` (the strategy's draw)
   and ``plan.<alias>.lookup`` (the node, edge and degree lookups) of each

@@ -753,6 +753,22 @@ def test_chip_smoke_main_runs_phase_25():
                              if isinstance(n, ast.Name)}
 
 
+def test_chip_smoke_main_runs_phase_27():
+    """main() holds the CSR order to its plain version on phase 11's
+    weighted store, before that store is freed, and puts its row on the
+    kernels line; its bound counts 20 bytes an edge."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    main = next(f for f in tree.body
+                if isinstance(f, ast.FunctionDef) and f.name == "main")
+    calls = [n for n in ast.walk(main)
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    line = {n.func.id: n.lineno for n in calls}
+    assert line["bench_path"] < line["csr_path"] < line["walks_path"]
+    assert "csr_row" in {n.id for n in ast.walk(main)
+                         if isinstance(n, ast.Name)}
+    assert _chip_smoke_module().csr_work(123_718_280) == 2_474_365_600
+
+
 def test_chip_smoke_parallel_path_rehearses_on_the_cpu(capsys,
                                                        monkeypatch):
     """Phase 24 at a small size on the CPU: DistTrainer at (1, 1) against

@@ -41,7 +41,7 @@ from graph_learn_tpu_torch.nn.convert import load_flax_params, to_flax_params
 from graph_learn_tpu_torch.nn.data import TemporalGraph
 from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
 from graph_learn_tpu_torch.ops import sampling, temporal
-from graph_learn_tpu_torch.ops.kernels import gather, spmm
+from graph_learn_tpu_torch.ops.kernels import csr, gather, spmm
 from torch_parity import (assert_trees_close, both_confs, jax_temporal_graph,
                           temporal_arrays, temporal_table,
                           torch_temporal_graph)
@@ -115,7 +115,7 @@ def test_the_fast_stable_order_is_lexsort(key):
             "fractional": rng.integers(0, 9, 5000) + 0.5 * (
                 rng.random(5000) < 0.5),
             "wide": rng.integers(0, 4, 5000) * 2.0 ** 40}[key]
-    np.testing.assert_array_equal(tstore._stable_order(rows, keys),
+    np.testing.assert_array_equal(csr._stable_order(rows, keys),
                                   np.lexsort((keys, rows)))
 
 
