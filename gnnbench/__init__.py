@@ -1,4 +1,5 @@
-"""The benchmark of graph_learn_tpu_torch: sampled 2-hop GNN training at
-ogbn-products' size on one card.  ``run.py`` runs one cell once; the
-cells, configurations and per-layer metrics are files found by name
+"""The benchmark of graph_learn_tpu_torch: sampled GNN training at
+ogbn-products' size on one card, at the depth of each workload's fanout.
+``run.py`` runs one cell once; the cells, configurations, models, their
+references and per-layer metrics are files found by name
 (``catalog.py``)."""

@@ -5,14 +5,18 @@ metrics.  Everything else is found by name in the catalog directories
 (``gnnbench/`` itself, then any given with ``--catalog``):
 
 * ``workloads/<cell>.json``: the traffic (generator, its parameters, batch,
-  fanout, strategy, steps a call) and the cell's ``why``;
+  fanout, strategy, steps a call) and the cell's ``why``; the depth is the
+  fanout's length (N hops, "hop1" ... "hopN");
 * ``configs/<config>.json``: the model, its widths and the store, as run;
 * ``models/<model>.py``: the port's model and step for that model;
+* ``references/<model>.py``: that model's plain reference, ``logits(p,
+  feats, batch, spec, tf32)`` in plain PyTorch, importing nothing of the
+  program;
 * ``graphs/<generator>.py``: a graph generator;
 * ``metrics/<metric>.py``: a per-layer metric's reader.
 
-So a cell, a configuration or a per-layer metric is added by new files
-and new entries, with no edit to a file that is here.
+So a cell, a configuration of any depth, a model or a per-layer metric is
+added by new files and new entries, with no edit to a file that is here.
 """
 
 from __future__ import annotations

@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
+from typing import Sequence
 
 PEAKS_FILE = Path(__file__).resolve().parent / "peaks.json"
 
@@ -66,29 +67,41 @@ def cross_entropy(b: int, c: int) -> Work:
     return Work(other=8.0 * b * c)
 
 
-def sage_step(b: int, k1: int, k2: int, d: int, h: int, c: int,
+def sage_step(b: int, fanout: Sequence[int], dims: Sequence[int],
               bias: bool) -> Work:
-    """One training step of EgoGraphSAGE [d, h, c], agg "mean" (each conv
-    one Linear of a node's row concatenated with its neighbours' mean, with
-    ``bias`` or without), on a 2-hop batch of ``b`` seeds with fanout
-    [k1, k2]: the deepest hop's means, both layers forward, the loss, the
-    weight gradients (the features take none) and Adam."""
-    n1 = b * k1
-    rows0 = n1 + b                          # layer 0's outputs
-    fwd = Work(
-        products=2.0 * rows0 * 2 * d * h + 2.0 * b * 2 * h * c,
-        other=(n1 * (k2 + 1) * d            # the deepest hop's means
-               + b * (k1 + 1) * d           # the seeds' mean of hop 1
-               + rows0 * h                  # relu
-               + b * (k1 + 1) * h           # layer 1's mean of hop 1
-               + (rows0 * h + b * c if bias else 0)))
-    bwd = Work(
-        products=(2.0 * rows0 * 2 * d * h          # dW0
-                  + 4.0 * b * 2 * h * c),          # dW1, d [h; mean]
-        other=(2.0 * b * (k1 + 1) * h              # mean, relu
-               + (rows0 * h + b * c if bias else 0)))   # d bias
-    n_params = 2 * d * h + 2 * h * c + (h + c if bias else 0)
-    return fwd + bwd + cross_entropy(b, c) + adam(n_params)
+    """One training step of EgoGraphSAGE ``dims`` [d0, ..., dN], agg
+    "mean" (each conv one Linear of a node's row concatenated with its
+    neighbours' mean, with ``bias`` or without), on an N-hop batch of ``b``
+    seeds with ``fanout`` [k1, ..., kN]: the deepest hop's means, every
+    layer forward, the loss, the weight gradients (the features take none)
+    and Adam.
+
+    Hop j holds ``r_j = b k1 ... kj`` rows (hop 0 the seeds); layer i maps
+    hops 0 ... N - 1 - i, each row with the mean of its ``k_{j+1}``
+    neighbours in hop j + 1 (the deepest of layer 0's means are the
+    pre-averaged hop N); relu after every layer but the last."""
+    n = len(fanout)
+    if len(dims) != n + 1:
+        raise ValueError("%d layers on %d hops" % (len(dims) - 1, n))
+    rows = [b]
+    for k in fanout:
+        rows.append(rows[-1] * k)
+    fwd, bwd, n_params = Work(), Work(), 0
+    for i in range(n):
+        din, dout = dims[i], dims[i + 1]
+        out_rows = sum(rows[:n - i])        # layer i's outputs
+        # every output row's mean of its neighbours in the next hop
+        means = sum(rows[j] * (fanout[j] + 1) for j in range(n - i)) * din
+        gemm = 2.0 * out_rows * 2 * din * dout
+        relu = out_rows * dout if i < n - 1 else 0
+        biases = out_rows * dout if bias else 0
+        fwd += Work(products=gemm, other=means + relu + biases)
+        bwd += Work(products=gemm, other=biases)              # dW, d bias
+        if i > 0:  # d [x; mean], the means' and the previous relu's
+            bwd += Work(products=gemm,
+                        other=means + sum(rows[:n - i + 1]) * din)
+        n_params += 2 * din * dout + (dout if bias else 0)
+    return fwd + bwd + cross_entropy(b, dims[-1]) + adam(n_params)
 
 
 def gather_rows(distinct: int, rows: int, d: int, itemsize: int) -> Work:

@@ -4,6 +4,12 @@ the comparison with the plain reference, and the result line.
     python3 gnnbench/run.py --workload <cell> --seed <n> --seconds <s>
         --trace <0|1> [--control 1] [--catalog DIR] [--spec FILE]
 
+The depth is the workload's: a ``traffic.fanout`` of length N samples N
+hops, "hop1" ... "hopN", and a model of N layers runs on them.  The
+model's step is ``models/<model>.py`` and its plain reference
+``references/<model>.py``, both found by the configuration's ``model``
+(``catalog.py``).
+
 Set-up (``setup_s``: from the process's start to the first timed step):
 the graph drawn from ``--seed`` on the device by the workload's generator
 and copied to the host; the port's store built from those arrays
@@ -20,14 +26,15 @@ replay's K steps are the ones the reference follows from the copy.
 ``--trace 1`` then traces a few replays and K eager steps (``trace.py``)
 and reports the per-layer metrics instead of the end-to-end ones.
 
-Then the program's state is freed and the reference (``reference.py``)
-checks, on the same device: every sampled id of the first call's K steps
-and of that replay's K steps against the CSR rebuilt from the edge arrays;
-the deepest hop's means of the first three steps and of the replay's
-first and last steps; the first step's logits, the three steps' losses,
-the first gradient (Adam's first moment after step 1) and the parameters'
-change after step 3 against the reference's own three steps from the same
-weights and ids; and the replay's first logits, its K losses and the
+Then the program's state is freed and the reference (``reference.py``
+with the model's ``references/<model>.py``) checks, on the same device:
+every sampled id of the first call's K steps and of that replay's K steps
+against the CSR rebuilt from the edge arrays, hop by hop (seeds -> hop 1
+-> ... -> hop N); hop N's means (Kernel 2's) of the first three steps and
+of the replay's first and last steps; the first step's logits, the three
+steps' losses, the first gradient (Adam's first moment after step 1) and
+the parameters' change after step 3 against the reference's own three
+steps from the same weights and ids; and the replay's first logits, its K losses and the
 parameters' change over it against the reference's K steps from the
 copied parameters and Adam state (``replay_*``).  Each gradient and update
 gap is read by its worst leaf and by its median leaf.  The
@@ -36,7 +43,7 @@ each with its limit; ``correct`` is every one within its limit, and the
 others are printed as readings.  ``--control 1`` also prints the numbers
 of the control (the reference computed with TF32 products in the
 program's place) and of a half batch (the loss over half the seeds, each
-deepest-hop mean over half its rows), which set the limits; the
+of hop N's means over half its rows), which set the limits; the
 benchmark's own runs never pass it.
 
 No card (``torch.cuda.is_available()``, or fewer cards than the cell
@@ -138,7 +145,7 @@ def run(cat, cell: dict, args, dev, t_start: float) -> dict:
     from gnnbench import flops, reference
     from gnnbench import trace as tracing
     from gnnbench.readers import Context
-    from gnnbench.steps import host_copy
+    from gnnbench.steps import hop_aliases, host_copy
 
     cuda = dev.type == "cuda"
     wl = cat.workload(cell["name"])
@@ -147,8 +154,10 @@ def run(cat, cell: dict, args, dev, t_start: float) -> dict:
     gparams = {**cfg["graph"], **wl.get("graph", {})}
     n = int(gparams["nodes"])
     b = traffic["batch"]
-    k1, k2 = traffic["fanout"]
+    fanout = traffic["fanout"]
+    hops = hop_aliases(fanout)
     model_mod = cat.module("models", cfg["model"])
+    logits_fn = cat.module("references", cfg["model"]).logits
     peaks = flops.load_peaks(cfg["peak"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -181,10 +190,10 @@ def run(cat, cell: dict, args, dev, t_start: float) -> dict:
             "rel", "item", "item", Decoder(weighted=True), src=data["src"],
             dst=data["dst"], num_src_nodes=n, num_dst_nodes=n,
             weights=data["weights"]))
-        strategy = traffic["strategy"]
-        q = (g.V("item").batch(b).alias("src")
-             .outV("rel").sample(k1).by(strategy).alias("hop1")
-             .outV("rel").sample(k2).by(strategy).alias("hop2").values())
+        q = g.V("item").batch(b).alias("src")
+        for k, alias in zip(fanout, hops):
+            q = q.outV("rel").sample(k).by(traffic["strategy"]).alias(alias)
+        q = q.values()
         tables = q.device_tables(dev)
         if cuda:
             torch.cuda.synchronize()
@@ -199,7 +208,7 @@ def run(cat, cell: dict, args, dev, t_start: float) -> dict:
         K = traffic["steps_per_call"]
         step = model_mod.Steps(q, tables, model, optimizer,
                                {"scan_steps": K, "n_nodes": n},
-                               traffic["group"], gen, cuda,
+                               traffic["group"], gen, cuda, hops=hops,
                                beta1=cfg["adam_betas"][0])
         step()  # K eager steps (kept for the reference), then the capture
         for _ in range(WARM_REPLAYS if cuda else 0):
@@ -239,7 +248,9 @@ def run(cat, cell: dict, args, dev, t_start: float) -> dict:
                   "after": {model_mod.ref_name(k): host_copy(p)
                             for k, p in model.named_parameters()}}
         steps = calls * K
-        edges = steps * b * (k1 + k1 * k2)
+        # the sampled edges of a seed's tree: k1 + k1 k2 + ... + k1 ... kN
+        edges = steps * b * sum(math.prod(fanout[:j])
+                                for j in range(1, len(fanout) + 1))
         work = model_mod.step_work(cfg, traffic)
         log("window %.6fs: %d calls of %d steps, %.1f steps/s"
             % (wall, calls, K, steps / wall))
@@ -268,8 +279,8 @@ def run(cat, cell: dict, args, dev, t_start: float) -> dict:
 
     # ---- the comparison -------------------------------------------------
     t0 = time.perf_counter()
-    numbers, extra = compare(reference, cfg, traffic, data, kept, params0,
-                             dev, args.control)
+    numbers, extra = compare(reference, logits_fn, cfg, traffic, hops, data,
+                             kept, params0, dev, args.control)
     limits = {**cfg["limits"], **wl.get("limits", {})}
     missing = set(limits) - set(numbers)
     if missing:
@@ -371,20 +382,24 @@ def adam_state(model, optimizer, ref_name) -> dict:
             "state": {"exp_avg": m, "exp_avg_sq": v, "step": steps.pop()}}
 
 
-def compare(reference, cfg: dict, traffic: dict, data: dict, kept: dict,
-            params0: dict, dev, control: bool):
+def compare(reference, logits_fn, cfg: dict, traffic: dict, hops, data: dict,
+            kept: dict, params0: dict, dev, control: bool):
     """The numbers compared (module note) and, with ``control``, the
-    control's and the half batch's."""
+    control's and the half batch's.  ``logits_fn`` is the model's
+    reference logits; ``hops`` the aliases "hop1" ... "hopN"."""
     import torch
     first, replay = kept["first"], kept["replay"]
     index = reference.EdgeIndex(data["src"], data["dst"],
                                 data["features"].shape[0], dev)
     fill = cfg["fill_id"]
+    chain = ("seeds",) + tuple(hops)
+    deepest = chain[-1]
     bad = 0
     for rec in first + replay["steps"]:
-        s, h1, h2 = (rec[a].to(dev) for a in ("seeds", "hop1", "hop2"))
-        bad += (index.bad_seeds(s) + index.bad_children(s, h1, fill)
-                + index.bad_children(h1, h2, fill))
+        ids = [rec[a].to(dev) for a in chain]
+        bad += index.bad_seeds(ids[0]) + sum(
+            index.bad_children(parent, child, fill)
+            for parent, child in zip(ids, ids[1:]))
     del index
     feats = torch.from_numpy(data["features"]).to(dev)
     labels = torch.from_numpy(data["labels"]).to(dev)
@@ -393,16 +408,15 @@ def compare(reference, cfg: dict, traffic: dict, data: dict, kept: dict,
     with_agg = [r for r in followed + replay["steps"] if "agg" in r]
     if with_agg:
         numbers["agg_gap"] = max(
-            reference.rel_max_gap(r["agg"],
-                                  reference.group_mean(feats, r["hop2"].to(dev)))
+            reference.rel_max_gap(r["agg"], reference.group_mean(
+                feats, r[deepest].to(dev)))
             for r in with_agg)
 
     def on_dev(leaves):
         return {k: v.to(dev) for k, v in leaves.items()}
 
     def ids(recs):
-        return [{a: r[a].to(dev).long() for a in ("seeds", "hop1", "hop2")}
-                for r in recs]
+        return [{a: r[a].to(dev).long() for a in chain} for r in recs]
 
     state = {"exp_avg": on_dev(replay["state"]["exp_avg"]),
              "exp_avg_sq": on_dev(replay["state"]["exp_avg_sq"]),
@@ -419,7 +433,7 @@ def compare(reference, cfg: dict, traffic: dict, data: dict, kept: dict,
                         ids(replay["steps"]))}
     extra = {}
     for prefix, (prog, start, st, batches) in runs.items():
-        ref = reference.follow(cfg["model"], cfg, start, feats, labels,
+        ref = reference.follow(logits_fn, cfg, start, feats, labels,
                                batches, cfg["lr"], state=st)
         numbers.update(model_numbers(reference, prog, ref, start, dev,
                                      prefix))
@@ -428,7 +442,7 @@ def compare(reference, cfg: dict, traffic: dict, data: dict, kept: dict,
             continue
         for name, kw in (("control_tf32", {"tf32": True}),
                          ("half_batch", {"rows": traffic["batch"] // 2})):
-            other = reference.follow(cfg["model"], cfg, start, feats,
+            other = reference.follow(logits_fn, cfg, start, feats,
                                      labels, batches, cfg["lr"], state=st,
                                      **kw)
             if prog["grads"] is None:
@@ -438,10 +452,10 @@ def compare(reference, cfg: dict, traffic: dict, data: dict, kept: dict,
     if control and "agg_gap" in numbers:  # each mean over half its rows
         extra["half_batch"]["agg_gap"] = max(
             reference.rel_max_gap(
-                reference.group_mean(feats, r["hop2"].to(dev)[..., :half]),
-                reference.group_mean(feats, r["hop2"].to(dev)))
+                reference.group_mean(feats, r[deepest].to(dev)[..., :half]),
+                reference.group_mean(feats, r[deepest].to(dev)))
             for r in with_agg
-            for half in [r["hop2"].shape[-1] // 2])
+            for half in [r[deepest].shape[-1] // 2])
     return numbers, extra
 
 

@@ -1,7 +1,9 @@
 """EgoGraphSAGE as the port trains it at scale: ``bench.MultiStep``'s step
-(the deepest hop reduced outside the gradient by Kernel 2, the seeds' and
-hop 1's rows gathered by Kernel 1 in the forward, SAGE convs, softmax
-cross-entropy, fused Adam), with the step kept for the comparison.
+on the workload's hops (the deepest, hop N, reduced outside the gradient
+by Kernel 2, the rows of the seeds and of hops 1 ... N - 1 gathered by
+Kernel 1 in the forward, SAGE convs, softmax cross-entropy, fused Adam),
+with the step kept for the comparison.  Its plain reference is
+``references/ego_sage.py``.
 
 The model is the port's ``EgoGraphSAGE`` composed with the convs' own
 bias switch (``cfg["bias"]``), which ``EgoGraphSAGE`` does not pass on:
@@ -25,9 +27,7 @@ from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGNN
 from graph_learn_tpu_torch.ops.aggregate import gather_group_agg
 
 from gnnbench import flops
-from gnnbench.steps import RecordedSteps
-
-HOPS = ("hop1", "hop2")
+from gnnbench.steps import RecordedSteps, hop_aliases
 
 
 def build(cfg: dict, decoder, device) -> torch.nn.Module:
@@ -53,55 +53,59 @@ def ref_name(port_name: str) -> str:
 
 
 class Steps(RecordedSteps):
-    """``bench.MultiStep._group`` with its spans and ``keep`` calls."""
+    """``bench.MultiStep._group`` on every hop of ``self.hops``, the
+    deepest pre-averaged, with its spans and ``keep`` calls."""
 
     def _group(self, first: int):
         table = self.tables["nodes"]["item"].float_attrs
+        deepest = self.hops[-1]
         with self.span("plan"), torch.no_grad():
             batches = [bench.sample_one(self.q, self.tables, self.n_nodes,
                                         self.generator)
                        for _ in range(self.G)]
         with self.span("aggregate"), torch.no_grad():
-            ids2 = [b["hop2"].ids for _, b in batches]
-            ids2 = ids2[0][None] if self.G == 1 else torch.stack(ids2)
-            agg2 = gather_group_agg(table, ids2, "mean").reshape(
+            ids = [b[deepest].ids for _, b in batches]
+            ids = ids[0][None] if self.G == 1 else torch.stack(ids)
+            agg = gather_group_agg(table, ids, "mean").reshape(
                 self.G, -1, table.shape[-1])
         for j, (seeds, batch) in enumerate(batches):
             self.seeds.append(seeds)
             with self.span("model"):
-                hop2 = batch["hop2"].replace(
-                    float_attrs=PreAggregatedRows(agg2[j], "mean"))
-                ego = EgoGraph.from_query_result({**batch, "hop2": hop2},
-                                                 "src", HOPS)
+                last = batch[deepest].replace(
+                    float_attrs=PreAggregatedRows(agg[j], "mean"))
+                ego = EgoGraph.from_query_result({**batch, deepest: last},
+                                                 "src", self.hops)
                 logits = self.model(ego, training=True)
                 loss = supervised_softmax_loss(logits, batch["src"].labels)
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
                 self.optimizer.step()
                 self.losses[first + j].copy_(loss.detach())
-            self.keep(first + j, seeds, batch, logits, agg2[j])
+            self.keep(first + j, seeds, batch, logits, agg[j])
 
 
 def step_work(cfg: dict, traffic: dict) -> flops.Work:
-    d, h, c = cfg["dims"]
-    k1, k2 = traffic["fanout"]
     if cfg["agg"] != "mean":
         raise ValueError("the step's count is of agg 'mean'")
-    return flops.sage_step(traffic["batch"], k1, k2, d, h, c, cfg["bias"])
+    return flops.sage_step(traffic["batch"], traffic["fanout"], cfg["dims"],
+                           cfg["bias"])
 
 
 def kernel_work(cfg: dict, traffic: dict, rec: Dict[str, torch.Tensor],
                 itemsize: int) -> Dict[str, List[flops.Work]]:
     """The work of each kernel launch of one step, by operator: Kernel 1
-    on the seeds' and hop 1's rows, Kernel 2's means of hop 2."""
+    on the rows of the seeds and of hops 1 ... N - 1, Kernel 2's means of
+    hop N."""
     d = cfg["dims"][0]
-    k2 = traffic["fanout"][1]
+    fanout = traffic["fanout"]
+    hops = hop_aliases(fanout)
 
     def distinct(t):
         return int(torch.unique(t).numel())
 
     gathers = [flops.gather_rows(distinct(rec[a]), rec[a].numel(), d,
-                                 itemsize) for a in ("seeds", "hop1")]
-    groups = rec["hop2"].numel() // k2
-    mean = flops.group_mean(distinct(rec["hop2"]), groups, k2, d, itemsize)
+                                 itemsize) for a in ("seeds",) + hops[:-1]]
+    k = fanout[-1]
+    groups = rec[hops[-1]].numel() // k
+    mean = flops.group_mean(distinct(rec[hops[-1]]), groups, k, d, itemsize)
     return {"glt::gather_rows": gathers, "glt::segment_spmm": [mean]}

@@ -1,13 +1,16 @@
-"""The plain reference: what a sampled 2-hop training step computes, in
-plain PyTorch, float32, with TF32 off (or, for the control, on).
+"""The plain reference: what a sampled training step of any depth
+computes, in plain PyTorch, float32, with TF32 off (or, for the control,
+on).
 
 It takes only what the benchmark made (edge arrays, features, labels, the
 initial weights) and the ids that the program sampled, and works out
 everything else again: the CSR that the samples must come from, the
-deepest hop's means, the model's logits (GraphSAGE with mean aggregation
-as its layer equations read), the softmax cross-entropy, the gradients
-(autograd over these plain operations) and Adam's update.  It imports
-nothing of the program.
+deepest hop's means, the softmax cross-entropy, the gradients (autograd
+over plain operations) and Adam's update.  A model's logits, as its layer
+equations read, are that model's own reference, ``references/<model>.py``
+(``logits(p, feats, batch, spec, tf32)``), which the catalog finds by the
+configuration's ``model`` and ``follow`` is given.  Neither this module
+nor those import anything of the program.
 
 ``follow`` runs the reference's own steps; ``matmul`` is the one place
 where a product happens, so the control (``tf32=True``) changes the
@@ -110,42 +113,8 @@ def group_mean(feats: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the models' logits
+# the loss
 # ---------------------------------------------------------------------------
-
-
-def sage_conv(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
-              bias: Optional[torch.Tensor], tf32: bool) -> torch.Tensor:
-    """One GraphSAGE conv with mean aggregation (PyG's ``SAGEConv``):
-    ``W_r x + W_l mean(nbr) + bias``, with ``W = [W_r, W_l]`` [out, 2 din]
-    taken as one matrix over ``[x, mean(nbr)]``.  ``x`` [..., din],
-    ``nbr`` [..., k, din]."""
-    h = torch.cat([x, nbr.mean(dim=-2)], dim=-1)
-    out = matmul(h.reshape(-1, h.shape[-1]), w.t(), tf32)
-    if bias is not None:
-        out = out + bias
-    return out.reshape(*h.shape[:-1], -1)
-
-
-def sage_logits(p: Dict[str, torch.Tensor], feats: torch.Tensor, batch,
-                spec: dict, tf32: bool) -> torch.Tensor:
-    """EgoGraphSAGE, agg "mean", two layers, relu between: layer 0 on
-    (seeds, hop 1) and (hop 1, hop 2), layer 1 on their outputs.  ``p``:
-    "layer0.weight" [H, 2D], "layer1.weight" [C, 2H] and, where the
-    configuration has them, "layer0.bias" [H], "layer1.bias" [C]."""
-    if spec["agg"] != "mean":
-        raise ValueError("the reference computes agg 'mean' only")
-    x0 = feats[batch["seeds"]]                    # [b, D]
-    x1 = feats[batch["hop1"]]                     # [b, k1, D]
-    x2 = feats[batch["hop2"]]                     # [b, k1, k2, D]
-    w0, w1 = p["layer0.weight"], p["layer1.weight"]
-    b0, b1 = p.get("layer0.bias"), p.get("layer1.bias")
-    h_src = torch.relu(sage_conv(x0, x1, w0, b0, tf32))
-    h_hop = torch.relu(sage_conv(x1, x2, w0, b0, tf32))
-    return sage_conv(h_src, h_hop, w1, b1, tf32)
-
-
-MODELS: Dict[str, Callable] = {"ego_sage": sage_logits}
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -159,12 +128,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def follow(model: str, spec: dict, params0: Dict[str, torch.Tensor],
+def follow(logits_fn: Callable, spec: dict,
+           params0: Dict[str, torch.Tensor],
            feats: torch.Tensor, labels: torch.Tensor, batches: List[dict],
            lr: float, tf32: bool = False, rows: Optional[int] = None,
            state: Optional[dict] = None) -> dict:
     """Train a copy of ``params0`` for ``len(batches)`` steps on the given
-    ids: logits, loss, gradients by autograd, then Adam (betas 0.9 /
+    ids: logits (``logits_fn``, a model's ``references/<model>.py``
+    ``logits``), loss, gradients by autograd, then Adam (betas 0.9 /
     0.999, eps 1e-8, bias-corrected).  Adam starts from ``state``
     ("exp_avg" and "exp_avg_sq" by leaf, "step": the steps taken), or
     from nothing.  ``rows`` takes the loss over the first ``rows`` seeds
@@ -172,7 +143,6 @@ def follow(model: str, spec: dict, params0: Dict[str, torch.Tensor],
 
     Returns "losses" [float per step], "logits" (step 1), "grads" (step 1,
     by leaf) and "params" (after the last step, by leaf)."""
-    logits_fn = MODELS[model]
     params = {k: v.detach().clone().requires_grad_(True)
               for k, v in params0.items()}
     if state is None:

@@ -5,8 +5,9 @@ A model's module (``models/<model>.py``) writes the step's body as the
 port composes it and calls :meth:`RecordedSteps.keep` after each step's
 Adam update.  What is kept:
 
-* the first call (eager, in set-up): every step's seeds and sampled ids,
-  copied to the host; the first ``FOLLOWED`` steps' logits and deepest-hop
+* the first call (eager, in set-up): every step's seeds and the sampled
+  ids of every hop ("hop1" ... "hopN", N the fanout's length), copied to
+  the host; the first ``FOLLOWED`` steps' logits and deepest-hop
   means; Adam's first moment after step 1 (the first gradient as the
   optimizer got it) and the parameters after step ``FOLLOWED``, before
   step ``FOLLOWED + 1`` changes them;
@@ -25,7 +26,7 @@ while ``spans`` is set (the traced eager steps only).
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +34,11 @@ from graph_learn_tpu_torch import bench
 
 # the steps the reference follows
 FOLLOWED = 3
+
+
+def hop_aliases(fanout: Sequence[int]) -> Tuple[str, ...]:
+    """The plan's alias of each hop of ``fanout``: "hop1" ... "hopN"."""
+    return tuple("hop%d" % j for j in range(1, len(fanout) + 1))
 
 
 def host_copy(t: torch.Tensor) -> torch.Tensor:
@@ -45,10 +51,13 @@ def capturing() -> bool:
 
 
 class RecordedSteps(bench.MultiStep):
-    """``bench.MultiStep`` whose steps keep their ids (module note)."""
+    """``bench.MultiStep`` whose steps keep their ids (module note);
+    ``hops`` are the plan's hop aliases, in order."""
 
-    def __init__(self, *args, beta1: float = 0.9, **kwargs):
+    def __init__(self, *args, hops: Sequence[str], beta1: float = 0.9,
+                 **kwargs):
         super().__init__(*args, **kwargs)
+        self.hops = tuple(hops)
         self.beta1 = beta1
         self.mode = "first"
         self.spans = False
@@ -73,8 +82,7 @@ class RecordedSteps(bench.MultiStep):
     def keep(self, i: int, seeds: torch.Tensor, batch: dict,
              logits: torch.Tensor, agg: Optional[torch.Tensor]):
         """Keep step ``i``'s ids (and, where due, logits and means)."""
-        rec = {"seeds": seeds, "hop1": batch["hop1"].ids,
-               "hop2": batch["hop2"].ids}
+        rec = {"seeds": seeds, **{a: batch[a].ids for a in self.hops}}
         if agg is not None:
             rec["agg"] = agg
         if capturing() or (self.graph is None and self.mode is None):

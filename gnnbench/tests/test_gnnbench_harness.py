@@ -1,6 +1,7 @@
 """Whole runs at a test's size on the CPU (``GLT_PLATFORM=cpu``): the port
 against the reference, the faults and the control that the comparison must
-catch, a cell added by files alone, and the run without a card."""
+catch, a cell, and a configuration of three hops with a model of its own,
+added by files alone, and the run without a card."""
 
 import json
 import os
@@ -142,35 +143,108 @@ def test_a_broken_step_is_not_correct(capsys, monkeypatch, cell, fault):
     assert res["correct"] is False, res["compared"]
 
 
-def test_a_cell_added_by_files_alone(capsys, tmp_path):
-    """A new cell is a workload file (and its entry): the harness finds it
-    in another catalog directory with no edit."""
-    (tmp_path / "workloads").mkdir()
+def _skewed_cell(root: Path) -> str:
+    """A new workload of the fixture's configuration: a workload file and
+    its entry."""
+    (root / "workloads").mkdir()
     wl = json.loads((FIXTURES / "workloads" /
                      "tiny-sage-products.uniform.json").read_text())
     wl.update(name="tiny-sage-products.skewed", graph={"alpha": 0.8})
-    (tmp_path / "workloads" / "tiny-sage-products.skewed.json").write_text(
+    (root / "workloads" / "tiny-sage-products.skewed.json").write_text(
         json.dumps(wl))
     spec = json.loads((FIXTURES / "spec.json").read_text())
     spec["workloads"].append({"name": "tiny-sage-products.skewed",
                               "config": "tiny-sage-products",
                               "traffic": "skewed", "chips": 1, "why": "t"})
-    (tmp_path / "spec.json").write_text(json.dumps(spec))
-    old = os.environ.get("GLT_PLATFORM")
-    os.environ["GLT_PLATFORM"] = "cpu"
-    try:
-        rc = harness.main(["--workload", "tiny-sage-products.skewed",
-                           "--seed", "9", "--seconds", "0.3",
-                           "--catalog", str(FIXTURES),
-                           "--catalog", str(tmp_path),
-                           "--spec", str(tmp_path / "spec.json")])
-    finally:
-        if old is None:
-            del os.environ["GLT_PLATFORM"]
-        else:
-            os.environ["GLT_PLATFORM"] = old
-    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rc == 0 and res["correct"]
+    (root / "spec.json").write_text(json.dumps(spec))
+    return "tiny-sage-products.skewed"
+
+
+def _three_hop_cell(root: Path) -> str:
+    """A configuration of three layers on fanout [15, 10, 5] with a model
+    of its own (``ego_sage``'s step and reference under another name):
+    a configuration, a workload, ``models/<m>.py``, ``references/<m>.py``
+    and their entries."""
+    for sub in ("configs", "workloads", "models", "references"):
+        (root / sub).mkdir()
+    cfg = json.loads((FIXTURES / "configs" /
+                      "tiny-sage-products.json").read_text())
+    cfg.update(name="tiny-sage3-products", model="ego_sage_deep",
+               dims=[100, 256, 256, 47], num_layers=3, fanout=[15, 10, 5],
+               reduced=["dropout"])
+    (root / "configs" / "tiny-sage3-products.json").write_text(
+        json.dumps(cfg))
+    wl = json.loads((FIXTURES / "workloads" /
+                     "tiny-sage-products.uniform.json").read_text())
+    wl.update(name="tiny-sage3-products.uniform", config=cfg["name"])
+    wl["traffic"].update(batch=32, fanout=[15, 10, 5])
+    (root / "workloads" / "tiny-sage3-products.uniform.json").write_text(
+        json.dumps(wl))
+    for sub in ("models", "references"):
+        shutil.copy(HERE / sub / "ego_sage.py",
+                    root / sub / "ego_sage_deep.py")
+    spec = json.loads((FIXTURES / "spec.json").read_text())
+    spec["configs"].append({**spec["configs"][0], "reduced": ["dropout"],
+                            "name": "tiny-sage3-products",
+                            "file": "configs/tiny-sage3-products.json"})
+    spec["workloads"].append({"name": "tiny-sage3-products.uniform",
+                              "config": "tiny-sage3-products",
+                              "traffic": "uniform", "chips": 1, "why": "t"})
+    (root / "spec.json").write_text(json.dumps(spec))
+    return "tiny-sage3-products.uniform"
+
+
+@pytest.mark.parametrize("added", [_skewed_cell, _three_hop_cell],
+                         ids=["skewed", "three_hops"])
+def test_a_cell_added_by_files_alone(capsys, tmp_path, added):
+    """A new cell, or a configuration of another depth with a model and
+    reference of its own, is new files and entries: the harness finds them
+    in another catalog directory with no edit."""
+    cell = added(tmp_path)
+    rc, res = run_cell(capsys, cell, seed=9, spec=tmp_path / "spec.json",
+                       extra=["--catalog", str(tmp_path)])
+    assert rc == 0 and res["correct"], res["compared"]
+
+
+def _hop3_off_the_csr(monkeypatch):
+    from graph_learn_tpu_torch import bench
+
+    def sample_one(q, tables, n_nodes, generator, orig=bench.sample_one):
+        seeds, batch = orig(q, tables, n_nodes, generator)
+        hop3 = batch["hop3"]
+        ids = hop3.ids.clone()
+        ids[0] = (ids[0] + 1) % n_nodes
+        return seeds, {**batch, "hop3": hop3.replace(ids=ids)}
+    monkeypatch.setattr(bench, "sample_one", sample_one)
+    return "bad_samples"
+
+
+def _layer2_weight(monkeypatch):
+    """The program's third-layer weight off the benchmark's by 1e-3 of
+    itself; the reference starts from the benchmark's."""
+    orig = harness.draw_weights
+
+    def draw_weights(model, ref_name, seed, dev):
+        out = orig(model, ref_name, seed, dev)
+        with torch.no_grad():
+            dict(model.named_parameters())[
+                "layers.2.convs.0.trans_nodes.weight"].mul_(1 + 1e-3)
+        return out
+    monkeypatch.setattr(harness, "draw_weights", draw_weights)
+    return "logit_gap"
+
+
+@pytest.mark.parametrize("fault", [_hop3_off_the_csr, _layer2_weight],
+                         ids=["hop3_off_the_csr", "layer2_weight"])
+def test_a_fault_at_the_third_hop_is_caught(capsys, monkeypatch, tmp_path,
+                                            fault):
+    cell = _three_hop_cell(tmp_path)
+    number = fault(monkeypatch)
+    rc, res = run_cell(capsys, cell, seed=9, catalog=tmp_path,
+                       spec=tmp_path / "spec.json")
+    assert rc == 0 and res["correct"] is False
+    assert res["compared"][number]["value"] > res["compared"][number][
+        "limit"], res["compared"]
 
 
 def test_no_card_no_result():

@@ -1,5 +1,5 @@
 """Nothing the benchmark runs loads JAX or the JAX package, compared by
-whole top-level names, and the reference loads nothing of the program."""
+whole top-level names, and the references load nothing of the program."""
 
 import ast
 import json
@@ -64,16 +64,28 @@ def test_a_whole_run_loads_none():
 
 
 def test_the_reference_loads_nothing_of_the_program():
+    """``reference.py`` and every model's ``references/<model>.py``: in a
+    process of their own no module of the program is loaded, and their
+    sources import torch, the standard library's helpers and the shared
+    reference alone."""
     tops = _top_levels(
         "import json, sys; sys.path.insert(0, '.');"
         "from gnnbench import reference, flops;"
+        "from gnnbench.catalog import Catalog;"
+        "[Catalog().module('references', p.stem) for p in"
+        " Catalog().dirs[0].joinpath('references').glob('*.py')];"
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     assert "graph_learn_tpu_torch" not in tops
     assert not set(tops) & set(harness.FORBIDDEN)
-    tree = ast.parse((HERE / "reference.py").read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, (ast.Import, ast.ImportFrom)):
-            mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
-                    else [node.module])
-            assert all(m.split(".")[0] in ("torch", "contextlib", "typing",
-                                           "__future__") for m in mods), mods
+    sources = [HERE / "reference.py"] + sorted(HERE.glob("references/*.py"))
+    assert len(sources) > 1
+    for path in sources:
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                mods = ([a.name for a in node.names]
+                        if isinstance(node, ast.Import) else [node.module])
+                assert all(m.split(".")[0] in ("torch", "contextlib",
+                                               "typing", "__future__")
+                           or m == "gnnbench.reference"
+                           for m in mods), (path, mods)
