@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the result line):
 3. hold each kernel against its plain PyTorch version on the card, over
    dtypes, widths, ragged sizes and degrees (the GAT block: forward and
    every gradient, at small sizes on both routes of its products, at the
-   training path's full first-layer size and at a deep reduction; the
+   training path's full first-layer size, at a deep reduction and at the
+   six blocks of the ogbn-products GAT cell, each on the route its shape
+   names; the
    segment SpMM kernel also on ids and degrees out of range, which it
    clips itself, and with a raw max/min, on which a group max keeps inf,
    -inf and NaN as the JAX package does; the gather kernel bit for bit on
@@ -1231,6 +1233,16 @@ def gat_compare(torch, gat, t, g):
 # TF32 products held where the depth is real; f32 rows, (bias, drop) given
 GAT_DEEP_CASES = (((15_360, 10, 128, 8, 256), False, False),
                   ((20_011, 2, 36, 2, 40), True, True))
+# the ogbn-products GAT cell's six blocks (gnnbench gat-products.uniform):
+# layer 0 on the seeds, hop 1 and hop 2 (Din 100, wgmma), layer 1 on the
+# seeds and hop 1 (Din 512, mma.sync), layer 2 on the seeds (W 47, FMA);
+# fanout 10 plus the self row, f32 rows, neither bias nor drop
+GAT_PRODUCTS_CASES = (((512, 11, 100, 4, 128), False, False),
+                      ((5_120, 11, 100, 4, 128), False, False),
+                      ((51_200, 11, 100, 4, 128), False, False),
+                      ((512, 11, 512, 4, 128), False, False),
+                      ((5_120, 11, 512, 4, 128), False, False),
+                      ((512, 11, 512, 4, 47), False, False))
 
 
 def check_gat(torch, gat):
@@ -1244,7 +1256,7 @@ def check_gat(torch, gat):
              for dtype in (torch.float32, torch.bfloat16)
              for bias, drop in ((False, False), (True, True))]
     cases += [(shape, torch.float32, bias, drop)
-              for shape, bias, drop in GAT_DEEP_CASES]
+              for shape, bias, drop in GAT_DEEP_CASES + GAT_PRODUCTS_CASES]
     worst = (0.0, "")
     routes = {"tensor": 0, "fma": 0, "no launch": 0}
     wgmma_cases = 0
@@ -1283,14 +1295,21 @@ def check_gat(torch, gat):
           and 0 < wgmma_cases < routes["tensor"],
           "gat_block: a product route or kernel was never taken: %s, %d on "
           "wgmma" % (routes, wgmma_cases))
+    cell_kernels = [gat.forward_product_kernel(shape[2], shape[4])
+                    for shape, _, _ in GAT_PRODUCTS_CASES]
+    check(cell_kernels == ["wgmma"] * 3 + ["mma.sync"] * 2 + ["fma"],
+          "gat_block: the GAT cell's forward products ran on %s, not Din 100 "
+          "on wgmma, Din 512 on mma.sync and W 47 on FMA" % cell_kernels)
     log("gat_block: forward and every gradient (nbr, wn, ar, el, bn, ba) "
         "match gat_block_plain in %d cases: f32/bf16 nbr, bias and drop "
-        "on/off, (b, e, Din, H, W) in %s, and f32 at %s; limits %g (f32) "
+        "on/off, (b, e, Din, H, W) in %s, and f32 at %s and at the GAT "
+        "cell's %s; limits %g (f32) "
         "and 2^-7 (bf16 d_nbr) of each tensor's largest reference value; "
         "worst case %.3f of its limit (%s); product routes by case: %s; "
         "the forward's product on wgmma in %d of the tensor cases, on "
         "mma.sync in the rest"
-        % (len(cases), shapes, [c[0] for c in GAT_DEEP_CASES], GAT_TOL,
+        % (len(cases), shapes, [c[0] for c in GAT_DEEP_CASES],
+           [c[0] for c in GAT_PRODUCTS_CASES], GAT_TOL,
            worst[0], worst[1], routes, wgmma_cases))
 
 

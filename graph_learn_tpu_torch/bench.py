@@ -12,17 +12,23 @@ profile) has run.
 
 One call of the multi-step function runs K = ``cfg["scan_steps"]`` steps
 in ``K // G`` groups: G seed batches drawn with ``torch.randint`` on the
-device from the plan's ``torch.Generator``, the GSL plan for each, the
-deepest hop of all G reduced to its group means outside the gradient
-(``gather_group_agg``: Kernel 2, or Kernel 4 under ``conf.sorted_gather``),
-then G steps of forward (Kernel 1 gathers the src and hop-1 rows),
-softmax cross-entropy, backward and Adam (``optax.adam(1e-3)``'s
-constants).  The JAX bench compiles the K steps into one XLA executable;
-here, on the card, the first call runs them eagerly on a side stream
-(Adam's state, cuBLAS and every kernel route's first-call queries) and then
-captures them once into one ``torch.cuda.CUDAGraph``, which every later
-call replays.  The generator is registered with the graph, so each replay
-draws new seeds and neighbours.  On the CPU the same steps run eagerly.
+device from the plan's ``torch.Generator``, the GSL plan for each, then G
+steps of forward, softmax cross-entropy, backward and Adam
+(``optax.adam(1e-3)``'s constants).  The hops are the query's aliases,
+any number of them.  Where the model's deepest conv reduces its
+neighbours by an op its encoder commutes with (``EgoGNN.deep_agg_op``:
+EgoGraphSAGE's mean), the deepest hop of all G is reduced to its group
+means outside the gradient (``gather_group_agg``: Kernel 2, or Kernel 4
+under ``conf.sorted_gather``) and Kernel 1 gathers the rows of the seeds
+and of the other hops in the forward; otherwise (attention: EgoGAT) the
+deepest hop reaches the model as the plan's ``DeferredRows``, which the
+forward gathers with Kernel 1 too.  The JAX bench compiles the K steps
+into one XLA executable; here, on the card, the first call runs them
+eagerly on a side stream (Adam's state, cuBLAS and every kernel route's
+first-call queries) and then captures them once into one
+``torch.cuda.CUDAGraph``, which every later call replays.  The generator
+is registered with the graph, so each replay draws new seeds and
+neighbours.  On the CPU the same steps run eagerly.
 While tracing is on (``utils/profiling.py``) a call is a ``step.capture``,
 ``step.replay`` or ``step.eager`` span, a step's backward and Adam update
 are ``model.backward`` and ``model.optimizer`` spans, and the capture
@@ -61,13 +67,14 @@ import torch
 from graph_learn_tpu_torch.config import conf
 from graph_learn_tpu_torch.core.schema import Decoder
 from graph_learn_tpu_torch.errors import InvalidArgumentError
-from graph_learn_tpu_torch.examples.scale_demo import (loss_of, nbytes,
-                                                       two_hop_query)
+from graph_learn_tpu_torch.examples.scale_demo import nbytes, two_hop_query
 from graph_learn_tpu_torch.graph import Graph, synthetic_graph
 from graph_learn_tpu_torch.gsl.compile import Query, _execute
 from graph_learn_tpu_torch.gsl.dataset import Dataset
-from graph_learn_tpu_torch.nn.data import EgoGraph, PreAggregatedRows
-from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGraphSAGE
+from graph_learn_tpu_torch.nn.data import (DeferredRows, EgoGraph,
+                                           PreAggregatedRows)
+from graph_learn_tpu_torch.nn.loss import supervised_softmax_loss
+from graph_learn_tpu_torch.nn.models.ego_gnn import EgoGNN, EgoGraphSAGE
 from graph_learn_tpu_torch.ops.aggregate import gather_group_agg
 from graph_learn_tpu_torch.utils import profiling
 from graph_learn_tpu_torch.utils.platform import DeviceLike, resolve_device
@@ -169,6 +176,13 @@ def group_size(cfg: dict) -> int:
     return G
 
 
+def query_hops(q: Optional[Query]) -> Tuple[Optional[str], Tuple[str, ...]]:
+    """The alias of ``q``'s source and those of its hops, in plan order
+    (None and none without a query or aliases: a subclass's own step)."""
+    aliases = [n.alias_name for n in q.dag.nodes if n.alias_name] if q else []
+    return (aliases[0] if aliases else None), tuple(aliases[1:])
+
+
 class MultiStep:
     """K fused sample+train steps a call (see the module docstring).
 
@@ -177,7 +191,14 @@ class MultiStep:
     of the last eager run; under a graph ``graph_seeds`` are the graph's
     own seed buffers, which each replay overwrites.  ``capture_s`` and
     ``pool_bytes`` are the seconds and the device memory the capture took.
-    ``calls`` counts the calls (the tracer's call number).
+    ``calls`` counts the calls (the tracer's call number).  ``src`` and
+    ``hops`` are the query's aliases (:func:`query_hops`); ``deep_op`` is
+    the reduction the deepest hop is pre-aggregated with, or None.
+
+    A subclass may watch the steps: ``span(name)`` is a context around the
+    group's plan ("plan"), its pre-aggregation ("aggregate") and each
+    step ("model"), and ``keep(i, seeds, batch, logits, agg)`` is called
+    after step i's update (``agg``: its deepest hop's means, or None).
     """
 
     def __init__(self, q: Query, tables, model: torch.nn.Module,
@@ -192,6 +213,9 @@ class MultiStep:
         self.q, self.tables, self.model = q, tables, model
         self.optimizer, self.generator = optimizer, generator
         self.G, self.n_nodes = G, cfg["n_nodes"]
+        self.src, self.hops = query_hops(q)
+        self.deep_op = (model.deep_agg_op(len(self.hops))
+                        if isinstance(model, EgoGNN) and self.hops else None)
         self.capture = capture
         self.losses = torch.zeros(self.K, device=generator.device)
         self.seeds: List[torch.Tensor] = []
@@ -201,28 +225,58 @@ class MultiStep:
         self.pool_bytes: Optional[int] = None
         self.calls = 0
 
+    def span(self, name: str):
+        return contextlib.nullcontext()
+
+    def keep(self, i: int, seeds: torch.Tensor, batch: dict,
+             logits: torch.Tensor, agg: Optional[torch.Tensor]):
+        pass
+
     def _group(self, first: int):
-        table = self.tables["nodes"]["item"].float_attrs
-        with torch.no_grad():
+        deepest = self.hops[-1]
+        with self.span("plan"), torch.no_grad():
             batches = [sample_one(self.q, self.tables, self.n_nodes,
                                   self.generator) for _ in range(self.G)]
-            ids2 = [b["hop2"].ids for _, b in batches]
-            # [G, b, k1, k2] ids -> [G * b * k1, D] means: one launch for
-            # the group, and the raw deepest-hop rows are never written
-            ids2 = ids2[0][None] if self.G == 1 else torch.stack(ids2)
-            agg2 = gather_group_agg(table, ids2, "mean").reshape(
-                self.G, -1, table.shape[-1])
+        aggs: List[Optional[torch.Tensor]] = [None] * self.G
+        if self.deep_op is not None:
+            with self.span("aggregate"), torch.no_grad():
+                table = batches[0][1][deepest].float_attrs.table
+                ids = [b[deepest].ids for _, b in batches]
+                # [G, b, k1, ..., kN] ids -> [G * b * k1 ... kN-1, D]
+                # means: one launch for the group, and the raw deepest-hop
+                # rows are never written
+                ids = ids[0][None] if self.G == 1 else torch.stack(ids)
+                aggs = gather_group_agg(table, ids, self.deep_op).reshape(
+                    self.G, -1, table.shape[-1])
         for j, (seeds, batch) in enumerate(batches):
             self.seeds.append(seeds)
-            hop2 = batch["hop2"].replace(
-                float_attrs=PreAggregatedRows(agg2[j], "mean"))
-            loss = loss_of(self.model, {**batch, "hop2": hop2})
-            self.optimizer.zero_grad(set_to_none=True)
-            with profiling.span("model.backward"):
-                loss.backward()
-            with profiling.span("model.optimizer"):
-                self.optimizer.step()
-            self.losses[first + j].copy_(loss.detach())
+            with self.span("model"):
+                logits = self._step(first + j, batch, aggs[j])
+            self.keep(first + j, seeds, batch, logits, aggs[j])
+
+    def _step(self, i: int, batch: dict,
+              agg: Optional[torch.Tensor]) -> torch.Tensor:
+        """Step ``i`` on ``batch``: forward, loss, backward, Adam; returns
+        the logits.  The deepest hop carries ``agg``, or stays the plan's
+        ``DeferredRows``."""
+        deepest = self.hops[-1]
+        table = None
+        if agg is not None:
+            batch = {**batch, deepest: batch[deepest].replace(
+                float_attrs=PreAggregatedRows(agg, self.deep_op))}
+        elif isinstance(batch[deepest].float_attrs, DeferredRows):
+            table = batch[deepest].float_attrs.table
+        ego = EgoGraph.from_query_result(batch, self.src, self.hops,
+                                         defer_last_table=table)
+        logits = self.model(ego, training=True)
+        loss = supervised_softmax_loss(logits, batch[self.src].labels)
+        self.optimizer.zero_grad(set_to_none=True)
+        with profiling.span("model.backward"):
+            loss.backward()
+        with profiling.span("model.optimizer"):
+            self.optimizer.step()
+        self.losses[i].copy_(loss.detach())
+        return logits
 
     def _body(self):
         self.seeds = []

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from graph_learn_tpu_torch.ops.kernels.gat import gat_block
+from graph_learn_tpu_torch.utils import profiling
 
 InDim = Union[int, Tuple[int, int]]
 
@@ -120,6 +121,26 @@ class EgoGATConv(nn.Module):
     layer does (None = chunks of 256 seeds when ``num_head * out_dim`` >=
     1024, 0 = never, an int = that many seeds per chunk); chunked and
     unchunked results are equal.
+
+    Options of the port alone (off by default, where the layer is the
+    JAX package's):
+
+    * ``concat``: the heads concatenated head-major, ``[b, H * W]`` (head
+      h in columns h W ... h W + W - 1, PyG's order), not averaged;
+    * ``pyg``: with ``use_bias=False``, PyG's ``GATConv`` with a skip
+      ``Linear`` beside it.  The target row is one more neighbour of
+      itself, last in the block, which then holds ``expand + 1`` rows a
+      target (homo widths only); one ``bias`` is added after aggregation
+      ([H, W] when concatenated, PyG's [H * W] head-major; [1, W] when
+      averaged); and ``skip``, a Linear with bias of the target row to
+      the layer's output width, is added to the output.
+
+    So ``attn_<h>``'s first W weights are PyG's ``att_dst`` of head h and
+    its last W ``att_src``; ``x_<h>`` holds head h's rows of PyG's
+    ``lin``.  While tracing (``utils/profiling.py``) the target's
+    projection and the skip are the span ``model.gat.project``, the block
+    with its self row ``model.gat.block``; the counters ``gat.block_rows``
+    (targets times rows a target, a call) and ``gat.self_loop_rows``.
     """
 
     _AUTO_CHUNK = 256
@@ -127,7 +148,8 @@ class EgoGATConv(nn.Module):
 
     def __init__(self, in_dim: InDim, out_dim: int, num_head: int = 1,
                  use_bias: bool = False, attn_dropout: float = 0.0,
-                 seed_chunk: Optional[int] = None, hetero: bool = False):
+                 seed_chunk: Optional[int] = None, hetero: bool = False,
+                 concat: bool = False, pyg: bool = False):
         super().__init__()
         self.in_dim = _pair(in_dim)
         self.out_dim = out_dim
@@ -136,6 +158,11 @@ class EgoGATConv(nn.Module):
         self.attn_dropout = attn_dropout
         self.seed_chunk = seed_chunk
         self.is_homo = self.in_dim[0] == self.in_dim[1] and not hetero
+        if pyg and not self.is_homo:
+            raise ValueError("a self-loop needs one width for the target and "
+                             "its neighbours, got %s" % (self.in_dim,))
+        self.concat = concat
+        self.self_loop = pyg
         for i in range(num_head):
             setattr(self, "x_%d" % i,
                     make_linear(self.in_dim[0], out_dim, use_bias))
@@ -144,6 +171,16 @@ class EgoGATConv(nn.Module):
                         make_linear(self.in_dim[1], out_dim, use_bias))
             setattr(self, "attn_%d" % i,
                     make_linear(2 * out_dim, 1, use_bias))
+        self.bias = (nn.Parameter(torch.zeros(num_head if concat else 1,
+                                              out_dim))
+                     if pyg else None)
+        self.skip = (make_linear(self.in_dim[0], self.output_dim, True)
+                     if pyg else None)
+
+    @property
+    def output_dim(self) -> int:
+        """The width of the layer's output: H W concatenated, else W."""
+        return self.num_head * self.out_dim if self.concat else self.out_dim
 
     def _heads(self, prefix: str):
         return [getattr(self, "%s_%d" % (prefix, i))
@@ -154,39 +191,56 @@ class EgoGATConv(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         heads, w, e = self.num_head, self.out_dim, expand
         b = x.shape[0]
-        nbr = neighbor.reshape(b, e, self.in_dim[1]).contiguous()
         x_layers = self._heads("x")
         n_layers = x_layers if self.is_homo else self._heads("n")
         attn = torch.stack([a.weight[0] for a in self._heads("attn")])
         al, ar = attn[:, :w], attn[:, w:].contiguous()  # [H, W] each
-        wx = torch.stack([m.weight.t() for m in x_layers])  # [H, Din, W]
-        wn = torch.stack([m.weight.t() for m in n_layers])
-        xh = torch.einsum("bd,hdw->hbw", x, wx)
-        bn = ba = None
-        if self.use_bias:
-            xh = xh + torch.stack([m.bias for m in x_layers])[:, None, :]
-            bn = torch.stack([m.bias for m in n_layers])
-            ba = torch.cat([a.bias for a in self._heads("attn")])
-        el = (xh * al[:, None, :]).sum(-1)  # [H, b]
-        drop = None
-        if self.attn_dropout and training:
-            keep = 1.0 - self.attn_dropout
-            drop = (torch.rand((heads, b, e), generator=generator,
-                               device=x.device) < keep).to(x.dtype) / keep
-        chunk = self.seed_chunk
-        if chunk is None:
-            wide = heads * w >= self._AUTO_MIN_WIDTH
-            chunk = self._AUTO_CHUNK if wide else 0
-        if nbr.is_cuda or not chunk or b <= chunk:
-            out = gat_block(nbr, wn, ar, el, bn, ba, drop)  # [H, b, W]
+        with profiling.span("model.gat.project"):
+            wx = torch.stack([m.weight.t() for m in x_layers])  # [H, Din, W]
+            wn = torch.stack([m.weight.t() for m in n_layers])
+            xh = torch.einsum("bd,hdw->hbw", x, wx)
+            bn = ba = None
+            if self.use_bias:
+                xh = xh + torch.stack([m.bias for m in x_layers])[:, None, :]
+                bn = torch.stack([m.bias for m in n_layers])
+                ba = torch.cat([a.bias for a in self._heads("attn")])
+            el = (xh * al[:, None, :]).sum(-1)  # [H, b]
+            skip = self.skip(x) if self.skip is not None else None
+        with profiling.span("model.gat.block"):
+            nbr = neighbor.reshape(b, e, self.in_dim[1])
+            if self.self_loop:
+                nbr = torch.cat([nbr, x[:, None, :]], dim=1)
+                e += 1
+                profiling.count("gat.self_loop_rows", b)
+            nbr = nbr.contiguous()
+            profiling.count("gat.block_rows", b * e)
+            drop = None
+            if self.attn_dropout and training:
+                keep = 1.0 - self.attn_dropout
+                drop = (torch.rand((heads, b, e), generator=generator,
+                                   device=x.device) < keep).to(x.dtype) / keep
+            chunk = self.seed_chunk
+            if chunk is None:
+                wide = heads * w >= self._AUTO_MIN_WIDTH
+                chunk = self._AUTO_CHUNK if wide else 0
+            if nbr.is_cuda or not chunk or b <= chunk:
+                out = gat_block(nbr, wn, ar, el, bn, ba, drop)  # [H, b, W]
+            else:
+                out = torch.cat([
+                    gat_block(nbr[lo:lo + chunk], wn, ar,
+                              el[:, lo:lo + chunk].contiguous(), bn, ba,
+                              None if drop is None
+                              else drop[:, lo:lo + chunk].contiguous())
+                    for lo in range(0, b, chunk)], dim=1)
+        if self.concat:
+            out = out.permute(1, 0, 2).reshape(b, heads * w)
         else:
-            out = torch.cat([
-                gat_block(nbr[lo:lo + chunk], wn, ar,
-                          el[:, lo:lo + chunk].contiguous(), bn, ba,
-                          None if drop is None
-                          else drop[:, lo:lo + chunk].contiguous())
-                for lo in range(0, b, chunk)], dim=1)
-        return out.mean(dim=0)
+            out = out.mean(dim=0)
+        if self.bias is not None:
+            out = out + self.bias.reshape(-1)
+        if skip is not None:
+            out = out + skip
+        return out
 
 
 class EgoGINConv(nn.Module):

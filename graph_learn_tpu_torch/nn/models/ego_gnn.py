@@ -15,7 +15,7 @@ reduction.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -78,25 +78,37 @@ class EgoGNN(nn.Module):
         return (self.hop_encoders[i] if self.hop_encoders is not None
                 else self.encoder)
 
+    def deep_agg_op(self, n_hops: int) -> Optional[str]:
+        """The reduction with which the deepest of ``n_hops`` hops may
+        reach the model reduced over its fanout (``PreAggregatedRows``, or
+        ``DeferredRows`` reduced by Kernel 2): the deepest conv's
+        ``deferred_op`` where the hop's encoder commutes with it, else None
+        (the rows are gathered)."""
+        op = getattr(self.layers[0].convs[-1], "deferred_op", None)
+        if op is None or not _encoder_commutes(self._enc_for(n_hops), op):
+            return None
+        return op
+
     def _prepare(self, ego: EgoGraph):
         """Split into (values to encode, deep_agg), handling deferral."""
         values = [ego.src] + list(ego.hops)
         fa = ego.hops[-1].float_attrs if ego.hops else None
         if not isinstance(fa, (DeferredRows, PreAggregatedRows)):
             return values, None
-        conv = self.layers[0].convs[-1]
-        op = getattr(conv, "deferred_op", None)
-        enc = self._enc_for(len(values) - 1)
+        op = self.deep_agg_op(len(ego.hops))
+        enc = self._enc_for(len(ego.hops))
         if isinstance(fa, PreAggregatedRows):
-            if op != fa.op or not _encoder_commutes(enc, op):
+            if op != fa.op:
+                conv = self.layers[0].convs[-1]
+                conv_op = getattr(conv, "deferred_op", None)
                 raise InvalidArgumentError(
                     "PreAggregatedRows(op=%r) cannot feed %s (deferred_op="
                     "%r, encoder commutes=%s) — pre-aggregate with the "
                     "conv's op and a float-only affine encoder"
-                    % (fa.op, type(conv).__name__, op,
-                       _encoder_commutes(enc, op) if op else "-"))
+                    % (fa.op, type(conv).__name__, conv_op,
+                       _encoder_commutes(enc, conv_op) if conv_op else "-"))
             agg_raw = fa.agg
-        elif op is None or not _encoder_commutes(enc, op):
+        elif op is None:
             values[-1] = ego.hops[-1].replace(float_attrs=fa.materialize())
             return values, None
         else:
@@ -176,14 +188,27 @@ def EgoGAT(dims: Sequence[int], decoder: Decoder,
            attn_dropout: float = 0.0, act: Callable = torch.relu,
            dropout: float = 0.0, seed_chunk: Optional[int] = None,
            device: DeviceLike = "cuda",
-           generator: Optional[torch.Generator] = None) -> EgoGNN:
-    """``num_heads[i]`` attention heads in layer i (default 1 each)."""
+           generator: Optional[torch.Generator] = None, *,
+           concat: Union[bool, Sequence[bool]] = False,
+           pyg: bool = False) -> EgoGNN:
+    """``num_heads[i]`` attention heads in layer i (default 1 each), each
+    ``dims[i + 1]`` wide.  ``concat`` (one flag, or one a layer) and
+    ``pyg`` are ``EgoGATConv``'s options; a layer that concatenates hands
+    ``num_heads[i] * dims[i + 1]`` features on.  With ``concat=[True, ...,
+    False]``, ``pyg=True`` and ``act=F.elu`` the model is PyG's
+    ogbn-products GAT (``examples/ogbn_products_gat.py``: ``GATConv`` and
+    a skip ``Linear`` a layer)."""
+    n = len(dims) - 1
+    heads = list(num_heads) if num_heads else [1] * n
+    cats = list(concat) if isinstance(concat, (list, tuple)) else [concat] * n
+    widths = [dims[0]] + [h * d if c else d
+                          for h, d, c in zip(heads, dims[1:], cats)]
     return _build(
-        lambda i: EgoGATConv(dims[i], dims[i + 1],
-                             num_head=num_heads[i] if num_heads else 1,
+        lambda i: EgoGATConv(widths[i], dims[i + 1], num_head=heads[i],
                              attn_dropout=attn_dropout,
-                             seed_chunk=seed_chunk),
-        len(dims) - 1, decoder, act, dropout, device, generator)
+                             seed_chunk=seed_chunk, concat=cats[i],
+                             pyg=pyg),
+        n, decoder, act, dropout, device, generator)
 
 
 def EgoGIN(dims: Sequence[int], decoder: Decoder, eps: float = 0.0,
